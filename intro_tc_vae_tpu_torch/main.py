@@ -1,0 +1,29 @@
+"""CLI entry: ``python -m intro_tc_vae_tpu_torch.main -f config.json -u '{...}'``.
+
+The contract of ``intro_tc_vae_tpu/main.py`` (-f/--config JSON path,
+-u/--update inline-JSON override dict). Trains on cuda:0 and raises when
+CUDA is absent.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+from intro_tc_vae_tpu_torch.config import load_config
+from intro_tc_vae_tpu_torch.train import train_soft_intro_vae
+
+
+def cli(argv=None):
+    parser = argparse.ArgumentParser(description="train Soft-Intro-TC-VAE (PyTorch/CUDA)")
+    parser.add_argument("-f", "--config", type=str, default=None,
+                        help="Path to the JSON config file")
+    parser.add_argument("-u", "--update", type=json.loads, default="{}",
+                        help="Inline JSON dict overriding config values")
+    args = parser.parse_args(argv)
+    config = load_config(args.config, update_dict=args.update)
+    return train_soft_intro_vae(config=config)
+
+
+if __name__ == "__main__":
+    cli()

@@ -1,0 +1,160 @@
+"""Encoder / Decoder of the 'conv' arch, NCHW.
+
+Counterpart of ``intro_tc_vae_tpu/models/vae.py`` (topology of reference
+models.py:196-298):
+
+* Encoder: 5x5 stem conv -> BN(1e-4) -> LReLU -> AvgPool/2, then per
+  stage {block, AvgPool/2} over channels[1:], a final same-width block,
+  and a Linear head producing 2*z_dim chunked into (mu, logvar).
+* Decoder: Linear z_dim -> conv features + LReLU, mirrored {block,
+  nearest x2 upsample} stages, a final block, 5x5 predict conv (with
+  bias) + sigmoid.
+
+Module names follow the reference torch model (``encoder.main.0`` stem
+conv, ``encoder.main.1`` stem BN, ``*.main.res_in_{sz}``, ``encoder.fc``,
+``decoder.fc.0``, ``decoder.main.predict``), so the JAX package's
+``utils/transplant.py::torch_state_dict_to_flax`` reads this port's
+``state_dict()`` as it is. The fc layers flatten NCHW like the
+reference; the JAX package flattens NHWC, and the weight bridge
+(utils/transplant.py) permutes between the two.
+
+Train/eval follow ``module.train()``/``module.eval()``. mu, logvar and
+the pre-sigmoid output are cast to float32 whatever the conv dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+from torch import nn
+
+from intro_tc_vae_tpu_torch.models.blocks import (
+    Conv2d,
+    GroupedBatchNorm,
+    Linear,
+    avg_pool2,
+    get_conv_class,
+    leaky_relu,
+    upsample_nearest2,
+)
+
+
+def conv_output_size(image_size: int, channels: Sequence[int]) -> Tuple[int, int, int]:
+    """Static (h, w, c) of the encoder conv stack output: one AvgPool/2 in
+    the stem plus one per channels[1:] stage."""
+    sz = image_size // (2 ** len(channels))
+    if sz < 1:
+        raise ValueError(
+            f"image_size {image_size} too small for {len(channels)} downsamples"
+        )
+    return (sz, sz, channels[-1])
+
+
+def resolve_conv_impl(conv_impl: str) -> str:
+    """Resolve the config ``conv_impl`` knob: 'auto' -> 'xla' (the stock
+    conv) until the conv kernels are ported and measured on the card."""
+    if conv_impl == "auto":
+        return "xla"
+    return conv_impl
+
+
+class Encoder(nn.Module):
+    """Conv encoder producing (mu, logvar). Reference models.py:196-244."""
+
+    def __init__(self, arch: str = "res", cdim: int = 3, zdim: int = 512,
+                 channels: Sequence[int] = (64, 128, 256, 512, 512, 512),
+                 image_size: int = 256, compute_dtype: torch.dtype = torch.float32,
+                 conv_impl: str = "xla", tile_rows: int = 0):
+        super().__init__()
+        block = get_conv_class(arch)
+        self.cdim, self.zdim, self.image_size = cdim, zdim, image_size
+        self.channels = tuple(channels)
+        dt = compute_dtype
+        cc = channels[0]
+        self.main = nn.ModuleDict()
+        self.main["0"] = Conv2d(cdim, cc, 5, compute_dtype=dt)
+        self.main["1"] = GroupedBatchNorm(cc, eps=1e-4, compute_dtype=dt)
+        sz = image_size // 2
+        self.stages = []
+        for ch in channels[1:]:
+            self.stages.append(f"res_in_{sz}")
+            self.main[self.stages[-1]] = block(cc, ch, compute_dtype=dt,
+                                               conv_impl=conv_impl, tile_rows=tile_rows)
+            cc, sz = ch, sz // 2
+        self.stages.append(f"res_in_{sz}")
+        self.main[self.stages[-1]] = block(cc, cc, compute_dtype=dt,
+                                           conv_impl=conv_impl, tile_rows=tile_rows)
+        h, w, c = self.conv_output_size
+        self.fc = Linear(h * w * c, 2 * zdim, compute_dtype=dt)
+
+    @property
+    def conv_output_size(self) -> Tuple[int, int, int]:
+        return conv_output_size(self.image_size, self.channels)
+
+    def forward(self, x: torch.Tensor, groups: int = 1):
+        y = avg_pool2(leaky_relu(self.main["1"](self.main["0"](x), groups)))
+        for name in self.stages[:-1]:
+            y = avg_pool2(self.main[name](y, groups))
+        y = self.main[self.stages[-1]](y, groups)
+        y = self.fc(y.flatten(1))
+        # loss math runs in fp32 regardless of the conv compute dtype
+        mu, logvar = y.float().chunk(2, dim=1)
+        return mu, logvar
+
+
+class Decoder(nn.Module):
+    """Conv decoder mapping z -> image in [0, 1]. Reference models.py:247-298."""
+
+    def __init__(self, arch: str = "res", cdim: int = 3, zdim: int = 512,
+                 channels: Sequence[int] = (64, 128, 256, 512, 512, 512),
+                 image_size: int = 256, compute_dtype: torch.dtype = torch.float32,
+                 conv_impl: str = "xla", tile_rows: int = 0):
+        super().__init__()
+        block = get_conv_class(arch)
+        self.cdim, self.zdim, self.image_size = cdim, zdim, image_size
+        self.channels = tuple(channels)
+        dt = compute_dtype
+        cc = channels[-1]
+        self.conv_input_size = conv_output_size(image_size, channels)
+        h, w, c = self.conv_input_size
+        # index 0 is the Linear: state_dict key decoder.fc.0.*
+        self.fc = nn.Sequential(Linear(zdim, h * w * c, compute_dtype=dt),
+                                nn.LeakyReLU(0.2))
+        self.main = nn.ModuleDict()
+        sz = h
+        self.stages = []
+        for ch in channels[::-1]:
+            self.stages.append(f"res_in_{sz}")
+            self.main[self.stages[-1]] = block(cc, ch, compute_dtype=dt,
+                                               conv_impl=conv_impl, tile_rows=tile_rows)
+            cc, sz = ch, sz * 2
+        self.stages.append(f"res_in_{sz}")
+        self.main[self.stages[-1]] = block(cc, cc, compute_dtype=dt,
+                                           conv_impl=conv_impl, tile_rows=tile_rows)
+        self.main["predict"] = Conv2d(cc, cdim, 5, bias=True, compute_dtype=dt)
+
+    def forward(self, z: torch.Tensor, groups: int = 1) -> torch.Tensor:
+        h, w, c = self.conv_input_size
+        y = self.fc(z.reshape(z.shape[0], -1))  # LReLU limits the pre-conv range
+        y = y.reshape(z.shape[0], c, h, w)
+        for name in self.stages[:-1]:
+            y = upsample_nearest2(self.main[name](y, groups))
+        y = self.main[self.stages[-1]](y, groups)
+        y = self.main["predict"](y)
+        # sigmoid + reconstruction losses in fp32
+        return torch.sigmoid(y.float())
+
+
+class SoftIntroVAE(nn.Module):
+    """Holds the encoder and the decoder, so that ``state_dict()`` carries
+    the reference model's ``encoder.*`` / ``decoder.*`` keys."""
+
+    def __init__(self, encoder: Encoder, decoder: Decoder):
+        super().__init__()
+        self.encoder = encoder
+        self.decoder = decoder
+
+
+def num_params(module: nn.Module) -> int:
+    return sum(p.numel() for p in module.parameters())

@@ -1,0 +1,84 @@
+"""Gaussian log densities and minibatch stratified sampling for the
+β-TC-VAE total-correlation estimator.
+
+Counterpart of ``intro_tc_vae_tpu/ops/density.py``, with its two
+deliberate quirks of the reference: the variance floor 1e-4 (of
+``F.gaussian_nll_loss``) with the ``max(log_prob, -50)`` clamp, and the
+column-structured stratified importance-weight matrix.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+LOG_2PI = math.log(2.0 * math.pi)
+LOG_PROB_FLOOR = -50.0
+VAR_FLOOR = 1e-4
+
+
+def gaussian_log_density_nll(x: torch.Tensor, mu: torch.Tensor,
+                             logvar: torch.Tensor) -> torch.Tensor:
+    """log N(x | mu, exp(logvar)), variance floored at 1e-4, result
+    clamped at -50. ``torch.clamp`` passes no gradient where it clamps."""
+    var = torch.clamp(torch.exp(logvar), min=VAR_FLOOR)
+    log_prob = -0.5 * (torch.log(var) + (x - mu) ** 2 / var + LOG_2PI)
+    return torch.clamp(log_prob, min=LOG_PROB_FLOOR)
+
+
+def gaussian_log_density(x: torch.Tensor, mu: torch.Tensor,
+                         logvar: torch.Tensor) -> torch.Tensor:
+    """Plain Gaussian log density (no variance floor), clamped at -50."""
+    inv_sigma = torch.exp(-logvar)
+    tmp = x - mu
+    log_prob = -0.5 * (tmp * tmp * inv_sigma + logvar + LOG_2PI)
+    return torch.clamp(log_prob, min=LOG_PROB_FLOOR)
+
+
+@functools.lru_cache(maxsize=64)
+def _log_importance_weight_matrix_np(batch_size: int, dataset_size: int) -> np.ndarray:
+    """The stratified-sampling log-weight matrix, built once per (B, N).
+
+    With M = B-1 the reference's flat stride M+1 == B walks down a
+    *column*, so the matrix is column-structured:
+
+        W[:, 0]   = 1/N        (except W[M-1, 0] = strat_weight)
+        W[:, 1]   = strat_weight
+        W[:, 2:]  = 1/M
+    """
+    n = float(dataset_size)
+    m = batch_size - 1
+    strat_weight = (n - m) / (n * m)
+    w = np.full((batch_size, batch_size), 1.0 / m, dtype=np.float64)
+    flat = w.reshape(-1)
+    flat[:: m + 1] = 1.0 / n
+    flat[1 :: m + 1] = strat_weight
+    w[m - 1, 0] = strat_weight
+    out = np.log(w).astype(np.float32)
+    out.flags.writeable = False  # shared by every caller through the cache
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def log_importance_weight_matrix(batch_size: int, dataset_size: int,
+                                 device: torch.device) -> torch.Tensor:
+    """[B, B] log importance weights on ``device``, cached per (B, N, device)
+    so the step pays no host->device copy for them."""
+    w = _log_importance_weight_matrix_np(int(batch_size), int(dataset_size))
+    return torch.tensor(w, device=device)
+
+
+def minibatch_stratified_sampling(log_qz_prob: torch.Tensor, batch_size: int,
+                                  dataset_size: int):
+    """(log prod_l q(z_l), log q(z)) from the [B, B, z] tensor of
+    log q(z(x_j)_l | x_i), indexed [j, i, l]."""
+    log_iw = log_importance_weight_matrix(batch_size, dataset_size,
+                                          log_qz_prob.device)
+    logqz_prodmarginals = torch.logsumexp(
+        log_iw[:, :, None] + log_qz_prob, dim=1
+    ).sum(dim=1)
+    log_qz = torch.logsumexp(log_iw + log_qz_prob.sum(dim=2), dim=1)
+    return logqz_prodmarginals, log_qz

@@ -1,0 +1,151 @@
+"""Fused total-correlation logsumexps: CUDA kernels, autograd, plain version.
+
+Counterpart of ``intro_tc_vae_tpu/ops/tc_pallas.py::tc_logsumexp_pallas``.
+``tc_logsumexp_cuda(z, mu, logvar, dataset_size)`` returns
+(log prod_l q(z_l), log q(z)), both [B], through three hand-written
+kernels in ``csrc/tc_kernels.cu`` (design notes there):
+
+* ``tc_fwd``     replaces ``_tc_fwd_kernel``     (tc_pallas.py:109),
+* ``tc_bwd_dz``  replaces ``_tc_bwd_dz_kernel``  (tc_pallas.py:174),
+* ``tc_bwd_dmu`` replaces ``_tc_bwd_dmu_kernel`` (tc_pallas.py:202).
+
+The forward saves (z, mu, logvar, lm, lj); the backward recomputes the
+densities, as the Pallas VJP does, so no [B, B, z] residual is stored.
+
+``tc_logsumexp_reference`` is the plain PyTorch version (materialized
+[B, B, z], ``torch.logsumexp``, autograd for the gradient). The wrapper
+takes it only for tensors on the CPU; for CUDA tensors it launches the
+kernels or raises. ``LAUNCHES`` counts kernel launches per kernel, so a
+run can show that its TC calls went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from intro_tc_vae_tpu_torch.ops.cuda_build import load_library
+from intro_tc_vae_tpu_torch.ops.density import (
+    gaussian_log_density_nll,
+    minibatch_stratified_sampling,
+)
+
+KERNELS = ("tc_fwd", "tc_bwd_dz", "tc_bwd_dmu")
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# pointers, then B_j, B_i, Z, dataset_size, row_off, global_batch, device, stream
+_TAIL = [_I, _I, _I, _LL, _I, _I, _I, _P]
+_ARGTYPES = {
+    "tc_fwd": [_P] * 7 + _TAIL,
+    "tc_bwd_dz": [_P] * 9 + _TAIL,
+    "tc_bwd_dmu": [_P] * 8 + _TAIL,
+}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        LAUNCHES[k] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = load_library("tc_kernels")
+    for name, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def launch(name: str, tensors, b_j: int, b_i: int, zdim: int,
+            dataset_size: int, device: torch.device) -> None:
+    fn = getattr(_library(), f"{name}_launch")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = fn(*(t.data_ptr() for t in tensors), b_j, b_i, zdim, int(dataset_size),
+             0, b_j, device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+    LAUNCHES[name] += 1
+
+
+def _check(z: torch.Tensor, mu: torch.Tensor, logvar: torch.Tensor,
+           dataset_size: int) -> None:
+    for name, t in (("z", z), ("mu", mu), ("logvar", logvar)):
+        if t.device != z.device or t.device.type != "cuda":
+            raise ValueError(f"{name} is on {t.device}; the kernels take CUDA "
+                             f"tensors on one device (z is on {z.device})")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} is {t.dtype}; the kernels take float32")
+        if t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 2-D tensor, got "
+                             f"shape {tuple(t.shape)} strides {t.stride()}")
+    b_j, zdim = z.shape
+    if logvar.shape != z.shape or mu.shape != (b_j, zdim):
+        raise ValueError(f"shapes z {tuple(z.shape)}, mu {tuple(mu.shape)}, "
+                         f"logvar {tuple(logvar.shape)} must all be [B, Z]")
+    if b_j < 2 or zdim > 1024:
+        raise ValueError(f"the kernels take 2 <= B and Z <= 1024, got B={b_j}, Z={zdim}")
+    if dataset_size < b_j:
+        raise ValueError(f"dataset_size {dataset_size} < batch {b_j}: the "
+                         "stratified weights need N >= B")
+
+
+class _TCLogsumexp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, z, mu, logvar, dataset_size: int):
+        b, zdim = z.shape
+        # float64 logsumexps, kept for the backward (precision note in
+        # csrc/tc_kernels.cu); the outputs are float32
+        lm = torch.empty((b, zdim), device=z.device, dtype=torch.float64)
+        lj = torch.empty(b, device=z.device, dtype=torch.float64)
+        pm = torch.empty(b, device=z.device, dtype=torch.float32)
+        qz = torch.empty(b, device=z.device, dtype=torch.float32)
+        launch("tc_fwd", (z, mu, logvar, lm, lj, pm, qz), b, b, zdim,
+               dataset_size, z.device)
+        ctx.save_for_backward(z, mu, logvar, lm, lj)
+        ctx.dataset_size = dataset_size
+        return pm, qz
+
+    @staticmethod
+    def backward(ctx, g_pm, g_qz):
+        z, mu, logvar, lm, lj = ctx.saved_tensors
+        b, zdim = z.shape
+        # grads of (sum_l lm, lj): g_pm reaches every lm[j, l] (broadcast
+        # over l inside the kernel, as _tc_bwd does)
+        g_m = g_pm.float().contiguous()
+        g_j = g_qz.float().contiguous()
+        dz = torch.empty_like(z)
+        dlogvar = torch.empty_like(logvar)
+        dmu = torch.empty_like(mu)
+        launch("tc_bwd_dz", (z, mu, logvar, lm, lj, g_m, g_j, dz, dlogvar),
+               b, b, zdim, ctx.dataset_size, z.device)
+        launch("tc_bwd_dmu", (z, mu, logvar, lm, lj, g_m, g_j, dmu),
+               b, b, zdim, ctx.dataset_size, z.device)
+        return dz, dmu, dlogvar, None
+
+
+def tc_logsumexp_reference(z: torch.Tensor, mu: torch.Tensor,
+                           logvar: torch.Tensor, dataset_size: int):
+    """Plain version: materialize the [B, B, z] log densities (floor and
+    clamp included) and reduce with ``torch.logsumexp``; autograd gives
+    the gradient (``torch.clamp`` passes none below -50)."""
+    log_qz_prob = gaussian_log_density_nll(
+        z[:, None, :], mu[None, :, :], logvar[:, None, :]
+    )
+    return minibatch_stratified_sampling(log_qz_prob, z.shape[0], dataset_size)
+
+
+def tc_logsumexp_cuda(z: torch.Tensor, mu: torch.Tensor, logvar: torch.Tensor,
+                      dataset_size: int):
+    """(log prod_l q(z_l) [B], log q(z) [B]) via the CUDA kernels.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernels
+    or raise.
+    """
+    if all(t.device.type == "cpu" for t in (z, mu, logvar)):
+        return tc_logsumexp_reference(z, mu, logvar, dataset_size)
+    _check(z, mu, logvar, dataset_size)
+    return _TCLogsumexp.apply(z, mu, logvar, int(dataset_size))

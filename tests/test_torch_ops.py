@@ -1,0 +1,167 @@
+"""PyTorch port vs JAX package: loss ops and the TC estimator.
+
+Same numpy inputs (seeded) go through both packages in float32 on the
+CPU. Tolerances: rtol 1e-5 / atol 1e-6 for elementwise ops (the same
+formula in the same precision; only libm rounding differs), rtol 1e-4 /
+atol 1e-5 for the TC logsumexps and their gradients (reductions over
+B*z terms in another order), as tests/test_tc_impls.py uses for the
+Pallas kernel.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from intro_tc_vae_tpu import ops as jops
+from intro_tc_vae_tpu.ops import tc_pallas
+from intro_tc_vae_tpu_torch import ops as tops
+from intro_tc_vae_tpu_torch.ops import tc_cuda
+
+EW = dict(rtol=1e-5, atol=1e-6)
+TC = dict(rtol=1e-4, atol=1e-5)
+
+
+def assert_close_scaled(got, want):
+    """TC tolerance with atol taken relative to the largest entry: where
+    the variance is floored at 1e-4, gradient terms reach ~1e3 and cancel
+    in fp32 sums, so small entries carry an absolute error of that scale
+    (JAX's own xla and Pallas gradients differ by as much)."""
+    want = np.asarray(want)
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5 * scale)
+
+
+def _t(a, grad=False):
+    return torch.tensor(np.asarray(a), requires_grad=grad)
+
+
+def _tc_inputs(rng, b, zdim):
+    """z, mu, logvar with logvar scaled x4 (as tests/test_tc_impls.py:170)
+    and a few entries below log(1e-4), so that both the variance floor
+    and the -50 log-density clamp are active."""
+    z = rng.randn(b, zdim).astype(np.float32)
+    mu = rng.randn(b, zdim).astype(np.float32)
+    logvar = (rng.randn(b, zdim) * 0.7 * 4.0).astype(np.float32)
+    logvar[::3, ::2] = -12.0
+    return z, mu, logvar
+
+
+def _floor_and_clamp_active(z, mu, logvar):
+    var = np.exp(logvar)
+    lp = -0.5 * (np.log(np.maximum(var, 1e-4))[:, None]
+                 + (z[:, None] - mu[None]) ** 2 / np.maximum(var, 1e-4)[:, None]
+                 + np.log(2 * np.pi))
+    return (var < 1e-4).any() and (lp < -50).any()
+
+
+@pytest.mark.parametrize("density", ["nll", "plain"])
+def test_gaussian_densities_match_jax(rng, density):
+    x, mu, w = rng.randn(3, 16, 8).astype(np.float32)
+    logvar = (rng.randn(16, 8) * 3.0).astype(np.float32)  # floor and clamp hit
+    jf = jops.gaussian_log_density_nll if density == "nll" else jops.gaussian_log_density
+    tf = tops.gaussian_log_density_nll if density == "nll" else tops.gaussian_log_density
+
+    ref = jf(x, mu, logvar)
+    ref_grads = jax.grad(lambda *a: jnp.sum(w * jf(*a)), argnums=(0, 1, 2))(x, mu, logvar)
+    args = [_t(a, grad=True) for a in (x, mu, logvar)]
+    out = tf(*args)
+    torch.sum(_t(w) * out).backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), **EW)
+    for a, g in zip(args, ref_grads):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(g), **EW)
+
+
+@pytest.mark.parametrize("reduce", ["sum", "mean", "none"])
+def test_kl_divergence_matches_jax(rng, reduce):
+    logvar, mu = rng.randn(2, 16, 8).astype(np.float32)
+    ref = jops.kl_divergence(jnp.asarray(logvar), jnp.asarray(mu), reduce=reduce)
+    out = tops.kl_divergence(_t(logvar), _t(mu), reduce=reduce)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **EW)
+
+
+@pytest.mark.parametrize("loss_type", ["mse", "l1", "bce"])
+def test_reconstruction_loss_matches_jax(rng, loss_type):
+    x = rng.rand(4, 3, 8, 8).astype(np.float32)
+    recon = rng.uniform(0.01, 0.99, size=(4, 3, 8, 8)).astype(np.float32)
+    for reduction in ("sum", "mean", "none"):
+        # the JAX package is NHWC, the port NCHW: the per-sample sum is the same
+        ref = jops.reconstruction_loss(jnp.asarray(x.transpose(0, 2, 3, 1)),
+                                       jnp.asarray(recon.transpose(0, 2, 3, 1)),
+                                       loss_type, reduction)
+        out = tops.reconstruction_loss(_t(x), _t(recon), loss_type, reduction)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5)
+
+
+def test_reconstruction_target_is_detached(rng):
+    x = _t(rng.rand(2, 3, 4, 4).astype(np.float32), grad=True)
+    recon = _t(rng.rand(2, 3, 4, 4).astype(np.float32), grad=True)
+    tops.reconstruction_loss(x, recon).backward()
+    assert x.grad is None and recon.grad is not None
+
+
+@pytest.mark.parametrize("b,n", [(8, 64), (64, 1280)])
+def test_log_importance_weights_match_jax(b, n):
+    ref = np.asarray(jops.log_importance_weight_matrix(b, n))
+    out = tops.log_importance_weight_matrix(b, n, torch.device("cpu"))
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+def _tc_loss(pm, qz):
+    """Weights the two outputs differently so both incoming gradients
+    (g_m and g_j) are exercised, as tests/test_tc_impls.py does."""
+    return (qz - pm).mean() + 0.5 * pm.sum() * 1e-3
+
+
+@pytest.mark.parametrize("b,zdim,n", [(8, 8, 64), (32, 16, 5000)])
+def test_tc_kernel_path_matches_jax_pallas_interpret(rng, b, zdim, n):
+    """The port's impl='pallas' (plain version on CPU) against the JAX
+    Pallas kernels in interpret mode: values and gradients."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    z, mu, logvar = _tc_inputs(rng, b, zdim)
+    assert _floor_and_clamp_active(z, mu, logvar)
+    with pltpu.force_tpu_interpret_mode():
+        (pm_ref, qz_ref) = tc_pallas.tc_logsumexp_pallas(z, mu, logvar, n)
+        g_ref = jax.grad(
+            lambda a, m, l: _tc_loss(*tc_pallas.tc_logsumexp_pallas(a, m, l, n)),
+            argnums=(0, 1, 2),
+        )(z, mu, logvar)
+
+    args = [_t(a, grad=True) for a in (z, mu, logvar)]
+    pm, qz = tc_cuda.tc_logsumexp_cuda(*args, n)
+    _tc_loss(pm, qz).backward()
+    np.testing.assert_allclose(pm.detach().numpy(), np.asarray(pm_ref), **TC)
+    np.testing.assert_allclose(qz.detach().numpy(), np.asarray(qz_ref), **TC)
+    for a, g in zip(args, g_ref):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(g), **TC)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("reduce", ["mean", "none"])
+def test_total_correlation_matches_jax_xla(rng, impl, reduce):
+    """Both port impls against JAX impl='xla', floor and clamp active."""
+    b, zdim, n = 16, 8, 64
+    z, mu, logvar = _tc_inputs(rng, b, zdim)
+    assert _floor_and_clamp_active(z, mu, logvar)
+
+    def jtc(a, m, l):
+        return jops.total_correlation(a, m, l, n, reduce=reduce, impl="xla")
+
+    ref = jtc(z, mu, logvar)
+    g_ref = jax.grad(lambda *a: jnp.sum(jnp.cos(jtc(*a))), argnums=(0, 1, 2))(
+        z, mu, logvar)
+    args = [_t(a, grad=True) for a in (z, mu, logvar)]
+    out = tops.total_correlation(*args, n, reduce=reduce, impl=impl)
+    torch.sum(torch.cos(out)).backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), **TC)
+    for a, g in zip(args, g_ref):
+        assert_close_scaled(a.grad.numpy(), g)
+
+
+@pytest.mark.parametrize("kwargs", [dict(impl="blockwise"), dict(sampling="weighted")])
+def test_total_correlation_unported_options_raise(rng, kwargs):
+    z, mu, logvar = (_t(a) for a in _tc_inputs(rng, 8, 4))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tops.total_correlation(z, mu, logvar, 64, **kwargs)
