@@ -1,6 +1,11 @@
-"""The 'conv' arch encoder/decoder, NCHW."""
+"""The 'conv' and 'res' arch encoder/decoder, NCHW."""
 
-from intro_tc_vae_tpu_torch.models.blocks import ConvolutionalBlock, GroupedBatchNorm
+from intro_tc_vae_tpu_torch.models.blocks import (
+    ConvolutionalBlock,
+    GroupedBatchNorm,
+    PallasConv3x3,
+    ResidualBlock,
+)
 from intro_tc_vae_tpu_torch.models.vae import (
     Decoder,
     Encoder,
@@ -13,6 +18,8 @@ from intro_tc_vae_tpu_torch.models.vae import (
 __all__ = [
     "ConvolutionalBlock",
     "GroupedBatchNorm",
+    "PallasConv3x3",
+    "ResidualBlock",
     "Decoder",
     "Encoder",
     "SoftIntroVAE",

@@ -1,4 +1,4 @@
-"""Conv building blocks, NCHW: the 'conv' arch of the JAX package.
+"""Conv building blocks, NCHW: the 'conv' and 'res' archs of the JAX package.
 
 Counterpart of ``intro_tc_vae_tpu/models/blocks.py``. Parameters stay
 float32; ``Conv2d`` and ``Linear`` cast their input and parameters to the
@@ -19,6 +19,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from intro_tc_vae_tpu_torch import not_ported
+from intro_tc_vae_tpu_torch.ops.conv import supported
+from intro_tc_vae_tpu_torch.ops.conv_cuda import conv3x3_hybrid, conv3x3_pallas
 
 LEAKY_SLOPE = 0.2
 
@@ -49,6 +51,40 @@ class Conv2d(nn.Conv2d):
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return F.conv2d(x.to(dt), self.weight.to(dt), bias, padding=self.padding)
+
+
+class PallasConv3x3(Conv2d):
+    """3x3 stride-1 'SAME' conv without bias, routed through the conv
+    kernels (ops/conv_cuda.py) when the shape is eligible (ops/conv.py
+    ``supported``), decided per call from the NCHW input as the JAX
+    ``PallasConv3x3`` (models/blocks.py:145) decides from NHWC. Other
+    shapes run the stock conv, which computes the same function. It keeps
+    ``Conv2d``'s ``weight`` [out, in, 3, 3], so ``state_dict`` keys do not
+    change. ``impl``: 'pallas' runs the kernels forward and backward,
+    'hybrid' the stock forward and the kernel backward."""
+
+    def __init__(self, inc: int, outc: int, compute_dtype: torch.dtype = torch.float32,
+                 impl: str = "pallas"):
+        super().__init__(inc, outc, 3, compute_dtype=compute_dtype)
+        self.impl = impl
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        x, w = x.to(dt), self.weight.to(dt)
+        if supported(x.shape, w.shape):
+            fn = conv3x3_hybrid if self.impl == "hybrid" else conv3x3_pallas
+            return fn(x, w)
+        return F.conv2d(x, w, padding=self.padding)
+
+
+def conv(inc: int, outc: int, kernel: int, compute_dtype: torch.dtype = torch.float32,
+         impl: str = "xla") -> Conv2d:
+    """A stride-1 'SAME' conv without bias; ``impl`` 'pallas' or 'hybrid'
+    routes 3x3 convs through ``PallasConv3x3`` (JAX ``conv()``,
+    models/blocks.py:38)."""
+    if impl in ("pallas", "hybrid") and kernel == 3:
+        return PallasConv3x3(inc, outc, compute_dtype=compute_dtype, impl=impl)
+    return Conv2d(inc, outc, kernel, compute_dtype=compute_dtype)
 
 
 class Linear(nn.Linear):
@@ -131,15 +167,12 @@ class ConvolutionalBlock(nn.Module):
                  compute_dtype: torch.dtype = torch.float32,
                  conv_impl: str = "xla", tile_rows: int = 0):
         super().__init__()
-        if conv_impl in ("pallas", "hybrid"):
-            raise not_ported(f"conv_impl='{conv_impl}' (the 3x3 conv kernels)",
-                             "Queue 2 items 5-7")
         if tile_rows > 0:
             raise not_ported("tile_rows > 0", "Queue 1 item 10")
         dt = compute_dtype
-        self.conv1 = Conv2d(inc, outc, 3, compute_dtype=dt)
+        self.conv1 = conv(inc, outc, 3, compute_dtype=dt, impl=conv_impl)
         self.bn1 = GroupedBatchNorm(outc, eps=1e-4, compute_dtype=dt)
-        self.conv2 = Conv2d(outc, outc, 3, compute_dtype=dt)
+        self.conv2 = conv(outc, outc, 3, compute_dtype=dt, impl=conv_impl)
         self.bn2 = GroupedBatchNorm(outc, eps=1e-4, compute_dtype=dt)
 
     def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
@@ -147,10 +180,41 @@ class ConvolutionalBlock(nn.Module):
         return leaky_relu(self.bn2(self.conv2(y), groups))
 
 
+class ResidualBlock(nn.Module):
+    """Pre-BN residual block (reference models.py:57-115; JAX
+    models/blocks.py:320).
+
+    identity = x, or a 1x1 ``conv_expand`` (no bias) when inc != outc;
+    out = LReLU(BN(conv3x3(LReLU(BN(conv3x3(x))))) + identity), BN eps 1e-5
+    (torch's default: the reference passes none).
+    """
+
+    def __init__(self, inc: int, outc: int,
+                 compute_dtype: torch.dtype = torch.float32,
+                 conv_impl: str = "xla", tile_rows: int = 0):
+        super().__init__()
+        if tile_rows > 0:
+            raise not_ported("tile_rows > 0", "Queue 1 item 10")
+        dt = compute_dtype
+        self.conv_expand = Conv2d(inc, outc, 1, compute_dtype=dt) if inc != outc else None
+        self.conv1 = conv(inc, outc, 3, compute_dtype=dt, impl=conv_impl)
+        self.bn1 = GroupedBatchNorm(outc, eps=1e-5, compute_dtype=dt)
+        self.conv2 = conv(outc, outc, 3, compute_dtype=dt, impl=conv_impl)
+        self.bn2 = GroupedBatchNorm(outc, eps=1e-5, compute_dtype=dt)
+
+    def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
+        identity = x if self.conv_expand is None else self.conv_expand(x)
+        y = leaky_relu(self.bn1(self.conv1(x), groups))
+        return leaky_relu(self.bn2(self.conv2(y), groups) + identity)
+
+
+_BLOCKS = {"conv": ConvolutionalBlock, "res": ResidualBlock}
+
+
 def get_conv_class(arch: str):
     """Block class for an architecture string (reference models.py:185-193)."""
-    if arch == "conv":
-        return ConvolutionalBlock
-    if arch in ("res", "inception"):
+    if arch in _BLOCKS:
+        return _BLOCKS[arch]
+    if arch == "inception":
         raise not_ported(f"arch='{arch}'", "Queue 1 item 6")
     raise ValueError(f"unknown arch '{arch}' (expected one of ['conv', 'res', 'inception'])")

@@ -1,4 +1,4 @@
-"""Encoder / Decoder of the 'conv' arch, NCHW.
+"""Encoder / Decoder of the 'conv' and 'res' archs, NCHW.
 
 Counterpart of ``intro_tc_vae_tpu/models/vae.py`` (topology of reference
 models.py:196-298):
@@ -53,7 +53,8 @@ def conv_output_size(image_size: int, channels: Sequence[int]) -> Tuple[int, int
 
 def resolve_conv_impl(conv_impl: str) -> str:
     """Resolve the config ``conv_impl`` knob: 'auto' -> 'xla' (the stock
-    conv) until the conv kernels are ported and measured on the card."""
+    conv) until a benchmark on the card has measured the 'xla' and
+    'pallas' arms against each other."""
     if conv_impl == "auto":
         return "xla"
     return conv_impl

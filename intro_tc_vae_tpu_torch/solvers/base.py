@@ -15,6 +15,7 @@ follow from PyTorch rather than from the model:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -78,9 +79,9 @@ def make_optimizer(name: str, lr: float) -> Callable[[Iterable], torch.optim.Opt
 
 
 def draw_noise(generator: torch.Generator, batch: int, zdim: int,
-               device: torch.device) -> dict:
+               device: torch.device, keys: Sequence[str] = NOISE_KEYS) -> dict:
     return {k: torch.randn((batch, zdim), generator=generator, device=device)
-            for k in NOISE_KEYS}
+            for k in keys}
 
 
 # ---------------------------------------------------------------------------
@@ -126,6 +127,34 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float):
     return [g * scale for g in grads], norm
 
 
+def apply_grads(optimizer: torch.optim.Optimizer, params, grads) -> None:
+    """One optimizer step on ``params`` with the given gradients."""
+    for p, g in zip(params, grads):
+        p.grad = g
+    optimizer.step()
+    for p in params:
+        p.grad = None
+
+
+@contextlib.contextmanager
+def frozen(module: torch.nn.Module):
+    """Run the block with ``module``'s parameters not requiring grad.
+
+    Values do not change. Gradients still flow through the module's
+    activations, but no weight gradient of it is computed: autograd skips
+    them for stock ops, and the conv kernels' ``torch.autograd.Function``
+    reads ``needs_input_grad``, which is fixed when the forward runs. In
+    JAX the unused gradients are dead code that XLA drops."""
+    params = [p for p in module.parameters() if p.requires_grad]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p in params:
+            p.requires_grad_(True)
+
+
 def encode(encoder, x, groups: int = 1):
     """Run the encoder: (mu, logvar). Train or eval follows the module's
     mode; groups > 1 gives per-group BatchNorm statistics."""
@@ -141,9 +170,10 @@ def decode(decoder, z, groups: int = 1):
 # ---------------------------------------------------------------------------
 
 class VAESolver:
-    """Shared solver surface: hyperparameters, state construction, the
-    step and its finite check. ``build_step`` is overridden by the
-    solvers this port carries."""
+    """The 'vae' solver and the shared solver surface: hyperparameters,
+    state construction, the step and its finite check. ``build_step`` is
+    the single-phase ELBO step (solvers/vae.py); the intro solvers
+    override it."""
 
     kl_kind = "gaussian"
     name = "vae"
@@ -192,7 +222,9 @@ class VAESolver:
         self._step_fn = self.build_step()
 
     def build_step(self) -> Callable:
-        raise not_ported(f"solver '{self.name}'", "Queue 1 item 6")
+        from intro_tc_vae_tpu_torch.solvers.vae import build_vae_step
+
+        return build_vae_step(self.hyper, self.encoder, self.decoder)
 
     def init_state(self, seed: int) -> TrainState:
         """Fresh optimizer states over the modules' current parameters and
@@ -221,15 +253,19 @@ class VAESolver:
 
 
 def make_solver(name: str, **kwargs) -> VAESolver:
-    """Solver factory: 'intro' | 'intro-tc'/'intro_tc' are ported; 'vae'
-    and 'tc' raise until ported."""
+    """Solver factory: 'vae' | 'tc' | 'intro' | 'intro-tc'/'intro_tc'
+    (JAX solvers/base.py:669)."""
     from intro_tc_vae_tpu_torch.solvers.intro import IntroSolver
     from intro_tc_vae_tpu_torch.solvers.intro_tc import IntroTCSolver
+    from intro_tc_vae_tpu_torch.solvers.tc import TCSolver
 
-    solvers = {"intro": IntroSolver, "intro-tc": IntroTCSolver, "intro_tc": IntroTCSolver}
-    if name in ("vae", "tc"):
-        raise not_ported(f"solver '{name}'", "Queue 1 item 6")
+    solvers = {
+        "vae": VAESolver,
+        "tc": TCSolver,
+        "intro": IntroSolver,
+        "intro-tc": IntroTCSolver,
+        "intro_tc": IntroTCSolver,
+    }
     if name not in solvers:
-        raise ValueError(f"Solver '{name}' not supported! "
-                         f"(known: {sorted([*solvers, 'vae', 'tc'])})")
+        raise ValueError(f"Solver '{name}' not supported! (known: {sorted(solvers)})")
     return solvers[name](**kwargs)

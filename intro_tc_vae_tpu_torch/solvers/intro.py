@@ -4,7 +4,11 @@ Counterpart of ``intro_tc_vae_tpu/solvers/intro.py::build_intro_step``.
 Phase E differentiates the loss with respect to the encoder's parameters
 only (``torch.autograd.grad``); gradients still flow *through* the
 decoder's activations. Adam updates the encoder in place, so phase D runs
-with the encoder phase E just updated, as the JAX step does.
+with the encoder phase E just updated, as the JAX step does. Each phase
+runs with the other network ``frozen`` (its parameters not requiring
+grad), which changes no value: the conv kernels' autograd then launches
+no weight-gradient kernel for the network the phase does not update, as
+XLA drops those dead gradients in the JAX step.
 
 BatchNorm running statistics update in place on every train-mode pass —
 including the detached/fake passes — so each pass runs exactly once, in
@@ -32,22 +36,16 @@ from intro_tc_vae_tpu_torch.solvers.base import (
     SolverHyper,
     TrainState,
     VAESolver,
+    apply_grads,
     clip_by_global_norm,
     decode,
     draw_noise,
     encode,
+    frozen,
     global_norm,
     kl_term,
     rec_term,
 )
-
-
-def _apply(optimizer: torch.optim.Optimizer, params, grads) -> None:
-    for p, g in zip(params, grads):
-        p.grad = g
-    optimizer.step()
-    for p in params:
-        p.grad = None
 
 
 def build_intro_step(h: SolverHyper, encoder, decoder, paired: bool = True):
@@ -69,100 +67,104 @@ def build_intro_step(h: SolverHyper, encoder, decoder, paired: bool = True):
         prior = noise["prior"]
 
         # ================= Phase E: update encoder =======================
-        if paired:
-            mu, logvar = encode(encoder, batch)
-            z = ops.reparameterize(mu, logvar, noise["real"])
-            # decoder pass-group order (noise, z) == dec(noise) ... dec(z)
-            fake, rec = decode(decoder, torch.cat([prior, z]), groups=2).chunk(2)
+        # only the encoder is differentiated: no decoder weight gradient
+        with frozen(decoder):
+            if paired:
+                mu, logvar = encode(encoder, batch)
+                z = ops.reparameterize(mu, logvar, noise["real"])
+                # decoder pass-group order (noise, z) == dec(noise) ... dec(z)
+                fake, rec = decode(decoder, torch.cat([prior, z]), groups=2).chunk(2)
 
-            loss_rec = rec_term(h, batch, rec, reduction="mean")
-            lossE_real_kl, kl_unscaled = kl_term(h, z, mu, logvar)
+                loss_rec = rec_term(h, batch, rec, reduction="mean")
+                lossE_real_kl, kl_unscaled = kl_term(h, z, mu, logvar)
 
-            mus, logvars = encode(encoder, torch.cat([rec, fake]).detach(), groups=2)
-            rec_mu, fake_mu = mus.chunk(2)
-            rec_logvar, fake_logvar = logvars.chunk(2)
-            z_rec = ops.reparameterize(rec_mu, rec_logvar, noise["rec_e"])
-            z_fake = ops.reparameterize(fake_mu, fake_logvar, noise["fake_e"])
-            rec_rec, rec_fake = decode(decoder, torch.cat([z_rec, z_fake]),
-                                       groups=2).chunk(2)
-        else:
-            fake = decode(decoder, prior)
+                mus, logvars = encode(encoder, torch.cat([rec, fake]).detach(), groups=2)
+                rec_mu, fake_mu = mus.chunk(2)
+                rec_logvar, fake_logvar = logvars.chunk(2)
+                z_rec = ops.reparameterize(rec_mu, rec_logvar, noise["rec_e"])
+                z_fake = ops.reparameterize(fake_mu, fake_logvar, noise["fake_e"])
+                rec_rec, rec_fake = decode(decoder, torch.cat([z_rec, z_fake]),
+                                           groups=2).chunk(2)
+            else:
+                fake = decode(decoder, prior)
 
-            mu, logvar = encode(encoder, batch)
-            z = ops.reparameterize(mu, logvar, noise["real"])
-            rec = decode(decoder, z)
+                mu, logvar = encode(encoder, batch)
+                z = ops.reparameterize(mu, logvar, noise["real"])
+                rec = decode(decoder, z)
 
-            loss_rec = rec_term(h, batch, rec, reduction="mean")
-            lossE_real_kl, kl_unscaled = kl_term(h, z, mu, logvar)
+                loss_rec = rec_term(h, batch, rec, reduction="mean")
+                lossE_real_kl, kl_unscaled = kl_term(h, z, mu, logvar)
 
-            rec_mu, rec_logvar = encode(encoder, rec.detach())
-            z_rec = ops.reparameterize(rec_mu, rec_logvar, noise["rec_e"])
-            rec_rec = decode(decoder, z_rec)
+                rec_mu, rec_logvar = encode(encoder, rec.detach())
+                z_rec = ops.reparameterize(rec_mu, rec_logvar, noise["rec_e"])
+                rec_rec = decode(decoder, z_rec)
 
-            fake_mu, fake_logvar = encode(encoder, fake.detach())
-            z_fake = ops.reparameterize(fake_mu, fake_logvar, noise["fake_e"])
-            rec_fake = decode(decoder, z_fake)
+                fake_mu, fake_logvar = encode(encoder, fake.detach())
+                z_fake = ops.reparameterize(fake_mu, fake_logvar, noise["fake_e"])
+                rec_fake = decode(decoder, z_fake)
 
-        kl_rec, _ = kl_term(h, z_rec, rec_mu, rec_logvar, reduce="none", beta=h.beta_neg)
-        kl_fake, _ = kl_term(h, z_fake, fake_mu, fake_logvar, reduce="none",
-                             beta=h.beta_neg)
-        rec_rec_e = rec_term(h, rec, rec_rec, reduction="none")
-        rec_fake_e = rec_term(h, fake, rec_fake, reduction="none")
-        expelbo_rec = torch.exp(-2.0 * h.scale * (rec_rec_e + kl_rec)).mean()
-        expelbo_fake = torch.exp(-2.0 * h.scale * (rec_fake_e + kl_fake)).mean()
+            kl_rec, _ = kl_term(h, z_rec, rec_mu, rec_logvar, reduce="none", beta=h.beta_neg)
+            kl_fake, _ = kl_term(h, z_fake, fake_mu, fake_logvar, reduce="none",
+                                 beta=h.beta_neg)
+            rec_rec_e = rec_term(h, rec, rec_rec, reduction="none")
+            rec_fake_e = rec_term(h, fake, rec_fake, reduction="none")
+            expelbo_rec = torch.exp(-2.0 * h.scale * (rec_rec_e + kl_rec)).mean()
+            expelbo_fake = torch.exp(-2.0 * h.scale * (rec_fake_e + kl_fake)).mean()
 
-        lossE = (h.scale * (loss_rec + lossE_real_kl)
-                 + 0.25 * (expelbo_rec + expelbo_fake))
-        grads_e = torch.autograd.grad(lossE, enc_params)
+            lossE = (h.scale * (loss_rec + lossE_real_kl)
+                     + 0.25 * (expelbo_rec + expelbo_fake))
+            grads_e = torch.autograd.grad(lossE, enc_params)
         fc_grad_norm = global_norm([g for g, f in zip(grads_e, is_fc) if f])
         total_norm_e = None
         if h.clip:
             grads_e, total_norm_e = clip_by_global_norm(grads_e, h.clip)
-        _apply(state.opt_e, enc_params, grads_e)
+        apply_grads(state.opt_e, enc_params, grads_e)
 
         # ================= Phase D: update decoder =======================
-        z_detached = z.detach()
-        if paired:
-            fake, rec = decode(decoder, torch.cat([prior, z_detached]), groups=2).chunk(2)
-            loss_rec_d = rec_term(h, batch, rec, reduction="mean")
+        # only the decoder is differentiated: no encoder weight gradient
+        with frozen(encoder):
+            z_detached = z.detach()
+            if paired:
+                fake, rec = decode(decoder, torch.cat([prior, z_detached]), groups=2).chunk(2)
+                loss_rec_d = rec_term(h, batch, rec, reduction="mean")
 
-            # encoder pass-group order (rec, fake) == enc(rec) ... enc(fake)
-            mus, logvars = encode(encoder, torch.cat([rec, fake]), groups=2)
-            rec_mu, fake_mu = mus.chunk(2)
-            rec_logvar, fake_logvar = logvars.chunk(2)
-            z_rec = ops.reparameterize(rec_mu, rec_logvar, noise["rec_d"])
-            z_fake = ops.reparameterize(fake_mu, fake_logvar, noise["fake_d"])
-            rec_rec, rec_fake = decode(decoder, torch.cat([z_rec, z_fake]).detach(),
-                                       groups=2).chunk(2)
-        else:
-            fake = decode(decoder, prior)
-            rec = decode(decoder, z_detached)
-            loss_rec_d = rec_term(h, batch, rec, reduction="mean")
+                # encoder pass-group order (rec, fake) == enc(rec) ... enc(fake)
+                mus, logvars = encode(encoder, torch.cat([rec, fake]), groups=2)
+                rec_mu, fake_mu = mus.chunk(2)
+                rec_logvar, fake_logvar = logvars.chunk(2)
+                z_rec = ops.reparameterize(rec_mu, rec_logvar, noise["rec_d"])
+                z_fake = ops.reparameterize(fake_mu, fake_logvar, noise["fake_d"])
+                rec_rec, rec_fake = decode(decoder, torch.cat([z_rec, z_fake]).detach(),
+                                           groups=2).chunk(2)
+            else:
+                fake = decode(decoder, prior)
+                rec = decode(decoder, z_detached)
+                loss_rec_d = rec_term(h, batch, rec, reduction="mean")
 
-            rec_mu, rec_logvar = encode(encoder, rec)
-            z_rec = ops.reparameterize(rec_mu, rec_logvar, noise["rec_d"])
-            fake_mu, fake_logvar = encode(encoder, fake)
-            z_fake = ops.reparameterize(fake_mu, fake_logvar, noise["fake_d"])
+                rec_mu, rec_logvar = encode(encoder, rec)
+                z_rec = ops.reparameterize(rec_mu, rec_logvar, noise["rec_d"])
+                fake_mu, fake_logvar = encode(encoder, fake)
+                z_fake = ops.reparameterize(fake_mu, fake_logvar, noise["fake_d"])
 
-            rec_rec = decode(decoder, z_rec.detach())
-            rec_fake = decode(decoder, z_fake.detach())
+                rec_rec = decode(decoder, z_rec.detach())
+                rec_fake = decode(decoder, z_fake.detach())
 
-        beta_rr = h.gamma_r * h.beta_rec
-        loss_rec_rec = rec_term(h, rec.detach(), rec_rec, reduction="mean", beta=beta_rr)
-        loss_fake_rec = rec_term(h, fake.detach(), rec_fake, reduction="mean", beta=beta_rr)
-        lossD_rec_kl, _ = kl_term(h, z_rec, rec_mu, rec_logvar)
-        lossD_fake_kl, _ = kl_term(h, z_fake, fake_mu, fake_logvar)
+            beta_rr = h.gamma_r * h.beta_rec
+            loss_rec_rec = rec_term(h, rec.detach(), rec_rec, reduction="mean", beta=beta_rr)
+            loss_fake_rec = rec_term(h, fake.detach(), rec_fake, reduction="mean", beta=beta_rr)
+            lossD_rec_kl, _ = kl_term(h, z_rec, rec_mu, rec_logvar)
+            lossD_fake_kl, _ = kl_term(h, z_fake, fake_mu, fake_logvar)
 
-        lossD = h.scale * (
-            loss_rec_d
-            + 0.5 * (lossD_rec_kl + lossD_fake_kl)
-            + 0.5 * (loss_rec_rec + loss_fake_rec)
-        )
-        grads_d = torch.autograd.grad(lossD, dec_params)
+            lossD = h.scale * (
+                loss_rec_d
+                + 0.5 * (lossD_rec_kl + lossD_fake_kl)
+                + 0.5 * (loss_rec_rec + loss_fake_rec)
+            )
+            grads_d = torch.autograd.grad(lossD, dec_params)
         total_norm_d = None
         if h.clip:
             grads_d, total_norm_d = clip_by_global_norm(grads_d, h.clip)
-        _apply(state.opt_d, dec_params, grads_d)
+        apply_grads(state.opt_d, dec_params, grads_d)
         state.step += 1
 
         metrics = dict(

@@ -139,7 +139,7 @@ def train_soft_intro_vae(config: Config,
             state.history.append(record)
             if state.step % PRINT_EVERY == 0:
                 print(f"epoch {epoch} step {state.step}: "
-                      f"lossE {record['lossE']:.4f} lossD {record['lossD']:.4f} "
+                      f"loss_enc {record['loss_enc']:.4f} loss_dec {record['loss_dec']:.4f} "
                       f"kl {record['loss_kl']:.4f} rec {record['loss_rec']:.4f}")
 
     rate = images_per_second(state, config.batch_size)

@@ -39,8 +39,9 @@ def flax_to_port(
     with ``encoder.*`` / ``decoder.*`` keys (load it into a
     ``models.SoftIntroVAE``). ``batch_stats=None`` leaves out the running
     statistics (for optimizer moments). conv_output_size: the JAX
-    package's NHWC (h, w, c) encoder output shape."""
-    if arch != "conv":
+    package's NHWC (h, w, c) encoder output shape. The 'res' arch's 1x1
+    ``conv_expand`` is a plain conv leaf."""
+    if arch not in ("conv", "res"):
         raise not_ported(f"the weight bridge for arch='{arch}'", "Queue 1 item 6")
     sd: Dict[str, np.ndarray] = {}
     h, w, c = conv_output_size

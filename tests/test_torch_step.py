@@ -1,4 +1,5 @@
-"""PyTorch port vs JAX package: the flagship intro_tc train step.
+"""PyTorch port vs JAX package: the flagship intro_tc train step, and the
+single-phase vae / tc steps.
 
 One and two steps, paired and unpaired, on the same weights (JAX init
 through the weight bridge), the same batches and the same noise: the
@@ -36,6 +37,7 @@ from intro_tc_vae_tpu.models import Encoder as JEncoder
 from intro_tc_vae_tpu.solvers import make_optimizer as jmake_optimizer
 from intro_tc_vae_tpu.solvers import make_solver as jmake_solver
 from intro_tc_vae_tpu.solvers.intro import build_intro_step as jbuild_intro_step
+from intro_tc_vae_tpu.solvers.vae import build_vae_step as jbuild_vae_step
 from intro_tc_vae_tpu_torch.data import Synthetic
 from intro_tc_vae_tpu_torch.models import Decoder, Encoder, SoftIntroVAE, conv_output_size
 from intro_tc_vae_tpu_torch.solvers import NOISE_KEYS, make_optimizer, make_solver
@@ -119,23 +121,25 @@ def _jax_step(step, state, batch):
     )
 
 
-def _port_solver(paired, init, dtype=torch.float32):
-    enc = Encoder(**SMALL, compute_dtype=dtype)
-    dec = Decoder(**SMALL, compute_dtype=dtype)
+def _port_solver(paired, init, dtype=torch.float32, name="intro_tc", arch="conv",
+                 clip=None):
+    small = dict(SMALL, arch=arch)
+    enc = Encoder(**small, compute_dtype=dtype)
+    dec = Decoder(**small, compute_dtype=dtype)
     model = SoftIntroVAE(enc, dec).to(dtype)
     if init is not None:
-        model.load_state_dict(flax_to_port(*init, "conv", COS))
+        model.load_state_dict(flax_to_port(*init, arch, COS))
     solver = make_solver(
-        "intro_tc", dataset=Synthetic(image_size=32, cdim=3, sizes=(2, 2, 4, 4)),
+        name, dataset=Synthetic(image_size=32, cdim=3, sizes=(2, 2, 4, 4)),
         encoder=enc, decoder=dec, batch_size=B,
         optimizer_e=make_optimizer("adam", 2e-4),
         optimizer_d=make_optimizer("adam", 2e-4), tc_impl="pallas",
-        fuse_passes=paired, **HYPER)
+        fuse_passes=paired, clip=clip, **HYPER)
     return solver, model
 
 
-def _run_port(paired, init, batches, noises):
-    solver, model = _port_solver(paired, init, torch.float64)
+def _run_port(paired, init, batches, noises, metric_names=METRICS, **solver_kw):
+    solver, model = _port_solver(paired, init, torch.float64, **solver_kw)
     state = solver.init_state(0)
     out = []
     for batch, noise in zip(batches, noises):
@@ -148,7 +152,7 @@ def _run_port(paired, init, batches, noises):
                 mu[f"{side}.{n}"] = opt.state[p]["exp_avg"].clone()
                 nu[f"{side}.{n}"] = opt.state[p]["exp_avg_sq"].clone()
         out.append(dict(
-            metrics={k: float(metrics[k]) for k in METRICS},
+            metrics={k: float(metrics[k]) for k in metric_names},
             state={k: v.clone() for k, v in model.state_dict().items()},
             mu=mu,
             nu=nu,
@@ -163,11 +167,8 @@ def runs(request):
     return jax_out, port_out
 
 
-@pytest.mark.parametrize("k", [1, 2])
-def test_intro_tc_step_matches_jax(runs, k):
-    jax_out, port_out = runs
-    want, got = jax_out[k - 1], port_out[k - 1]
-    for name in METRICS:
+def _assert_step_matches(want, got, metric_names):
+    for name in metric_names:
         np.testing.assert_allclose(got["metrics"][name], want["metrics"][name],
                                    err_msg=name, **TOL)
     for part in ("state", "mu", "nu"):
@@ -175,6 +176,74 @@ def test_intro_tc_step_matches_jax(runs, k):
         for key, ref in want[part].items():
             np.testing.assert_allclose(got[part][key].numpy(), ref.numpy(),
                                        err_msg=f"{part} {key}", **TOL)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_intro_tc_step_matches_jax(runs, k):
+    jax_out, port_out = runs
+    _assert_step_matches(jax_out[k - 1], port_out[k - 1], METRICS)
+
+
+# the single-phase ELBO step: 'vae' on the res arch (configs/vae_synthetic.json),
+# 'tc' on the conv arch with the global-norm clip (configs/tc_dsprites.json's
+# solver and arch); conv_impl 'xla' in both packages
+ELBO_CASES = {"vae": dict(arch="res", clip=None), "tc": dict(arch="conv", clip=0.5)}
+ELBO_METRICS = ("loss_enc", "loss_dec", "loss_kl", "loss_rec", "kl_loss_unscaled",
+                "r_loss_unscaled", "fc_grad_norm")
+
+
+def _run_jax_elbo(name, arch, clip):
+    """Two JAX ELBO steps in float64, as _run_jax does for the intro step;
+    the one reparameterization draw is the step's own (vae.py:31)."""
+    small = dict(SMALL, arch=arch)
+    solver = jmake_solver(
+        name, dataset=_dataset(), encoder=JEncoder(**small), decoder=JDecoder(**small),
+        batch_size=B, optimizer_e=jmake_optimizer("adam", 2e-4),
+        optimizer_d=jmake_optimizer("adam", 2e-4), tc_impl="xla", clip=clip, **HYPER)
+    batches = [b.astype(np.float64) for b in _batches()]
+    state = solver.init_state(jax.random.key(0), jnp.asarray(batches[0], jnp.float32))
+    init = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64),
+                                  (state.params, state.batch_stats))
+    metric_names = ELBO_METRICS + (("total_norm", "L2") if clip else ())
+    out = []
+    with jax.enable_x64(True):
+        params, stats = jax.tree_util.tree_map(jnp.asarray, init)
+        state = state.replace(
+            params=params, batch_stats=stats,
+            opt_state_e=solver.optimizer_e.init(params["encoder"]),
+            opt_state_d=solver.optimizer_d.init(params["decoder"]))
+        step = jax.jit(jbuild_vae_step(solver.hyper, solver.encoder, solver.decoder,
+                                       solver.optimizer_e, solver.optimizer_d))
+        for batch in batches:
+            eps = jax.random.normal(jax.random.split(state.rng)[1],
+                                    (B, SMALL["zdim"]), dtype=jnp.float32)
+            state, metrics = step(state, jnp.asarray(batch))
+            moments = (state.opt_state_e, state.opt_state_d)
+            out.append(dict(
+                noise={"real": np.asarray(eps)},
+                metrics={k: float(metrics[k]) for k in metric_names},
+                state=flax_to_port(state.params, state.batch_stats, arch, COS),
+                mu=flax_to_port(_moments(moments, "mu"), None, arch, COS),
+                nu=flax_to_port(_moments(moments, "nu"), None, arch, COS),
+            ))
+    return init, batches, out, metric_names
+
+
+@pytest.fixture(scope="module", params=sorted(ELBO_CASES))
+def elbo_runs(request):
+    case = ELBO_CASES[request.param]
+    init, batches, jax_out, metric_names = _run_jax_elbo(request.param, **case)
+    port_out = _run_port(True, init, batches, [o["noise"] for o in jax_out], metric_names,
+                         name=request.param, **case)
+    return jax_out, port_out, metric_names
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_elbo_step_matches_jax(elbo_runs, k):
+    """One and two vae / tc steps: metrics, updated parameters, BatchNorm
+    statistics and both Adam moments, float64 in both packages."""
+    jax_out, port_out, metric_names = elbo_runs
+    _assert_step_matches(jax_out[k - 1], port_out[k - 1], metric_names)
 
 
 def test_step_draws_its_own_noise_deterministically():

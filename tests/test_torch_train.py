@@ -53,14 +53,49 @@ def test_cli_requires_cuda(monkeypatch):
     dict(anomaly_detection=True), dict(data_parallel=2), dict(model_parallel=2),
     dict(scan_steps=2), dict(remat="pass"), dict(pack_predict=2),
     dict(device_cache="force"), dict(transfer_dtype="uint8"),
-    dict(tc_sampling="weighted", tc_impl="xla"), dict(conv_impl="pallas"),
-    dict(tile_rows=16), dict(arch="res"), dict(solver="vae"),
-    dict(optimizer="sgd"), dict(dataset="ukiyo_e64"), dict(kl_kind="tc_full"),
+    dict(tc_sampling="weighted", tc_impl="xla"), dict(tile_rows=16),
+    dict(arch="inception"), dict(optimizer="sgd"), dict(dataset="ukiyo_e64"),
+    dict(kl_kind="tc_full"),
 ], ids=lambda u: ",".join(f"{k}={v}" for k, v in u.items()))
 def test_unported_options_raise(update):
     config = load_config(FLAGSHIP, {**SMALL_RUN, **update})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_soft_intro_vae(config, device=CPU)
+
+
+@pytest.mark.parametrize("update", [
+    dict(conv_impl="pallas"), dict(arch="res"), dict(solver="vae"),
+], ids=lambda u: ",".join(f"{k}={v}" for k, v in u.items()))
+def test_options_that_once_raised_train(update):
+    """The flagship recipe with each option at the synthetic_small size:
+    8 finite steps (at this width no conv routes to the kernels; the
+    routed widths are tests/test_torch_conv.py's and _models.py's)."""
+    config = load_config(FLAGSHIP, {**SMALL_RUN, **update})
+    state = train_soft_intro_vae(config, device=CPU)
+    assert state.step == len(state.history) == 8
+    assert all(math.isfinite(r[k]) for r in state.history for k in ("loss_enc", "loss_dec"))
+
+
+@pytest.mark.parametrize("path,update", [
+    ("vae_synthetic.json", {"conv_impl": "pallas"}),
+    ("tc_dsprites.json", {"tc_impl": "pallas", "conv_impl": "hybrid"}),
+], ids=["vae_synthetic", "tc_dsprites"])
+def test_elbo_configs_train_on_cpu(path, update):
+    """configs/vae_synthetic.json (res arch, vae solver) and
+    configs/tc_dsprites.json on the synthetic dataset (conv arch, tc
+    solver), both fp32, at the synthetic_small size: 8 finite steps, the
+    metric names of the JAX ELBO step, and the parameters moved."""
+    config = load_config(os.path.join(REPO, "configs", path),
+                         {**SMALL_RUN, **update, "dataset": "synthetic_small"})
+    torch.manual_seed(config.seed)
+    state = train_soft_intro_vae(config, device=CPU)
+    assert state.step == len(state.history) == 8
+    for record in state.history:
+        assert {"loss_enc", "loss_dec", "loss_kl", "loss_rec", "kl_loss_unscaled",
+                "r_loss_unscaled", "fc_grad_norm"} <= set(record)
+        assert all(math.isfinite(v) for v in record.values())
+        assert record["loss_enc"] == record["loss_dec"]
+    assert state.history[-1]["loss_enc"] != state.history[0]["loss_enc"]
 
 
 def test_every_config_loads_like_jax():
