@@ -24,6 +24,12 @@ result line):
    fp32 and bf16, against the plain version in float64 on the same
    (bf16-rounded) inputs; tolerances in ``conv_bound``. Median times at
    bf16 beside cuDNN's forward, backward-data and backward-weight.
+   TC gathered (``phase_gathered_kernels``): the same three kernels in
+   their data-parallel form, each rank's rows against the whole mu bank of
+   a global batch of 128 for R in {2, 8}, against the plain gathered
+   version in float64 (rtol 1e-4, atol 1e-5); the ranks' outputs
+   concatenated and their dmu summed against the single-device kernels;
+   median times at R = 2.
 4. Main path: ``intro_tc_vae_tpu_torch.main.cli`` trains the flagship
    recipe (configs/intro_tc_ukiyo64.json: 64x64x3, conv arch, channels
    64-512, z=128, batch 64, bf16, paired) on the synthetic dataset for one
@@ -48,9 +54,16 @@ result line):
    arch, vae solver, fp32) and configs/tc_dsprites.json on the synthetic
    dataset with tc_impl 'pallas' (conv arch, tc solver, fp32). Finite
    losses, exact launch counts, img/s.
+7. The data-parallel path (``phase_data_parallel``):
+   configs/intro_tc_128_dp8.json at full width on 2 ranks, two processes
+   of this script (``--dp-rank``) that share the one card over gloo and
+   train through the CLI's entry: (a) one epoch, 10 steps, with finite
+   losses and exactly 5 gathered TC calls per step and rank (3 in phase
+   E, 2 in phase D), 0 single-device TC calls and 0 conv kernels; (b) one
+   fp32 step on the 2 ranks against one process on the whole batch.
 
-Then one JSON line describing the kernels, and as the last line
-``{"ok": true, "device": {...}}``.
+Each phase prints its seconds. Then one JSON line describing the kernels,
+and as the last line ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -65,6 +78,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(HERE, "configs", "intro_tc_ukiyo64.json")
 VAE_SYNTHETIC = os.path.join(HERE, "configs", "vae_synthetic.json")
 TC_DSPRITES = os.path.join(HERE, "configs", "tc_dsprites.json")
+DP_CONFIG = os.path.join(HERE, "configs", "intro_tc_128_dp8.json")
+DP_RANKS, DP_TIMEOUT, DP_DEVICE = 2, 300, "cuda:0"  # the ranks share card 0
 LIBRARIES = ("tc_kernels", "conv_kernels")
 SOURCE = {
     "tc_fwd": "intro_tc_vae_tpu_torch/csrc/tc_kernels.cu",
@@ -242,6 +257,106 @@ def phase_kernels(card: str) -> dict:
     return {"errs": errs, "times": times}
 
 
+def phase_gathered_kernels(card: str) -> dict:
+    """Phase 3, gathered: the three TC kernels in their data-parallel form
+    (tc_logsumexp_cuda_gathered), one process standing in for each rank r
+    of R in {2, 8} over a global batch of GB = 128: z, logvar rows
+    r*GB/R.. against the whole mu bank [GB, Z], row_off = r*GB/R. Each
+    rank's loss is its rows' share of the global loss, so its gradients
+    are its part of the global ones.
+
+    Checks: each against the plain gathered version in float64 (rtol
+    1e-4, atol 1e-5); the ranks' pm, qz, dz and dlogvar rows,
+    concatenated, bit-equal to the single-device kernels on the whole
+    batch (each block redoes the same row's loop, only the row's weight
+    index is offset); the sum over ranks of the full-bank dmu equal to the
+    single-device dmu within the same tolerance (R float32 roundings).
+    Returns max_abs_err and the median times at R = 2, rank 1."""
+    import numpy as np
+    import torch
+
+    from intro_tc_vae_tpu_torch.ops import tc_cuda
+
+    dev = torch.device("cuda", 0)
+    gb = 2 * MAIN_B
+    arrays = tc_inputs(gb, seed=gb)
+
+    def run(fn, dtype, rows, *extra):
+        args = [torch.tensor(a, device=dev, dtype=dtype, requires_grad=True)
+                for a in (arrays[0][rows], arrays[1], arrays[2][rows])]
+        pm, qz = fn(*args, *extra)
+        ((qz - pm).sum() / gb + 0.5e-3 * pm.sum()).backward()  # the rows' share
+        torch.cuda.synchronize()
+        z, mu, logvar = args
+        return {k: v.detach().double().cpu().numpy() for k, v in
+                {"pm": pm, "qz": qz, "dz": z.grad, "dlogvar": logvar.grad,
+                 "dmu": mu.grad}.items()}
+
+    whole = run(tc_cuda.tc_logsumexp_cuda, torch.float32, slice(None), DATASET_SIZE)
+    err = 0.0
+    for world in (2, 8):
+        b = gb // world
+        parts, dmu = [], 0.0
+        for r in range(world):
+            rows = slice(r * b, (r + 1) * b)
+            extra = (r * b, DATASET_SIZE, gb)
+            got = run(tc_cuda.tc_logsumexp_cuda_gathered, torch.float32, rows, *extra)
+            want = run(tc_cuda.tc_logsumexp_reference_gathered, torch.float64, rows, *extra)
+            for key, g in got.items():
+                if g.shape != want[key].shape or not np.isfinite(g).all():
+                    die(f"gathered {key} R={world} r={r}: shape {g.shape} or non-finite")
+                np.testing.assert_allclose(g, want[key], rtol=RTOL, atol=ATOL,
+                                           err_msg=f"gathered {key} R={world} r={r}")
+                err = max(err, float(np.abs(g - want[key]).max()))
+            parts.append(got)
+            dmu = dmu + got["dmu"]
+        for key in ("pm", "qz", "dz", "dlogvar"):
+            cat = np.concatenate([p[key] for p in parts])
+            if not np.array_equal(cat, whole[key]):
+                die(f"gathered R={world}: the ranks' {key} rows differ from the single-device "
+                    f"kernel by {float(np.abs(cat - whole[key]).max())!r}")
+        np.testing.assert_allclose(dmu, whole["dmu"], rtol=RTOL, atol=ATOL,
+                                   err_msg=f"gathered R={world}: summed dmu")
+        print(f"phase 3: gathered R={world}: {world} ranks x {b} rows against the "
+              f"[{gb}, {Z_DIM}] bank match the float64 plain version; their pm, qz, dz, "
+              f"dlogvar rows equal the single-device kernels' bit for bit; summed dmu "
+              f"within {float(np.abs(dmu - whole['dmu']).max()):.3g} of the single-device dmu")
+
+    # times at R = 2, rank 1: each kernel alone, and the float32 plain version
+    b, off = gb // 2, gb // 2
+    z, mu, logvar = (torch.tensor(a, device=dev) for a in arrays)
+    z, logvar = z[off:].contiguous(), logvar[off:].contiguous()
+    f64 = dict(device=dev, dtype=torch.float64)
+    lm, lj = torch.empty((b, Z_DIM), **f64), torch.empty(b, **f64)
+    pm, qz = torch.empty(b, device=dev), torch.empty(b, device=dev)
+    g_m = torch.full((b,), -1.0 / gb + 5e-4, device=dev)
+    g_j = torch.full((b,), 1.0 / gb, device=dev)
+    dz, dlv, dmu = torch.empty_like(z), torch.empty_like(z), torch.empty_like(mu)
+    launch = tc_cuda.launch
+    common = (b, gb, Z_DIM, DATASET_SIZE, dev, off)
+    t = {
+        "tc_fwd": median_ms(lambda: launch("tc_fwd", (z, mu, logvar, lm, lj, pm, qz),
+                                           *common)),
+        "tc_bwd_dz": median_ms(lambda: launch(
+            "tc_bwd_dz", (z, mu, logvar, lm, lj, g_m, g_j, dz, dlv), *common)),
+        "tc_bwd_dmu": median_ms(lambda: launch(
+            "tc_bwd_dmu", (z, mu, logvar, lm, lj, g_m, g_j, dmu), *common)),
+    }
+    plain = tc_cuda.tc_logsumexp_reference_gathered
+    with torch.no_grad():
+        t["plain_fwd"] = median_ms(lambda: plain(z, mu, logvar, off, DATASET_SIZE, gb))
+    args = [x.clone().requires_grad_(True) for x in (z, mu, logvar)]
+    pm_p, qz_p = plain(*args, off, DATASET_SIZE, gb)
+    loss = (qz_p - pm_p).sum() / gb + 0.5e-3 * pm_p.sum()
+    t["plain_bwd"] = median_ms(lambda: torch.autograd.grad(loss, args, retain_graph=True))
+    t["kernels"] = t["tc_fwd"] + t["tc_bwd_dz"] + t["tc_bwd_dmu"]
+    t["plain"] = t["plain_fwd"] + t["plain_bwd"]
+    print(f"phase 3: gathered R=2 rank 1 ({b} rows, bank {gb}) Z={Z_DIM} N={DATASET_SIZE} "
+          "median ms per call " + json.dumps({k: round(v, 5) for k, v in t.items()})
+          + f" on {card}; max abs err {err:.3g}")
+    return {"err": err, "times": t}
+
+
 def conv_bound(name: str, dtype, ref, s):
     """Largest |kernel - float64 plain| allowed per entry; s is the same
     conv of the operands' absolute values (each entry's sum of |terms|).
@@ -386,18 +501,18 @@ def expected_intro_launches(tc_impl: str, conv_impl: str) -> tuple:
 
 
 @contextlib.contextmanager
-def launches_per_phase():
-    """Sums the launches of phase E and of phase D over the steps of an
-    intro run: each step calls the encoder's optimizer at the end of phase
-    E and the decoder's at the end of phase D; a global optimizer pre-hook
-    reads the counters at each call."""
+def launches_per_phase(read=all_launches):
+    """Sums the launches (or what ``read`` counts) of phase E and of phase
+    D over the steps of an intro run: each step calls the encoder's
+    optimizer at the end of phase E and the decoder's at the end of phase
+    D; a global optimizer pre-hook reads the counters at each call."""
     from torch.optim.optimizer import register_optimizer_step_pre_hook
 
-    sums = [dict.fromkeys(all_launches(), 0), dict.fromkeys(all_launches(), 0)]
-    state = {"last": all_launches(), "calls": 0}
+    sums = [dict.fromkeys(read(), 0), dict.fromkeys(read(), 0)]
+    state = {"last": read(), "calls": 0}
 
     def hook(optimizer, args, kwargs):
-        now = all_launches()
+        now = read()
         phase = sums[state["calls"] % 2]
         for k in now:
             phase[k] += now[k] - state["last"][k]
@@ -670,6 +785,241 @@ def phase_other_paths(card: str) -> None:
           + json.dumps({k: round(v, 1) for k, v in rates.items()}) + f" on {card}")
 
 
+DP_UPDATE = {"dataset": "synthetic128", "data_parallel": DP_RANKS, "tc_impl": "pallas",
+             "num_epochs": 1, "use_tensorboard": False, "resume": None}
+
+
+def dp_step_setup(dev):
+    """Phase 7 (b)'s inputs, made alike in every process: the dp8
+    config's models in fp32 from torch.manual_seed(0), the first global
+    batch of synthetic128 and the step's noise at the global batch (CPU
+    generator, seed 1). Returns (config, dataset, models, batch, noise)."""
+    import numpy as np
+    import torch
+
+    from intro_tc_vae_tpu_torch.config import load_config
+    from intro_tc_vae_tpu_torch.data import load_dataset
+    from intro_tc_vae_tpu_torch.models import Decoder, Encoder, SoftIntroVAE
+    from intro_tc_vae_tpu_torch.solvers import NOISE_KEYS
+
+    cfg = load_config(DP_CONFIG, {**DP_UPDATE, "precision": "fp32"})
+    ds, image_size, channels, cdim = load_dataset(cfg.dataset)
+    kw = dict(arch=cfg.arch, cdim=cdim, zdim=cfg.z_dim, channels=channels,
+              image_size=image_size, compute_dtype=torch.float32)
+    torch.manual_seed(0)
+    model = SoftIntroVAE(Encoder(**kw), Decoder(**kw)).to(dev)
+    batch = torch.from_numpy(ds.get_batch(np.arange(cfg.batch_size))
+                             .transpose(0, 3, 1, 2).copy())
+    gen = torch.Generator().manual_seed(1)
+    noise = {k: torch.randn((cfg.batch_size, cfg.z_dim), generator=gen).to(dev)
+             for k in NOISE_KEYS}
+    return cfg, ds, model, batch, noise
+
+
+def dp_step(dev, mesh=None):
+    """One fp32 intro_tc step (TF32 off, tc_impl 'pallas') of the dp8
+    config from dp_step_setup's inputs; ``mesh``: this rank's data group,
+    which steps on its rows of the batch. Returns (metrics, state dict on
+    the host)."""
+    import torch
+
+    from intro_tc_vae_tpu_torch.parallel import batch_sharding, replicate_state
+    from intro_tc_vae_tpu_torch.solvers import make_optimizer, make_solver
+
+    cfg, ds, model, batch, noise = dp_step_setup(dev)
+    rows = slice(None) if mesh is None else batch_sharding(mesh, cfg.batch_size)
+    solver = make_solver(
+        "intro_tc", dataset=ds, encoder=model.encoder, decoder=model.decoder,
+        batch_size=cfg.batch_size, optimizer_e=make_optimizer("adam", cfg.lr),
+        optimizer_d=make_optimizer("adam", cfg.lr), recon_loss_type=cfg.recon_loss_type,
+        beta_kl=cfg.beta_kl, beta_rec=cfg.beta_rec, beta_neg=cfg.beta_neg,
+        gamma_r=cfg.gamma_r, tc_impl="pallas", fuse_passes=True, mesh=mesh)
+    state = solver.init_state(0)
+    if mesh is not None:
+        state = replicate_state(state, mesh)
+    with fp32_exact():
+        state, metrics = solver.train_step(state, batch[rows].to(dev), noise=noise)
+        torch.cuda.synchronize()
+    return ({k: float(v) for k, v in metrics.items()},
+            {k: v.detach().cpu() for k, v in model.state_dict().items()})
+
+
+def dp_rank(out_path: str) -> None:
+    """One rank of phase 7, started by phase_data_parallel with RANK,
+    WORLD_SIZE, LOCAL_RANK and ITCVAE_COORDINATOR_ADDRESS set: (a) trains
+    one epoch of the dp8 config through the CLI's entry, with every count
+    set to 0 just before and read per phase; (b) one fp32 step on its
+    rows. Writes its results to ``out_path`` (torch.save)."""
+    import torch
+    import torch.distributed as dist
+
+    from intro_tc_vae_tpu_torch import main as cli_main
+    from intro_tc_vae_tpu_torch.config import load_config
+    from intro_tc_vae_tpu_torch.ops import tc_cuda
+    from intro_tc_vae_tpu_torch.parallel import make_mesh, state_digest
+    from intro_tc_vae_tpu_torch.train import images_per_second
+
+    def counts():
+        return {**all_launches(), **{f"calls.{k}": v for k, v in tc_cuda.CALLS.items()}}
+
+    reset_all_launches()
+    with launches_per_phase(counts) as (phase_e, phase_d):
+        state = cli_main.cli(["-f", DP_CONFIG, "-u", json.dumps(DP_UPDATE)])
+    train = dict(history=state.history, counts=counts(), phase_e=phase_e,
+                 phase_d=phase_d, digest=state_digest(state.model),
+                 rate=images_per_second(state, load_config(DP_CONFIG, DP_UPDATE).batch_size),
+                 backend=dist.get_backend(), device=str(next(state.model.parameters()).device))
+    del state
+    torch.cuda.empty_cache()
+    mesh = make_mesh()
+    metrics, params = dp_step(mesh.device, mesh)
+    torch.save(dict(train=train, metrics=metrics, params=params), out_path)
+
+
+def phase_data_parallel(card: str) -> dict:
+    """Phase 7: the data-parallel path, configs/intro_tc_128_dp8.json at
+    full width (conv arch, 128x128x3, channels 64-512, z 128, global batch
+    128, bf16, paired) with DP_UPDATE, as DP_RANKS processes on the one
+    card (backend gloo: ranks that share a card), each started as a user
+    would (env vars, the CLI's entry).
+
+    (a) One epoch, 1280 images / 128 = 10 steps: every loss finite and the
+    same on both ranks; per rank and step, 3 gathered TC calls in phase E
+    and 2 in phase D, each launching tc_fwd, tc_bwd_dz and tc_bwd_dmu once;
+    0 single-device TC calls, 0 conv kernel launches (conv_impl auto is
+    xla); the ranks' parameters bit-equal after the epoch.
+    (b) One fp32 step (TF32 off) on the ranks against the same step in
+    this process on the whole batch (same weights, batch, noise): metrics
+    within rtol 1e-4; updated parameters within 2 lr (Adam's first update
+    is about lr sign(g)) plus one float32 rounding; the ranks' parameters
+    and BatchNorm statistics equal."""
+    import socket
+    import shutil
+    import tempfile
+
+    import torch
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs, logs = [], []
+    for r in range(DP_RANKS):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(DP_RANKS), LOCAL_RANK=str(r),
+                   LOCAL_WORLD_SIZE=str(DP_RANKS),
+                   ITCVAE_COORDINATOR_ADDRESS=f"127.0.0.1:{port}")
+        logs.append(open(os.path.join(work, f"rank{r}.log"), "w+"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-rank",
+             os.path.join(work, f"rank{r}.pt")],
+            cwd=HERE, env=env, stdout=logs[r], stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + DP_TIMEOUT
+    while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+        if any(p.poll() not in (None, 0) for p in procs):
+            break
+        time.sleep(0.2)
+    failed = [r for r, p in enumerate(procs) if p.poll() != 0]
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    if failed:
+        for r in failed:
+            logs[r].seek(0)
+            tail = logs[r].read()[-4000:]
+            print(f"phase 7: rank {r} log (end):\n{tail}", file=sys.stderr)
+        die(f"phase 7: ranks {failed} failed or outlived the {DP_TIMEOUT} s timeout")
+    logs[0].seek(0)
+    rank0_log = logs[0].read()
+    for f in logs:
+        f.close()
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+             for r in range(DP_RANKS)]
+    shutil.rmtree(work)
+
+    # (a)
+    from intro_tc_vae_tpu_torch.config import load_config
+    from intro_tc_vae_tpu_torch.data import load_dataset
+
+    cfg = load_config(DP_CONFIG, DP_UPDATE)
+    steps = len(load_dataset(cfg.dataset)[0]) // cfg.batch_size  # 1280 / 128
+    want_e = {"tc_fwd": 3, "tc_bwd_dz": 3, "tc_bwd_dmu": 3, "conv3x3_fwd": 0,
+              "conv3x3_dw": 0, "conv3x3_dw_reduce": 0,
+              "calls.tc_logsumexp": 0, "calls.tc_logsumexp_gathered": 3}
+    want_d = {**want_e, "tc_fwd": 2, "tc_bwd_dz": 2, "tc_bwd_dmu": 2,
+              "calls.tc_logsumexp_gathered": 2}
+    for r, out in enumerate(ranks):
+        a = out["train"]
+        if len(a["history"]) != steps:
+            die(f"phase 7: rank {r}: {len(a['history'])} steps, expected {steps}")
+        for rec in a["history"]:
+            for k, v in rec.items():
+                if isinstance(v, float) and not math.isfinite(v):
+                    die(f"phase 7: rank {r}: non-finite {k} at step {rec['step']}")
+        for label, got, want in (("phase E", a["phase_e"], want_e),
+                                 ("phase D", a["phase_d"], want_d),
+                                 ("total", a["counts"],
+                                  {k: want_e[k] + want_d[k] for k in want_e})):
+            want = {k: steps * v for k, v in want.items()}
+            if got != want:
+                die(f"phase 7: rank {r}: {label} counts {got}, expected {want}")
+        if a["backend"] != "gloo" or a["device"] != DP_DEVICE:
+            die(f"phase 7: rank {r}: backend {a['backend']}, device {a['device']}")
+    a0, a1 = ranks[0]["train"], ranks[1]["train"]
+    for x, y in zip(a0["history"], a1["history"]):
+        if {k: v for k, v in x.items() if k != "seconds"} != \
+                {k: v for k, v in y.items() if k != "seconds"}:
+            die(f"phase 7: the ranks' metrics differ at step {x['step']}: {x} vs {y}")
+    if a0["digest"] != a1["digest"]:
+        die("phase 7: the ranks' parameters differ after the epoch")
+    rate = a0["rate"]
+    last = a0["history"][-1]
+    print(f"phase 7 (a): {DP_RANKS} ranks (gloo, one card), {steps} steps of global batch "
+          f"{cfg.batch_size}, finite losses (last lossE {last['lossE']:.6g} lossD "
+          f"{last['lossD']:.6g}), equal on both ranks; per rank phase E {a0['phase_e']}, "
+          f"phase D {a0['phase_d']}; parameters bit-equal")
+    print(f"phase 7 (a): {rate} img/s (global batch, steps 4-{steps}, bf16) on {card}: "
+          f"two ranks share one card and every collective goes through the host (gloo), "
+          f"so this is not a scaling figure")
+    for line in rank0_log.splitlines():
+        if line.startswith(("distributed:", "training throughput")):
+            print(f"phase 7 (a): rank 0 says: {line}")
+
+    # (b)
+    torch.cuda.empty_cache()
+    m_one, p_one = dp_step(torch.device(DP_DEVICE))
+    m_dp, p_dp = ranks[0]["metrics"], ranks[0]["params"]
+    for k in p_dp:
+        if not torch.equal(p_dp[k], ranks[1]["params"][k]):
+            die(f"phase 7 (b): {k} differs between the ranks")
+    names = ("lossE", "lossD", "loss_kl", "loss_rec", "expelbo_r", "expelbo_f")
+    for name in names:
+        if not math.isclose(m_dp[name], m_one[name], rel_tol=RTOL, abs_tol=1e-30) or \
+                m_dp[name] != ranks[1]["metrics"][name]:
+            die(f"phase 7 (b): {name} {DP_RANKS} ranks {m_dp[name]!r} "
+                f"({ranks[1]['metrics'][name]!r}) vs one process {m_one[name]!r}")
+    diffs = {k: (p_dp[k].double() - p_one[k].double()).abs() for k in p_one}
+    worst = max(float(d.max()) for d in diffs.values())
+    n_over = sum(int((d > ATOL).sum()) for d in diffs.values())
+    n_params = sum(d.numel() for d in diffs.values())
+    bn_worst = max(float(d.max()) for k, d in diffs.items() if k.endswith(("running_mean",
+                                                                         "running_var")))
+    # an update of +lr against one of -lr, plus one float32 rounding of the
+    # largest parameter
+    bound = 2 * LR + float(torch.finfo(torch.float32).eps) * max(
+        float(v.abs().max()) for v in p_one.values() if v.is_floating_point())
+    if not worst <= bound:
+        die(f"phase 7 (b): updated parameters differ by {worst!r} > 2 lr + 1 ulp = {bound!r}")
+    print(f"phase 7 (b): one fp32 step (TF32 off), {DP_RANKS} ranks vs one process: metrics "
+          "within rtol 1e-4 " + json.dumps({n: [m_dp[n], m_one[n]] for n in names})
+          + f"; updated params and BN stats max abs diff {worst!r} (<= 2 lr + 1 ulp = "
+          f"{bound!r}), "
+          f"{n_over} of {n_params} entries over {ATOL}; BN running stats max abs diff "
+          f"{bn_worst:.3g}; both ranks bit-equal")
+    calls = sum(out["train"]["counts"]["calls.tc_logsumexp_gathered"] for out in ranks)
+    return {"gathered_calls": calls, "rate": rate}
+
+
 def main() -> None:
     try:
         import torch
@@ -713,30 +1063,51 @@ def main() -> None:
     for path, seconds in built:
         print(f"phase 2: built {os.path.relpath(path, HERE)} in {seconds:.1f} s")
 
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"{label}: {time.perf_counter() - t0:.1f} s")
+        return out
+
     with fp32_exact():
-        kernels = phase_kernels(card)
-        conv = phase_conv_kernels(card)
-    main_path = phase_main_path(card)
+        kernels = timed("phase 3 (TC)", phase_kernels, card)
+        gathered = timed("phase 3 (TC gathered)", phase_gathered_kernels, card)
+        conv = timed("phase 3 (conv)", phase_conv_kernels, card)
+    main_path = timed("phase 4", phase_main_path, card)
     with fp32_exact():  # same conv algorithms in both runs
-        phase_in_context(torch.device("cuda", 0))
-    phase_other_paths(card)
+        timed("phase 5", phase_in_context, torch.device("cuda", 0))
+    timed("phase 6", phase_other_paths, card)
+    dp = timed("phase 7", phase_data_parallel, card)
 
     times = {**kernels["times"], **conv["times"]}
     plain = {"tc_fwd": "plain_fwd", "tc_bwd_dz": "plain_bwd", "tc_bwd_dmu": "plain_bwd",
              "conv3x3_fwd": "cudnn_fwd", "conv3x3_dw": "cudnn_wgrad",
              "conv3x3_dw_reduce": "cudnn_wgrad"}
     errs = {**kernels["errs"], **conv["errs"]}
-    print(json.dumps({"kernels": [
+    entries = [
         {"name": k, "route": "cuda", "source": SOURCE[k], "replaces": REPLACES[k],
          "launches": main_path["launches"][k], "max_abs_err": errs[k],
          "ms": times[k], "plain_ms": times[plain[k]]}
         for k in (*tc_cuda.KERNELS, *conv_cuda.KERNELS)
-    ]}))
+    ]
+    # the three TC kernels launched in their gathered form, counted by the
+    # gathered calls of phase 7's ranks; ms: one gathered call's three
+    # kernels against the plain gathered forward and backward (phase 3)
+    entries.append({"name": "tc_logsumexp_gathered", "route": "cuda",
+                    "source": SOURCE["tc_fwd"],
+                    "replaces": "intro_tc_vae_tpu/ops/tc_pallas.py:381",
+                    "launches": dp["gathered_calls"], "max_abs_err": gathered["err"],
+                    "ms": gathered["times"]["kernels"],
+                    "plain_ms": gathered["times"]["plain"]})
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:  # one rank of phase 7, started by the script
+        dp_rank(sys.argv[2])
+        sys.exit(0)
     t0 = time.perf_counter()
     main()
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)

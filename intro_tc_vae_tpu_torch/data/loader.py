@@ -7,9 +7,15 @@ batches in the same order. Each batch is gathered on the host (NHWC),
 converted to NCHW once, pinned when the target is a CUDA device and
 copied without blocking the host. The prefetch thread, uint8 transfer,
 the device-resident cache and scan stacking are not ported yet.
+
+Data parallel (``rows``, JAX ``loader.py:176-197``): every rank draws
+the same seeded global order and gathers only its own rows of each
+global batch of ``batch_size``.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -17,8 +23,10 @@ import torch
 
 class DeviceLoader:
     def __init__(self, dataset, batch_size: int, device: torch.device,
-                 shuffle: bool = True, seed: int = 0, drop_last: bool = True):
+                 shuffle: bool = True, seed: int = 0, drop_last: bool = True,
+                 rows: Optional[slice] = None):
         self.dataset = dataset
+        self.rows = rows  # this rank's rows of each batch; None: all
         self.batch_size = batch_size
         self.device = torch.device(device)
         self.shuffle = shuffle
@@ -47,4 +55,6 @@ class DeviceLoader:
 
     def __iter__(self):
         for idx in self._index_batches():
+            if self.rows is not None:
+                idx = idx[self.rows]
             yield self._to_device(self.dataset.get_batch(idx))

@@ -2,7 +2,14 @@
 
 The contract of ``intro_tc_vae_tpu/main.py`` (-f/--config JSON path,
 -u/--update inline-JSON override dict). Trains on cuda:0 and raises when
-CUDA is absent.
+CUDA is absent. Data parallel: start R processes, e.g.
+
+    torchrun --nproc_per_node 2 -m intro_tc_vae_tpu_torch.main -f configs/intro_tc_128_dp8.json \
+        -u '{"data_parallel": 2, ...}'
+
+(or set ITCVAE_COORDINATOR_ADDRESS, RANK, WORLD_SIZE and LOCAL_RANK for
+each process); each rank then trains on its own card, or ranks share one
+(``parallel/distributed.py``).
 """
 
 from __future__ import annotations
@@ -11,6 +18,7 @@ import argparse
 import json
 
 from intro_tc_vae_tpu_torch.config import load_config
+from intro_tc_vae_tpu_torch.parallel import shutdown_distributed
 from intro_tc_vae_tpu_torch.train import train_soft_intro_vae
 
 
@@ -27,3 +35,4 @@ def cli(argv=None):
 
 if __name__ == "__main__":
     cli()
+    shutdown_distributed()

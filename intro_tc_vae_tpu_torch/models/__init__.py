@@ -13,6 +13,7 @@ from intro_tc_vae_tpu_torch.models.vae import (
     conv_output_size,
     num_params,
     resolve_conv_impl,
+    set_data_group,
 )
 
 __all__ = [
@@ -26,4 +27,5 @@ __all__ = [
     "conv_output_size",
     "num_params",
     "resolve_conv_impl",
+    "set_data_group",
 ]

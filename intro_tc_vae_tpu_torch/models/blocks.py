@@ -21,6 +21,7 @@ from torch import nn
 from intro_tc_vae_tpu_torch import not_ported
 from intro_tc_vae_tpu_torch.ops.conv import supported
 from intro_tc_vae_tpu_torch.ops.conv_cuda import conv3x3_hybrid, conv3x3_pallas
+from intro_tc_vae_tpu_torch.parallel.collectives import all_reduce_sum
 
 LEAKY_SLOPE = 0.2
 
@@ -112,7 +113,18 @@ class GroupedBatchNorm(nn.Module):
     sequential batch-B passes (JAX ``GroupedBatchNorm``, blocks.py:188).
     ``momentum`` is torch's convention (0.1 here == flax 0.9). The running
     buffers are updated in place on every train-mode forward.
+
+    Data parallel: with ``data_group`` set (``models.set_data_group``) to
+    a group of several ranks, each rank holds its rows of every group, and
+    the statistics are the global batch's: the per-group sums of x and x²
+    and the element counts are summed over the ranks, one all-reduce per
+    call, before mean and var = max(0, E[x²] - E[x]²). Global group g is
+    then the concatenation over ranks of local group g, as GSPMD computes
+    it for the JAX package, and the running statistics agree on every
+    rank. ``nn.SyncBatchNorm`` has no groups.
     """
+
+    data_group = None
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
                  compute_dtype: torch.dtype = torch.float32):
@@ -140,8 +152,11 @@ class GroupedBatchNorm(nn.Module):
         xg = x.reshape(groups, b // groups, *x.shape[1:])
         xf = xg.to(torch.promote_types(xg.dtype, torch.float32))  # stats in >= fp32
         axes = (1,) + tuple(range(3, xg.dim()))
-        mean = xf.mean(axes)                                  # [G, C]
-        var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+        if self.data_group is None:
+            mean = xf.mean(axes)                              # [G, C]
+            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+        else:
+            mean, var = self._global_stats(xf, axes)
         with torch.no_grad():
             keep = 1.0 - self.momentum
             rm, rv = self.running_mean, self.running_var
@@ -155,6 +170,16 @@ class GroupedBatchNorm(nn.Module):
             torch.rsqrt(var.reshape(gshape) + self.eps) * self.weight.reshape(bshape)
         ) + self.bias.reshape(bshape)
         return y.reshape(x.shape).to(self.compute_dtype)
+
+    def _global_stats(self, xf: torch.Tensor, axes: tuple):
+        """[G, C] mean and var over the rows of every rank."""
+        groups, c = xf.shape[0], xf.shape[2]
+        count = torch.full((groups, 1), xf.numel() // (groups * c), dtype=xf.dtype,
+                           device=xf.device)
+        sums = torch.cat([xf.sum(axes), (xf * xf).sum(axes), count], dim=1)
+        total, sq, n = all_reduce_sum(sums, self.data_group).split([c, c, 1], dim=1)
+        mean = total / n
+        return mean, torch.clamp(sq / n - mean * mean, min=0.0)
 
 
 class ConvolutionalBlock(nn.Module):

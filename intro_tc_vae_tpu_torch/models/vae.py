@@ -157,5 +157,14 @@ class SoftIntroVAE(nn.Module):
         self.decoder = decoder
 
 
+def set_data_group(module: nn.Module, mesh) -> None:
+    """Hand a data group (``parallel.DataGroup`` of several ranks, or
+    None) to every ``GroupedBatchNorm`` in ``module``: their train-mode
+    statistics become the global batch's."""
+    for m in module.modules():
+        if isinstance(m, GroupedBatchNorm):
+            m.data_group = mesh
+
+
 def num_params(module: nn.Module) -> int:
     return sum(p.numel() for p in module.parameters())

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -69,6 +70,30 @@ def log_importance_weight_matrix(batch_size: int, dataset_size: int,
     so the step pays no host->device copy for them."""
     w = _log_importance_weight_matrix_np(int(batch_size), int(dataset_size))
     return torch.tensor(w, device=device)
+
+
+def log_importance_weight_block(row_off: int, n_rows: int, global_batch: int,
+                                dataset_size: int, device: torch.device,
+                                col_off: int = 0, n_cols: Optional[int] = None
+                                ) -> torch.Tensor:
+    """Rows [row_off, row_off + n_rows) and columns [col_off, col_off +
+    n_cols) (default: all ``global_batch``) of the [GB, GB] log-weight
+    matrix, float32, generated from the global row and column indices
+    without the [GB, GB] matrix: the plain counterpart of ``_iw_block``
+    with ``row_off`` (intro_tc_vae_tpu/ops/tc_pallas.py:91) and of the
+    blockwise weights (intro_tc_vae_tpu/ops/tc.py:158-170). A rank of a
+    data-parallel batch owns the rows of its samples and every column."""
+    n_cols = global_batch if n_cols is None else n_cols
+    n = float(dataset_size)
+    m = global_batch - 1
+    full = functools.partial(torch.full, (n_rows, n_cols), dtype=torch.float32,
+                             device=device)
+    rows = torch.arange(row_off, row_off + n_rows, device=device)[:, None]
+    cols = torch.arange(col_off, col_off + n_cols, device=device)[None, :]
+    logstrat = full(math.log((n - m) / (n * m)))
+    col0 = torch.where(rows == m - 1, logstrat, full(math.log(1.0 / n)))
+    iw = torch.where(cols == 0, col0, full(math.log(1.0 / m)))
+    return torch.where(cols == 1, logstrat, iw)
 
 
 def minibatch_stratified_sampling(log_qz_prob: torch.Tensor, batch_size: int,

@@ -1,6 +1,7 @@
 """Fused total-correlation logsumexps: CUDA kernels, autograd, plain version.
 
-Counterpart of ``intro_tc_vae_tpu/ops/tc_pallas.py::tc_logsumexp_pallas``.
+Counterpart of ``intro_tc_vae_tpu/ops/tc_pallas.py::tc_logsumexp_pallas``
+and ``tc_logsumexp_pallas_gathered``.
 ``tc_logsumexp_cuda(z, mu, logvar, dataset_size)`` returns
 (log prod_l q(z_l), log q(z)), both [B], through three hand-written
 kernels in ``csrc/tc_kernels.cu`` (design notes there):
@@ -12,11 +13,21 @@ kernels in ``csrc/tc_kernels.cu`` (design notes there):
 The forward saves (z, mu, logvar, lm, lj); the backward recomputes the
 densities, as the Pallas VJP does, so no [B, B, z] residual is stored.
 
-``tc_logsumexp_reference`` is the plain PyTorch version (materialized
-[B, B, z], ``torch.logsumexp``, autograd for the gradient). The wrapper
-takes it only for tensors on the CPU; for CUDA tensors it launches the
-kernels or raises. ``LAUNCHES`` counts kernel launches per kernel, so a
-run can show that its TC calls went through the kernels.
+``tc_logsumexp_cuda_gathered(z, mu_bank, logvar, row_off, dataset_size,
+global_batch)`` is the data-parallel form: a rank's [B_local, Z] rows of
+z and logvar against the all-gathered [GB, Z] mu bank, its rows weighted
+as rows row_off.. of the global batch; its backward returns dmu for the
+whole bank, which the gather's adjoint sums over the ranks. The same
+three kernels run it (they take B_j != B_i, ``row_off`` and
+``global_batch``).
+
+``tc_logsumexp_reference`` and ``tc_logsumexp_reference_gathered`` are
+the plain PyTorch versions (materialized [B, GB, z], ``torch.logsumexp``,
+autograd for the gradient). A wrapper takes its plain version only for
+tensors on the CPU; for CUDA tensors it launches the kernels or raises.
+``LAUNCHES`` counts kernel launches per kernel and ``CALLS`` the calls
+of each wrapper that went to the kernels, so a run can show that its TC
+calls went through the kernels, and by which route.
 """
 
 from __future__ import annotations
@@ -29,11 +40,13 @@ import torch
 from intro_tc_vae_tpu_torch.ops.cuda_build import load_library
 from intro_tc_vae_tpu_torch.ops.density import (
     gaussian_log_density_nll,
+    log_importance_weight_block,
     minibatch_stratified_sampling,
 )
 
 KERNELS = ("tc_fwd", "tc_bwd_dz", "tc_bwd_dmu")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
+CALLS = dict.fromkeys(("tc_logsumexp", "tc_logsumexp_gathered"), 0)
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # pointers, then B_j, B_i, Z, dataset_size, row_off, global_batch, device, stream
@@ -46,8 +59,9 @@ _ARGTYPES = {
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, CALLS):
+        for k in counts:
+            counts[k] = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -61,18 +75,21 @@ def _library() -> ctypes.CDLL:
 
 
 def launch(name: str, tensors, b_j: int, b_i: int, zdim: int,
-            dataset_size: int, device: torch.device) -> None:
+           dataset_size: int, device: torch.device, row_off: int = 0) -> None:
+    """One kernel launch: b_j z rows (rows row_off.. of the global batch)
+    against b_i mu rows, the whole bank, so the global batch whose weights
+    apply is b_i."""
     fn = getattr(_library(), f"{name}_launch")
     stream = torch.cuda.current_stream(device).cuda_stream
     err = fn(*(t.data_ptr() for t in tensors), b_j, b_i, zdim, int(dataset_size),
-             0, b_j, device.index, stream)
+             int(row_off), b_i, device.index, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
     LAUNCHES[name] += 1
 
 
 def _check(z: torch.Tensor, mu: torch.Tensor, logvar: torch.Tensor,
-           dataset_size: int) -> None:
+           row_off: int, dataset_size: int, global_batch: int) -> None:
     for name, t in (("z", z), ("mu", mu), ("logvar", logvar)):
         if t.device != z.device or t.device.type != "cuda":
             raise ValueError(f"{name} is on {t.device}; the kernels take CUDA "
@@ -83,48 +100,58 @@ def _check(z: torch.Tensor, mu: torch.Tensor, logvar: torch.Tensor,
             raise ValueError(f"{name} must be a contiguous 2-D tensor, got "
                              f"shape {tuple(t.shape)} strides {t.stride()}")
     b_j, zdim = z.shape
-    if logvar.shape != z.shape or mu.shape != (b_j, zdim):
+    if logvar.shape != z.shape or mu.shape != (global_batch, zdim):
         raise ValueError(f"shapes z {tuple(z.shape)}, mu {tuple(mu.shape)}, "
-                         f"logvar {tuple(logvar.shape)} must all be [B, Z]")
-    if b_j < 2 or zdim > 1024:
-        raise ValueError(f"the kernels take 2 <= B and Z <= 1024, got B={b_j}, Z={zdim}")
-    if dataset_size < b_j:
-        raise ValueError(f"dataset_size {dataset_size} < batch {b_j}: the "
+                         f"logvar {tuple(logvar.shape)} must be [B, Z], "
+                         f"[{global_batch}, Z], [B, Z]")
+    if global_batch < 2 or zdim > 1024:
+        raise ValueError(f"the kernels take a global batch >= 2 and Z <= 1024, got "
+                         f"{global_batch}, Z={zdim}")
+    if not 0 <= row_off <= global_batch - b_j:
+        raise ValueError(f"rows [{row_off}, {row_off + b_j}) lie outside the global "
+                         f"batch of {global_batch}")
+    if dataset_size < global_batch:
+        raise ValueError(f"dataset_size {dataset_size} < batch {global_batch}: the "
                          "stratified weights need N >= B")
 
 
 class _TCLogsumexp(torch.autograd.Function):
+    """z, logvar [B, Z] (rows row_off.. of the global batch) against the
+    mu bank [GB, Z]; GB = B and row_off = 0 on one device."""
+
     @staticmethod
-    def forward(ctx, z, mu, logvar, dataset_size: int):
+    def forward(ctx, z, mu, logvar, row_off: int, dataset_size: int):
         b, zdim = z.shape
+        gb = mu.shape[0]
         # float64 logsumexps, kept for the backward (precision note in
         # csrc/tc_kernels.cu); the outputs are float32
         lm = torch.empty((b, zdim), device=z.device, dtype=torch.float64)
         lj = torch.empty(b, device=z.device, dtype=torch.float64)
         pm = torch.empty(b, device=z.device, dtype=torch.float32)
         qz = torch.empty(b, device=z.device, dtype=torch.float32)
-        launch("tc_fwd", (z, mu, logvar, lm, lj, pm, qz), b, b, zdim,
-               dataset_size, z.device)
+        launch("tc_fwd", (z, mu, logvar, lm, lj, pm, qz), b, gb, zdim,
+               dataset_size, z.device, row_off)
         ctx.save_for_backward(z, mu, logvar, lm, lj)
-        ctx.dataset_size = dataset_size
+        ctx.row_off, ctx.dataset_size = row_off, dataset_size
         return pm, qz
 
     @staticmethod
     def backward(ctx, g_pm, g_qz):
         z, mu, logvar, lm, lj = ctx.saved_tensors
         b, zdim = z.shape
+        gb = mu.shape[0]
         # grads of (sum_l lm, lj): g_pm reaches every lm[j, l] (broadcast
         # over l inside the kernel, as _tc_bwd does)
         g_m = g_pm.float().contiguous()
         g_j = g_qz.float().contiguous()
         dz = torch.empty_like(z)
         dlogvar = torch.empty_like(logvar)
-        dmu = torch.empty_like(mu)
+        dmu = torch.empty_like(mu)  # the whole bank
         launch("tc_bwd_dz", (z, mu, logvar, lm, lj, g_m, g_j, dz, dlogvar),
-               b, b, zdim, ctx.dataset_size, z.device)
+               b, gb, zdim, ctx.dataset_size, z.device, ctx.row_off)
         launch("tc_bwd_dmu", (z, mu, logvar, lm, lj, g_m, g_j, dmu),
-               b, b, zdim, ctx.dataset_size, z.device)
-        return dz, dmu, dlogvar, None
+               b, gb, zdim, ctx.dataset_size, z.device, ctx.row_off)
+        return dz, dmu, dlogvar, None, None
 
 
 def tc_logsumexp_reference(z: torch.Tensor, mu: torch.Tensor,
@@ -138,6 +165,24 @@ def tc_logsumexp_reference(z: torch.Tensor, mu: torch.Tensor,
     return minibatch_stratified_sampling(log_qz_prob, z.shape[0], dataset_size)
 
 
+def tc_logsumexp_reference_gathered(z: torch.Tensor, mu_bank: torch.Tensor,
+                                    logvar: torch.Tensor, row_off: int,
+                                    dataset_size: int, global_batch: int):
+    """Plain version of the gathered form: the [B, GB, z] log densities of
+    the rank's rows against the whole bank, weighted with rows row_off..
+    of the global weight matrix (``log_importance_weight_block``)."""
+    log_qz_prob = gaussian_log_density_nll(
+        z[:, None, :], mu_bank[None, :, :], logvar[:, None, :]
+    )
+    log_iw = log_importance_weight_block(row_off, z.shape[0], global_batch,
+                                         dataset_size, z.device)
+    logqz_prodmarginals = torch.logsumexp(
+        log_iw[:, :, None] + log_qz_prob, dim=1
+    ).sum(dim=1)
+    log_qz = torch.logsumexp(log_iw + log_qz_prob.sum(dim=2), dim=1)
+    return logqz_prodmarginals, log_qz
+
+
 def tc_logsumexp_cuda(z: torch.Tensor, mu: torch.Tensor, logvar: torch.Tensor,
                       dataset_size: int):
     """(log prod_l q(z_l) [B], log q(z) [B]) via the CUDA kernels.
@@ -147,5 +192,25 @@ def tc_logsumexp_cuda(z: torch.Tensor, mu: torch.Tensor, logvar: torch.Tensor,
     """
     if all(t.device.type == "cpu" for t in (z, mu, logvar)):
         return tc_logsumexp_reference(z, mu, logvar, dataset_size)
-    _check(z, mu, logvar, dataset_size)
-    return _TCLogsumexp.apply(z, mu, logvar, int(dataset_size))
+    _check(z, mu, logvar, 0, dataset_size, z.shape[0])
+    CALLS["tc_logsumexp"] += 1
+    return _TCLogsumexp.apply(z, mu, logvar, 0, int(dataset_size))
+
+
+def tc_logsumexp_cuda_gathered(z: torch.Tensor, mu_bank: torch.Tensor,
+                               logvar: torch.Tensor, row_off: int,
+                               dataset_size: int, global_batch: int):
+    """This rank's (log prod_l q(z_l), log q(z)) [B_local] against the
+    all-gathered mu bank [global_batch, Z], its rows being rows
+    row_off.. of the global batch; the gradient of mu_bank is the whole
+    bank's (the counterpart of ``tc_logsumexp_pallas_gathered``).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernels
+    or raise.
+    """
+    if all(t.device.type == "cpu" for t in (z, mu_bank, logvar)):
+        return tc_logsumexp_reference_gathered(z, mu_bank, logvar, row_off,
+                                               dataset_size, global_batch)
+    _check(z, mu_bank, logvar, int(row_off), dataset_size, global_batch)
+    CALLS["tc_logsumexp_gathered"] += 1
+    return _TCLogsumexp.apply(z, mu_bank, logvar, int(row_off), int(dataset_size))

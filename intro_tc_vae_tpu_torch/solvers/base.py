@@ -11,6 +11,16 @@ follow from PyTorch rather than from the model:
   of an optax transform, which holds no state until ``init``.
 * Noise comes from an explicit ``torch.Generator`` on the device, or is
   passed in (parity tests hand both packages the same draws).
+* Data parallel (``mesh``, a ``parallel.DataGroup`` of several ranks):
+  each rank steps on its rows of the global batch. The counterparts of
+  the psums GSPMD inserts are explicit: the TC and BatchNorm reduce over
+  the global batch themselves, each optimizer's gradients are averaged
+  over the ranks with one all-reduce before the clip and the update, and
+  the step's metrics with one all-reduce, so every rank sees the same
+  values and ``check_finite`` raises on all of them together. No
+  ``DistributedDataParallel``: the intro step differentiates one network
+  with ``torch.autograd.grad`` while the other is ``frozen``, which DDP's
+  ``.backward()`` hooks do not follow.
 """
 
 from __future__ import annotations
@@ -19,12 +29,13 @@ import contextlib
 import dataclasses
 import functools
 import math
-from typing import Callable, Iterable, Optional, Sequence
+from typing import Any, Callable, Iterable, Optional, Sequence
 
 import torch
 
 from intro_tc_vae_tpu_torch import not_ported, ops
-from intro_tc_vae_tpu_torch.models.vae import SoftIntroVAE
+from intro_tc_vae_tpu_torch.models.vae import SoftIntroVAE, set_data_group
+from intro_tc_vae_tpu_torch.parallel.collectives import all_reduce_mean_
 
 # the 7-way key split of the JAX step (solvers/intro.py:81-83) minus the
 # carried key: the step's six N(0, I) [B, z] draws, in this order
@@ -46,10 +57,12 @@ class SolverHyper:
     scale: float = 1.0              # 1 / (cdim * image_size^2), vae.py:61
     dataset_size: int = 1
     kl_kind: str = "gaussian"       # 'gaussian' | 'tc'
-    tc_impl: str = "xla"            # 'xla' | 'pallas' (the CUDA kernels)
+    tc_impl: str = "xla"            # 'xla' | 'blockwise' | 'pallas' (the CUDA kernels)
     tc_sampling: str = "stratified"
     clip: Optional[float] = None
     zdim: int = 32
+    # the data group of a data-parallel run (several ranks), else None
+    mesh: Any = dataclasses.field(default=None, compare=False)
 
 
 @dataclasses.dataclass
@@ -84,6 +97,36 @@ def draw_noise(generator: torch.Generator, batch: int, zdim: int,
             for k in keys}
 
 
+def step_noise(h: "SolverHyper", generator: torch.Generator, noise: Optional[dict],
+               b_local: int, device: torch.device,
+               keys: Sequence[str] = NOISE_KEYS) -> dict:
+    """This rank's rows of the step's noise. The noise is drawn (unless
+    given) at the global batch from the generator every rank seeds alike,
+    so one process and R ranks use the same draws for the same samples."""
+    size, rank = (1, 0) if h.mesh is None else (h.mesh.size, h.mesh.rank)
+    if noise is None:
+        noise = draw_noise(generator, b_local * size, h.zdim, device, keys)
+    rows = slice(rank * b_local, (rank + 1) * b_local)
+    return {k: noise[k][rows] for k in keys}
+
+
+def average_grads(grads: Sequence[torch.Tensor], mesh) -> list:
+    """The mean over the ranks of ``mesh`` of each gradient, through one
+    all-reduce of a flattened buffer (gradients unchanged without one)."""
+    if mesh is None:
+        return list(grads)
+    flat = all_reduce_mean_(torch.cat([g.reshape(-1) for g in grads]), mesh)
+    return [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
+
+
+def average_metrics(metrics: dict, mesh) -> dict:
+    """Every metric's mean over the ranks, one all-reduce for all."""
+    if mesh is None:
+        return metrics
+    flat = all_reduce_mean_(torch.stack([v.double() for v in metrics.values()]), mesh)
+    return {k: f.to(v.dtype) for (k, v), f in zip(metrics.items(), flat)}
+
+
 # ---------------------------------------------------------------------------
 # loss terms
 # ---------------------------------------------------------------------------
@@ -104,7 +147,7 @@ def kl_term(h: SolverHyper, z, mu, logvar, reduce: str = "mean", beta=None):
     if h.kl_kind == "gaussian":
         return beta * kl, kl
     tc = ops.total_correlation(z, mu, logvar, h.dataset_size, reduce=reduce,
-                               impl=h.tc_impl, sampling=h.tc_sampling)
+                               impl=h.tc_impl, sampling=h.tc_sampling, mesh=h.mesh)
     return (beta - 1.0) * tc + kl, kl
 
 
@@ -173,7 +216,9 @@ class VAESolver:
     """The 'vae' solver and the shared solver surface: hyperparameters,
     state construction, the step and its finite check. ``build_step`` is
     the single-phase ELBO step (solvers/vae.py); the intro solvers
-    override it."""
+    override it. ``mesh`` (``parallel.make_mesh``) makes the step
+    data-parallel: every rank passes its rows of the global batch, and
+    the encoder's and decoder's BatchNorms get the data group."""
 
     kl_kind = "gaussian"
     name = "vae"
@@ -197,6 +242,7 @@ class VAESolver:
         tc_sampling: str = "stratified",
         kl_kind: Optional[str] = None,
         fuse_passes: bool = True,
+        mesh=None,
     ):
         self.dataset = dataset
         self.encoder = encoder
@@ -205,6 +251,9 @@ class VAESolver:
         self.optimizer_e = optimizer_e
         self.optimizer_d = optimizer_d
         self.fuse_passes = fuse_passes
+        group = mesh if mesh is not None and mesh.size > 1 else None
+        set_data_group(encoder, group)
+        set_data_group(decoder, group)
         self.hyper = SolverHyper(
             recon_loss_type=recon_loss_type,
             beta_kl=beta_kl,
@@ -218,6 +267,7 @@ class VAESolver:
             tc_sampling=tc_sampling,
             clip=clip,
             zdim=encoder.zdim,
+            mesh=group,
         )
         self._step_fn = self.build_step()
 
@@ -241,8 +291,10 @@ class VAESolver:
     def train_step(self, state: TrainState, batch: torch.Tensor,
                    noise: Optional[dict] = None):
         """One optimization step, in place. Returns (state, metrics), the
-        metrics as 0-d device tensors."""
-        return state, self._step_fn(state, batch, noise)
+        metrics as 0-d device tensors (their mean over the ranks under a
+        data group). ``batch`` is this rank's rows; ``noise``, when given,
+        holds the global batch's draws."""
+        return state, average_metrics(self._step_fn(state, batch, noise), self.hyper.mesh)
 
     def check_finite(self, metrics: dict) -> None:
         """Raise RuntimeError on a non-finite loss (reference

@@ -37,22 +37,26 @@ from intro_tc_vae_tpu_torch.solvers.base import (
     TrainState,
     VAESolver,
     apply_grads,
+    average_grads,
     clip_by_global_norm,
     decode,
-    draw_noise,
     encode,
     frozen,
     global_norm,
     kl_term,
     rec_term,
+    step_noise,
 )
 
 
 def build_intro_step(h: SolverHyper, encoder, decoder, paired: bool = True):
     """Build the two-phase step(state, batch, noise=None) -> metrics.
 
-    ``noise`` maps each of ``NOISE_KEYS`` to a [B, z] N(0, I) draw; when it
-    is None the step draws them from ``state.generator``.
+    ``noise`` maps each of ``NOISE_KEYS`` to a [B, z] N(0, I) draw of the
+    global batch; when it is None the step draws them from
+    ``state.generator``. Under a data group (``h.mesh``) the batch is
+    this rank's rows, the step takes its rows of the noise, and each
+    phase's gradients are averaged over the ranks before the clip.
     """
     enc_params = list(encoder.parameters())
     dec_params = list(decoder.parameters())
@@ -61,9 +65,7 @@ def build_intro_step(h: SolverHyper, encoder, decoder, paired: bool = True):
 
     def step(state: TrainState, batch: torch.Tensor,
              noise: Optional[dict] = None) -> dict:
-        b = batch.shape[0]
-        if noise is None:
-            noise = draw_noise(state.generator, b, h.zdim, batch.device)
+        noise = step_noise(h, state.generator, noise, batch.shape[0], batch.device)
         prior = noise["prior"]
 
         # ================= Phase E: update encoder =======================
@@ -113,7 +115,7 @@ def build_intro_step(h: SolverHyper, encoder, decoder, paired: bool = True):
 
             lossE = (h.scale * (loss_rec + lossE_real_kl)
                      + 0.25 * (expelbo_rec + expelbo_fake))
-            grads_e = torch.autograd.grad(lossE, enc_params)
+            grads_e = average_grads(torch.autograd.grad(lossE, enc_params), h.mesh)
         fc_grad_norm = global_norm([g for g, f in zip(grads_e, is_fc) if f])
         total_norm_e = None
         if h.clip:
@@ -160,7 +162,7 @@ def build_intro_step(h: SolverHyper, encoder, decoder, paired: bool = True):
                 + 0.5 * (lossD_rec_kl + lossD_fake_kl)
                 + 0.5 * (loss_rec_rec + loss_fake_rec)
             )
-            grads_d = torch.autograd.grad(lossD, dec_params)
+            grads_d = average_grads(torch.autograd.grad(lossD, dec_params), h.mesh)
         total_norm_d = None
         if h.clip:
             grads_d, total_norm_d = clip_by_global_norm(grads_d, h.clip)

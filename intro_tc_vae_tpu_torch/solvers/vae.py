@@ -5,7 +5,8 @@ forward, loss = scale * (beta_rec * rec_mean + kl_term), gradients for
 both networks, an optional global-norm clip over both, two Adam updates.
 The one reparameterization draw is the noise entry ``"real"``, drawn
 from ``state.generator`` unless it is passed in (the parity tests hand
-the JAX step's draw to the port).
+the JAX step's draw to the port). Under a data group the gradients and
+metrics are averaged over the ranks (``solvers/base.py``).
 """
 
 from __future__ import annotations
@@ -19,13 +20,14 @@ from intro_tc_vae_tpu_torch.solvers.base import (
     SolverHyper,
     TrainState,
     apply_grads,
+    average_grads,
     clip_by_global_norm,
     decode,
-    draw_noise,
     encode,
     global_norm,
     kl_term,
     rec_term,
+    step_noise,
 )
 
 VAE_NOISE_KEYS = ("real",)
@@ -40,9 +42,8 @@ def build_vae_step(h: SolverHyper, encoder, decoder):
 
     def step(state: TrainState, batch: torch.Tensor,
              noise: Optional[dict] = None) -> dict:
-        if noise is None:
-            noise = draw_noise(state.generator, batch.shape[0], h.zdim, batch.device,
-                               VAE_NOISE_KEYS)
+        noise = step_noise(h, state.generator, noise, batch.shape[0], batch.device,
+                           VAE_NOISE_KEYS)
         mu, logvar = encode(encoder, batch)
         z = ops.reparameterize(mu, logvar, noise["real"])
         rec = decode(decoder, z)
@@ -50,7 +51,8 @@ def build_vae_step(h: SolverHyper, encoder, decoder):
         loss_kl, kl_unscaled = kl_term(h, z, mu, logvar)
         loss = h.scale * (loss_rec + loss_kl)
 
-        grads = list(torch.autograd.grad(loss, enc_params + dec_params))
+        # one all-reduce for both networks' gradients under a data group
+        grads = average_grads(torch.autograd.grad(loss, enc_params + dec_params), h.mesh)
         fc_grad_norm = global_norm([g for g, p in zip(grads, enc_params)
                                     if id(p) in fc_ids])
         metrics = dict(

@@ -6,6 +6,14 @@ loop that checks every step's losses are finite. Runs on ``cuda:0``
 unless the caller passes another device; there is no CPU fallback (the
 tests pass ``torch.device("cpu")`` explicitly).
 
+Data parallel (JAX ``train.py:90-138``, ``:219``): started as R
+processes (``parallel/distributed.py`` says how), each rank trains on
+its card, ``cuda:(LOCAL_RANK % device_count)``, with its rows of every
+global batch of ``batch_size``; rank 0's weights are broadcast to all,
+and only rank 0 prints. ``data_parallel`` must be 0 or the number of
+processes: a process cannot be left out of the mesh, so where JAX
+shrinks the mesh to a size that divides the batch, the port raises.
+
 Options this port does not carry yet raise ``NotImplementedError``
 naming their ROADMAP item (``check_ported``). Checkpoints are not ported
 yet either: the loop says so and saves none.
@@ -25,6 +33,13 @@ from intro_tc_vae_tpu_torch.config import Config, validate_config
 from intro_tc_vae_tpu_torch.data import DeviceLoader, load_dataset
 from intro_tc_vae_tpu_torch.models import Decoder, Encoder, num_params, resolve_conv_impl
 from intro_tc_vae_tpu_torch.models.vae import SoftIntroVAE
+from intro_tc_vae_tpu_torch.parallel import (
+    batch_sharding,
+    initialize_distributed,
+    make_mesh,
+    replicate_state,
+)
+from intro_tc_vae_tpu_torch.parallel.distributed import process_count, rank_device
 from intro_tc_vae_tpu_torch.solvers import TrainState, make_optimizer, make_solver
 
 PRINT_EVERY = 5     # steps between progress lines
@@ -38,7 +53,6 @@ def check_ported(config: Config) -> None:
         (config.resume, "resume", "Queue 1 item 7"),
         (config.profile, "profile: true", "Queue 1 item 7"),
         (config.anomaly_detection, "anomaly_detection: true", "Queue 1 item 7"),
-        (config.data_parallel > 1, "data_parallel > 1", "Queue 1 item 9"),
         (config.model_parallel > 1, "model_parallel > 1", "Queue 1 item 9"),
         (config.scan_steps > 1, "scan_steps > 1", "Queue 1 item 6"),
         (config.remat, f"remat: {config.remat!r}", "Queue 1 item 6"),
@@ -52,15 +66,28 @@ def check_ported(config: Config) -> None:
             raise not_ported(what, item)
 
 
-def default_device() -> torch.device:
-    """cuda:0; raises when CUDA is absent (the port has no CPU fallback)."""
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "intro_tc_vae_tpu_torch trains on a CUDA device and none is "
-            "available; pass device=torch.device('cpu') explicitly to run "
-            "the plain PyTorch versions on the CPU"
+def data_axis_size(config: Config, world: int) -> int:
+    """The number of ranks the batch splits over (JAX train.py:116-138):
+    ``data_parallel``, or every process for 0."""
+    n = config.data_parallel or world
+    if n != world:
+        raise ValueError(
+            f"data_parallel={config.data_parallel} but {world} process(es) run: "
+            f"start {n} ranks (torchrun --nproc_per_node {n}, or RANK/WORLD_SIZE/"
+            f"LOCAL_RANK with ITCVAE_COORDINATOR_ADDRESS), or set data_parallel "
+            f"to 0 or {world}"
         )
-    return torch.device("cuda", 0)
+    if config.batch_size % n != 0:
+        raise ValueError(
+            f"batch_size {config.batch_size} not divisible by the data-axis "
+            f"size {n} (data_parallel={config.data_parallel} total devices / "
+            f"model_parallel=1)"
+        )
+    return n
+
+
+def _quiet(*args, **kwargs) -> None:
+    pass
 
 
 def train_soft_intro_vae(config: Config,
@@ -69,15 +96,23 @@ def train_soft_intro_vae(config: Config,
     whose ``history`` holds one record per step (losses and seconds)."""
     validate_config(config)
     check_ported(config)
-    device = default_device() if device is None else torch.device(device)
+    distributed = initialize_distributed()
+    n_data = data_axis_size(config, process_count())
+    device = rank_device() if device is None else torch.device(device)
+    mesh = make_mesh(n_data, device=device)
+    say = print if mesh.rank == 0 else _quiet
 
     # ----- seeding (reference train.py:38-44) -----
     seed = config.seed if config.seed != -1 else int(time.time()) % (2**31)
+    if distributed:  # one seed for all ranks: the noise generators must agree
+        box = [seed]
+        torch.distributed.broadcast_object_list(box, src=0)
+        seed = box[0]
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)  # the modules' default init draws from it
     if config.seed != -1:
-        print("random seed: ", seed)
+        say("random seed: ", seed)
 
     # ----- data + model -----
     train_set, image_size, channels, ch = load_dataset(
@@ -92,10 +127,11 @@ def train_soft_intro_vae(config: Config,
     )
     encoder = Encoder(**model_kwargs).to(device)
     decoder = Decoder(**model_kwargs).to(device)
-    print(f"{num_params(SoftIntroVAE(encoder, decoder)):,} Parameters")
+    say(f"{num_params(SoftIntroVAE(encoder, decoder)):,} Parameters")
 
     loader = DeviceLoader(train_set, batch_size=config.batch_size, device=device,
-                          shuffle=True, seed=seed)
+                          shuffle=True, seed=seed,
+                          rows=batch_sharding(mesh, config.batch_size))
     solver = make_solver(
         config.solver,
         dataset=train_set,
@@ -117,10 +153,11 @@ def train_soft_intro_vae(config: Config,
         # unpaired passes win is not measured on this card yet (ROADMAP
         # Queue 1 item 6)
         fuse_passes=config.fuse_passes is not False,
+        mesh=mesh,
     )
-    state = solver.init_state(seed)
-    print("checkpoints are not yet ported (ROADMAP Queue 1 item 7): "
-          "this run saves none")
+    state = replicate_state(solver.init_state(seed), mesh)
+    say("checkpoints are not yet ported (ROADMAP Queue 1 item 7): "
+        "this run saves none")
 
     # ----- epoch loop (reference train.py:194-242) -----
     encoder.train()
@@ -138,15 +175,15 @@ def train_soft_intro_vae(config: Config,
             t_prev = t_now
             state.history.append(record)
             if state.step % PRINT_EVERY == 0:
-                print(f"epoch {epoch} step {state.step}: "
+                say(f"epoch {epoch} step {state.step}: "
                       f"loss_enc {record['loss_enc']:.4f} loss_dec {record['loss_dec']:.4f} "
                       f"kl {record['loss_kl']:.4f} rec {record['loss_rec']:.4f}")
 
-    rate = images_per_second(state, config.batch_size)
+    rate = images_per_second(state, config.batch_size)  # the global batch
     if rate is not None:
-        print(f"training throughput: {rate:,.1f} img/s on {device_name(device)} "
-              f"(steps after the first {WARMUP_STEPS}; "
-              f"{len(state.history)} steps)")
+        say(f"training throughput: {rate:,.1f} img/s on {mesh.size} x "
+            f"{device_name(device)} (steps after the first {WARMUP_STEPS}; "
+            f"{len(state.history)} steps)")
     return state
 
 

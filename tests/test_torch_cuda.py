@@ -80,6 +80,50 @@ def test_kernels_match_plain(dev, b, zdim):
         dict.fromkeys(tc_cuda.KERNELS, 1)
 
 
+@pytest.mark.parametrize("world,rank", [(2, 1), (8, 5)])
+def test_gathered_kernels_match_plain(dev, world, rank):
+    """The data-parallel form: rank r's rows of z and logvar (global batch
+    128, Z 128, N 1280) against the whole mu bank, row_off = r * 128 / R;
+    values and the gradients of z, logvar and the whole bank, against the
+    plain gathered version in float64."""
+    gb = 128
+    z, mu, logvar = _inputs(gb, 128)
+    b = gb // world
+    rows = slice(rank * b, (rank + 1) * b)
+    before, calls = dict(tc_cuda.LAUNCHES), dict(tc_cuda.CALLS)
+    outs = []
+    for fn, dtype in ((tc_cuda.tc_logsumexp_cuda_gathered, torch.float32),
+                      (tc_cuda.tc_logsumexp_reference_gathered, torch.float64)):
+        args = [torch.tensor(a, device=dev, dtype=dtype, requires_grad=True)
+                for a in (z[rows], mu, logvar[rows])]
+        pm, qz = fn(*args, rank * b, 1280, gb)
+        ((qz - pm).sum() / gb + 0.5e-3 * pm.sum()).backward()
+        outs.append([pm.detach(), qz.detach()] + [a.grad for a in args])
+    torch.cuda.synchronize()
+    assert outs[0][3].shape == (gb, 128)  # dmu of the whole bank
+    for got, want in zip(*outs):
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    assert {k: tc_cuda.LAUNCHES[k] - before[k] for k in tc_cuda.KERNELS} == \
+        dict.fromkeys(tc_cuda.KERNELS, 1)
+    assert {k: tc_cuda.CALLS[k] - calls[k] for k in tc_cuda.CALLS} == \
+        {"tc_logsumexp": 0, "tc_logsumexp_gathered": 1}
+
+
+def test_gathered_wrapper_rejects_what_the_kernels_do_not_take(dev):
+    z, mu, logvar = (torch.tensor(a, device=dev) for a in _inputs(16, 8))
+    zl, lvl = z[8:].contiguous(), logvar[8:].contiguous()
+    gathered = tc_cuda.tc_logsumexp_cuda_gathered
+    with pytest.raises(ValueError):  # rows past the global batch
+        gathered(zl, mu, lvl, 9, 64, 16)
+    with pytest.raises(ValueError):  # a bank that is not the global batch
+        gathered(zl, mu[:12], lvl, 4, 64, 16)
+    with pytest.raises(ValueError):  # N below the global batch
+        gathered(zl, mu, lvl, 8, 12, 16)
+    with pytest.raises(ValueError):
+        gathered(zl, mu.cpu(), lvl, 8, 64, 16)
+
+
 def test_wrapper_rejects_what_the_kernels_do_not_take(dev):
     z, mu, logvar = (torch.tensor(a, device=dev) for a in _inputs(8, 16))
     with pytest.raises(TypeError):

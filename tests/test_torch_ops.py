@@ -16,6 +16,7 @@ import torch
 
 from intro_tc_vae_tpu import ops as jops
 from intro_tc_vae_tpu.ops import tc_pallas
+from intro_tc_vae_tpu.ops.tc import tc_logsumexp_blockwise as jtc_blockwise
 from intro_tc_vae_tpu_torch import ops as tops
 from intro_tc_vae_tpu_torch.ops import tc_cuda
 
@@ -108,6 +109,26 @@ def test_log_importance_weights_match_jax(b, n):
     np.testing.assert_array_equal(out.numpy(), ref)
 
 
+@pytest.mark.parametrize("row_off,n_rows,col_off,n_cols,gb,n", [
+    (0, 16, 0, 32, 32, 64), (16, 16, 0, 32, 32, 64), (24, 8, 8, 8, 32, 5000),
+    (112, 16, 0, 128, 128, 1280), (96, 32, 64, 32, 128, 1280),
+])
+def test_log_importance_weight_block_matches_jax(row_off, n_rows, col_off, n_cols, gb, n):
+    """Rows [row_off, +n_rows) and columns [col_off, +n_cols) of the
+    global [GB, GB] log-weight matrix, generated from global indices,
+    equal that block of the JAX matrix and the Pallas kernels' tile
+    generator with row_off (tc_pallas.py:91), bit for bit. The blocks
+    cover the special row M-1 = GB-2 and columns 0 and 1."""
+    out = tops.log_importance_weight_block(row_off, n_rows, gb, n, torch.device("cpu"),
+                                           col_off=col_off, n_cols=n_cols)
+    full = np.asarray(jops.log_importance_weight_matrix(gb, n))
+    np.testing.assert_array_equal(out.numpy(), full[row_off:row_off + n_rows,
+                                                    col_off:col_off + n_cols])
+    tile = tc_pallas._iw_block(0, col_off // n_cols, n_rows, n_cols,
+                               tc_pallas._iw_consts(gb, n), row_off=row_off)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(tile))
+
+
 def _tc_loss(pm, qz):
     """Weights the two outputs differently so both incoming gradients
     (g_m and g_j) are exercised, as tests/test_tc_impls.py does."""
@@ -138,10 +159,10 @@ def test_tc_kernel_path_matches_jax_pallas_interpret(rng, b, zdim, n):
         np.testing.assert_allclose(a.grad.numpy(), np.asarray(g), **TC)
 
 
-@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("impl", ["xla", "pallas", "blockwise"])
 @pytest.mark.parametrize("reduce", ["mean", "none"])
 def test_total_correlation_matches_jax_xla(rng, impl, reduce):
-    """Both port impls against JAX impl='xla', floor and clamp active."""
+    """Every port impl against JAX impl='xla', floor and clamp active."""
     b, zdim, n = 16, 8, 64
     z, mu, logvar = _tc_inputs(rng, b, zdim)
     assert _floor_and_clamp_active(z, mu, logvar)
@@ -160,8 +181,88 @@ def test_total_correlation_matches_jax_xla(rng, impl, reduce):
         assert_close_scaled(a.grad.numpy(), g)
 
 
-@pytest.mark.parametrize("kwargs", [dict(impl="blockwise"), dict(sampling="weighted")])
+@pytest.mark.parametrize("kwargs", [dict(sampling="weighted")])
 def test_total_correlation_unported_options_raise(rng, kwargs):
     z, mu, logvar = (_t(a) for a in _tc_inputs(rng, 8, 4))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tops.total_correlation(z, mu, logvar, 64, **kwargs)
+
+
+@pytest.mark.parametrize("block", [8, 16, 32, 12])
+def test_tc_blockwise_matches_jax_blockwise(rng, block):
+    """The port's streaming loop against the JAX one (tests/test_tc_impls.py
+    sizes: B=32, Z=16, N=5000; block 12 falls back to gcd(32, 12) = 4),
+    values and gradients, floor and clamp active."""
+    z, mu, logvar = _tc_inputs(rng, 32, 16)
+    assert _floor_and_clamp_active(z, mu, logvar)
+    n = 5000
+
+    def jfn(a, m, l):
+        return jtc_blockwise(a, m, l, n, block=block)
+
+    pm_ref, qz_ref = jfn(z, mu, logvar)
+    g_ref = jax.grad(lambda *a: _tc_loss(*jfn(*a)), argnums=(0, 1, 2))(z, mu, logvar)
+    args = [_t(a, grad=True) for a in (z, mu, logvar)]
+    pm, qz = tops.tc_logsumexp_blockwise(*args, n, block=block)
+    _tc_loss(pm, qz).backward()
+    np.testing.assert_allclose(pm.detach().numpy(), np.asarray(pm_ref), **TC)
+    np.testing.assert_allclose(qz.detach().numpy(), np.asarray(qz_ref), **TC)
+    for a, g in zip(args, g_ref):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(g), **TC)
+
+
+@pytest.mark.parametrize("world,rank", [(2, 0), (2, 1), (4, 3), (8, 5)])
+def test_tc_gathered_matches_jax_pallas_gathered_interpret(rng, world, rank):
+    """One rank's gathered TC (the port's kernel route, plain version on
+    CPU) against ``tc_logsumexp_pallas_gathered`` in interpret mode: the
+    rank's rows of z/logvar against the whole mu bank, rows weighted as
+    rows row_off.. of the global batch; values and the gradients of z,
+    logvar and the whole bank. B=32, Z=16, N=5000, floor and clamp on."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    z, mu, logvar = _tc_inputs(rng, 32, 16)
+    n, b = 5000, 32 // world
+    rows = slice(rank * b, (rank + 1) * b)
+    off = rank * b
+
+    def jfn(a, m, l):
+        return tc_pallas.tc_logsumexp_pallas_gathered(a, m, l, jnp.int32(off), n, 32)
+
+    with pltpu.force_tpu_interpret_mode():
+        pm_ref, qz_ref = jfn(z[rows], mu, logvar[rows])
+        g_ref = jax.grad(lambda *a: _tc_loss(*jfn(*a)), argnums=(0, 1, 2))(
+            z[rows], mu, logvar[rows])
+    args = [_t(a, grad=True) for a in (z[rows], mu, logvar[rows])]
+    pm, qz = tc_cuda.tc_logsumexp_cuda_gathered(*args, off, n, 32)
+    _tc_loss(pm, qz).backward()
+    assert args[1].grad.shape == (32, 16)  # the whole bank
+    np.testing.assert_allclose(pm.detach().numpy(), np.asarray(pm_ref), **TC)
+    np.testing.assert_allclose(qz.detach().numpy(), np.asarray(qz_ref), **TC)
+    for a, g in zip(args, g_ref):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(g), **TC)
+
+
+@pytest.mark.parametrize("world", [2, 4, 8])
+def test_tc_gathered_ranks_compose_to_one_device(rng, world):
+    """Concatenated over the ranks, the gathered plain version's outputs
+    equal the single-device plain version's, and its bank gradients
+    summed over the ranks equal the single-device dmu (float64, so only
+    the summation order differs)."""
+    z, mu, logvar = (a.astype(np.float64) for a in _tc_inputs(rng, 32, 16))
+    n, b = 5000, 32 // world
+    full = [_t(a, grad=True) for a in (z, mu, logvar)]
+    pm, qz = tc_cuda.tc_logsumexp_reference(*full, n)
+    (qz - pm).sum().backward()
+    outs, dmu = [], 0
+    for r in range(world):
+        rows = slice(r * b, (r + 1) * b)
+        args = [_t(a, grad=True) for a in (z[rows], mu, logvar[rows])]
+        pm_r, qz_r = tc_cuda.tc_logsumexp_reference_gathered(*args, r * b, n, 32)
+        (qz_r - pm_r).sum().backward()
+        outs.append(torch.stack([pm_r, qz_r], 1).detach())
+        np.testing.assert_allclose(args[0].grad.numpy(), full[0].grad[rows].numpy(),
+                                   rtol=1e-12, atol=1e-12)
+        dmu = dmu + args[1].grad
+    np.testing.assert_array_equal(torch.cat(outs).numpy(),
+                                  torch.stack([pm, qz], 1).detach().numpy())
+    np.testing.assert_allclose(dmu.numpy(), full[1].grad.numpy(), rtol=1e-10, atol=1e-10)

@@ -50,7 +50,7 @@ def test_cli_requires_cuda(monkeypatch):
 
 @pytest.mark.parametrize("update", [
     dict(use_tensorboard=True), dict(resume="auto"), dict(profile=True),
-    dict(anomaly_detection=True), dict(data_parallel=2), dict(model_parallel=2),
+    dict(anomaly_detection=True), dict(model_parallel=2),
     dict(scan_steps=2), dict(remat="pass"), dict(pack_predict=2),
     dict(device_cache="force"), dict(transfer_dtype="uint8"),
     dict(tc_sampling="weighted", tc_impl="xla"), dict(tile_rows=16),
