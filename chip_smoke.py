@@ -11,19 +11,27 @@ result line):
 
 1. Device: the card's name, and its name and power limit from nvidia-smi.
 2. Build: compiles the TC kernels (intro_tc_vae_tpu_torch/csrc/
-   tc_kernels.cu) and the 3x3 conv kernels (csrc/conv_kernels.cu) from the
-   checkout's sources, one nvcc each, started together, and loads them.
+   tc_kernels.cu), the general 3x3 conv kernels (csrc/conv_kernels.cu) and
+   the wgmma 3x3 conv kernels (csrc/conv_wgmma.cu) from the checkout's
+   sources, one nvcc each, started together, and loads them.
 3. Kernels vs plain, TF32 off.
    TC: tc_fwd, tc_bwd_dz and tc_bwd_dmu against the plain PyTorch version
    (evaluated in float64 on the same inputs) at B in {64, 512}, Z=128,
    N=1280, with the variance floor and the -50 clamp active; rtol 1e-4,
    atol 1e-5 on every element. Median times of each kernel and of the
    float32 plain version.
-   Conv: conv3x3_fwd (forward and dx), conv3x3_dw and conv3x3_dw_reduce at
-   the flagship's shapes, NCHW [128, 64, 64, 64] and [128, 64, 32, 32], in
-   fp32 and bf16, against the plain version in float64 on the same
-   (bf16-rounded) inputs; tolerances in ``conv_bound``. Median times at
-   bf16 beside cuDNN's forward, backward-data and backward-weight.
+   Conv: the wrappers conv3x3_fwd (forward and dx), conv3x3_dw (with
+   conv3x3_dw_reduce) and conv3x3_pack_w at the flagship's shapes, NCHW [128, 64, 64, 64] and
+   [128, 64, 32, 32], at [8, 64, 128, 128] (W = 128) and at the ragged
+   [3, 64, 20, 36]: the wgmma bodies (bf16, W in {32, 64, 128}) and the
+   general bodies (the same shapes forced, fp32, the ragged shape) each
+   against the plain version in float64 on the same (bf16-rounded) inputs;
+   tolerances in ``conv_bound``; conv3x3_dw twice, bit-equal. Median
+   times, wgmma and general bodies in turns beside cuDNN's forward,
+   backward-data and backward-weight, in bf16 and (general) fp32; the
+   kernels are named as ``conv_cuda.LAUNCHES`` counts them: conv3x3_fwd and
+   conv3x3_dw are the general bodies, conv3x3_fwd_wgmma and
+   conv3x3_dw_wgmma the wgmma ones.
    TC gathered (``phase_gathered_kernels``): the same three kernels in
    their data-parallel form, each rank's rows against the whole mu bank of
    a global batch of 128 for R in {2, 8}, against the plain gathered
@@ -64,6 +72,10 @@ result line):
 
 Each phase prints its seconds. Then one JSON line describing the kernels,
 and as the last line ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --device-time`` instead builds the kernels and
+profiles the flagship's four arms in turns (torch.profiler, 5 steady
+steps each, twice): device ms per step and the conv kernels' share.
 """
 
 import contextlib
@@ -80,14 +92,19 @@ VAE_SYNTHETIC = os.path.join(HERE, "configs", "vae_synthetic.json")
 TC_DSPRITES = os.path.join(HERE, "configs", "tc_dsprites.json")
 DP_CONFIG = os.path.join(HERE, "configs", "intro_tc_128_dp8.json")
 DP_RANKS, DP_TIMEOUT, DP_DEVICE = 2, 300, "cuda:0"  # the ranks share card 0
-LIBRARIES = ("tc_kernels", "conv_kernels")
+LIBRARIES = ("tc_kernels", "conv_kernels", "conv_wgmma")
+# conv3x3_fwd_wgmma and conv3x3_dw_wgmma: the bodies the flagship's bf16
+# shapes take; conv3x3_fwd and conv3x3_dw: those of every other shape and fp32
 SOURCE = {
     "tc_fwd": "intro_tc_vae_tpu_torch/csrc/tc_kernels.cu",
     "tc_bwd_dz": "intro_tc_vae_tpu_torch/csrc/tc_kernels.cu",
     "tc_bwd_dmu": "intro_tc_vae_tpu_torch/csrc/tc_kernels.cu",
+    "conv3x3_fwd_wgmma": "intro_tc_vae_tpu_torch/csrc/conv_wgmma.cu",
+    "conv3x3_dw_wgmma": "intro_tc_vae_tpu_torch/csrc/conv_wgmma.cu",
+    "conv3x3_dw_reduce": "intro_tc_vae_tpu_torch/csrc/conv_kernels.cu",
+    "conv3x3_pack_w": "intro_tc_vae_tpu_torch/csrc/conv_wgmma.cu",
     "conv3x3_fwd": "intro_tc_vae_tpu_torch/csrc/conv_kernels.cu",
     "conv3x3_dw": "intro_tc_vae_tpu_torch/csrc/conv_kernels.cu",
-    "conv3x3_dw_reduce": "intro_tc_vae_tpu_torch/csrc/conv_kernels.cu",
 }
 REPLACES = {
     "tc_fwd": "intro_tc_vae_tpu/ops/tc_pallas.py:109",
@@ -97,13 +114,27 @@ REPLACES = {
     "conv3x3_dw": "intro_tc_vae_tpu/ops/conv_pallas.py:253",
     # the TPU grid summed dW across its ordered steps inside _dwp_kernel
     "conv3x3_dw_reduce": "intro_tc_vae_tpu/ops/conv_pallas.py:253",
+    # the TPU kernels read weights packed by pack_weights (and _rot_t, :143)
+    "conv3x3_pack_w": "intro_tc_vae_tpu/ops/conv_pallas.py:112",
+    "conv3x3_fwd_wgmma": "intro_tc_vae_tpu/ops/conv_pallas.py:238",
+    "conv3x3_dw_wgmma": "intro_tc_vae_tpu/ops/conv_pallas.py:253",
 }
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense): bound_ms of
+# a kernel is max(bytes / HBM_BYTES_S, operations / peak of their type),
+# each input read once and each output written once.
+HBM_BYTES_S = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "fp32": 67e12, "fp64": 34e12}  # fp64 without tensor cores
 RTOL, ATOL = 1e-4, 1e-5
 Z_DIM, DATASET_SIZE, MAIN_B = 128, 1280, 64
 LR = 2e-4
 # the flagship's paired decoder calls: x [2B, 64, 64, 64] (res_in_64.conv1,
 # .conv2) and [2B, 64, 32, 32] (res_in_32.conv2)
 CONV_SHAPES = ((2 * MAIN_B, 64, 64, 64), (2 * MAIN_B, 64, 32, 32))
+CONV_WIDE = (8, 64, 128, 128)    # W = 128 (intro_tc_128_dp8's routed width): two boxes a row
+CONV_RAGGED = (3, 64, 20, 36)    # no multiple of the general kernels' 8 x 32 tile
+# the larger routed shape of vae_synthetic and tc_dsprites (fp32, batch 64,
+# one pass): what the general bodies are timed and bounded at
+CONV_FP32_PATH = (MAIN_B, 64, 64, 64)
 
 
 def die(msg: str) -> None:
@@ -132,7 +163,10 @@ def fp32_exact():
 
 def median_ms(fn, reps: int = 21, inner: int = 10) -> float:
     """Median over `reps` of the CUDA-event time of `inner` back-to-back
-    calls, per call, after a warm-up."""
+    calls, per call, after a warm-up. The calls are enqueued behind a few
+    milliseconds of device sleep, so that the events bracket device time
+    and not the host's enqueue (a wrapper takes 20-90 us of host time, more
+    than some of the kernels)."""
     import torch
 
     for _ in range(5):
@@ -142,6 +176,7 @@ def median_ms(fn, reps: int = 21, inner: int = 10) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(8_000_000)
         start.record()
         for _ in range(inner):
             fn()
@@ -149,6 +184,55 @@ def median_ms(fn, reps: int = 21, inner: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return sorted(times)[len(times) // 2]
+
+
+def bound(bytes_moved: float, ops: float, kind: str) -> dict:
+    """bound_ms and bound_by of a kernel from the bytes it must move and the
+    operations (of type `kind`) it does."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_S, ops / PEAK_OPS[kind]
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def tc_bounds(b: int, bank: int) -> dict:
+    """Bounds of the three TC kernels for b rows against a bank of `bank`:
+    z, mu, logvar in ([b + bank + b] x Z float32), the per-row statistics
+    between them (lm [b, Z] and lj [b] float64) and the outputs. Per (row,
+    bank row, latent) the forward takes about 8 operations (difference,
+    square, scale, two running logsumexp updates), each backward about 12;
+    they are done in float64 and counted at the data sheet's fp64 rate.
+    Either way the bound is under a microsecond, below what a launch
+    costs."""
+    pairs = b * bank * Z_DIM
+    rows, stats = (2 * b + bank) * Z_DIM * 4, (b * Z_DIM + b) * 8
+    return {"tc_fwd": bound(rows + stats + 2 * b * 4, 8 * pairs, "fp64"),
+            "tc_bwd_dz": bound(rows + stats + 2 * b * 4 + 2 * b * Z_DIM * 4, 12 * pairs, "fp64"),
+            "tc_bwd_dmu": bound(rows + stats + 2 * b * 4 + bank * Z_DIM * 4, 12 * pairs,
+                                "fp64")}
+
+
+def conv_bounds(shape, kind: str, n_parts: int) -> dict:
+    """Bounds of the conv kernels on activations `shape` of `kind` (bf16 or
+    fp32), the same for the wgmma and the general body of a wrapper: forward
+    and dW each do 2 x 64 x 576 operations a pixel; the forward reads x and
+    w and writes y; dW, the function, reads x and gy and writes the
+    [64, 64, 3, 3] weights' gradient. The n_parts fp32 partials between the
+    dW kernel and its reduce (n_parts x 147 KB written and read again: 18.9
+    MB each way at 128 partials, 37.7 MB at 256) are the implementation's
+    own traffic and part of no bound of conv3x3_dw: they are why it cannot
+    reach it. ``conv3x3_dw+reduce`` is the same function's bound for the
+    pair of kernels that computes it. conv3x3_dw_reduce alone, as a function
+    of the partials it is handed, reads them and writes dW; the pack reads
+    and writes the weights."""
+    n, c, h, w = shape
+    size = 2 if kind == "bf16" else 4
+    act, wts, part = n * c * h * w * size, 64 * 64 * 9 * size, n_parts * 576 * 64 * 4
+    ops = 2.0 * n * h * w * 64 * 576
+    return {"conv3x3_fwd": bound(2 * act + wts, ops, kind),
+            "conv3x3_dw": bound(2 * act + wts, ops, kind),
+            "conv3x3_dw+reduce": bound(2 * act + wts, ops, kind),
+            "conv3x3_dw_reduce": bound(part + wts, n_parts * 576 * 64, "fp32"),
+            "conv3x3_pack_w": bound(2 * wts, 0, kind)}
 
 
 def tc_inputs(b: int, seed: int):
@@ -361,13 +445,23 @@ def conv_bound(name: str, dtype, ref, s):
     """Largest |kernel - float64 plain| allowed per entry; s is the same
     conv of the operands' absolute values (each entry's sum of |terms|).
 
-    fp32: rtol 1e-4 / atol 1e-5 for y and dx (576 terms an entry). dW sums
-    524,288 products at [128, 64, 64, 64] in at most 2,304 sequential fp32
-    additions an entry (8 tiles x 256 pixels in a block, then 256
-    partials): the random-walk estimate sqrt(2304) * 2^-24 = 2.9e-6 s,
-    with a 7x margin, under the worst case 2304 * 2^-24 = 1.4e-4 s, gives
-    2e-5 s. bf16: one rounding of the fp32 sum, at most 2^-8 |ref| (bf16
-    keeps 8 significant bits), plus 1e-5 s for the fp32 sum before it."""
+    fp32 (general kernels): rtol 1e-4 / atol 1e-5 for y and dx (576 terms
+    an entry). dW sums 524,288 products at [128, 64, 64, 64] in at most
+    2,304 sequential fp32 additions an entry (8 tiles x 256 pixels in a
+    block, then 256 partials): the random-walk estimate sqrt(2304) * 2^-24
+    = 2.9e-6 s, with a 7x margin, under the worst case 2304 * 2^-24 =
+    1.4e-4 s, gives 2e-5 s.
+    bf16: one rounding of the fp32 sum, at most 2^-8 |ref| (bf16 keeps 8
+    significant bits), plus 1e-5 s for the fp32 sum before it. For y and
+    dx that sum has 576 terms. For dW the general kernel's chain is the
+    2,304 above (worst case 1.4e-4 s, random walk 2.9e-6 s). The wgmma
+    kernel's is shorter: a block adds one wgmma (a 16-term tree) per 16
+    pixels of its rows into the accumulator, 64 rows x 4 = 256 sequential
+    additions for the one unit a block walks at [128, 64, 64, 64] (at most
+    4 x that where a block walks 4 units), then at most 132 partials in
+    order: 388 sequential additions, random walk sqrt(388) * 2^-24 = 1.2e-6
+    s, which the same 1e-5 s holds with an 8x margin (worst case 2.3e-5
+    s); it is kept, not widened."""
     import torch
 
     if dtype == torch.bfloat16:
@@ -378,86 +472,191 @@ def conv_bound(name: str, dtype, ref, s):
 
 
 def phase_conv_kernels(card: str) -> dict:
-    """Phase 3, conv: each kernel against the float64 plain version at the
-    flagship's shapes in fp32 and bf16 (TF32 off); returns per-kernel
-    max_abs_err over all checks and the bf16 times at [128, 64, 64, 64]."""
+    """Phase 3, conv: the wgmma and the general bodies of each kernel
+    against the float64 plain version (TF32 off); returns per-kernel
+    max_abs_err over all checks, the times and the bounds."""
     import torch
 
     from intro_tc_vae_tpu_torch.ops import conv, conv_cuda
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
+    bf16, fp32 = torch.bfloat16, torch.float32
     errs = dict.fromkeys(conv_cuda.KERNELS, 0.0)
-    owner = {"y": "conv3x3_fwd", "dx": "conv3x3_fwd", "dw": "conv3x3_dw"}
-    for shape in CONV_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            x = (torch.randn(shape, device=dev, generator=gen) * 0.5).to(dtype)
-            w = (torch.randn((64, 64, 3, 3), device=dev, generator=gen) * 0.05).to(dtype)
-            gy = torch.randn(shape, device=dev, generator=gen).to(dtype)
-            got = {"y": conv_cuda.conv3x3_fwd(x, w),
-                   "dx": conv_cuda.conv3x3_fwd(gy, conv.rot_t(w).contiguous()),
-                   "dw": conv_cuda.conv3x3_dw(x, gy)}
-            torch.cuda.synchronize()
-            xd, wd, gd = x.double(), w.double(), gy.double()
-            want = {
-                "y": (conv.conv3x3_reference(xd, wd),
-                      conv.conv3x3_reference(xd.abs(), wd.abs())),
-                "dx": (conv.conv3x3_dx_reference(gd, wd),
-                       conv.conv3x3_dx_reference(gd.abs(), wd.abs())),
-                "dw": (conv.conv3x3_dw_reference(xd, gd),
-                       conv.conv3x3_dw_reference(xd.abs(), gd.abs())),
-            }
-            report = {}
-            for name, (ref, s) in want.items():
-                g = got[name]
-                if g.dtype != dtype or g.shape != ref.shape or not bool(torch.isfinite(g).all()):
-                    die(f"{owner[name]} {name} {shape} {dtype}: dtype {g.dtype}, shape "
-                        f"{tuple(g.shape)}, or non-finite values")
-                d = (g.double() - ref).abs()
-                ratio = float((d / conv_bound(name, dtype, ref, s)).max())
-                err = float(d.max())
-                report[name] = {"max_abs": err, "max_over_bound": ratio}
-                if ratio > 1.0:
-                    die(f"{owner[name]} {name} {shape} {dtype}: max |d| {err:.4g} is "
-                        f"{ratio:.3g} x the bound")
-                errs[owner[name]] = max(errs[owner[name]], err)
-                if name == "dw":
-                    errs["conv3x3_dw_reduce"] = max(errs["conv3x3_dw_reduce"], err)
-            print(f"phase 3: conv {list(shape)} {str(dtype)[6:]}: vs float64 plain "
-                  + json.dumps(report))
-    print("phase 3: conv kernels match the float64 plain version (fp32: rtol 1e-4 / atol "
-          "1e-5 for y and dx, 2e-5 S for dW; bf16: 2^-8 |ref| + 1e-5 S)")
 
-    # times at bf16, with the settings the main path runs under (torch's
-    # defaults: no cuDNN autotuning, TF32 irrelevant for bf16)
-    times = {}
-    for shape in CONV_SHAPES:
-        x = torch.randn(shape, device=dev, dtype=torch.bfloat16)
-        w = torch.randn((64, 64, 3, 3), device=dev, dtype=torch.bfloat16) * 0.05
-        gy = torch.randn(shape, device=dev, dtype=torch.bfloat16)
-        n, _, h, wd = shape
-        tiles = n * -(-h // conv_cuda.TILE_H) * -(-wd // conv_cuda.TILE_W)
-        n_parts = min(tiles, conv_cuda.MAX_PARTS)
-        part = torch.empty((n_parts, 576, 64), device=dev)
-        dw = torch.empty((64, 64, 3, 3), device=dev, dtype=torch.bfloat16)
-        launch = conv_cuda.launch
-        t = {
-            "conv3x3_fwd": median_ms(lambda: conv_cuda.conv3x3_fwd(x, w)),
-            "conv3x3_dw": median_ms(lambda: launch(
-                "conv3x3_dw", x, gy, part, n, h, wd, n_parts, 1, device=dev)),
-            "conv3x3_dw_reduce": median_ms(lambda: launch(
-                "conv3x3_dw_reduce", part, dw, n_parts, 1, device=dev)),
-            "cudnn_fwd": median_ms(lambda: torch.nn.functional.conv2d(x, w, padding=1)),
-            "cudnn_dgrad": median_ms(
-                lambda: torch.nn.grad.conv2d_input(shape, w, gy, padding=1)),
-            "cudnn_wgrad": median_ms(
-                lambda: torch.nn.grad.conv2d_weight(x, w.shape, gy, padding=1)),
+    # conv3x3_pack_w moves values: equal to the plain version bit for bit
+    w = (torch.randn((64, 64, 3, 3), device=dev, generator=gen) * 0.05).to(bf16)
+    for rot in (False, True):
+        if not torch.equal(conv_cuda.conv3x3_pack_w(w, rot), conv.pack_weights(w, rot)):
+            die(f"conv3x3_pack_w(rot={rot}) differs from the plain pack_weights")
+        if not torch.equal(conv.unpack_weights(conv.pack_weights(w, rot)),
+                           conv.rot_t(w) if rot else w):
+            die(f"pack_weights(rot={rot}) is not the weights it stands for")
+
+    # (shape, dtype, run the general body?)
+    checks = []
+    for shape in (*CONV_SHAPES, CONV_WIDE):
+        checks += [(shape, bf16, False), (shape, bf16, True)]
+    checks += [(shape, fp32, True) for shape in CONV_SHAPES]
+    checks += [(CONV_RAGGED, bf16, True), (CONV_RAGGED, fp32, True)]
+    for shape, dtype, general in checks:
+        fast = conv.fast_path(shape, dtype)
+        if fast != (dtype == bf16 and shape != CONV_RAGGED):
+            die(f"fast_path({shape}, {dtype}) is {fast}")
+        x = (torch.randn(shape, device=dev, generator=gen) * 0.5).to(dtype)
+        w = (torch.randn((64, 64, 3, 3), device=dev, generator=gen) * 0.05).to(dtype)
+        gy = torch.randn(shape, device=dev, generator=gen).to(dtype)
+        conv_cuda.reset_launch_counts()
+        got = {"y": conv_cuda.conv3x3_fwd(x, w, general=general),
+               "dx": conv_cuda.conv3x3_fwd(gy, w, rot=True, general=general),
+               "dw": conv_cuda.conv3x3_dw(x, gy, general=general)}
+        again = conv_cuda.conv3x3_dw(x, gy, general=general)
+        torch.cuda.synchronize()
+        suffix = "" if general else "_wgmma"
+        want_launches = {**dict.fromkeys(conv_cuda.KERNELS, 0), "conv3x3_fwd" + suffix: 2,
+                         "conv3x3_dw" + suffix: 2, "conv3x3_dw_reduce": 2,
+                         "conv3x3_pack_w": 0 if general else 2}
+        if conv_cuda.LAUNCHES != want_launches:
+            die(f"conv {shape} {dtype} general={general}: launches {conv_cuda.LAUNCHES}, "
+                f"expected {want_launches}")
+        if not torch.equal(got["dw"], again):
+            die(f"conv3x3_dw {shape} {dtype} general={general}: two runs differ")
+        owner = {"y": "conv3x3_fwd" + suffix, "dx": "conv3x3_fwd" + suffix,
+                 "dw": "conv3x3_dw" + suffix}
+        xd, wd, gd = x.double(), w.double(), gy.double()
+        want = {
+            "y": (conv.conv3x3_reference(xd, wd),
+                  conv.conv3x3_reference(xd.abs(), wd.abs())),
+            "dx": (conv.conv3x3_dx_reference(gd, wd),
+                   conv.conv3x3_dx_reference(gd.abs(), wd.abs())),
+            "dw": (conv.conv3x3_dw_reference(xd, gd),
+                   conv.conv3x3_dw_reference(xd.abs(), gd.abs())),
         }
-        print(f"phase 3: conv {list(shape)} bf16 median ms per call "
-              + json.dumps({k: round(v, 5) for k, v in t.items()}) + f" on {card}")
-        if shape == CONV_SHAPES[0]:
-            times = t
-    return {"errs": errs, "times": times}
+        report = {}
+        for name, (ref, s) in want.items():
+            g = got[name]
+            if g.dtype != dtype or g.shape != ref.shape or not bool(torch.isfinite(g).all()):
+                die(f"{owner[name]} {name} {shape} {dtype}: dtype {g.dtype}, shape "
+                    f"{tuple(g.shape)}, or non-finite values")
+            d = (g.double() - ref).abs()
+            ratio = float((d / conv_bound(name, dtype, ref, s)).max())
+            err = float(d.max())
+            report[name] = {"max_abs": err, "max_over_bound": ratio}
+            if ratio > 1.0:
+                die(f"{owner[name]} {name} {shape} {dtype}: max |d| {err:.4g} is "
+                    f"{ratio:.3g} x the bound")
+            errs[owner[name]] = max(errs[owner[name]], err)
+            if name == "dw":
+                errs["conv3x3_dw_reduce"] = max(errs["conv3x3_dw_reduce"], err)
+        print(f"phase 3: conv {list(shape)} {str(dtype)[6:]} "
+              f"{'general' if general else 'wgmma'} bodies: vs float64 plain "
+              + json.dumps(report) + "; dW bit-equal in two runs")
+    print("phase 3: conv kernels match the float64 plain version (fp32: rtol 1e-4 / atol "
+          "1e-5 for y and dx, 2e-5 S for dW; bf16: 2^-8 |ref| + 1e-5 S); conv3x3_pack_w "
+          "equals the plain version")
+
+    # times, with the settings the main path runs under (torch's defaults:
+    # no cuDNN autotuning); wgmma and general bodies in turns, two rounds.
+    # The kernels line takes the wgmma bodies, the reduce and the pack at
+    # the flagship's bf16 [128, 64, 64, 64] and the general bodies at the
+    # fp32 shape phase 6 launches them at, each with that shape's bounds
+    times, bounds = {}, {}
+    for shape, dtype in [(sh, bf16) for sh in (*CONV_SHAPES, CONV_WIDE)] + \
+                        [(sh, fp32) for sh in (*CONV_SHAPES, CONV_FP32_PATH)]:
+        x = torch.randn(shape, device=dev, dtype=dtype)
+        w = torch.randn((64, 64, 3, 3), device=dev, dtype=dtype) * 0.05
+        gy = torch.randn(shape, device=dev, dtype=dtype)
+        y = torch.empty_like(x)
+        n, _, h, wd = shape
+        kind, code = ("fp32", 0) if dtype == fp32 else ("bf16", 1)
+        launch = conv_cuda.launch
+        dw = torch.empty((64, 64, 3, 3), device=dev, dtype=dtype)
+        fns = {}
+        if dtype == bf16:
+            _, n_parts, rc = conv_cuda.dw_parts(shape, dtype, dev)
+            part = torch.empty((n_parts, 576, 64), device=dev)
+            wp = conv_cuda.conv3x3_pack_w(w)
+            fns.update({
+                "conv3x3_fwd_wgmma": lambda: launch("conv3x3_fwd_wgmma", x, wp, y, n, h, wd, rc,
+                                                    n_parts, device=dev),
+                "conv3x3_dw_wgmma": lambda: launch("conv3x3_dw_wgmma", x, gy, part, n, h, wd, rc,
+                                                   n_parts, device=dev),
+                "conv3x3_dw_reduce": lambda: launch("conv3x3_dw_reduce", part, dw, n_parts, 1,
+                                                    device=dev),
+                "conv3x3_pack_w": lambda: conv_cuda.conv3x3_pack_w(w),
+                "plain_dw_reduce": lambda: part.sum(0).view(9, 64, 64).permute(
+                    2, 1, 0).reshape(64, 64, 3, 3).to(dtype),
+                "plain_pack_w": lambda: conv.pack_weights(w, False),
+            })
+        _, g_parts, _ = conv_cuda.dw_parts(shape, dtype, dev, general=True)
+        g_part = torch.empty((g_parts, 576, 64), device=dev)
+        fns.update({
+            "conv3x3_fwd": lambda: launch("conv3x3_fwd", x, w, y, n, h, wd, code, device=dev),
+            "conv3x3_dw": lambda: launch("conv3x3_dw", x, gy, g_part, n, h, wd, g_parts,
+                                         code, device=dev),
+            "conv3x3_dw_reduce_general": lambda: launch("conv3x3_dw_reduce", g_part, dw,
+                                                        g_parts, code, device=dev),
+            "cudnn_fwd": lambda: torch.nn.functional.conv2d(x, w, padding=1),
+            "cudnn_dgrad": lambda: torch.nn.grad.conv2d_input(shape, w, gy, padding=1),
+            "cudnn_wgrad": lambda: torch.nn.grad.conv2d_weight(x, w.shape, gy, padding=1),
+        })
+        rounds = [{k: median_ms(f, reps=11) for k, f in order}
+                  for order in (list(fns.items()), list(fns.items())[::-1])]
+        t = {k: (rounds[0][k] + rounds[1][k]) / 2 for k in fns}
+        print(f"phase 3: conv {list(shape)} {kind} median ms per call, mean of two "
+              "rounds in turns " + json.dumps({k: round(v, 5) for k, v in t.items()})
+              + "; the rounds " + json.dumps({k: [round(r[k], 5) for r in rounds] for k in fns})
+              + f" on {card}")
+        b = conv_bounds(shape, kind, n_parts if dtype == bf16 else g_parts)
+        pair = ("conv3x3_dw_wgmma", "conv3x3_dw_reduce") if dtype == bf16 else \
+            ("conv3x3_dw", "conv3x3_dw_reduce_general")
+        fwd = "conv3x3_fwd_wgmma" if dtype == bf16 else "conv3x3_fwd"
+        both = t[pair[0]] + t[pair[1]]
+        print(f"phase 3: conv {list(shape)} {kind} bounds (each input read once, each output "
+              "written once; the fp32 partials between dW and its reduce count in neither) "
+              + json.dumps({k: round(v["bound_ms"], 5) for k, v in b.items()})
+              + "; share of the bound reached: "
+              + json.dumps({fwd: round(b["conv3x3_fwd"]["bound_ms"] / t[fwd], 3),
+                            pair[0]: round(b["conv3x3_dw"]["bound_ms"] / t[pair[0]], 3),
+                            pair[0] + " + reduce":
+                                round(b["conv3x3_dw+reduce"]["bound_ms"] / both, 3)})
+              + f"; against cuDNN: {fwd} / cudnn_fwd {t[fwd] / t['cudnn_fwd']:.3f}, "
+              f"({pair[0]} + reduce) / cudnn_wgrad {both / t['cudnn_wgrad']:.3f}")
+        if (shape, dtype) == (CONV_SHAPES[0], bf16):
+            for k in ("conv3x3_fwd_wgmma", "conv3x3_dw_wgmma", "conv3x3_dw_reduce",
+                      "conv3x3_pack_w"):
+                times[k] = {"ms": t[k]}
+                bounds[k] = b[k.replace("_wgmma", "")]
+            times["conv3x3_fwd_wgmma"].update(plain_ms=t["cudnn_fwd"], library_ms=t["cudnn_fwd"])
+            times["conv3x3_dw_wgmma"].update(plain_ms=t["cudnn_wgrad"],
+                                             library_ms=t["cudnn_wgrad"])
+            times["conv3x3_dw_reduce"].update(plain_ms=t["plain_dw_reduce"], library_ms=None)
+            times["conv3x3_pack_w"].update(plain_ms=t["plain_pack_w"], library_ms=None)
+        if (shape, dtype) == (CONV_FP32_PATH, fp32):
+            times["conv3x3_fwd"] = {"ms": t["conv3x3_fwd"], "plain_ms": t["cudnn_fwd"],
+                                    "library_ms": t["cudnn_fwd"]}
+            times["conv3x3_dw"] = {"ms": t["conv3x3_dw"], "plain_ms": t["cudnn_wgrad"],
+                                   "library_ms": t["cudnn_wgrad"]}
+            bounds["conv3x3_fwd"], bounds["conv3x3_dw"] = b["conv3x3_fwd"], b["conv3x3_dw"]
+
+    # host time of one wrapper call (enqueue only), at the main shape
+    x = torch.randn(CONV_SHAPES[0], device=dev, dtype=bf16)
+    w = torch.randn((64, 64, 3, 3), device=dev, dtype=bf16) * 0.05
+    host = {}
+    for name, fn in (("fwd_wgmma", lambda: conv_cuda.conv3x3_fwd(x, w)),
+                     ("fwd_general", lambda: conv_cuda.conv3x3_fwd(x, w, general=True)),
+                     ("dw_wgmma", lambda: conv_cuda.conv3x3_dw(x, x)),
+                     ("dw_general", lambda: conv_cuda.conv3x3_dw(x, x, general=True))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        host[name] = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+    print("phase 3: conv wrappers, host microseconds per call (enqueue only; fwd_wgmma is "
+          "the pack and the forward, three tensor maps; dw is the kernel and the reduce) "
+          + json.dumps({k: round(v, 1) for k, v in host.items()}))
+    return {"errs": errs, "times": times, "bounds": bounds, "host_us": host}
 
 
 def all_launches() -> dict:
@@ -482,19 +681,24 @@ def expected_intro_launches(tc_impl: str, conv_impl: str) -> tuple:
     tc_bwd_dz and tc_bwd_dmu once: 3 and 2.
     Conv: the decoder routes 3 convs (res_in_32.conv2, res_in_64.conv1,
     .conv2); the encoder none. Each phase makes 2 paired decoder calls.
-    Every routed conv launches conv3x3_fwd for its forward ('pallas' only)
+    Every routed conv calls conv3x3_fwd for its forward ('pallas' only)
     and for its dx (both: its input depends on the decoder's fc weights or
-    on z). conv3x3_dw and conv3x3_dw_reduce launch once per routed conv of
-    the network the phase updates: 0 in phase E (the decoder is frozen),
-    2 calls x 3 = 6 in phase D."""
+    on z). conv3x3_dw with conv3x3_dw_reduce is called once per routed conv
+    of the network the phase updates: 0 in phase E (the decoder is frozen),
+    2 calls x 3 = 6 in phase D. The flagship is bf16 and its routed shapes
+    ([128, 64, 64, 64], [128, 64, 32, 32]) take the wgmma bodies: every
+    call launches conv3x3_fwd_wgmma or conv3x3_dw_wgmma, none the general
+    conv3x3_fwd or conv3x3_dw, and every forward packs its weights first:
+    conv3x3_pack_w as often."""
     tc = 1 if tc_impl == "pallas" else 0
     fwd_per_conv = {"pallas": 2, "hybrid": 1, "xla": 0}[conv_impl]
     dw = 6 if conv_impl != "xla" else 0
 
     def counts(tc_calls, fwd, dws):
         return {"tc_fwd": tc_calls * tc, "tc_bwd_dz": tc_calls * tc,
-                "tc_bwd_dmu": tc_calls * tc, "conv3x3_fwd": fwd,
-                "conv3x3_dw": dws, "conv3x3_dw_reduce": dws}
+                "tc_bwd_dmu": tc_calls * tc, "conv3x3_fwd": 0, "conv3x3_dw": 0,
+                "conv3x3_fwd_wgmma": fwd, "conv3x3_dw_wgmma": dws,
+                "conv3x3_dw_reduce": dws, "conv3x3_pack_w": fwd}
 
     per_phase = 2 * 3 * fwd_per_conv
     return counts(3, per_phase, 0), counts(2, per_phase, dw)
@@ -750,7 +954,7 @@ def phase_decoder(dev, kw: dict, init: dict) -> None:
                                              for n, (a, b) in top}))
 
 
-def phase_other_paths(card: str) -> None:
+def phase_other_paths(card: str) -> dict:
     """Phase 6: vae_synthetic.json and tc_dsprites.json (synthetic data)
     through the CLI, 20 steps each with conv_impl 'pallas' and 'xla'.
 
@@ -759,10 +963,12 @@ def phase_other_paths(card: str) -> None:
     res_in_32 and res_in_64 have the conv arch's 3x3 convs), each launching
     conv3x3_fwd for its forward and for its dx, and conv3x3_dw and
     conv3x3_dw_reduce once: 6, 3, 3. tc: one TC call, differentiated: 1 of
-    each TC kernel."""
+    each TC kernel. Both run in fp32, so every conv launch is a general
+    body (no wgmma body, no conv3x3_pack_w). Returns the launches of the
+    vae_synthetic run."""
     from intro_tc_vae_tpu_torch.train import images_per_second
 
-    rates = {}
+    rates, general = {}, {}
     for label, config, update, tc in (
             ("vae_synthetic (res, vae)", VAE_SYNTHETIC, {}, 0),
             ("tc_dsprites (conv, tc)", TC_DSPRITES,
@@ -772,17 +978,21 @@ def phase_other_paths(card: str) -> None:
             k = 1 if conv_impl == "pallas" else 0
             want = {"tc_fwd": 20 * tc, "tc_bwd_dz": 20 * tc, "tc_bwd_dmu": 20 * tc,
                     "conv3x3_fwd": 20 * 6 * k, "conv3x3_dw": 20 * 3 * k,
-                    "conv3x3_dw_reduce": 20 * 3 * k}
+                    "conv3x3_dw_reduce": 20 * 3 * k, "conv3x3_pack_w": 0,
+                    "conv3x3_fwd_wgmma": 0, "conv3x3_dw_wgmma": 0}
             reset_all_launches()
             state = run_cli(config, {**update, "conv_impl": conv_impl, "num_epochs": 1}, run)
             counts = all_launches()
             if counts != want:
                 die(f"{run}: launches {counts}, expected {want}")
+            if config == VAE_SYNTHETIC and conv_impl == "pallas":
+                general = counts
             rates[run] = images_per_second(state, MAIN_B)
             print(f"phase 6: {run}: 20 steps, finite losses (last loss "
                   f"{state.history[-1]['loss_enc']:.6g}), launches {counts}")
     print("phase 6: img/s (steps 4-20, fp32, batch 64) "
           + json.dumps({k: round(v, 1) for k, v in rates.items()}) + f" on {card}")
+    return general
 
 
 DP_UPDATE = {"dataset": "synthetic128", "data_parallel": DP_RANKS, "tc_impl": "pallas",
@@ -943,8 +1153,10 @@ def phase_data_parallel(card: str) -> dict:
 
     cfg = load_config(DP_CONFIG, DP_UPDATE)
     steps = len(load_dataset(cfg.dataset)[0]) // cfg.batch_size  # 1280 / 128
-    want_e = {"tc_fwd": 3, "tc_bwd_dz": 3, "tc_bwd_dmu": 3, "conv3x3_fwd": 0,
-              "conv3x3_dw": 0, "conv3x3_dw_reduce": 0,
+    from intro_tc_vae_tpu_torch.ops import conv_cuda
+
+    want_e = {"tc_fwd": 3, "tc_bwd_dz": 3, "tc_bwd_dmu": 3,
+              **dict.fromkeys(conv_cuda.KERNELS, 0),
               "calls.tc_logsumexp": 0, "calls.tc_logsumexp_gathered": 3}
     want_d = {**want_e, "tc_fwd": 2, "tc_bwd_dz": 2, "tc_bwd_dmu": 2,
               "calls.tc_logsumexp_gathered": 2}
@@ -1020,7 +1232,10 @@ def phase_data_parallel(card: str) -> dict:
     return {"gathered_calls": calls, "rate": rate}
 
 
-def main() -> None:
+def start():
+    """Phases 1 and 2: the device, then every kernel library built from
+    this checkout's sources, one nvcc each, started together. Returns
+    (device name, nvidia-smi's name and power limit)."""
     try:
         import torch
     except ImportError:
@@ -1059,9 +1274,73 @@ def main() -> None:
     with ThreadPoolExecutor(len(LIBRARIES)) as pool:
         built = list(pool.map(cuda_build.build, LIBRARIES))
     tc_cuda._library()
-    conv_cuda._library()
+    for lib in conv_cuda.LIBRARIES:
+        conv_cuda._library(lib)
     for path, seconds in built:
         print(f"phase 2: built {os.path.relpath(path, HERE)} in {seconds:.1f} s")
+    return name, card
+
+
+def device_time(card: str) -> None:
+    """``--device-time``: device ms per step of the flagship's four arms,
+    torch.profiler over 5 steady steps (after 14) of each 20-step run
+    through the CLI, the arms in turns and then in reverse; a step ends at
+    the decoder's optimizer call. Prints each run's total and the conv
+    kernels' and cuDNN's share of it."""
+    import torch
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    active = 5
+    results = {}
+    for tc_impl, conv_impl in INTRO_ARMS + INTRO_ARMS[::-1]:
+        arm = f"tc {tc_impl}, conv {conv_impl}"
+        update = {"dataset": "synthetic", "tc_impl": tc_impl, "conv_impl": conv_impl,
+                  "num_epochs": 1, "use_tensorboard": False}
+        calls = {"n": 0}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=13, warmup=1, active=active)) as prof:
+            def hook(optimizer, args, kwargs):
+                calls["n"] += 1
+                if calls["n"] % 2 == 0:  # encoder's call, then the decoder's: one step
+                    torch.cuda.synchronize()
+                    prof.step()
+
+            handle = register_optimizer_step_pre_hook(hook)
+            try:
+                run_cli(FLAGSHIP, update, arm)
+            finally:
+                handle.remove()
+        # kernels and device copies only: a step's annotation spans the step
+        by_name = {e.key: e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation and not e.key.startswith("ProfilerStep")}
+        total = sum(by_name.values())
+        if total <= 0:
+            die(f"--device-time: {arm}: the profiler recorded no device time")
+
+        def share(*words):
+            return sum(v for k, v in by_name.items()
+                       if any(w in k.lower() for w in words)) / active / 1e3
+
+        rec = {"device_ms_per_step": total / active / 1e3,
+               "conv3x3_fwd": share("conv3x3_fwd"), "conv3x3_dw": share("conv3x3_dw"),
+               "conv3x3_pack_w": share("conv3x3_pack_w"),
+               "cudnn_and_layout": share("cudnn", "nchwtonhwc", "nhwctonchw", "xmma",
+                                         "implicit_gemm", "convolve", "wgrad", "dgrad")}
+        results.setdefault(arm, []).append(rec)
+        print(f"device time: {arm}: " + json.dumps({k: round(v, 3) for k, v in rec.items()})
+              + f" on {card}", flush=True)
+    print("device time: ms/step (1st, 2nd run) "
+          + json.dumps({arm: [round(r["device_ms_per_step"], 2) for r in runs]
+                        for arm, runs in results.items()}) + f" on {card}")
+
+
+def main() -> None:
+    import torch
+
+    name, card = start()
+    from intro_tc_vae_tpu_torch.ops import conv_cuda, tc_cuda
 
     def timed(label, fn, *args):
         t0 = time.perf_counter()
@@ -1076,29 +1355,56 @@ def main() -> None:
     main_path = timed("phase 4", phase_main_path, card)
     with fp32_exact():  # same conv algorithms in both runs
         timed("phase 5", phase_in_context, torch.device("cuda", 0))
-    timed("phase 6", phase_other_paths, card)
+    other = timed("phase 6", phase_other_paths, card)
     dp = timed("phase 7", phase_data_parallel, card)
 
-    times = {**kernels["times"], **conv["times"]}
-    plain = {"tc_fwd": "plain_fwd", "tc_bwd_dz": "plain_bwd", "tc_bwd_dmu": "plain_bwd",
-             "conv3x3_fwd": "cudnn_fwd", "conv3x3_dw": "cudnn_wgrad",
-             "conv3x3_dw_reduce": "cudnn_wgrad"}
+    # What the wgmma wrappers' extra host time comes to in a flagship step:
+    # their calls per step (conv pallas arm) times the host microseconds a
+    # call takes over the general body's, beside the wall time of a step.
+    per_step = {k: v / 20 for k, v in main_path["launches"].items()}
+    host = conv["host_us"]
+    extra_ms = (per_step["conv3x3_fwd_wgmma"] * (host["fwd_wgmma"] - host["fwd_general"])
+                + per_step["conv3x3_dw_wgmma"] * (host["dw_wgmma"] - host["dw_general"])) / 1e3
+    wall_ms = MAIN_B / main_path["rates"]["tc pallas, conv pallas"] * 1e3
+    print(f"host: the wgmma wrappers' tensor maps and pack launch add {extra_ms:.3f} ms of "
+          f"host time to a flagship step of {wall_ms:.1f} ms on the host clock "
+          f"({100 * extra_ms / wall_ms:.2f} %)")
+
+    # plain_ms: the plain PyTorch version of the same function; library_ms:
+    # one PyTorch call that computes it (cuDNN for the convs), where there
+    # is one. The TC backward kernels share the plain backward; the conv
+    # forward's and dW's plain version is the library call. launches: the
+    # flagship's (tc pallas, conv pallas) run of phase 4; the general conv
+    # bodies, which that run does not reach, from phase 6's vae_synthetic.
+    tc_plain = {"tc_fwd": "plain_fwd", "tc_bwd_dz": "plain_bwd", "tc_bwd_dmu": "plain_bwd"}
+    times = {**{k: {"ms": kernels["times"][k], "plain_ms": kernels["times"][p],
+                    "library_ms": None} for k, p in tc_plain.items()}, **conv["times"]}
     errs = {**kernels["errs"], **conv["errs"]}
+    bounds = {**tc_bounds(MAIN_B, MAIN_B), **conv["bounds"]}
+    launches = {**main_path["launches"],
+                "conv3x3_fwd": other["conv3x3_fwd"], "conv3x3_dw": other["conv3x3_dw"]}
     entries = [
         {"name": k, "route": "cuda", "source": SOURCE[k], "replaces": REPLACES[k],
-         "launches": main_path["launches"][k], "max_abs_err": errs[k],
-         "ms": times[k], "plain_ms": times[plain[k]]}
+         "launches": launches[k], "max_abs_err": errs[k],
+         "ms": times[k]["ms"], "plain_ms": times[k]["plain_ms"], **bounds[k],
+         "library_ms": times[k]["library_ms"]}
         for k in (*tc_cuda.KERNELS, *conv_cuda.KERNELS)
     ]
     # the three TC kernels launched in their gathered form, counted by the
     # gathered calls of phase 7's ranks; ms: one gathered call's three
-    # kernels against the plain gathered forward and backward (phase 3)
+    # kernels against the plain gathered forward and backward (phase 3);
+    # bound: the three kernels' bounds at 64 rows against a bank of 128
+    g_bounds = tc_bounds(MAIN_B, 2 * MAIN_B).values()
     entries.append({"name": "tc_logsumexp_gathered", "route": "cuda",
                     "source": SOURCE["tc_fwd"],
                     "replaces": "intro_tc_vae_tpu/ops/tc_pallas.py:381",
                     "launches": dp["gathered_calls"], "max_abs_err": gathered["err"],
                     "ms": gathered["times"]["kernels"],
-                    "plain_ms": gathered["times"]["plain"]})
+                    "plain_ms": gathered["times"]["plain"],
+                    "bound_ms": sum(b["bound_ms"] for b in g_bounds),
+                    "bound_by": "bytes" if all(b["bound_by"] == "bytes" for b in g_bounds)
+                    else "operations",
+                    "library_ms": None})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
@@ -1109,5 +1415,8 @@ if __name__ == "__main__":
         dp_rank(sys.argv[2])
         sys.exit(0)
     t0 = time.perf_counter()
+    if sys.argv[1:2] == ["--device-time"]:  # a profile, not the smoke test
+        device_time(start()[1])
+        sys.exit(0)
     main()
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)

@@ -40,7 +40,10 @@
 // the tensor cores. This version is bound by its instruction rate instead:
 // wmma (mma.sync) fragments loaded from shared memory each k-step, no
 // asynchronous copies, two barriers per tap, and 8 KB of weights re-staged
-// per tap from L2. wgmma with TMA-fed rings is later work.
+// per tap from L2. These are the general bodies: they take any [N, 64, H, W]
+// in fp32 or bf16. bf16 with W in {32, 64, 128} runs the wgmma kernels of
+// conv_wgmma.cu instead (ops/conv.py::fast_path), which share
+// conv3x3_dw_reduce with these.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -13,15 +13,24 @@ translated to the port's layouts (activations NCHW, weights OIHW):
 * ``conv3x3_reference`` and its input and weight gradients are the plain
   PyTorch versions of the CUDA kernels (``ops/conv_cuda.py``). The kernel
   wrappers take them for CPU tensors.
+* ``fast_path``, ``tile_schedule``, ``pack_weights`` and
+  ``conv3x3_dw_partials_reference`` are the host side of the wgmma kernels
+  (``csrc/conv_wgmma.cu``): which shapes they take, which units of the
+  activations each persistent block walks, the weight layout they read,
+  and the split dW sum in the order the card takes it.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
 CHANNELS = 64
 WEIGHT_SHAPE = (CHANNELS, CHANNELS, 3, 3)
+FAST_WIDTHS = (32, 64, 128)  # the widths the wgmma kernels take
+MIN_ROWS = 8                 # fewest rows of a unit, where H allows
 
 
 def _pick_tile(h: int) -> int:
@@ -60,3 +69,93 @@ def conv3x3_dw_reference(x: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
     """dL/dw [64, 64, 3, 3] of y = conv3x3(x, w) for the incoming gy, in
     x's dtype."""
     return torch.nn.grad.conv2d_weight(x, WEIGHT_SHAPE, gy, padding=1)
+
+
+def fast_path(shape, dtype) -> bool:
+    """Whether the wgmma kernels take activations of this shape and dtype:
+    bf16 [N, 64, H, W] with W in FAST_WIDTHS (one or two 64-pixel boxes a
+    row, or one 32-pixel box; TMA needs the row stride a multiple of 16
+    bytes). Everything else the wrappers accept runs the general kernels."""
+    if dtype != torch.bfloat16 or len(shape) != 4:
+        return False
+    n, c, h, w = shape
+    return (c == CHANNELS and n >= 1 and h >= 1 and w in FAST_WIDTHS
+            and n * c * h * w < 2**31)
+
+
+def box_width(w: int) -> int:
+    """Pixels of a row in one shared-memory slab."""
+    return min(w, 64)
+
+
+@functools.lru_cache(maxsize=None)
+def row_chunk(n: int, h: int, w: int, n_blocks: int) -> int:
+    """Rows per unit: the divisor rc of H (at least MIN_ROWS where H has
+    one) for which the busiest of n_blocks blocks loads the fewest rows,
+    ceil(units / blocks) * (rc + 2) with the one-row halo above and below;
+    the larger rc on a tie."""
+    cols = w // box_width(w)
+    best, best_cost = h, None
+    for rc in range(h, 0, -1):
+        if h % rc or (rc < MIN_ROWS and rc != h):
+            continue
+        units = n * (h // rc) * cols
+        blocks = min(n_blocks, units)
+        cost = -(-units // blocks) * (rc + 2)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = rc, cost
+    return best
+
+
+def launch_plan(n: int, h: int, w: int, n_blocks: int) -> tuple:
+    """(rows per unit, persistent blocks) the launchers are given."""
+    rc = row_chunk(n, h, w, n_blocks)
+    return rc, min(n_blocks, n * (h // rc) * (w // box_width(w)))
+
+
+def tile_schedule(n: int, h: int, w: int, n_blocks: int) -> list:
+    """The units each persistent block walks, in order: block b of P =
+    min(n_blocks, units) takes units b, b + P, ...; a unit is (image, first
+    row, first column, rows, columns), numbered columns fastest, then row
+    chunks, then images. The kernels' ``unit_of`` is the same arithmetic."""
+    (rc, blocks), bw = launch_plan(n, h, w, n_blocks), box_width(w)
+    cols, chunks = w // bw, h // rc
+    units = n * chunks * cols
+    return [[(u // (cols * chunks), (u // cols) % chunks * rc, u % cols * bw, rc, bw)
+             for u in range(b, units, blocks)] for b in range(blocks)]
+
+
+def pack_weights(w: torch.Tensor, rot: bool) -> torch.Tensor:
+    """OIHW weights as [9, 64, 64] = [tap ky*3+kx][co][ci], the layout the
+    wgmma forward reads; with ``rot`` the weights of the input-gradient
+    conv, rot_t(w), in the same pass: out[t, co, ci] = w[ci, co, 8 - t]."""
+    if rot:
+        return w.permute(2, 3, 1, 0).flip(0, 1).reshape(9, CHANNELS, CHANNELS).contiguous()
+    return w.permute(2, 3, 0, 1).reshape(9, CHANNELS, CHANNELS).contiguous()
+
+
+def unpack_weights(wp: torch.Tensor) -> torch.Tensor:
+    """The OIHW weights a packed [9, 64, 64] tensor stands for."""
+    return wp.reshape(3, 3, CHANNELS, CHANNELS).permute(2, 3, 0, 1)
+
+
+def conv3x3_dw_partials_reference(x: torch.Tensor, gy: torch.Tensor, n_blocks: int):
+    """dW by the split the wgmma kernel takes: block b sums its units of
+    ``tile_schedule`` into an fp32 partial [64, 64, 3, 3]; the partials
+    are then added in order b = 0..P-1 and rounded once to x's dtype.
+    Returns (dw, partials [P, 64, 64, 3, 3])."""
+    n, _, h, w = x.shape
+    xp = F.pad(x.float(), (1, 1, 1, 1))
+    g = gy.float()
+    parts = []
+    for units in tile_schedule(n, h, w, n_blocks):
+        part = torch.zeros(WEIGHT_SHAPE, dtype=torch.float32, device=x.device)
+        for i, h0, w0, rows, cols in units:
+            part += torch.nn.grad.conv2d_weight(
+                xp[i:i + 1, :, h0:h0 + rows + 2, w0:w0 + cols + 2], WEIGHT_SHAPE,
+                g[i:i + 1, :, h0:h0 + rows, w0:w0 + cols])
+        parts.append(part)
+    total = torch.zeros(WEIGHT_SHAPE, dtype=torch.float32, device=x.device)
+    for part in parts:
+        total += part
+    return total.to(x.dtype), torch.stack(parts)

@@ -1,14 +1,24 @@
 """3x3 conv, 64 -> 64 channels: CUDA kernels, autograd, the two routings.
 
 Counterpart of ``intro_tc_vae_tpu/ops/conv_pallas.py::conv3x3_pallas`` and
-``conv3x3_hybrid``, NCHW activations and OIHW weights. Three kernels in
-``csrc/conv_kernels.cu`` (design notes there):
+``conv3x3_hybrid``, NCHW activations and OIHW weights. The kernels
+(design notes in the sources):
 
 * ``conv3x3_fwd``       replaces ``_fwd_kernel`` (conv_pallas.py:238): the
   forward, and the input gradient on ``rot_t(w)``, as ``_vjp_bwd`` does;
 * ``conv3x3_dw``        replaces ``_dwp_kernel`` (conv_pallas.py:253):
   fp32 partial weight gradients over slices of the pixels;
-* ``conv3x3_dw_reduce`` sums those partials in a fixed order.
+* ``conv3x3_dw_reduce`` sums those partials in a fixed order;
+* ``conv3x3_pack_w``    packs the weights for the wgmma forward.
+
+``conv3x3_fwd`` and ``conv3x3_dw`` each have two bodies, chosen by the
+shape rule ``ops/conv.py::fast_path`` and by nothing else: bf16 with W in
+{32, 64, 128} runs the wgmma kernels of ``csrc/conv_wgmma.cu`` (TMA-fed
+rings, persistent blocks); every other shape and all of fp32 runs the
+general kernels of ``csrc/conv_kernels.cu``. ``LAUNCHES`` counts each
+body under its own name: ``conv3x3_fwd`` and ``conv3x3_dw`` are the
+general kernels, ``conv3x3_fwd_wgmma`` and ``conv3x3_dw_wgmma`` the wgmma
+ones; a wrapper's calls are the sum of its two.
 
 ``conv3x3_pallas(x, w)`` runs all three; ``conv3x3_hybrid(x, w)`` runs the
 stock forward (cuDNN, as the JAX version runs XLA's conv) and the kernel
@@ -38,25 +48,42 @@ from intro_tc_vae_tpu_torch.ops.conv import (
     WEIGHT_SHAPE,
     conv3x3_dw_reference,
     conv3x3_reference,
+    fast_path,
+    launch_plan,
+    pack_weights,
     rot_t,
 )
 from intro_tc_vae_tpu_torch.ops.cuda_build import load_library
 
-KERNELS = ("conv3x3_fwd", "conv3x3_dw", "conv3x3_dw_reduce")
+KERNELS = ("conv3x3_fwd", "conv3x3_dw", "conv3x3_dw_reduce", "conv3x3_pack_w",
+           "conv3x3_fwd_wgmma", "conv3x3_dw_wgmma")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 MAX_PARTS = 256          # fp32 partials of dW: 256 x 147 KB of scratch at most
-TILE_H, TILE_W = 8, 32   # the kernels' output tile (csrc/conv_kernels.cu)
+TILE_H, TILE_W = 8, 32   # the general kernels' output tile (csrc/conv_kernels.cu)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# library -> entry point -> argument types (device and stream last)
 _ARGTYPES = {
-    # x, w, y, N, H, W, dtype, device, stream
-    "conv3x3_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, gy, part, N, H, W, n_parts, dtype, device, stream
-    "conv3x3_dw": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # part, dw, n_parts, dtype, device, stream
-    "conv3x3_dw_reduce": [_P, _P, _I, _I, _I, _P],
+    "conv_kernels": {
+        # x, w, y, N, H, W, dtype, device, stream
+        "conv3x3_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # x, gy, part, N, H, W, n_parts, dtype, device, stream
+        "conv3x3_dw": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # part, dw, n_parts, dtype, device, stream
+        "conv3x3_dw_reduce": [_P, _P, _I, _I, _I, _P],
+    },
+    "conv_wgmma": {
+        # x, wp, y, N, H, W, rc, n_blocks, device, stream
+        "conv3x3_fwd_wgmma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # x, gy, part, N, H, W, rc, n_blocks, device, stream
+        "conv3x3_dw_wgmma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # w, out, rot, device, stream
+        "conv3x3_pack_w": [_P, _P, _I, _I, _P],
+    },
 }
+LIBRARIES = tuple(_ARGTYPES)
+_LIBRARY_OF = {entry: lib for lib, entries in _ARGTYPES.items() for entry in entries}
 
 
 def reset_launch_counts() -> None:
@@ -65,25 +92,31 @@ def reset_launch_counts() -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = load_library("conv_kernels")
-    for name, argtypes in _ARGTYPES.items():
-        fn = getattr(lib, f"{name}_launch")
+def _library(name: str = "conv_kernels") -> ctypes.CDLL:
+    lib = load_library(name)
+    for entry, argtypes in _ARGTYPES[name].items():
+        fn = getattr(lib, f"{entry}_launch")
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
 
 
-def launch(name: str, *args, device: torch.device) -> None:
-    """Enqueue kernel `name` on the current stream; tensors are passed as
-    their data pointers, then the device and the stream are appended."""
-    fn = getattr(_library(), f"{name}_launch")
+def launch(entry: str, *args, device: torch.device) -> None:
+    """Enqueue entry point `entry` on the current stream; tensors are passed
+    as their data pointers, then the device and the stream are appended."""
+    fn = getattr(_library(_LIBRARY_OF[entry]), f"{entry}_launch")
     stream = torch.cuda.current_stream(device).cuda_stream
     err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
              device.index, stream)
     if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
-    LAUNCHES[name] += 1
+        raise RuntimeError(f"CUDA kernel {entry} failed to launch: cudaError {err}")
+    LAUNCHES[entry] += 1
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Persistent blocks of the wgmma kernels: one per multiprocessor."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(**tensors) -> torch.Tensor:
@@ -108,33 +141,76 @@ def _check(**tensors) -> torch.Tensor:
     return first
 
 
-def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def conv3x3_pack_w(w: torch.Tensor, rot: bool = False) -> torch.Tensor:
+    """bf16 OIHW weights as the [9, 64, 64] the wgmma forward reads
+    (``ops/conv.py::pack_weights``); ``rot``: those of the input gradient."""
+    if w.device.type == "cpu":
+        return pack_weights(w, rot)
+    _check(w=w)
+    if w.dtype != torch.bfloat16:
+        raise TypeError(f"w is {w.dtype}; the wgmma kernels take bfloat16")
+    return _pack_w(w, rot)
+
+
+def _pack_w(w: torch.Tensor, rot: bool) -> torch.Tensor:
+    out = torch.empty((9, CHANNELS, CHANNELS), device=w.device, dtype=w.dtype)
+    launch("conv3x3_pack_w", w, out, int(rot), device=w.device)
+    return out
+
+
+def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor, rot: bool = False,
+                general: bool = False) -> torch.Tensor:
     """y = conv3x3(x, w) in x's dtype (fp32 accumulation): x [N, 64, H, W],
-    w [64, 64, 3, 3]. Also the input gradient: conv3x3_fwd(gy, rot_t(w))."""
+    w [64, 64, 3, 3]. ``rot``: the conv with rot_t(w) instead, which is the
+    input gradient, conv3x3_fwd(gy, w, rot=True); the wgmma body packs
+    those weights straight from w, the general one forms the tensor.
+    ``general`` runs the general kernel on a shape the wgmma one takes."""
     if x.device.type == "cpu" and w.device.type == "cpu":
-        return conv3x3_reference(x, w)
+        return conv3x3_reference(x, rot_t(w) if rot else w)
     _check(x=x, w=w)
     n, _, h, wd = x.shape
     y = torch.empty_like(x)
+    if fast_path(x.shape, x.dtype) and not general:
+        rc, blocks = launch_plan(n, h, wd, sm_count(x.device))
+        launch("conv3x3_fwd_wgmma", x, _pack_w(w, rot), y, n, h, wd, rc, blocks,
+               device=x.device)
+        return y
+    if rot:
+        w = rot_t(w).contiguous()
     launch("conv3x3_fwd", x, w, y, n, h, wd, _DTYPE_CODE[x.dtype], device=x.device)
     return y
 
 
-def conv3x3_dw(x: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
+def dw_parts(shape, dtype, device, general: bool = False) -> tuple:
+    """(wgmma body?, n_parts, rows per unit) of conv3x3_dw on this shape:
+    one partial per persistent block on the fast path, else one per tile up
+    to MAX_PARTS."""
+    n, _, h, wd = shape
+    if fast_path(shape, dtype) and not general:
+        rc, blocks = launch_plan(n, h, wd, sm_count(device))
+        return True, blocks, rc
+    tiles = n * -(-h // TILE_H) * -(-wd // TILE_W)
+    return False, min(tiles, MAX_PARTS), 0
+
+
+def conv3x3_dw(x: torch.Tensor, gy: torch.Tensor, general: bool = False) -> torch.Tensor:
     """dW [64, 64, 3, 3] of y = conv3x3(x, w) for the incoming gy, summed
-    in fp32 and rounded once to x's dtype."""
+    in fp32 and rounded once to x's dtype. ``general`` runs the general
+    kernel on a shape the wgmma one takes."""
     if x.device.type == "cpu" and gy.device.type == "cpu":
         return conv3x3_dw_reference(x, gy)
     _check(x=x, gy=gy)
     if gy.shape != x.shape:
         raise ValueError(f"gy {tuple(gy.shape)} must have x's shape {tuple(x.shape)}")
     n, _, h, wd = x.shape
-    tiles = n * -(-h // TILE_H) * -(-wd // TILE_W)
-    n_parts = min(tiles, MAX_PARTS)
+    fast, n_parts, rc = dw_parts(x.shape, x.dtype, x.device, general)
     part = torch.empty((n_parts, 9 * CHANNELS, CHANNELS), device=x.device,
                        dtype=torch.float32)
     code = _DTYPE_CODE[x.dtype]
-    launch("conv3x3_dw", x, gy, part, n, h, wd, n_parts, code, device=x.device)
+    if fast:
+        launch("conv3x3_dw_wgmma", x, gy, part, n, h, wd, rc, n_parts, device=x.device)
+    else:
+        launch("conv3x3_dw", x, gy, part, n, h, wd, n_parts, code, device=x.device)
     dw = torch.empty(WEIGHT_SHAPE, device=x.device, dtype=x.dtype)
     launch("conv3x3_dw_reduce", part, dw, n_parts, code, device=x.device)
     return dw
@@ -154,7 +230,7 @@ class _Conv3x3(torch.autograd.Function):
         gy = gy.to(x.dtype).contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = conv3x3_fwd(gy, rot_t(w).contiguous())
+            dx = conv3x3_fwd(gy, w, rot=True)
         if ctx.needs_input_grad[1]:
             dw = conv3x3_dw(x, gy).to(w.dtype)
         return dx, dw, None

@@ -177,9 +177,9 @@ def kernel_calls(monkeypatch):
     calls = {"fwd": 0, "dw": 0}
     fwd, dw = conv_cuda.conv3x3_fwd, conv_cuda.conv3x3_dw
 
-    def count_fwd(x, w):
+    def count_fwd(x, w, rot=False):
         calls["fwd"] += 1
-        return fwd(x, w)
+        return fwd(x, w, rot)
 
     def count_dw(x, gy):
         calls["dw"] += 1

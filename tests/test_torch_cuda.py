@@ -20,7 +20,10 @@ output entry):
   at the flagship shape: 8 tiles x 256 pixels in a block, then 256
   partials; the random-walk estimate sqrt(2304) * 2^-24 = 2.9e-6 S, with a
   7x margin, under the worst-case 2304 * 2^-24 = 1.4e-4 S).
-* bf16: one rounding of the fp32 sum, |d| <= 2^-8 |ref| + 1e-5 S.
+* bf16: one rounding of the fp32 sum, |d| <= 2^-8 |ref| + 1e-5 S. bf16
+  with W in {32, 64, 128} runs the wgmma kernels (csrc/conv_wgmma.cu),
+  whose dW chain is shorter (one addition per 16 pixels of a block's rows,
+  then at most 132 partials): the same bound holds them.
 """
 
 import numpy as np
@@ -138,6 +141,17 @@ def test_wrapper_rejects_what_the_kernels_do_not_take(dev):
         tc_cuda.tc_logsumexp_cuda(z, mu, logvar, 4)
 
 
+def conv_counts(fwd, dw, wgmma):
+    """conv_cuda.LAUNCHES after `fwd` conv3x3_fwd and `dw` conv3x3_dw calls,
+    all by the wgmma bodies (each forward packs its weights first) or all by
+    the general ones."""
+    zero = dict.fromkeys(conv_cuda.KERNELS, 0)
+    if wgmma:
+        return {**zero, "conv3x3_fwd_wgmma": fwd, "conv3x3_pack_w": fwd,
+                "conv3x3_dw_wgmma": dw, "conv3x3_dw_reduce": dw}
+    return {**zero, "conv3x3_fwd": fwd, "conv3x3_dw": dw, "conv3x3_dw_reduce": dw}
+
+
 def conv_bound(name, dtype, ref, s):
     if dtype == torch.bfloat16:
         return 2.0 ** -8 * ref.abs() + 1e-5 * s
@@ -156,11 +170,11 @@ def test_conv_kernels_match_plain(dev, shape, dtype):
     gy = torch.randn(shape, device=dev, generator=g).to(dtype)
     before = dict(conv_cuda.LAUNCHES)
     got = {"y": conv_cuda.conv3x3_fwd(x, w),
-           "dx": conv_cuda.conv3x3_fwd(gy, conv.rot_t(w).contiguous()),
+           "dx": conv_cuda.conv3x3_fwd(gy, w, rot=True),
            "dw": conv_cuda.conv3x3_dw(x, gy)}
     torch.cuda.synchronize()
     assert {k: conv_cuda.LAUNCHES[k] - before[k] for k in conv_cuda.KERNELS} == \
-        {"conv3x3_fwd": 2, "conv3x3_dw": 1, "conv3x3_dw_reduce": 1}
+        conv_counts(2, 1, wgmma=conv.fast_path(shape, dtype))
     xd, wd, gd = x.double(), w.double(), gy.double()
     want = {"y": (conv.conv3x3_reference(xd, wd), conv.conv3x3_reference(xd.abs(), wd.abs())),
             "dx": (conv.conv3x3_dx_reference(gd, wd),
@@ -227,9 +241,9 @@ def test_intro_step_launches_no_weight_gradient_in_phase_e(dev):
     state.opt_e.register_step_pre_hook(lambda *a: at_opt_e.append(dict(conv_cuda.LAUNCHES)))
     solver.train_step(state, batch)
     torch.cuda.synchronize()
-    assert at_opt_e == [{"conv3x3_fwd": 24, "conv3x3_dw": 4, "conv3x3_dw_reduce": 4}]
-    assert conv_cuda.LAUNCHES == {"conv3x3_fwd": 44, "conv3x3_dw": 12,
-                                  "conv3x3_dw_reduce": 12}
+    # fp32: the general kernels, which read the weights as they are
+    assert at_opt_e == [conv_counts(24, 4, wgmma=False)]
+    assert conv_cuda.LAUNCHES == conv_counts(44, 12, wgmma=False)
 
 
 def test_conv_wrapper_rejects_what_the_kernels_do_not_take(dev):
@@ -247,3 +261,101 @@ def test_conv_wrapper_rejects_what_the_kernels_do_not_take(dev):
         conv_cuda.conv3x3_fwd(x, w.cpu())
     with pytest.raises(ValueError):
         conv_cuda.conv3x3_dw(x, x[:1])
+
+
+WGMMA_SHAPES = [(4, 64, 16, 32), (3, 64, 24, 64), (2, 64, 16, 128), (128, 64, 32, 32)]
+
+
+@pytest.mark.parametrize("shape", WGMMA_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("general", [False, True], ids=["wgmma", "general"])
+def test_wgmma_conv_kernels_match_plain(dev, shape, general):
+    """bf16 at W in {32, 64, 128}: the wgmma bodies, and the general bodies
+    forced on the same inputs, against the float64 plain version; the
+    packed weights equal the plain pack bit for bit; two dW runs are
+    bit-equal (ordered partial sums, no atomics)."""
+    dtype = torch.bfloat16
+    assert conv.fast_path(shape, dtype)
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = (torch.randn(shape, device=dev, generator=g) * 0.5).to(dtype)
+    w = (torch.randn((64, 64, 3, 3), device=dev, generator=g) * 0.05).to(dtype)
+    gy = torch.randn(shape, device=dev, generator=g).to(dtype)
+    for rot in (False, True):
+        assert torch.equal(conv_cuda.conv3x3_pack_w(w, rot), conv.pack_weights(w, rot))
+    conv_cuda.reset_launch_counts()
+    got = {"y": conv_cuda.conv3x3_fwd(x, w, general=general),
+           "dx": conv_cuda.conv3x3_fwd(gy, w, rot=True, general=general),
+           "dw": conv_cuda.conv3x3_dw(x, gy, general=general)}
+    again = conv_cuda.conv3x3_dw(x, gy, general=general)
+    torch.cuda.synchronize()
+    assert conv_cuda.LAUNCHES == conv_counts(2, 2, wgmma=not general)
+    assert torch.equal(got["dw"], again)
+    xd, wd, gd = x.double(), w.double(), gy.double()
+    want = {"y": (conv.conv3x3_reference(xd, wd), conv.conv3x3_reference(xd.abs(), wd.abs())),
+            "dx": (conv.conv3x3_dx_reference(gd, wd),
+                   conv.conv3x3_dx_reference(gd.abs(), wd.abs())),
+            "dw": (conv.conv3x3_dw_reference(xd, gd),
+                   conv.conv3x3_dw_reference(xd.abs(), gd.abs()))}
+    for name, (ref, s) in want.items():
+        assert got[name].dtype == dtype and got[name].shape == ref.shape
+        d = (got[name].double() - ref).abs()
+        assert bool((d <= conv_bound(name, dtype, ref, s)).all()), \
+            f"{name}: max |d| {float(d.max()):.3g}"
+
+
+def test_wgmma_dw_equals_its_partials_reference(dev):
+    """The kernel's per-block fp32 partials against the plain split sum by
+    the same schedule (ops/conv.py::conv3x3_dw_partials_reference): each
+    partial within 1e-5 S of it (the order inside a block differs), and the
+    rounded dW within the bf16 bound."""
+    shape, dtype = (6, 64, 16, 64), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = (torch.randn(shape, device=dev, generator=g) * 0.5).to(dtype)
+    gy = torch.randn(shape, device=dev, generator=g).to(dtype)
+    want_dw, want_parts = conv.conv3x3_dw_partials_reference(x, gy, conv_cuda.sm_count(dev))
+    fast, n_parts, rc = conv_cuda.dw_parts(shape, dtype, dev)
+    assert fast and n_parts == want_parts.shape[0]
+    part = torch.empty((n_parts, 576, 64), device=dev)
+    conv_cuda.launch("conv3x3_dw_wgmma", x, gy, part, *(shape[0], *shape[2:]), rc, n_parts,
+                     device=dev)
+    torch.cuda.synchronize()
+    # part[p][tap * 64 + ci][co] -> [p][co][ci][ky][kx]
+    got_parts = part.view(n_parts, 3, 3, 64, 64).permute(0, 4, 3, 1, 2)
+    s = conv.conv3x3_dw_reference(x.double().abs(), gy.double().abs())
+    assert bool(((got_parts.double() - want_parts.double()).abs() <= 1e-5 * s).all())
+    d = (conv_cuda.conv3x3_dw(x, gy).double() - want_dw.double()).abs()
+    assert bool((d <= 2.0 ** -7 * want_dw.double().abs() + 1e-5 * s).all())  # two roundings
+
+
+@pytest.mark.parametrize("impl", ["pallas", "hybrid"])
+def test_wgmma_conv_autograd_matches_plain(dev, impl):
+    """Autograd through both routings in bf16 at the flagship's 32x32 block
+    (the wgmma bodies, by LAUNCHES) against F.conv2d's autograd in
+    float64 on the same bf16-rounded inputs; dW comes back in w's dtype
+    after one bf16 rounding."""
+    dtype = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(4)
+    x0 = (torch.randn((16, 64, 32, 32), device=dev, generator=g) * 0.5).to(dtype)
+    w0 = (torch.randn((64, 64, 3, 3), device=dev, generator=g) * 0.05).to(dtype)
+    cot = torch.randn((16, 64, 32, 32), device=dev, generator=g).to(dtype)
+    fn = conv_cuda.conv3x3_pallas if impl == "pallas" else conv_cuda.conv3x3_hybrid
+    conv_cuda.reset_launch_counts()
+    results = []
+    for f, dt in ((fn, dtype), (lambda a, b: F.conv2d(a, b, padding=1), torch.float64)):
+        x = x0.to(dt).clone().requires_grad_(True)
+        w = w0.to(dt).clone().requires_grad_(True)
+        y = f(x, w)
+        torch.autograd.backward(y, cot.to(dt))
+        results.append({"y": y.detach(), "dx": x.grad, "dw": w.grad})
+    fwd = 2 if impl == "pallas" else 1
+    assert conv_cuda.LAUNCHES == conv_counts(fwd, 1, wgmma=True)
+    xa, wa, ca = x0.double().abs(), w0.double().abs(), cot.double().abs()
+    sums = {"y": conv.conv3x3_reference(xa, wa), "dx": conv.conv3x3_dx_reference(ca, wa),
+            "dw": conv.conv3x3_dw_reference(xa, ca)}
+    got, want = results
+    for name, s in sums.items():
+        if name == "y" and impl == "hybrid":
+            continue  # the stock forward
+        assert got[name].dtype == dtype
+        d = (got[name].double() - want[name]).abs()
+        assert bool((d <= conv_bound(name, dtype, want[name], s)).all()), \
+            f"{name}: max |d| {float(d.max()):.3g}"
