@@ -11,9 +11,10 @@ result line):
 
 1. Device: the card's name, and its name and power limit from nvidia-smi.
 2. Build: compiles the TC kernels (intro_tc_vae_tpu_torch/csrc/
-   tc_kernels.cu), the general 3x3 conv kernels (csrc/conv_kernels.cu) and
-   the wgmma 3x3 conv kernels (csrc/conv_wgmma.cu) from the checkout's
-   sources, one nvcc each, started together, and loads them.
+   tc_kernels.cu), the general 3x3 conv kernels (csrc/conv_kernels.cu), the
+   wgmma 3x3 conv kernels (csrc/conv_wgmma.cu) and the fp32 3x3 conv
+   kernels (csrc/conv_fp32.cu) from the checkout's sources, one nvcc each,
+   started together, and loads them.
 3. Kernels vs plain, TF32 off.
    TC: tc_fwd, tc_bwd_dz and tc_bwd_dmu against the plain PyTorch version
    (evaluated in float64 on the same inputs) at B in {64, 512}, Z=128,
@@ -22,16 +23,20 @@ result line):
    float32 plain version.
    Conv: the wrappers conv3x3_fwd (forward and dx), conv3x3_dw (with
    conv3x3_dw_reduce) and conv3x3_pack_w at the flagship's shapes, NCHW [128, 64, 64, 64] and
-   [128, 64, 32, 32], at [8, 64, 128, 128] (W = 128) and at the ragged
-   [3, 64, 20, 36]: the wgmma bodies (bf16, W in {32, 64, 128}) and the
-   general bodies (the same shapes forced, fp32, the ragged shape) each
-   against the plain version in float64 on the same (bf16-rounded) inputs;
-   tolerances in ``conv_bound``; conv3x3_dw twice, bit-equal. Median
-   times, wgmma and general bodies in turns beside cuDNN's forward,
-   backward-data and backward-weight, in bf16 and (general) fp32; the
-   kernels are named as ``conv_cuda.LAUNCHES`` counts them: conv3x3_fwd and
-   conv3x3_dw are the general bodies, conv3x3_fwd_wgmma and
-   conv3x3_dw_wgmma the wgmma ones.
+   [128, 64, 32, 32], at [8, 64, 128, 128] (W = 128), at the ragged
+   [3, 64, 20, 36] and, in fp32, at [64, 64, 64, 64] and [2, 64, 16, 6]
+   (rows that are no multiple of 16 bytes): the wgmma bodies (bf16, W in
+   {32, 64, 128}), the general bf16 bodies (the same shapes forced, the
+   ragged shape) and the fp32 bodies (every shape) each against the plain
+   version in float64 on the same (bf16-rounded) inputs; tolerances in
+   ``conv_bound``; conv3x3_dw twice, bit-equal. Median times, the bodies in
+   turns beside cuDNN's forward, backward-data and backward-weight, in
+   bf16 and fp32 (TF32 off), with each fp32 body's time over cuDNN's and
+   its share of the bound beside the targets (at or under cuDNN, at least
+   half the bound; printed, not enforced); the kernels are named as
+   ``conv_cuda.LAUNCHES`` counts them: conv3x3_fwd and conv3x3_dw are the
+   general bodies in bf16 and the fp32 bodies in fp32, conv3x3_fwd_wgmma
+   and conv3x3_dw_wgmma the wgmma ones.
    TC gathered (``phase_gathered_kernels``): the same three kernels in
    their data-parallel form, each rank's rows against the whole mu bank of
    a global batch of 128 for R in {2, 8}, against the plain gathered
@@ -61,7 +66,9 @@ result line):
    conv_impl 'pallas' and then 'xla': configs/vae_synthetic.json (res
    arch, vae solver, fp32) and configs/tc_dsprites.json on the synthetic
    dataset with tc_impl 'pallas' (conv arch, tc solver, fp32). Finite
-   losses, exact launch counts, img/s.
+   losses, exact launch counts, img/s. The CLI sets no TF32 flag: by
+   PyTorch's defaults (printed) the 'xla' arm's cuDNN convs run in TF32
+   while the 'pallas' arm's routed convs are true fp32.
 7. The data-parallel path (``phase_data_parallel``):
    configs/intro_tc_128_dp8.json at full width on 2 ranks, two processes
    of this script (``--dp-rank``) that share the one card over gloo and
@@ -74,8 +81,10 @@ Each phase prints its seconds. Then one JSON line describing the kernels,
 and as the last line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --device-time`` instead builds the kernels and
-profiles the flagship's four arms in turns (torch.profiler, 5 steady
-steps each, twice): device ms per step and the conv kernels' share.
+profiles the flagship's four arms, and then configs/vae_synthetic.json
+(fp32) with conv_impl 'pallas' and 'xla', in turns (torch.profiler, 5
+steady steps each, twice): device ms per step and the conv kernels' share,
+with the TF32 flags in effect.
 """
 
 import contextlib
@@ -92,9 +101,9 @@ VAE_SYNTHETIC = os.path.join(HERE, "configs", "vae_synthetic.json")
 TC_DSPRITES = os.path.join(HERE, "configs", "tc_dsprites.json")
 DP_CONFIG = os.path.join(HERE, "configs", "intro_tc_128_dp8.json")
 DP_RANKS, DP_TIMEOUT, DP_DEVICE = 2, 300, "cuda:0"  # the ranks share card 0
-LIBRARIES = ("tc_kernels", "conv_kernels", "conv_wgmma")
 # conv3x3_fwd_wgmma and conv3x3_dw_wgmma: the bodies the flagship's bf16
-# shapes take; conv3x3_fwd and conv3x3_dw: those of every other shape and fp32
+# shapes take; conv3x3_fwd and conv3x3_dw: in the kernels line the fp32 bodies
+# (phase 6's launches), whose bf16 namesakes are in csrc/conv_kernels.cu
 SOURCE = {
     "tc_fwd": "intro_tc_vae_tpu_torch/csrc/tc_kernels.cu",
     "tc_bwd_dz": "intro_tc_vae_tpu_torch/csrc/tc_kernels.cu",
@@ -103,8 +112,8 @@ SOURCE = {
     "conv3x3_dw_wgmma": "intro_tc_vae_tpu_torch/csrc/conv_wgmma.cu",
     "conv3x3_dw_reduce": "intro_tc_vae_tpu_torch/csrc/conv_kernels.cu",
     "conv3x3_pack_w": "intro_tc_vae_tpu_torch/csrc/conv_wgmma.cu",
-    "conv3x3_fwd": "intro_tc_vae_tpu_torch/csrc/conv_kernels.cu",
-    "conv3x3_dw": "intro_tc_vae_tpu_torch/csrc/conv_kernels.cu",
+    "conv3x3_fwd": "intro_tc_vae_tpu_torch/csrc/conv_fp32.cu",
+    "conv3x3_dw": "intro_tc_vae_tpu_torch/csrc/conv_fp32.cu",
 }
 REPLACES = {
     "tc_fwd": "intro_tc_vae_tpu/ops/tc_pallas.py:109",
@@ -131,15 +140,27 @@ LR = 2e-4
 # .conv2) and [2B, 64, 32, 32] (res_in_32.conv2)
 CONV_SHAPES = ((2 * MAIN_B, 64, 64, 64), (2 * MAIN_B, 64, 32, 32))
 CONV_WIDE = (8, 64, 128, 128)    # W = 128 (intro_tc_128_dp8's routed width): two boxes a row
-CONV_RAGGED = (3, 64, 20, 36)    # no multiple of the general kernels' 8 x 32 tile
+CONV_RAGGED = (3, 64, 20, 36)    # no multiple of any kernel's tile
+CONV_NARROW = (2, 64, 16, 6)     # the gate's narrow end: rows of 24 bytes
 # the larger routed shape of vae_synthetic and tc_dsprites (fp32, batch 64,
-# one pass): what the general bodies are timed and bounded at
+# one pass): what the fp32 bodies are timed and bounded at
 CONV_FP32_PATH = (MAIN_B, 64, 64, 64)
 
 
 def die(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def tf32_flags() -> str:
+    """The precision of fp32 work as the process is set now."""
+    import torch
+
+    cudnn, matmul = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    return (f"torch.backends.cudnn.allow_tf32 = {cudnn}, torch.backends.cuda.matmul."
+            f"allow_tf32 = {matmul}: fp32 convs by cuDNN (conv_impl xla, and every conv the "
+            f"kernels do not take) run in {'TF32' if cudnn else 'true fp32'}; the routed "
+            "convs of conv_impl pallas are true fp32 either way")
 
 
 @contextlib.contextmanager
@@ -445,16 +466,21 @@ def conv_bound(name: str, dtype, ref, s):
     """Largest |kernel - float64 plain| allowed per entry; s is the same
     conv of the operands' absolute values (each entry's sum of |terms|).
 
-    fp32 (general kernels): rtol 1e-4 / atol 1e-5 for y and dx (576 terms
-    an entry). dW sums 524,288 products at [128, 64, 64, 64] in at most
-    2,304 sequential fp32 additions an entry (8 tiles x 256 pixels in a
-    block, then 256 partials): the random-walk estimate sqrt(2304) * 2^-24
-    = 2.9e-6 s, with a 7x margin, under the worst case 2304 * 2^-24 =
-    1.4e-4 s, gives 2e-5 s.
+    fp32: rtol 1e-4 / atol 1e-5 for y and dx (576 terms an entry). dW
+    sums 524,288 products at [128, 64, 64, 64]; a thread of the fp32
+    kernel adds its block's pixels one at a time, 8 units x 512 pixels =
+    4,096 sequential fp32 additions on 132 blocks, and the reduce then
+    adds 132 partials in order: a chain of 4,228. The random-walk
+    estimate sqrt(4228) * 2^-24 = 3.9e-6 s sits under 2e-5 s with a 5x
+    margin (the worst case, every rounding the same way, is 4228 * 2^-24
+    = 2.5e-4 s). The bound is the one the shorter chain of the kernel
+    before it (2,304 additions, 2.9e-6 s, 7x) was held to; it is kept,
+    not widened.
     bf16: one rounding of the fp32 sum, at most 2^-8 |ref| (bf16 keeps 8
     significant bits), plus 1e-5 s for the fp32 sum before it. For y and
-    dx that sum has 576 terms. For dW the general kernel's chain is the
-    2,304 above (worst case 1.4e-4 s, random walk 2.9e-6 s). The wgmma
+    dx that sum has 576 terms. For dW the general kernel's chain is 2,304
+    (8 tiles x 256 pixels in a block, then 256 partials: worst case
+    1.4e-4 s, random walk 2.9e-6 s). The wgmma
     kernel's is shorter: a block adds one wgmma (a 16-term tree) per 16
     pixels of its rows into the accumulator, 64 rows x 4 = 256 sequential
     additions for the one unit a block walks at [128, 64, 64, 64] (at most
@@ -472,9 +498,10 @@ def conv_bound(name: str, dtype, ref, s):
 
 
 def phase_conv_kernels(card: str) -> dict:
-    """Phase 3, conv: the wgmma and the general bodies of each kernel
-    against the float64 plain version (TF32 off); returns per-kernel
-    max_abs_err over all checks, the times and the bounds."""
+    """Phase 3, conv: the wgmma, the general and the fp32 bodies of each
+    kernel against the float64 plain version (TF32 off); returns per-kernel
+    max_abs_err (conv3x3_fwd and conv3x3_dw: the fp32 bodies', which the
+    kernels line describes), the times and the bounds."""
     import torch
 
     from intro_tc_vae_tpu_torch.ops import conv, conv_cuda
@@ -484,25 +511,32 @@ def phase_conv_kernels(card: str) -> dict:
     bf16, fp32 = torch.bfloat16, torch.float32
     errs = dict.fromkeys(conv_cuda.KERNELS, 0.0)
 
-    # conv3x3_pack_w moves values: equal to the plain version bit for bit
-    w = (torch.randn((64, 64, 3, 3), device=dev, generator=gen) * 0.05).to(bf16)
-    for rot in (False, True):
-        if not torch.equal(conv_cuda.conv3x3_pack_w(w, rot), conv.pack_weights(w, rot)):
-            die(f"conv3x3_pack_w(rot={rot}) differs from the plain pack_weights")
-        if not torch.equal(conv.unpack_weights(conv.pack_weights(w, rot)),
-                           conv.rot_t(w) if rot else w):
-            die(f"pack_weights(rot={rot}) is not the weights it stands for")
+    # conv3x3_pack_w moves values: equal to the plain version bit for bit,
+    # [tap][co][ci] in bf16 and [tap][ci][co] in fp32
+    w32 = torch.randn((64, 64, 3, 3), device=dev, generator=gen) * 0.05
+    for w in (w32.to(bf16), w32):
+        co_inner = w.dtype == fp32
+        for rot in (False, True):
+            plain = conv.pack_weights(w, rot, co_inner)
+            if not torch.equal(conv_cuda.conv3x3_pack_w(w, rot), plain):
+                die(f"conv3x3_pack_w({w.dtype}, rot={rot}) differs from the plain pack_weights")
+            if not torch.equal(conv.unpack_weights(plain, co_inner),
+                               conv.rot_t(w) if rot else w):
+                die(f"pack_weights({w.dtype}, rot={rot}) is not the weights it stands for")
 
-    # (shape, dtype, run the general body?)
+    # (shape, dtype, force the general body on a wgmma shape?)
     checks = []
     for shape in (*CONV_SHAPES, CONV_WIDE):
         checks += [(shape, bf16, False), (shape, bf16, True)]
-    checks += [(shape, fp32, True) for shape in CONV_SHAPES]
-    checks += [(CONV_RAGGED, bf16, True), (CONV_RAGGED, fp32, True)]
+    checks += [(shape, fp32, False) for shape in
+               (*CONV_SHAPES, CONV_WIDE, CONV_FP32_PATH, CONV_RAGGED, CONV_NARROW)]
+    checks += [(CONV_RAGGED, bf16, False)]
     for shape, dtype, general in checks:
-        fast = conv.fast_path(shape, dtype)
-        if fast != (dtype == bf16 and shape != CONV_RAGGED):
-            die(f"fast_path({shape}, {dtype}) is {fast}")
+        body = conv.kernel_body(shape, dtype)
+        if body != ("fp32" if dtype == fp32 else "general" if shape == CONV_RAGGED else "wgmma"):
+            die(f"kernel_body({shape}, {dtype}) is {body}")
+        if general:
+            body = "general"
         x = (torch.randn(shape, device=dev, generator=gen) * 0.5).to(dtype)
         w = (torch.randn((64, 64, 3, 3), device=dev, generator=gen) * 0.05).to(dtype)
         gy = torch.randn(shape, device=dev, generator=gen).to(dtype)
@@ -512,10 +546,10 @@ def phase_conv_kernels(card: str) -> dict:
                "dw": conv_cuda.conv3x3_dw(x, gy, general=general)}
         again = conv_cuda.conv3x3_dw(x, gy, general=general)
         torch.cuda.synchronize()
-        suffix = "" if general else "_wgmma"
+        suffix = "_wgmma" if body == "wgmma" else ""
         want_launches = {**dict.fromkeys(conv_cuda.KERNELS, 0), "conv3x3_fwd" + suffix: 2,
                          "conv3x3_dw" + suffix: 2, "conv3x3_dw_reduce": 2,
-                         "conv3x3_pack_w": 0 if general else 2}
+                         "conv3x3_pack_w": 0 if body == "general" else 2}
         if conv_cuda.LAUNCHES != want_launches:
             die(f"conv {shape} {dtype} general={general}: launches {conv_cuda.LAUNCHES}, "
                 f"expected {want_launches}")
@@ -545,21 +579,21 @@ def phase_conv_kernels(card: str) -> dict:
             if ratio > 1.0:
                 die(f"{owner[name]} {name} {shape} {dtype}: max |d| {err:.4g} is "
                     f"{ratio:.3g} x the bound")
-            errs[owner[name]] = max(errs[owner[name]], err)
+            if body != "general":  # the kernels line has no entry for the bf16 general bodies
+                errs[owner[name]] = max(errs[owner[name]], err)
             if name == "dw":
                 errs["conv3x3_dw_reduce"] = max(errs["conv3x3_dw_reduce"], err)
-        print(f"phase 3: conv {list(shape)} {str(dtype)[6:]} "
-              f"{'general' if general else 'wgmma'} bodies: vs float64 plain "
+        print(f"phase 3: conv {list(shape)} {str(dtype)[6:]} {body} bodies: vs float64 plain "
               + json.dumps(report) + "; dW bit-equal in two runs")
     print("phase 3: conv kernels match the float64 plain version (fp32: rtol 1e-4 / atol "
           "1e-5 for y and dx, 2e-5 S for dW; bf16: 2^-8 |ref| + 1e-5 S); conv3x3_pack_w "
           "equals the plain version")
 
     # times, with the settings the main path runs under (torch's defaults:
-    # no cuDNN autotuning); wgmma and general bodies in turns, two rounds.
+    # no cuDNN autotuning); the bodies and cuDNN in turns, two rounds.
     # The kernels line takes the wgmma bodies, the reduce and the pack at
-    # the flagship's bf16 [128, 64, 64, 64] and the general bodies at the
-    # fp32 shape phase 6 launches them at, each with that shape's bounds
+    # the flagship's bf16 [128, 64, 64, 64] and the fp32 bodies at the
+    # shape phase 6 launches them at, each with that shape's bounds
     times, bounds = {}, {}
     for shape, dtype in [(sh, bf16) for sh in (*CONV_SHAPES, CONV_WIDE)] + \
                         [(sh, fp32) for sh in (*CONV_SHAPES, CONV_FP32_PATH)]:
@@ -568,15 +602,16 @@ def phase_conv_kernels(card: str) -> dict:
         gy = torch.randn(shape, device=dev, dtype=dtype)
         y = torch.empty_like(x)
         n, _, h, wd = shape
-        kind, code = ("fp32", 0) if dtype == fp32 else ("bf16", 1)
+        kind = "fp32" if dtype == fp32 else "bf16"
         launch = conv_cuda.launch
         dw = torch.empty((64, 64, 3, 3), device=dev, dtype=dtype)
-        fns = {}
+        _, n_parts, rc = conv_cuda.dw_parts(shape, dtype, dev)
+        part = torch.empty((n_parts, 576, 64), device=dev)
+        wp = conv_cuda.conv3x3_pack_w(w)
         if dtype == bf16:
-            _, n_parts, rc = conv_cuda.dw_parts(shape, dtype, dev)
-            part = torch.empty((n_parts, 576, 64), device=dev)
-            wp = conv_cuda.conv3x3_pack_w(w)
-            fns.update({
+            _, g_parts, _ = conv_cuda.dw_parts(shape, dtype, dev, general=True)
+            g_part = torch.empty((g_parts, 576, 64), device=dev)
+            fns = {
                 "conv3x3_fwd_wgmma": lambda: launch("conv3x3_fwd_wgmma", x, wp, y, n, h, wd, rc,
                                                     n_parts, device=dev),
                 "conv3x3_dw_wgmma": lambda: launch("conv3x3_dw_wgmma", x, gy, part, n, h, wd, rc,
@@ -587,15 +622,23 @@ def phase_conv_kernels(card: str) -> dict:
                 "plain_dw_reduce": lambda: part.sum(0).view(9, 64, 64).permute(
                     2, 1, 0).reshape(64, 64, 3, 3).to(dtype),
                 "plain_pack_w": lambda: conv.pack_weights(w, False),
-            })
-        _, g_parts, _ = conv_cuda.dw_parts(shape, dtype, dev, general=True)
-        g_part = torch.empty((g_parts, 576, 64), device=dev)
+                "conv3x3_fwd": lambda: launch("conv3x3_fwd", x, w, y, n, h, wd, device=dev),
+                "conv3x3_dw": lambda: launch("conv3x3_dw", x, gy, g_part, n, h, wd, g_parts,
+                                             device=dev),
+                "conv3x3_dw_reduce_general": lambda: launch("conv3x3_dw_reduce", g_part, dw,
+                                                            g_parts, 1, device=dev),
+            }
+        else:
+            fns = {
+                "conv3x3_fwd": lambda: launch("conv3x3_fwd_fp32", x, wp, y, n, h, wd, n_parts,
+                                              device=dev),
+                "conv3x3_dw": lambda: launch("conv3x3_dw_fp32", x, gy, part, n, h, wd, n_parts,
+                                             device=dev),
+                "conv3x3_dw_reduce_fp32": lambda: launch("conv3x3_dw_reduce", part, dw, n_parts,
+                                                         0, device=dev),
+                "conv3x3_pack_w_fp32": lambda: conv_cuda.conv3x3_pack_w(w),
+            }
         fns.update({
-            "conv3x3_fwd": lambda: launch("conv3x3_fwd", x, w, y, n, h, wd, code, device=dev),
-            "conv3x3_dw": lambda: launch("conv3x3_dw", x, gy, g_part, n, h, wd, g_parts,
-                                         code, device=dev),
-            "conv3x3_dw_reduce_general": lambda: launch("conv3x3_dw_reduce", g_part, dw,
-                                                        g_parts, code, device=dev),
             "cudnn_fwd": lambda: torch.nn.functional.conv2d(x, w, padding=1),
             "cudnn_dgrad": lambda: torch.nn.grad.conv2d_input(shape, w, gy, padding=1),
             "cudnn_wgrad": lambda: torch.nn.grad.conv2d_weight(x, w.shape, gy, padding=1),
@@ -607,9 +650,9 @@ def phase_conv_kernels(card: str) -> dict:
               "rounds in turns " + json.dumps({k: round(v, 5) for k, v in t.items()})
               + "; the rounds " + json.dumps({k: [round(r[k], 5) for r in rounds] for k in fns})
               + f" on {card}")
-        b = conv_bounds(shape, kind, n_parts if dtype == bf16 else g_parts)
+        b = conv_bounds(shape, kind, n_parts)
         pair = ("conv3x3_dw_wgmma", "conv3x3_dw_reduce") if dtype == bf16 else \
-            ("conv3x3_dw", "conv3x3_dw_reduce_general")
+            ("conv3x3_dw", "conv3x3_dw_reduce_fp32")
         fwd = "conv3x3_fwd_wgmma" if dtype == bf16 else "conv3x3_fwd"
         both = t[pair[0]] + t[pair[1]]
         print(f"phase 3: conv {list(shape)} {kind} bounds (each input read once, each output "
@@ -622,6 +665,19 @@ def phase_conv_kernels(card: str) -> dict:
                                 round(b["conv3x3_dw+reduce"]["bound_ms"] / both, 3)})
               + f"; against cuDNN: {fwd} / cudnn_fwd {t[fwd] / t['cudnn_fwd']:.3f}, "
               f"({pair[0]} + reduce) / cudnn_wgrad {both / t['cudnn_wgrad']:.3f}")
+        if dtype == fp32:
+            # the targets of the fp32 bodies: printed, not enforced
+            half = b["conv3x3_fwd"]["bound_ms"] * 2
+            met = {"conv3x3_fwd <= cudnn_fwd": t[fwd] <= t["cudnn_fwd"],
+                   "conv3x3_fwd (dx) <= cudnn_dgrad": t[fwd] <= t["cudnn_dgrad"],
+                   "conv3x3_fwd >= half the bound": t[fwd] <= half,
+                   "conv3x3_dw + reduce <= cudnn_wgrad": both <= t["cudnn_wgrad"],
+                   "conv3x3_dw + reduce >= half the bound": both <= half}
+            print(f"phase 3: conv {list(shape)} fp32 targets (TF32 off): conv3x3_fwd "
+                  f"{t[fwd]:.5f} ms = {t[fwd] / t['cudnn_fwd']:.3f} x cuDNN fwd, "
+                  f"{t[fwd] / t['cudnn_dgrad']:.3f} x cuDNN dgrad; conv3x3_dw + reduce "
+                  f"{both:.5f} ms = {both / t['cudnn_wgrad']:.3f} x cuDNN wgrad; half the bound "
+                  f"is {half:.5f} ms; met: " + json.dumps(met))
         if (shape, dtype) == (CONV_SHAPES[0], bf16):
             for k in ("conv3x3_fwd_wgmma", "conv3x3_dw_wgmma", "conv3x3_dw_reduce",
                       "conv3x3_pack_w"):
@@ -963,11 +1019,14 @@ def phase_other_paths(card: str) -> dict:
     res_in_32 and res_in_64 have the conv arch's 3x3 convs), each launching
     conv3x3_fwd for its forward and for its dx, and conv3x3_dw and
     conv3x3_dw_reduce once: 6, 3, 3. tc: one TC call, differentiated: 1 of
-    each TC kernel. Both run in fp32, so every conv launch is a general
-    body (no wgmma body, no conv3x3_pack_w). Returns the launches of the
+    each TC kernel. Both run in fp32, so every conv launch is an fp32 body
+    (no wgmma body), and every conv3x3_fwd packs its weights first:
+    conv3x3_pack_w 6. The runs go through the CLI, which sets no TF32
+    flag: the flags in effect are printed. Returns the launches of the
     vae_synthetic run."""
     from intro_tc_vae_tpu_torch.train import images_per_second
 
+    print("phase 6: " + tf32_flags())
     rates, general = {}, {}
     for label, config, update, tc in (
             ("vae_synthetic (res, vae)", VAE_SYNTHETIC, {}, 0),
@@ -978,7 +1037,7 @@ def phase_other_paths(card: str) -> dict:
             k = 1 if conv_impl == "pallas" else 0
             want = {"tc_fwd": 20 * tc, "tc_bwd_dz": 20 * tc, "tc_bwd_dmu": 20 * tc,
                     "conv3x3_fwd": 20 * 6 * k, "conv3x3_dw": 20 * 3 * k,
-                    "conv3x3_dw_reduce": 20 * 3 * k, "conv3x3_pack_w": 0,
+                    "conv3x3_dw_reduce": 20 * 3 * k, "conv3x3_pack_w": 20 * 6 * k,
                     "conv3x3_fwd_wgmma": 0, "conv3x3_dw_wgmma": 0}
             reset_all_launches()
             state = run_cli(config, {**update, "conv_impl": conv_impl, "num_epochs": 1}, run)
@@ -1267,12 +1326,13 @@ def start():
 
     from intro_tc_vae_tpu_torch.ops import conv_cuda, cuda_build, tc_cuda
 
-    for lib in LIBRARIES:
+    libraries = ("tc_kernels", *conv_cuda.LIBRARIES)  # every source under csrc/
+    for lib in libraries:
         path = cuda_build.library_path(lib)
         if path.exists():
             path.unlink()  # always compile this checkout's source
-    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
-        built = list(pool.map(cuda_build.build, LIBRARIES))
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        built = list(pool.map(cuda_build.build, libraries))
     tc_cuda._library()
     for lib in conv_cuda.LIBRARIES:
         conv_cuda._library(lib)
@@ -1282,21 +1342,28 @@ def start():
 
 
 def device_time(card: str) -> None:
-    """``--device-time``: device ms per step of the flagship's four arms,
-    torch.profiler over 5 steady steps (after 14) of each 20-step run
-    through the CLI, the arms in turns and then in reverse; a step ends at
-    the decoder's optimizer call. Prints each run's total and the conv
-    kernels' and cuDNN's share of it."""
+    """``--device-time``: device ms per step of the flagship's four arms
+    (bf16) and of configs/vae_synthetic.json (fp32) with conv_impl 'pallas'
+    and 'xla', torch.profiler over 5 steady steps (after 14) of each
+    20-step run through the CLI, the arms of a config in turns and then in
+    reverse; a step ends at the decoder's optimizer call (both solvers call
+    the encoder's optimizer, then the decoder's). Prints each run's total
+    and the conv kernels' and cuDNN's share of it, and the TF32 flags the
+    runs were made under (the CLI's: PyTorch's defaults)."""
     import torch
     from torch.optim.optimizer import register_optimizer_step_pre_hook
     from torch.profiler import ProfilerActivity, profile, schedule
 
     active = 5
     results = {}
-    for tc_impl, conv_impl in INTRO_ARMS + INTRO_ARMS[::-1]:
-        arm = f"tc {tc_impl}, conv {conv_impl}"
-        update = {"dataset": "synthetic", "tc_impl": tc_impl, "conv_impl": conv_impl,
-                  "num_epochs": 1, "use_tensorboard": False}
+    flagship = [(f"tc {tc_impl}, conv {conv_impl}", FLAGSHIP,
+                 {"dataset": "synthetic", "tc_impl": tc_impl, "conv_impl": conv_impl,
+                  "num_epochs": 1, "use_tensorboard": False})
+                for tc_impl, conv_impl in INTRO_ARMS]
+    vae = [(f"vae_synthetic, conv {conv_impl}", VAE_SYNTHETIC,
+            {"conv_impl": conv_impl, "num_epochs": 1}) for conv_impl in ("pallas", "xla")]
+    print("device time: " + tf32_flags())
+    for arm, config, update in flagship + flagship[::-1] + vae + vae[::-1]:
         calls = {"n": 0}
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=13, warmup=1, active=active)) as prof:
@@ -1308,7 +1375,7 @@ def device_time(card: str) -> None:
 
             handle = register_optimizer_step_pre_hook(hook)
             try:
-                run_cli(FLAGSHIP, update, arm)
+                run_cli(config, update, arm)
             finally:
                 handle.remove()
         # kernels and device copies only: a step's annotation spans the step
@@ -1374,7 +1441,7 @@ def main() -> None:
     # one PyTorch call that computes it (cuDNN for the convs), where there
     # is one. The TC backward kernels share the plain backward; the conv
     # forward's and dW's plain version is the library call. launches: the
-    # flagship's (tc pallas, conv pallas) run of phase 4; the general conv
+    # flagship's (tc pallas, conv pallas) run of phase 4; the fp32 conv
     # bodies, which that run does not reach, from phase 6's vae_synthetic.
     tc_plain = {"tc_fwd": "plain_fwd", "tc_bwd_dz": "plain_bwd", "tc_bwd_dmu": "plain_bwd"}
     times = {**{k: {"ms": kernels["times"][k], "plain_ms": kernels["times"][p],

@@ -1,5 +1,6 @@
 // 3x3 convolution kernels, 64 -> 64 channels, stride 1, zero padding 1,
-// for Hopper (sm_90a).
+// for Hopper (sm_90a): the general bf16 bodies (any [N, 64, H, W]) and the
+// ordered reduce of dW's partials that every body shares.
 //
 // They replace the TPU Pallas kernels of intro_tc_vae_tpu/ops/conv_pallas.py:
 //   conv3x3_fwd        <- _fwd_kernel (conv_pallas.py:238): y = conv3x3(x, w),
@@ -21,11 +22,10 @@
 // zero outside the image, in shared memory, channels innermost; it then walks
 // the 9 taps, staging each tap's 64x64 weights. Ragged edges (W not a
 // multiple of 32, H not a multiple of 8) are masked.
-//   * bf16: wmma 16x16x16 on the tensor cores with fp32 accumulators; eight
-//     warps each own one tile row (32 pixels x 64 channels, 8 fragments). The
-//     output is rounded to bf16 once, through a per-warp staging buffer that
-//     turns the fragments into coalesced NCHW rows.
-//   * fp32: plain fp32 FMAs (no TF32): each thread owns 8 pixels x 8 channels.
+// wmma 16x16x16 on the tensor cores with fp32 accumulators; eight warps each
+// own one tile row (32 pixels x 64 channels, 8 fragments). The output is
+// rounded to bf16 once, through a per-warp staging buffer that turns the
+// fragments into coalesced NCHW rows.
 // dW: dW[co, ci, ky, kx] = sum over n, h, w of gy[n, co, h, w] *
 // x[n, ci, h+ky-1, w+kx-1], a GEMM with M = 3 kx x 64 ci, N = 64 co and K =
 // all pixels (524,288 at the flagship's paired [128, 64, 64, 64]). Hopper
@@ -41,9 +41,9 @@
 // wmma (mma.sync) fragments loaded from shared memory each k-step, no
 // asynchronous copies, two barriers per tap, and 8 KB of weights re-staged
 // per tap from L2. These are the general bodies: they take any [N, 64, H, W]
-// in fp32 or bf16. bf16 with W in {32, 64, 128} runs the wgmma kernels of
-// conv_wgmma.cu instead (ops/conv.py::fast_path), which share
-// conv3x3_dw_reduce with these.
+// in bf16. bf16 with W in {32, 64, 128} runs the wgmma kernels of
+// conv_wgmma.cu instead and fp32 the kernels of conv_fp32.cu
+// (ops/conv.py::kernel_body); all share conv3x3_dw_reduce with these.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,15 +69,9 @@ constexpr int LDX_H = 80;        // input  [SH][SW][LDX_H]
 constexpr int LDW_H = 72;        // tap weights [ci][LDW_H] (co innermost)
 constexpr int LDG_H = PIX + 16;  // gy [co][LDG_H] (pixels innermost)
 constexpr int LDO = 36;          // fp32 epilogue staging [co][LDO]
-// fp32: odd strides against shared-memory bank conflicts.
-constexpr int LDX_F = 65;
-constexpr int LDW_F = 64;
-constexpr int LDG_F = PIX + 1;
 
 constexpr size_t SMEM_FWD_H = (size_t)SH * SW * LDX_H * 2 + (size_t)C * LDW_H * 2;
-constexpr size_t SMEM_FWD_F = (size_t)SH * SW * LDX_F * 4 + (size_t)C * LDW_F * 4;
 constexpr size_t SMEM_DW_H = (size_t)SH * SW * LDX_H * 2 + (size_t)C * LDG_H * 2;
-constexpr size_t SMEM_DW_F = (size_t)SH * SW * LDX_F * 4 + (size_t)C * LDG_F * 4;
 static_assert((size_t)WARPS * 32 * LDO * 4 <= (size_t)SH * SW * LDX_H * 2,
               "the epilogue staging must fit in the staged input it reuses");
 
@@ -204,56 +198,6 @@ conv3x3_fwd_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-conv3x3_fwd_f32(const float* __restrict__ x, const float* __restrict__ w,
-                float* __restrict__ y, int H, int W) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* s_x = reinterpret_cast<float*>(smem);
-  float* s_w = s_x + SH * SW * LDX_F;
-  const Tile tl = tile_of(blockIdx.x, H, W);
-  const int cg = threadIdx.x & 7, pg = threadIdx.x >> 3;  // 8 channels, 8 pixels
-  const int r = pg >> 2, c0 = (pg & 3) * 8;
-
-  stage_input<float, LDX_F>(x, s_x, tl, H, W);
-  float acc[8][8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[j][i] = 0.f;
-
-  for (int tap = 0; tap < TAPS; ++tap) {
-    const int ky = tap / 3, kx = tap % 3;
-    __syncthreads();
-    stage_tap<float, LDW_F>(w, s_w, tap);
-    __syncthreads();
-    const float* xs = s_x + ((r + ky) * SW + c0 + kx) * LDX_F;
-    for (int ci = 0; ci < C; ++ci) {
-      float a[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = xs[i * LDX_F + ci];
-      const float4 b0 = *reinterpret_cast<const float4*>(s_w + ci * LDW_F + cg * 8);
-      const float4 b1 = *reinterpret_cast<const float4*>(s_w + ci * LDW_F + cg * 8 + 4);
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[j][i] = fmaf(a[i], b[j], acc[j][i]);
-    }
-  }
-
-  const int h = tl.h0 + r;
-  if (h >= H) return;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    float* yrow = y + (((size_t)tl.n * C + cg * 8 + j) * H + h) * W;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int wc = tl.w0 + c0 + i;
-      if (wc < W) yrow[wc] = acc[j][i];
-    }
-  }
-}
-
 // Block (p, ky) writes part[p][(ky * 3 + kx) * 64 + ci][co] for kx = 0..2.
 __global__ void __launch_bounds__(THREADS)
 conv3x3_dw_bf16(const bf16* __restrict__ x, const bf16* __restrict__ gy,
@@ -309,57 +253,6 @@ conv3x3_dw_bf16(const bf16* __restrict__ x, const bf16* __restrict__ gy,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-conv3x3_dw_f32(const float* __restrict__ x, const float* __restrict__ gy,
-               float* __restrict__ part, int H, int W, int n_tiles) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* s_x = reinterpret_cast<float*>(smem);
-  float* s_g = s_x + SH * SW * LDX_F;
-  const int ky = blockIdx.y;
-  const int cb = threadIdx.x >> 4, ob = threadIdx.x & 15;  // ci 4cb.., co 4ob..
-
-  float acc[3][4][4];
-#pragma unroll
-  for (int kx = 0; kx < 3; ++kx)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[kx][i][j] = 0.f;
-
-  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const Tile tl = tile_of(t, H, W);
-    __syncthreads();
-    stage_input<float, LDX_F>(x, s_x, tl, H, W);
-    stage_grad<float, LDG_F>(gy, s_g, tl, H, W);
-    __syncthreads();
-    for (int p = 0; p < PIX; ++p) {
-      const int r = p / TW, c = p % TW;
-      const float* xs = s_x + ((r + ky) * SW + c) * LDX_F + 4 * cb;
-      float g[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) g[j] = s_g[(4 * ob + j) * LDG_F + p];
-#pragma unroll
-      for (int kx = 0; kx < 3; ++kx)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float xv = xs[kx * LDX_F + i];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[kx][i][j] = fmaf(xv, g[j], acc[kx][i][j]);
-        }
-    }
-  }
-
-  float* out = part + (size_t)blockIdx.x * TAPS * C * C;
-#pragma unroll
-  for (int kx = 0; kx < 3; ++kx)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        out[((ky * 3 + kx) * C + 4 * cb + i) * C + 4 * ob + j] = acc[kx][i][j];
-      }
-}
-
 // dw[co, ci, ky, kx] = sum over p = 0..n_parts-1, in that order, of
 // part[p][(ky * 3 + kx) * 64 + ci][co], rounded once to T.
 template <typename T>
@@ -392,50 +285,35 @@ int allow_smem(K kernel, size_t bytes) {
 
 // C interface, loaded with ctypes. Each launcher enqueues one kernel on
 // `stream` and returns cudaGetLastError() (0 on success); it neither
-// allocates nor synchronises. dtype: 0 = float32, 1 = bfloat16.
+// allocates nor synchronises. Activations and weights are bfloat16; the
+// reduce writes dW in `dtype`: 0 = float32, 1 = bfloat16.
 extern "C" {
 
 int conv3x3_fwd_launch(const void* x, const void* w, void* y, int N, int H, int W,
-                       int dtype, int device, void* stream) {
+                       int device, void* stream) {
   int err = check_shape(N, H, W);
   if (err) return err;
   if ((err = (int)cudaSetDevice(device))) return err;
   const cudaStream_t s = (cudaStream_t)stream;
   const int blocks = n_tiles(N, H, W);
-  if (dtype == 1) {
-    if ((err = allow_smem(conv3x3_fwd_bf16, SMEM_FWD_H))) return err;
-    conv3x3_fwd_bf16<<<blocks, THREADS, SMEM_FWD_H, s>>>(
-        (const bf16*)x, (const bf16*)w, (bf16*)y, H, W);
-  } else if (dtype == 0) {
-    if ((err = allow_smem(conv3x3_fwd_f32, SMEM_FWD_F))) return err;
-    conv3x3_fwd_f32<<<blocks, THREADS, SMEM_FWD_F, s>>>(
-        (const float*)x, (const float*)w, (float*)y, H, W);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  if ((err = allow_smem(conv3x3_fwd_bf16, SMEM_FWD_H))) return err;
+  conv3x3_fwd_bf16<<<blocks, THREADS, SMEM_FWD_H, s>>>(
+      (const bf16*)x, (const bf16*)w, (bf16*)y, H, W);
   return (int)cudaGetLastError();
 }
 
 // part: float32 [n_parts, 9 * 64, 64]; 1 <= n_parts.
 int conv3x3_dw_launch(const void* x, const void* gy, float* part, int N, int H, int W,
-                      int n_parts, int dtype, int device, void* stream) {
+                      int n_parts, int device, void* stream) {
   int err = check_shape(N, H, W);
   if (err) return err;
   if (n_parts < 1) return (int)cudaErrorInvalidValue;
   if ((err = (int)cudaSetDevice(device))) return err;
   const cudaStream_t s = (cudaStream_t)stream;
   const dim3 grid(n_parts, 3);
-  if (dtype == 1) {
-    if ((err = allow_smem(conv3x3_dw_bf16, SMEM_DW_H))) return err;
-    conv3x3_dw_bf16<<<grid, THREADS, SMEM_DW_H, s>>>(
-        (const bf16*)x, (const bf16*)gy, part, H, W, n_tiles(N, H, W));
-  } else if (dtype == 0) {
-    if ((err = allow_smem(conv3x3_dw_f32, SMEM_DW_F))) return err;
-    conv3x3_dw_f32<<<grid, THREADS, SMEM_DW_F, s>>>(
-        (const float*)x, (const float*)gy, part, H, W, n_tiles(N, H, W));
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  if ((err = allow_smem(conv3x3_dw_bf16, SMEM_DW_H))) return err;
+  conv3x3_dw_bf16<<<grid, THREADS, SMEM_DW_H, s>>>(
+      (const bf16*)x, (const bf16*)gy, part, H, W, n_tiles(N, H, W));
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,8 @@
 // 3x3 convolution, 64 -> 64 channels, stride 1, zero padding 1, bf16 with
 // fp32 accumulation: the Hopper (sm_90a) bodies of conv3x3_fwd and conv3x3_dw
-// for W in {32, 64, 128}. Every other shape and all of fp32 run the general
-// kernels of conv_kernels.cu; the choice is the wrapper's shape rule
-// (ops/conv.py::fast_path).
+// for W in {32, 64, 128}. Every other bf16 shape runs the general kernels of
+// conv_kernels.cu and fp32 those of conv_fp32.cu; the choice is the wrapper's
+// shape rule (ops/conv.py::kernel_body).
 //
 // They replace the TPU Pallas kernels of intro_tc_vae_tpu/ops/conv_pallas.py:
 //   conv3x3_fwd_wgmma <- _fwd_kernel (conv_pallas.py:238): y = conv3x3(x, w),
@@ -12,8 +12,10 @@
 //                        per block; conv3x3_dw_reduce (conv_kernels.cu) sums
 //                        the partials in block order, so dW has the same bits
 //                        in every run (no atomics)
-//   conv3x3_pack_w       OIHW weights -> [9 taps][64 co][64 ci], optionally
-//                        rot180 with the channels swapped, in one pass
+//   conv3x3_pack_w       OIHW weights -> [9 taps][64 co][64 ci] (bf16, this
+//                        file's forward) or [9 taps][64 ci][64 co] (fp32, the
+//                        forward of conv_fp32.cu), optionally rot180 with the
+//                        channels swapped, in one pass
 //
 // Bound on an H100 (989 TFLOP/s bf16, 3.35 TB/s). [128, 64, 64, 64] is
 // 524,288 pixels x 2 x 64 x 576 = 38.65 GFLOP = 0.0391 ms of tensor cores
@@ -631,12 +633,14 @@ conv3x3_dw_wgmma(__grid_constant__ const CUtensorMap xmap,
   }
 }
 
-// out[tap][co][ci] = w[co][ci][tap], or with rot: rot_t(w)[co][ci][tap] =
-// w[ci][co][8 - tap] (rot180, channels swapped).
-__global__ void conv3x3_pack_w(const bf16* __restrict__ w, bf16* __restrict__ out, int rot) {
+// out[tap][co][ci] (or, CO_INNER, out[tap][ci][co]) = w[co][ci][tap], or with
+// rot: rot_t(w)[co][ci][tap] = w[ci][co][8 - tap] (rot180, channels swapped).
+template <typename T, bool CO_INNER>
+__global__ void conv3x3_pack_w(const T* __restrict__ w, T* __restrict__ out, int rot) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= TAPS * C * C) return;
-  const int ci = idx % C, co = (idx / C) % C, tap = idx / (C * C);
+  const int inner = idx % C, outer = (idx / C) % C, tap = idx / (C * C);
+  const int co = CO_INNER ? inner : outer, ci = CO_INNER ? outer : inner;
   out[idx] = rot ? w[(ci * C + co) * TAPS + (TAPS - 1 - tap)] : w[(co * C + ci) * TAPS + tap];
 }
 
@@ -754,15 +758,25 @@ int launch_dw(const void* x, const void* gy, float* part, int N, int H, int W, i
 
 // C interface, loaded with ctypes. Each launcher enqueues one kernel on
 // `stream` and returns 0 or a cudaError; it neither allocates nor
-// synchronises. All tensors are bfloat16 except `part` (float32).
+// synchronises. All tensors are bfloat16 except `part` (float32) and the
+// weights conv3x3_pack_w takes in float32.
 extern "C" {
 
-// w: OIHW [64, 64, 3, 3]; out: [9, 64, 64].
-int conv3x3_pack_w_launch(const void* w, void* out, int rot, int device, void* stream) {
+// w: OIHW [64, 64, 3, 3]; out: [9, 64, 64], bfloat16 [tap][co][ci] (dtype 1)
+// or float32 [tap][ci][co] (dtype 0).
+int conv3x3_pack_w_launch(const void* w, void* out, int rot, int dtype, int device,
+                          void* stream) {
   int err = (int)cudaSetDevice(device);
   if (err) return err;
-  conv3x3_pack_w<<<(TAPS * C * C + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      (const bf16*)w, (bf16*)out, rot);
+  const int blocks = (TAPS * C * C + 255) / 256;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1) {
+    conv3x3_pack_w<bf16, false><<<blocks, 256, 0, s>>>((const bf16*)w, (bf16*)out, rot);
+  } else if (dtype == 0) {
+    conv3x3_pack_w<float, true><<<blocks, 256, 0, s>>>((const float*)w, (float*)out, rot);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

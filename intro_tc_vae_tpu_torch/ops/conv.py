@@ -13,11 +13,19 @@ translated to the port's layouts (activations NCHW, weights OIHW):
 * ``conv3x3_reference`` and its input and weight gradients are the plain
   PyTorch versions of the CUDA kernels (``ops/conv_cuda.py``). The kernel
   wrappers take them for CPU tensors.
+* ``kernel_body`` is the one rule that says which body of ``conv3x3_fwd``
+  and ``conv3x3_dw`` a shape and dtype run on the card: ``"fp32"``
+  (``csrc/conv_fp32.cu``), ``"wgmma"`` (``csrc/conv_wgmma.cu``) or
+  ``"general"`` (``csrc/conv_kernels.cu``).
 * ``fast_path``, ``tile_schedule``, ``pack_weights`` and
-  ``conv3x3_dw_partials_reference`` are the host side of the wgmma kernels
-  (``csrc/conv_wgmma.cu``): which shapes they take, which units of the
-  activations each persistent block walks, the weight layout they read,
-  and the split dW sum in the order the card takes it.
+  ``conv3x3_dw_partials_reference`` are the host side of the wgmma kernels:
+  which shapes they take, which units of the activations each persistent
+  block walks, the weight layout they read, and the split dW sum in the
+  order the card takes it.
+* ``fp32_tile``, ``fp32_launch_plan`` and ``fp32_tile_schedule`` are the
+  same for the fp32 kernels, which take every shape; ``pack_weights`` and
+  ``conv3x3_dw_partials_reference`` serve them with ``co_inner`` and
+  ``schedule=fp32_tile_schedule``.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ CHANNELS = 64
 WEIGHT_SHAPE = (CHANNELS, CHANNELS, 3, 3)
 FAST_WIDTHS = (32, 64, 128)  # the widths the wgmma kernels take
 MIN_ROWS = 8                 # fewest rows of a unit, where H allows
+FP32_TILE_PIXELS = 512       # pixels of a unit of the fp32 kernels
 
 
 def _pick_tile(h: int) -> int:
@@ -83,6 +92,16 @@ def fast_path(shape, dtype) -> bool:
             and n * c * h * w < 2**31)
 
 
+def kernel_body(shape, dtype) -> str:
+    """The body of conv3x3_fwd and conv3x3_dw that activations of this
+    shape and dtype run on the card: all of fp32 the FFMA kernels, bf16
+    the wgmma kernels where ``fast_path`` admits the shape and the general
+    ones elsewhere."""
+    if dtype == torch.float32:
+        return "fp32"
+    return "wgmma" if fast_path(shape, dtype) else "general"
+
+
 def box_width(w: int) -> int:
     """Pixels of a row in one shared-memory slab."""
     return min(w, 64)
@@ -125,30 +144,65 @@ def tile_schedule(n: int, h: int, w: int, n_blocks: int) -> list:
              for u in range(b, units, blocks)] for b in range(blocks)]
 
 
-def pack_weights(w: torch.Tensor, rot: bool) -> torch.Tensor:
+def fp32_tile(w: int) -> tuple:
+    """(rows, columns) of a unit of the fp32 kernels: FP32_TILE_PIXELS
+    pixels, 64 columns wide, 32 where the image is no wider."""
+    cols = 64 if w > 32 else 32
+    return FP32_TILE_PIXELS // cols, cols
+
+
+def fp32_launch_plan(n: int, h: int, w: int, n_blocks: int) -> int:
+    """Persistent blocks of the fp32 kernels: no more than units."""
+    rows, cols = fp32_tile(w)
+    return min(n_blocks, n * -(-h // rows) * -(-w // cols))
+
+
+def fp32_tile_schedule(n: int, h: int, w: int, n_blocks: int) -> list:
+    """``tile_schedule`` for the fp32 kernels, which take any H and W: the
+    units tile each image in ``fp32_tile`` steps and the last of a row or
+    column is cut at the image's edge. Same numbering, same walk (block b
+    of P takes units b, b + P, ...), same tuples. The kernels' ``unit_of``
+    (csrc/conv_fp32.cu) is the same arithmetic."""
+    (rows, cols), blocks = fp32_tile(w), fp32_launch_plan(n, h, w, n_blocks)
+    col_chunks, row_chunks = -(-w // cols), -(-h // rows)
+
+    def unit(u):
+        h0, w0 = (u // col_chunks) % row_chunks * rows, u % col_chunks * cols
+        return (u // (col_chunks * row_chunks), h0, w0, min(rows, h - h0), min(cols, w - w0))
+
+    return [[unit(u) for u in range(b, n * row_chunks * col_chunks, blocks)]
+            for b in range(blocks)]
+
+
+def pack_weights(w: torch.Tensor, rot: bool, co_inner: bool = False) -> torch.Tensor:
     """OIHW weights as [9, 64, 64] = [tap ky*3+kx][co][ci], the layout the
-    wgmma forward reads; with ``rot`` the weights of the input-gradient
+    wgmma forward reads, or with ``co_inner`` [tap][ci][co], the layout the
+    fp32 forward reads; with ``rot`` the weights of the input-gradient
     conv, rot_t(w), in the same pass: out[t, co, ci] = w[ci, co, 8 - t]."""
-    if rot:
-        return w.permute(2, 3, 1, 0).flip(0, 1).reshape(9, CHANNELS, CHANNELS).contiguous()
-    return w.permute(2, 3, 0, 1).reshape(9, CHANNELS, CHANNELS).contiguous()
+    taps = w.permute(2, 3, 1, 0).flip(0, 1) if rot else w.permute(2, 3, 0, 1)
+    if co_inner:
+        taps = taps.transpose(2, 3)
+    return taps.reshape(9, CHANNELS, CHANNELS).contiguous()
 
 
-def unpack_weights(wp: torch.Tensor) -> torch.Tensor:
+def unpack_weights(wp: torch.Tensor, co_inner: bool = False) -> torch.Tensor:
     """The OIHW weights a packed [9, 64, 64] tensor stands for."""
-    return wp.reshape(3, 3, CHANNELS, CHANNELS).permute(2, 3, 0, 1)
+    taps = wp.reshape(3, 3, CHANNELS, CHANNELS)
+    return taps.permute(3, 2, 0, 1) if co_inner else taps.permute(2, 3, 0, 1)
 
 
-def conv3x3_dw_partials_reference(x: torch.Tensor, gy: torch.Tensor, n_blocks: int):
-    """dW by the split the wgmma kernel takes: block b sums its units of
-    ``tile_schedule`` into an fp32 partial [64, 64, 3, 3]; the partials
-    are then added in order b = 0..P-1 and rounded once to x's dtype.
+def conv3x3_dw_partials_reference(x: torch.Tensor, gy: torch.Tensor, n_blocks: int,
+                                  schedule=tile_schedule):
+    """dW by the split the wgmma kernel (or, with ``schedule=
+    fp32_tile_schedule``, the fp32 kernel) takes: block b sums its units of
+    the schedule into an fp32 partial [64, 64, 3, 3]; the partials are then
+    added in order b = 0..P-1 and rounded once to x's dtype.
     Returns (dw, partials [P, 64, 64, 3, 3])."""
     n, _, h, w = x.shape
     xp = F.pad(x.float(), (1, 1, 1, 1))
     g = gy.float()
     parts = []
-    for units in tile_schedule(n, h, w, n_blocks):
+    for units in schedule(n, h, w, n_blocks):
         part = torch.zeros(WEIGHT_SHAPE, dtype=torch.float32, device=x.device)
         for i, h0, w0, rows, cols in units:
             part += torch.nn.grad.conv2d_weight(

@@ -9,16 +9,18 @@ Counterpart of ``intro_tc_vae_tpu/ops/conv_pallas.py::conv3x3_pallas`` and
 * ``conv3x3_dw``        replaces ``_dwp_kernel`` (conv_pallas.py:253):
   fp32 partial weight gradients over slices of the pixels;
 * ``conv3x3_dw_reduce`` sums those partials in a fixed order;
-* ``conv3x3_pack_w``    packs the weights for the wgmma forward.
+* ``conv3x3_pack_w``    packs the weights for the wgmma and the fp32 forward.
 
-``conv3x3_fwd`` and ``conv3x3_dw`` each have two bodies, chosen by the
-shape rule ``ops/conv.py::fast_path`` and by nothing else: bf16 with W in
-{32, 64, 128} runs the wgmma kernels of ``csrc/conv_wgmma.cu`` (TMA-fed
-rings, persistent blocks); every other shape and all of fp32 runs the
-general kernels of ``csrc/conv_kernels.cu``. ``LAUNCHES`` counts each
-body under its own name: ``conv3x3_fwd`` and ``conv3x3_dw`` are the
-general kernels, ``conv3x3_fwd_wgmma`` and ``conv3x3_dw_wgmma`` the wgmma
-ones; a wrapper's calls are the sum of its two.
+``conv3x3_fwd`` and ``conv3x3_dw`` each have three bodies, chosen by the
+rule ``ops/conv.py::kernel_body`` and by nothing else: all of fp32 runs
+the FFMA kernels of ``csrc/conv_fp32.cu`` (rows kept as they lie, cp.async
+rings, persistent blocks, any shape); bf16 with W in {32, 64, 128} runs
+the wgmma kernels of ``csrc/conv_wgmma.cu`` (TMA-fed rings, persistent
+blocks); every other bf16 shape runs the general kernels of
+``csrc/conv_kernels.cu``. ``LAUNCHES`` counts ``conv3x3_fwd_wgmma`` and
+``conv3x3_dw_wgmma`` under their own names and the other two bodies as
+``conv3x3_fwd`` and ``conv3x3_dw``; a wrapper's calls are the sum of its
+two counts.
 
 ``conv3x3_pallas(x, w)`` runs all three; ``conv3x3_hybrid(x, w)`` runs the
 stock forward (cuDNN, as the JAX version runs XLA's conv) and the kernel
@@ -48,7 +50,8 @@ from intro_tc_vae_tpu_torch.ops.conv import (
     WEIGHT_SHAPE,
     conv3x3_dw_reference,
     conv3x3_reference,
-    fast_path,
+    fp32_launch_plan,
+    kernel_body,
     launch_plan,
     pack_weights,
     rot_t,
@@ -58,7 +61,7 @@ from intro_tc_vae_tpu_torch.ops.cuda_build import load_library
 KERNELS = ("conv3x3_fwd", "conv3x3_dw", "conv3x3_dw_reduce", "conv3x3_pack_w",
            "conv3x3_fwd_wgmma", "conv3x3_dw_wgmma")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
-MAX_PARTS = 256          # fp32 partials of dW: 256 x 147 KB of scratch at most
+MAX_PARTS = 256          # the general dW's partials: 256 x 147 KB of scratch at most
 TILE_H, TILE_W = 8, 32   # the general kernels' output tile (csrc/conv_kernels.cu)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -66,10 +69,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # library -> entry point -> argument types (device and stream last)
 _ARGTYPES = {
     "conv_kernels": {
-        # x, w, y, N, H, W, dtype, device, stream
-        "conv3x3_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-        # x, gy, part, N, H, W, n_parts, dtype, device, stream
-        "conv3x3_dw": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # x, w, y, N, H, W, device, stream
+        "conv3x3_fwd": [_P, _P, _P, _I, _I, _I, _I, _P],
+        # x, gy, part, N, H, W, n_parts, device, stream
+        "conv3x3_dw": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
         # part, dw, n_parts, dtype, device, stream
         "conv3x3_dw_reduce": [_P, _P, _I, _I, _I, _P],
     },
@@ -78,12 +81,20 @@ _ARGTYPES = {
         "conv3x3_fwd_wgmma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         # x, gy, part, N, H, W, rc, n_blocks, device, stream
         "conv3x3_dw_wgmma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-        # w, out, rot, device, stream
-        "conv3x3_pack_w": [_P, _P, _I, _I, _P],
+        # w, out, rot, dtype, device, stream
+        "conv3x3_pack_w": [_P, _P, _I, _I, _I, _P],
+    },
+    "conv_fp32": {
+        # x, wp, y, N, H, W, n_blocks, device, stream
+        "conv3x3_fwd_fp32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # x, gy, part, N, H, W, n_blocks, device, stream
+        "conv3x3_dw_fp32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
 }
 LIBRARIES = tuple(_ARGTYPES)
 _LIBRARY_OF = {entry: lib for lib, entries in _ARGTYPES.items() for entry in entries}
+# the fp32 bodies count under the wrappers' own names
+_COUNTED_AS = {"conv3x3_fwd_fp32": "conv3x3_fwd", "conv3x3_dw_fp32": "conv3x3_dw"}
 
 
 def reset_launch_counts() -> None:
@@ -110,12 +121,12 @@ def launch(entry: str, *args, device: torch.device) -> None:
              device.index, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {entry} failed to launch: cudaError {err}")
-    LAUNCHES[entry] += 1
+    LAUNCHES[_COUNTED_AS.get(entry, entry)] += 1
 
 
 @functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
-    """Persistent blocks of the wgmma kernels: one per multiprocessor."""
+    """Persistent blocks of the wgmma and fp32 kernels: one per multiprocessor."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
@@ -142,19 +153,18 @@ def _check(**tensors) -> torch.Tensor:
 
 
 def conv3x3_pack_w(w: torch.Tensor, rot: bool = False) -> torch.Tensor:
-    """bf16 OIHW weights as the [9, 64, 64] the wgmma forward reads
-    (``ops/conv.py::pack_weights``); ``rot``: those of the input gradient."""
+    """OIHW weights as the [9, 64, 64] the forward body of w's dtype reads
+    (``ops/conv.py::pack_weights``): [tap][co][ci] in bf16 (wgmma),
+    [tap][ci][co] in fp32; ``rot``: those of the input gradient."""
     if w.device.type == "cpu":
-        return pack_weights(w, rot)
+        return pack_weights(w, rot, co_inner=w.dtype == torch.float32)
     _check(w=w)
-    if w.dtype != torch.bfloat16:
-        raise TypeError(f"w is {w.dtype}; the wgmma kernels take bfloat16")
     return _pack_w(w, rot)
 
 
 def _pack_w(w: torch.Tensor, rot: bool) -> torch.Tensor:
     out = torch.empty((9, CHANNELS, CHANNELS), device=w.device, dtype=w.dtype)
-    launch("conv3x3_pack_w", w, out, int(rot), device=w.device)
+    launch("conv3x3_pack_w", w, out, int(rot), _DTYPE_CODE[w.dtype], device=w.device)
     return out
 
 
@@ -162,57 +172,71 @@ def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor, rot: bool = False,
                 general: bool = False) -> torch.Tensor:
     """y = conv3x3(x, w) in x's dtype (fp32 accumulation): x [N, 64, H, W],
     w [64, 64, 3, 3]. ``rot``: the conv with rot_t(w) instead, which is the
-    input gradient, conv3x3_fwd(gy, w, rot=True); the wgmma body packs
-    those weights straight from w, the general one forms the tensor.
-    ``general`` runs the general kernel on a shape the wgmma one takes."""
+    input gradient, conv3x3_fwd(gy, w, rot=True); the fp32 and wgmma
+    bodies pack those weights straight from w, the general one forms the
+    tensor. ``general`` runs the general kernel on a bf16 shape the wgmma
+    one takes."""
     if x.device.type == "cpu" and w.device.type == "cpu":
         return conv3x3_reference(x, rot_t(w) if rot else w)
     _check(x=x, w=w)
     n, _, h, wd = x.shape
     y = torch.empty_like(x)
-    if fast_path(x.shape, x.dtype) and not general:
+    body = _body(x.shape, x.dtype, general)
+    if body == "fp32":
+        blocks = fp32_launch_plan(n, h, wd, sm_count(x.device))
+        launch("conv3x3_fwd_fp32", x, _pack_w(w, rot), y, n, h, wd, blocks, device=x.device)
+    elif body == "wgmma":
         rc, blocks = launch_plan(n, h, wd, sm_count(x.device))
         launch("conv3x3_fwd_wgmma", x, _pack_w(w, rot), y, n, h, wd, rc, blocks,
                device=x.device)
-        return y
-    if rot:
-        w = rot_t(w).contiguous()
-    launch("conv3x3_fwd", x, w, y, n, h, wd, _DTYPE_CODE[x.dtype], device=x.device)
+    else:
+        launch("conv3x3_fwd", x, rot_t(w).contiguous() if rot else w, y, n, h, wd,
+               device=x.device)
     return y
 
 
+def _body(shape, dtype, general: bool) -> str:
+    body = kernel_body(shape, dtype)
+    return "general" if general and body == "wgmma" else body
+
+
 def dw_parts(shape, dtype, device, general: bool = False) -> tuple:
-    """(wgmma body?, n_parts, rows per unit) of conv3x3_dw on this shape:
-    one partial per persistent block on the fast path, else one per tile up
-    to MAX_PARTS."""
+    """(body, n_parts, rows per unit) of conv3x3_dw on this shape: one
+    partial per persistent block of the fp32 and wgmma bodies, one per
+    tile up to MAX_PARTS of the general one; rows per unit is the wgmma
+    launcher's argument, 0 elsewhere."""
     n, _, h, wd = shape
-    if fast_path(shape, dtype) and not general:
+    body = _body(shape, dtype, general)
+    if body == "fp32":
+        return body, fp32_launch_plan(n, h, wd, sm_count(device)), 0
+    if body == "wgmma":
         rc, blocks = launch_plan(n, h, wd, sm_count(device))
-        return True, blocks, rc
+        return body, blocks, rc
     tiles = n * -(-h // TILE_H) * -(-wd // TILE_W)
-    return False, min(tiles, MAX_PARTS), 0
+    return body, min(tiles, MAX_PARTS), 0
 
 
 def conv3x3_dw(x: torch.Tensor, gy: torch.Tensor, general: bool = False) -> torch.Tensor:
     """dW [64, 64, 3, 3] of y = conv3x3(x, w) for the incoming gy, summed
     in fp32 and rounded once to x's dtype. ``general`` runs the general
-    kernel on a shape the wgmma one takes."""
+    kernel on a bf16 shape the wgmma one takes."""
     if x.device.type == "cpu" and gy.device.type == "cpu":
         return conv3x3_dw_reference(x, gy)
     _check(x=x, gy=gy)
     if gy.shape != x.shape:
         raise ValueError(f"gy {tuple(gy.shape)} must have x's shape {tuple(x.shape)}")
     n, _, h, wd = x.shape
-    fast, n_parts, rc = dw_parts(x.shape, x.dtype, x.device, general)
+    body, n_parts, rc = dw_parts(x.shape, x.dtype, x.device, general)
     part = torch.empty((n_parts, 9 * CHANNELS, CHANNELS), device=x.device,
                        dtype=torch.float32)
-    code = _DTYPE_CODE[x.dtype]
-    if fast:
+    if body == "fp32":
+        launch("conv3x3_dw_fp32", x, gy, part, n, h, wd, n_parts, device=x.device)
+    elif body == "wgmma":
         launch("conv3x3_dw_wgmma", x, gy, part, n, h, wd, rc, n_parts, device=x.device)
     else:
-        launch("conv3x3_dw", x, gy, part, n, h, wd, n_parts, code, device=x.device)
+        launch("conv3x3_dw", x, gy, part, n, h, wd, n_parts, device=x.device)
     dw = torch.empty(WEIGHT_SHAPE, device=x.device, dtype=x.dtype)
-    launch("conv3x3_dw_reduce", part, dw, n_parts, code, device=x.device)
+    launch("conv3x3_dw_reduce", part, dw, n_parts, _DTYPE_CODE[x.dtype], device=x.device)
     return dw
 
 

@@ -15,7 +15,8 @@ held here:
   kernel's dW in interpret mode (rtol 1e-4 / atol 1e-4, as
   tests/test_torch_conv.py holds the dW).
 * ``fast_path`` admits only shapes the wrappers accept, admits the
-  flagship's routed shapes, and nothing in fp32.
+  flagship's routed shapes, and nothing in fp32 (whose bodies' host side
+  is held in tests/test_torch_conv_fp32.py).
 * On the CPU the wrappers take the plain versions, whichever body the shape
   would run on the card, and count no launch.
 """
@@ -81,14 +82,19 @@ def test_packed_rot_conv_matches_jax_rot_t():
 
 def test_conv3x3_fwd_rot_takes_the_plain_version_on_cpu():
     """conv3x3_fwd(x, w, rot=True) is the conv with rot_t(w), equal to the
-    conv with the unpacked pack_weights(w, rot=True); no launch is counted."""
+    conv with the unpacked pack_weights(w, rot=True); no launch is counted.
+    The wrapper packs fp32 weights as the fp32 forward reads them
+    ([tap][ci][co])."""
     x, w = _nchw(_rand((1, 16, 32, 64), 3, 0.5)), _oihw(_rand((3, 3, 64, 64), 4, 0.1))
     before = dict(conv_cuda.LAUNCHES)
     for rot in (False, True):
         wp = conv_cuda.conv3x3_pack_w(w, rot)
-        assert torch.equal(wp, conv.pack_weights(w, rot))
+        assert torch.equal(wp, conv.pack_weights(w, rot, co_inner=True))
+        assert torch.equal(conv_cuda.conv3x3_pack_w(w.bfloat16(), rot),
+                           conv.pack_weights(w.bfloat16(), rot))
         want = conv.conv3x3_reference(x, conv.rot_t(w) if rot else w)
-        assert torch.equal(conv.conv3x3_reference(x, conv.unpack_weights(wp)), want)
+        assert torch.equal(conv.conv3x3_reference(x, conv.unpack_weights(wp, co_inner=True)),
+                           want)
         assert torch.equal(conv_cuda.conv3x3_fwd(x, w, rot=rot), want)
     assert conv_cuda.LAUNCHES == before
 
@@ -167,7 +173,7 @@ def test_dw_partials_reference_rounds_once_in_bf16():
     ((128, 64, 32, 32), torch.bfloat16, True),    # the flagship's res_in_32
     ((16, 64, 128, 128), torch.bfloat16, True),   # intro_tc_128_dp8's res_in_128
     ((1, 64, 7, 64), torch.bfloat16, True),       # any H
-    ((128, 64, 64, 64), torch.float32, False),    # fp32 keeps the general kernels
+    ((128, 64, 64, 64), torch.float32, False),    # fp32 has bodies of its own
     ((3, 64, 20, 36), torch.bfloat16, False),     # W not 32, 64 or 128
     ((2, 64, 16, 8), torch.bfloat16, False),
     ((2, 64, 16, 256), torch.bfloat16, False),

@@ -15,15 +15,16 @@ small gradient entries where the variance is floored (csrc/tc_kernels.cu).
 Conv, against the plain version in float64 on the same (bf16-rounded)
 inputs, with S the same conv of |operands| (the sum of |terms| of each
 output entry):
-* fp32: |d| <= 1e-4 |ref| + 1e-5 for y and dx (576 terms per entry);
-  |d| <= 2e-5 S for dW (2,304 sequential fp32 additions at most per entry
-  at the flagship shape: 8 tiles x 256 pixels in a block, then 256
-  partials; the random-walk estimate sqrt(2304) * 2^-24 = 2.9e-6 S, with a
-  7x margin, under the worst-case 2304 * 2^-24 = 1.4e-4 S).
+* fp32 (csrc/conv_fp32.cu): |d| <= 1e-4 |ref| + 1e-5 for y and dx (576
+  terms per entry); |d| <= 2e-5 S for dW (4,228 sequential fp32 additions
+  per entry at [128, 64, 64, 64]: 8 units x 512 pixels in a block, then
+  132 partials; the random-walk estimate sqrt(4228) * 2^-24 = 3.9e-6 S,
+  with a 5x margin, under the worst case 4228 * 2^-24 = 2.5e-4 S).
 * bf16: one rounding of the fp32 sum, |d| <= 2^-8 |ref| + 1e-5 S. bf16
   with W in {32, 64, 128} runs the wgmma kernels (csrc/conv_wgmma.cu),
   whose dW chain is shorter (one addition per 16 pixels of a block's rows,
-  then at most 132 partials): the same bound holds them.
+  then at most 132 partials), every other bf16 shape the general ones
+  (csrc/conv_kernels.cu, a chain of 2,304): the same bound holds them.
 """
 
 import numpy as np
@@ -141,15 +142,17 @@ def test_wrapper_rejects_what_the_kernels_do_not_take(dev):
         tc_cuda.tc_logsumexp_cuda(z, mu, logvar, 4)
 
 
-def conv_counts(fwd, dw, wgmma):
+def conv_counts(fwd, dw, body):
     """conv_cuda.LAUNCHES after `fwd` conv3x3_fwd and `dw` conv3x3_dw calls,
-    all by the wgmma bodies (each forward packs its weights first) or all by
-    the general ones."""
+    all by one body (``conv.kernel_body``): the wgmma and the fp32 forward
+    pack their weights first, the general one reads them as they are; the
+    fp32 bodies count under the general ones' names."""
     zero = dict.fromkeys(conv_cuda.KERNELS, 0)
-    if wgmma:
+    if body == "wgmma":
         return {**zero, "conv3x3_fwd_wgmma": fwd, "conv3x3_pack_w": fwd,
                 "conv3x3_dw_wgmma": dw, "conv3x3_dw_reduce": dw}
-    return {**zero, "conv3x3_fwd": fwd, "conv3x3_dw": dw, "conv3x3_dw_reduce": dw}
+    return {**zero, "conv3x3_fwd": fwd, "conv3x3_dw": dw, "conv3x3_dw_reduce": dw,
+            "conv3x3_pack_w": fwd if body == "fp32" else 0}
 
 
 def conv_bound(name, dtype, ref, s):
@@ -160,10 +163,13 @@ def conv_bound(name, dtype, ref, s):
     return 1e-4 * ref.abs() + 1e-5
 
 
-@pytest.mark.parametrize("shape", [(2, 64, 32, 8), (3, 64, 20, 36), (128, 64, 64, 64)])
+@pytest.mark.parametrize("shape", [(2, 64, 32, 8), (3, 64, 20, 36), (128, 64, 64, 64),
+                                   (1, 64, 16, 4), (2, 64, 16, 6), (1, 64, 128, 128)],
+                         ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_conv_kernels_match_plain(dev, shape, dtype):
-    """y, dx and dW; (3, 64, 20, 36) has ragged tiles in both H and W."""
+    """y, dx and dW; (3, 64, 20, 36) has ragged tiles in both H and W, W = 4
+    and 6 rows that are no multiple of 16 bytes, W = 128 two column chunks."""
     g = torch.Generator(device=dev).manual_seed(0)
     x = (torch.randn(shape, device=dev, generator=g) * 0.5).to(dtype)
     w = (torch.randn((64, 64, 3, 3), device=dev, generator=g) * 0.05).to(dtype)
@@ -174,7 +180,7 @@ def test_conv_kernels_match_plain(dev, shape, dtype):
            "dw": conv_cuda.conv3x3_dw(x, gy)}
     torch.cuda.synchronize()
     assert {k: conv_cuda.LAUNCHES[k] - before[k] for k in conv_cuda.KERNELS} == \
-        conv_counts(2, 1, wgmma=conv.fast_path(shape, dtype))
+        conv_counts(2, 1, conv.kernel_body(shape, dtype))
     xd, wd, gd = x.double(), w.double(), gy.double()
     want = {"y": (conv.conv3x3_reference(xd, wd), conv.conv3x3_reference(xd.abs(), wd.abs())),
             "dx": (conv.conv3x3_dx_reference(gd, wd),
@@ -241,9 +247,9 @@ def test_intro_step_launches_no_weight_gradient_in_phase_e(dev):
     state.opt_e.register_step_pre_hook(lambda *a: at_opt_e.append(dict(conv_cuda.LAUNCHES)))
     solver.train_step(state, batch)
     torch.cuda.synchronize()
-    # fp32: the general kernels, which read the weights as they are
-    assert at_opt_e == [conv_counts(24, 4, wgmma=False)]
-    assert conv_cuda.LAUNCHES == conv_counts(44, 12, wgmma=False)
+    # fp32: the fp32 bodies, one pack per forward or dx
+    assert at_opt_e == [conv_counts(24, 4, "fp32")]
+    assert conv_cuda.LAUNCHES == conv_counts(44, 12, "fp32")
 
 
 def test_conv_wrapper_rejects_what_the_kernels_do_not_take(dev):
@@ -261,6 +267,16 @@ def test_conv_wrapper_rejects_what_the_kernels_do_not_take(dev):
         conv_cuda.conv3x3_fwd(x, w.cpu())
     with pytest.raises(ValueError):
         conv_cuda.conv3x3_dw(x, x[:1])
+    with pytest.raises(TypeError):
+        conv_cuda.conv3x3_dw(x, x.bfloat16())
+    with pytest.raises(TypeError):
+        conv_cuda.conv3x3_pack_w(w.double())
+    with pytest.raises(ValueError):
+        conv_cuda.conv3x3_pack_w(w[:, :32].contiguous())
+    # the fp32 launcher itself refuses more blocks than units
+    part = torch.empty((3, 576, 64), device=dev)
+    with pytest.raises(RuntimeError):
+        conv_cuda.launch("conv3x3_dw_fp32", x, x, part, 2, 16, 8, 3, device=dev)
 
 
 WGMMA_SHAPES = [(4, 64, 16, 32), (3, 64, 24, 64), (2, 64, 16, 128), (128, 64, 32, 32)]
@@ -287,7 +303,7 @@ def test_wgmma_conv_kernels_match_plain(dev, shape, general):
            "dw": conv_cuda.conv3x3_dw(x, gy, general=general)}
     again = conv_cuda.conv3x3_dw(x, gy, general=general)
     torch.cuda.synchronize()
-    assert conv_cuda.LAUNCHES == conv_counts(2, 2, wgmma=not general)
+    assert conv_cuda.LAUNCHES == conv_counts(2, 2, "general" if general else "wgmma")
     assert torch.equal(got["dw"], again)
     xd, wd, gd = x.double(), w.double(), gy.double()
     want = {"y": (conv.conv3x3_reference(xd, wd), conv.conv3x3_reference(xd.abs(), wd.abs())),
@@ -312,8 +328,8 @@ def test_wgmma_dw_equals_its_partials_reference(dev):
     x = (torch.randn(shape, device=dev, generator=g) * 0.5).to(dtype)
     gy = torch.randn(shape, device=dev, generator=g).to(dtype)
     want_dw, want_parts = conv.conv3x3_dw_partials_reference(x, gy, conv_cuda.sm_count(dev))
-    fast, n_parts, rc = conv_cuda.dw_parts(shape, dtype, dev)
-    assert fast and n_parts == want_parts.shape[0]
+    body, n_parts, rc = conv_cuda.dw_parts(shape, dtype, dev)
+    assert body == "wgmma" and n_parts == want_parts.shape[0]
     part = torch.empty((n_parts, 576, 64), device=dev)
     conv_cuda.launch("conv3x3_dw_wgmma", x, gy, part, *(shape[0], *shape[2:]), rc, n_parts,
                      device=dev)
@@ -324,6 +340,39 @@ def test_wgmma_dw_equals_its_partials_reference(dev):
     assert bool(((got_parts.double() - want_parts.double()).abs() <= 1e-5 * s).all())
     d = (conv_cuda.conv3x3_dw(x, gy).double() - want_dw.double()).abs()
     assert bool((d <= 2.0 ** -7 * want_dw.double().abs() + 1e-5 * s).all())  # two roundings
+
+
+@pytest.mark.parametrize("shape", [(6, 64, 16, 64), (3, 64, 20, 36), (2, 64, 16, 6),
+                                   (40, 64, 32, 32)], ids=lambda s: "x".join(map(str, s)))
+def test_fp32_dw_equals_its_partials_reference(dev, shape):
+    """The fp32 kernel's per-block partials against the plain split sum by
+    the same schedule (conv3x3_dw_partials_reference with
+    fp32_tile_schedule), partial by partial in block order: each within
+    1e-5 S (the order inside a block differs); dW is their ordered sum, so
+    it equals the kernel's partials added in that order bit for bit, and
+    two runs are bit-equal."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(shape, device=dev, generator=g) * 0.5
+    gy = torch.randn(shape, device=dev, generator=g)
+    want_dw, want_parts = conv.conv3x3_dw_partials_reference(
+        x, gy, conv_cuda.sm_count(dev), conv.fp32_tile_schedule)
+    body, n_parts, _ = conv_cuda.dw_parts(shape, torch.float32, dev)
+    assert body == "fp32" and n_parts == want_parts.shape[0]
+    part = torch.empty((n_parts, 576, 64), device=dev)
+    conv_cuda.launch("conv3x3_dw_fp32", x, gy, part, *(shape[0], *shape[2:]), n_parts,
+                     device=dev)
+    dw = conv_cuda.conv3x3_dw(x, gy)
+    torch.cuda.synchronize()
+    # part[p][tap * 64 + ci][co] -> [p][co][ci][ky][kx]
+    got_parts = part.view(n_parts, 3, 3, 64, 64).permute(0, 4, 3, 1, 2)
+    s = conv.conv3x3_dw_reference(x.double().abs(), gy.double().abs())
+    assert bool(((got_parts.double() - want_parts.double()).abs() <= 1e-5 * s).all())
+    total = torch.zeros_like(dw)
+    for p in got_parts:
+        total += p
+    assert torch.equal(dw, total)
+    assert torch.equal(dw, conv_cuda.conv3x3_dw(x, gy))
+    assert bool(((dw.double() - want_dw.double()).abs() <= 2e-5 * s).all())
 
 
 @pytest.mark.parametrize("impl", ["pallas", "hybrid"])
@@ -347,7 +396,7 @@ def test_wgmma_conv_autograd_matches_plain(dev, impl):
         torch.autograd.backward(y, cot.to(dt))
         results.append({"y": y.detach(), "dx": x.grad, "dw": w.grad})
     fwd = 2 if impl == "pallas" else 1
-    assert conv_cuda.LAUNCHES == conv_counts(fwd, 1, wgmma=True)
+    assert conv_cuda.LAUNCHES == conv_counts(fwd, 1, "wgmma")
     xa, wa, ca = x0.double().abs(), w0.double().abs(), cot.double().abs()
     sums = {"y": conv.conv3x3_reference(xa, wa), "dx": conv.conv3x3_dx_reference(ca, wa),
             "dw": conv.conv3x3_dw_reference(xa, ca)}
