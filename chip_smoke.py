@@ -18,9 +18,12 @@ result line):
 3. Kernels vs plain, TF32 off.
    TC: tc_fwd, tc_bwd_dz and tc_bwd_dmu against the plain PyTorch version
    (evaluated in float64 on the same inputs) at B in {64, 512}, Z=128,
-   N=1280, with the variance floor and the -50 clamp active; rtol 1e-4,
-   atol 1e-5 on every element. Median times of each kernel and of the
-   float32 plain version.
+   N=1280, at B=40, Z=72 (no multiple of a warp) and at 37 rows from row 5
+   of a bank of 90 (no multiple of a slice), with the variance floor and
+   the -50 clamp active; rtol 1e-4, atol 1e-5 on every element; two runs
+   bit-equal. Median times of each kernel at B in {64, 512, 2048} (2048:
+   time only) beside its bound (``tc_bounds``) and beside an empty kernel
+   timed the same way, the launch floor; and of the float32 plain version.
    Conv: the wrappers conv3x3_fwd (forward and dx), conv3x3_dw (with
    conv3x3_dw_reduce) and conv3x3_pack_w at the flagship's shapes, NCHW [128, 64, 64, 64] and
    [128, 64, 32, 32], at [8, 64, 128, 128] (W = 128), at the ragged
@@ -66,9 +69,9 @@ result line):
    conv_impl 'pallas' and then 'xla': configs/vae_synthetic.json (res
    arch, vae solver, fp32) and configs/tc_dsprites.json on the synthetic
    dataset with tc_impl 'pallas' (conv arch, tc solver, fp32). Finite
-   losses, exact launch counts, img/s. The CLI sets no TF32 flag: by
-   PyTorch's defaults (printed) the 'xla' arm's cuDNN convs run in TF32
-   while the 'pallas' arm's routed convs are true fp32.
+   losses, exact launch counts, img/s. Both are ``precision: "fp32"``, for
+   which the trainer turns TF32 off: at every optimizer call of the runs
+   both TF32 switches are off (checked), so both arms are true fp32.
 7. The data-parallel path (``phase_data_parallel``):
    configs/intro_tc_128_dp8.json at full width on 2 ranks, two processes
    of this script (``--dp-rank``) that share the one card over gloo and
@@ -84,7 +87,7 @@ and as the last line ``{"ok": true, "device": {...}}``.
 profiles the flagship's four arms, and then configs/vae_synthetic.json
 (fp32) with conv_impl 'pallas' and 'xla', in turns (torch.profiler, 5
 steady steps each, twice): device ms per step and the conv kernels' share,
-with the TF32 flags in effect.
+with the TF32 switches as each run sets them (off in the fp32 runs).
 """
 
 import contextlib
@@ -152,15 +155,25 @@ def die(msg: str) -> None:
     sys.exit(1)
 
 
-def tf32_flags() -> str:
-    """The precision of fp32 work as the process is set now."""
+def tf32_flags() -> tuple:
+    """(cuDNN convs, matrix products): may fp32 work run in TF32 now?"""
     import torch
 
-    cudnn, matmul = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    return (f"torch.backends.cudnn.allow_tf32 = {cudnn}, torch.backends.cuda.matmul."
-            f"allow_tf32 = {matmul}: fp32 convs by cuDNN (conv_impl xla, and every conv the "
-            f"kernels do not take) run in {'TF32' if cudnn else 'true fp32'}; the routed "
-            "convs of conv_impl pallas are true fp32 either way")
+    return (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+
+
+@contextlib.contextmanager
+def tf32_at_optimizer_calls():
+    """Collects ``tf32_flags()`` at every optimizer call of the runs made
+    inside the block: the switches as the steps ran under them."""
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    seen = set()
+    handle = register_optimizer_step_pre_hook(lambda *args: seen.add(tf32_flags()))
+    try:
+        yield seen
+    finally:
+        handle.remove()
 
 
 @contextlib.contextmanager
@@ -215,21 +228,44 @@ def bound(bytes_moved: float, ops: float, kind: str) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def tc_bounds(b: int, bank: int) -> dict:
-    """Bounds of the three TC kernels for b rows against a bank of `bank`:
-    z, mu, logvar in ([b + bank + b] x Z float32), the per-row statistics
-    between them (lm [b, Z] and lj [b] float64) and the outputs. Per (row,
-    bank row, latent) the forward takes about 8 operations (difference,
-    square, scale, two running logsumexp updates), each backward about 12;
-    they are done in float64 and counted at the data sheet's fp64 rate.
-    Either way the bound is under a microsecond, below what a launch
-    costs."""
-    pairs = b * bank * Z_DIM
-    rows, stats = (2 * b + bank) * Z_DIM * 4, (b * Z_DIM + b) * 8
-    return {"tc_fwd": bound(rows + stats + 2 * b * 4, 8 * pairs, "fp64"),
-            "tc_bwd_dz": bound(rows + stats + 2 * b * 4 + 2 * b * Z_DIM * 4, 12 * pairs, "fp64"),
-            "tc_bwd_dmu": bound(rows + stats + 2 * b * 4 + bank * Z_DIM * 4, 12 * pairs,
-                                "fp64")}
+# Operations of the TC kernels as the data sheet counts them (a fused
+# multiply-add is two). A float64 exp is software: round x / ln 2 to k (one
+# fused multiply-add and an add), x - k ln 2 with ln 2 in two parts (two), a
+# polynomial of degree 11 in Horner form (eleven); putting k into the exponent
+# is integer work: 14 fused multiply-adds and an add, 29, for the CUDA
+# library's exp, which tc_fwd calls, and for the backward kernels' own alike
+# (a shorter polynomial does not keep the train step: csrc/tc_kernels.cu::
+# exp_in_range). The density of a pair (j, i, l): z - mu, times 1/v, times d,
+# c - 0.5 d^2/v: 5.
+TC_EXP_OPS, TC_DENSITY_OPS = 29, 5
+TC_OPS = {
+    # per (j, i, l): density, clamp, + iw, running max, - max, exp, two sums;
+    # per (j, i): the joint term's + iw, max, - max, exp, sum
+    "tc_fwd": (TC_DENSITY_OPS + 4 + TC_EXP_OPS + 2, 4 + TC_EXP_OPS),
+    # per (j, i, l): density, the clamp's compare, the exponent (one fma), exp,
+    # dP (fma), the dz product (fma), d^2/v - 1 and the dlogvar product (fma);
+    # per (j, i): the joint weight's exponent (two adds), exp, times g_j
+    "tc_bwd_dz": (TC_DENSITY_OPS + 1 + 2 + TC_EXP_OPS + 2 + 2 + 3, 3 + TC_EXP_OPS),
+    "tc_bwd_dmu": (TC_DENSITY_OPS + 1 + 2 + TC_EXP_OPS + 2 + 2, 3 + TC_EXP_OPS),
+}
+
+
+def tc_bounds(b: int, bank: int, zdim: int = 128) -> dict:
+    """Bounds of the three TC kernels for b rows against a bank of `bank`.
+    Operations: TC_OPS per (row, bank row, latent) and per (row, bank row),
+    all float64, at the data sheet's fp64 rate. Bytes, each input read once
+    and each output written once: z, mu, logvar, dz, dlogvar, dmu, pm, qz,
+    g_m, g_j in float32; terms [b, Z, 4], psum [b, bank] and lj [b], which
+    the forward writes and each backward kernel reads, in float64. At the
+    training shape the bound is under a microsecond, below what a launch
+    costs: there a kernel is judged against the launch floor (phase 3)."""
+    rows, bank_rows = b * zdim * 4, bank * zdim * 4
+    kept = b * zdim * 32 + b * bank * 8 + b * 8
+    moved = {"tc_fwd": 2 * rows + bank_rows + kept + 2 * b * 4,
+             "tc_bwd_dz": kept + bank_rows + rows + 2 * b * 4 + 2 * rows,
+             "tc_bwd_dmu": kept + bank_rows + 2 * b * 4 + bank_rows}
+    return {k: bound(moved[k], b * bank * (zdim * per_pair + per_row_pair), "fp64")
+            for k, (per_pair, per_row_pair) in TC_OPS.items()}
 
 
 def conv_bounds(shape, kind: str, n_parts: int) -> dict:
@@ -256,16 +292,19 @@ def conv_bounds(shape, kind: str, n_parts: int) -> dict:
             "conv3x3_pack_w": bound(2 * wts, 0, kind)}
 
 
-def tc_inputs(b: int, seed: int):
-    """z, mu, logvar [b, Z] from numpy; logvar scaled x4 as in
+def tc_inputs(b: int, seed: int, zdim: int = Z_DIM, check: bool = True):
+    """z, mu, logvar [b, zdim] from numpy; logvar scaled x4 as in
     tests/test_tc_impls.py:170 so the 1e-4 variance floor and the -50
-    clamp are both active (checked)."""
+    clamp are both active (checked, unless the [b, b, zdim] densities of the
+    check are too large to make on the host)."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
-    z = rng.randn(b, Z_DIM).astype(np.float32)
-    mu = rng.randn(b, Z_DIM).astype(np.float32)
-    logvar = (rng.randn(b, Z_DIM) * 0.7 * 4.0).astype(np.float32)
+    z = rng.randn(b, zdim).astype(np.float32)
+    mu = rng.randn(b, zdim).astype(np.float32)
+    logvar = (rng.randn(b, zdim) * 0.7 * 4.0).astype(np.float32)
+    if not check:
+        return z, mu, logvar
     v = np.maximum(np.exp(logvar), 1e-4)
     lp = -0.5 * (np.log(v)[:, None] + (z[:, None] - mu[None]) ** 2 / v[:, None]
                  + np.log(2 * np.pi))
@@ -279,14 +318,76 @@ def tc_loss(pm, qz):
     return (qz - pm).mean() + 0.5 * pm.sum() * 1e-3
 
 
+TC_TIMED = (MAIN_B, 512, 2048)   # batches the TC kernels are timed at
+# correctness only, (rows, row_off, bank, Z): a Z that is no multiple of 32;
+# rows and a bank that differ and are no multiple of a slice or a chunk
+TC_RAGGED = ((40, 0, 40, 72), (37, 5, 90, 72))
+
+
+def tc_dataset_size(bank: int) -> int:
+    """N of a timed or checked TC call: the main path's, or 20 banks where
+    the bank outgrows it (the stratified weights need N >= B)."""
+    return DATASET_SIZE if bank <= DATASET_SIZE else 20 * bank
+
+
+def time_tc_kernels(arrays, b: int, off: int, dev) -> dict:
+    """Median ms of each TC kernel launched alone on rows [off, off + b) of
+    z and logvar against the whole mu bank, the backward kernels on what the
+    forward left; and of an empty kernel timed the same way: the launch
+    floor."""
+    import torch
+
+    from intro_tc_vae_tpu_torch.ops import tc_cuda
+
+    z, mu, logvar = (torch.tensor(a, device=dev) for a in arrays)
+    gb, zdim = mu.shape
+    z, logvar = z[off:off + b].contiguous(), logvar[off:off + b].contiguous()
+    terms, psum, lj = tc_cuda.forward_buffers(b, gb, zdim, dev)
+    pm, qz = torch.empty(b, device=dev), torch.empty(b, device=dev)
+    g_m = torch.full((b,), -1.0 / gb + 5e-4, device=dev)
+    g_j = torch.full((b,), 1.0 / gb, device=dev)
+    dz, dlv, dmu = torch.empty_like(z), torch.empty_like(z), torch.empty_like(mu)
+    tensors = {"tc_fwd": (z, mu, logvar, terms, psum, lj, pm, qz),
+               "tc_bwd_dz": (terms, mu, logvar, psum, lj, g_m, g_j, dz, dlv),
+               "tc_bwd_dmu": (terms, mu, psum, lj, g_m, g_j, dmu)}
+    common = (b, gb, zdim, tc_dataset_size(gb), dev, off)
+    t = {}
+    for name in tc_cuda.KERNELS:
+        t[name] = median_ms(lambda: tc_cuda.launch(name, tensors[name], *common))
+    t["launch_floor"] = median_ms(lambda: tc_cuda.launch_empty(dev))
+    return t
+
+
+def tc_run(fn, dtype, arrays, rows, dev, *extra) -> dict:
+    """pm, qz and the three gradients of the rows' share of tc_loss, as
+    float64 numpy."""
+    import torch
+
+    gb = arrays[1].shape[0]
+    args = [torch.tensor(a, device=dev, dtype=dtype, requires_grad=True)
+            for a in (arrays[0][rows], arrays[1], arrays[2][rows])]
+    pm, qz = fn(*args, *extra)
+    ((qz - pm).sum() / gb + 0.5e-3 * pm.sum()).backward()  # tc_loss, the rows' share
+    torch.cuda.synchronize()
+    z, mu, logvar = args
+    return {k: v.detach().double().cpu().numpy() for k, v in
+            {"pm": pm, "qz": qz, "dz": z.grad, "dlogvar": logvar.grad,
+             "dmu": mu.grad}.items()}
+
+
+TC_OWNER = {"pm": "tc_fwd", "qz": "tc_fwd", "dz": "tc_bwd_dz", "dlogvar": "tc_bwd_dz",
+            "dmu": "tc_bwd_dmu"}
+
+
 def phase_kernels(card: str) -> dict:
     """Phase 3: each kernel against the plain version; returns per-kernel
-    max_abs_err (over both B) and times at the main path's B.
+    max_abs_err (over every checked shape) and times at the main path's B.
 
     The plain version is evaluated in float64 on the same float32 inputs:
     in float32 it carries ~4e-5 of rounding on small gradient entries
     where the variance is floored (see csrc/tc_kernels.cu, "Precision"),
     more than the 1e-5 held here. Its float32 difference is printed too.
+    Every shape runs the kernels twice: the two results are bit-equal.
     """
     import numpy as np
     import torch
@@ -295,65 +396,66 @@ def phase_kernels(card: str) -> dict:
 
     dev = torch.device("cuda", 0)
     errs = dict.fromkeys(tc_cuda.KERNELS, 0.0)
-    times = {}
-    owner = {"pm": "tc_fwd", "qz": "tc_fwd", "dz": "tc_bwd_dz",
-             "dlogvar": "tc_bwd_dz", "dmu": "tc_bwd_dmu"}
-    for b in (MAIN_B, 512):
-        arrays = tc_inputs(b, seed=b)
-        results = []
-        for fn, dtype in ((tc_cuda.tc_logsumexp_cuda, torch.float32),
-                          (tc_cuda.tc_logsumexp_reference, torch.float64),
-                          (tc_cuda.tc_logsumexp_reference, torch.float32)):
-            args = [torch.tensor(a, device=dev, dtype=dtype, requires_grad=True)
-                    for a in arrays]
-            pm, qz = fn(*args, DATASET_SIZE)
-            tc_loss(pm, qz).backward()
-            torch.cuda.synchronize()
-            z, mu, logvar = args
-            results.append({k: v.detach().double().cpu().numpy() for k, v in
-                            {"pm": pm, "qz": qz, "dz": z.grad, "dmu": mu.grad,
-                             "dlogvar": logvar.grad}.items()})
-        got, want, plain32 = results
-        for key, kernel in owner.items():
+
+    def check(b, off, gb, zdim):
+        """Rows [off, off + b) of a bank of gb: kernels (single-device form
+        where the rows are the bank) twice, and the float64 plain version."""
+        arrays = tc_inputs(gb, seed=gb, zdim=zdim)
+        rows, n = slice(off, off + b), tc_dataset_size(gb)
+        if (b, off) == (gb, 0):
+            kernel, plain, extra = (tc_cuda.tc_logsumexp_cuda,
+                                    tc_cuda.tc_logsumexp_reference, (n,))
+        else:
+            kernel, plain, extra = (tc_cuda.tc_logsumexp_cuda_gathered,
+                                    tc_cuda.tc_logsumexp_reference_gathered, (off, n, gb))
+        got = tc_run(kernel, torch.float32, arrays, rows, dev, *extra)
+        again = tc_run(kernel, torch.float32, arrays, rows, dev, *extra)
+        want = tc_run(plain, torch.float64, arrays, rows, dev, *extra)
+        plain32 = tc_run(plain, torch.float32, arrays, rows, dev, *extra)
+        where = f"B_j={b} row_off={off} B_i={gb} Z={zdim}"
+        for key, kernel_name in TC_OWNER.items():
             g, w = got[key], want[key]
             if not np.isfinite(g).all():
-                die(f"{kernel}: non-finite {key} at B={b}")
+                die(f"{kernel_name}: non-finite {key} at {where}")
+            if not np.array_equal(g, again[key]):
+                die(f"{kernel_name}: two runs differ in {key} at {where}")
             np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL,
-                                       err_msg=f"{kernel} {key} B={b}")
-            errs[kernel] = max(errs[kernel], float(np.abs(g - w).max()))
-        print(f"phase 3: B={b}: max abs diff to the float64 plain version: kernels "
-              + json.dumps({k: float(np.abs(got[k] - want[k]).max()) for k in owner})
+                                       err_msg=f"{kernel_name} {key} {where}")
+            errs[kernel_name] = max(errs[kernel_name], float(np.abs(g - w).max()))
+        print(f"phase 3: {where}: two runs bit-equal; max abs diff to the float64 plain "
+              "version: kernels "
+              + json.dumps({k: float(np.abs(got[k] - want[k]).max()) for k in TC_OWNER})
               + ", float32 plain version "
-              + json.dumps({k: float(np.abs(plain32[k] - want[k]).max()) for k in owner}))
+              + json.dumps({k: float(np.abs(plain32[k] - want[k]).max()) for k in TC_OWNER}))
+        return arrays
 
-        # times: each kernel launched alone, and the float32 plain forward and
-        # backward (what tc_impl 'xla' runs)
-        z, mu, logvar = (torch.tensor(a, device=dev) for a in arrays)
-        f64 = dict(device=dev, dtype=torch.float64)
-        lm, lj = torch.empty((b, Z_DIM), **f64), torch.empty(b, **f64)
-        pm, qz = torch.empty(b, device=dev), torch.empty(b, device=dev)
-        g_m = torch.full((b,), -1.0 / b + 5e-4, device=dev)
-        g_j = torch.full((b,), 1.0 / b, device=dev)
-        dz, dlv, dmu = torch.empty_like(z), torch.empty_like(z), torch.empty_like(z)
-        launch = tc_cuda.launch
-        t = {
-            "tc_fwd": median_ms(lambda: launch("tc_fwd", (z, mu, logvar, lm, lj, pm, qz),
-                                               b, b, Z_DIM, DATASET_SIZE, dev)),
-            "tc_bwd_dz": median_ms(lambda: launch(
-                "tc_bwd_dz", (z, mu, logvar, lm, lj, g_m, g_j, dz, dlv),
-                b, b, Z_DIM, DATASET_SIZE, dev)),
-            "tc_bwd_dmu": median_ms(lambda: launch(
-                "tc_bwd_dmu", (z, mu, logvar, lm, lj, g_m, g_j, dmu),
-                b, b, Z_DIM, DATASET_SIZE, dev)),
-        }
-        with torch.no_grad():
-            t["plain_fwd"] = median_ms(
-                lambda: tc_cuda.tc_logsumexp_reference(z, mu, logvar, DATASET_SIZE))
-        args = [x.clone().requires_grad_(True) for x in (z, mu, logvar)]
-        loss = tc_loss(*tc_cuda.tc_logsumexp_reference(*args, DATASET_SIZE))
-        t["plain_bwd"] = median_ms(lambda: torch.autograd.grad(loss, args, retain_graph=True))
-        print(f"phase 3: B={b} Z={Z_DIM} N={DATASET_SIZE} median ms per call "
+    for shape in TC_RAGGED:
+        check(*shape)
+    times = {}
+    for b in TC_TIMED:
+        # 2048: time only (the plain version's [B, B, Z] tensors are 2 GB each)
+        plain = b <= 512
+        arrays = check(b, 0, b, Z_DIM) if plain else tc_inputs(b, seed=b, check=False)
+        t = time_tc_kernels(arrays, b, 0, dev)
+        if plain:
+            # the float32 plain forward and backward (what tc_impl 'xla' runs)
+            z, mu, logvar = (torch.tensor(a, device=dev) for a in arrays)
+            with torch.no_grad():
+                t["plain_fwd"] = median_ms(
+                    lambda: tc_cuda.tc_logsumexp_reference(z, mu, logvar, DATASET_SIZE))
+            args = [x.clone().requires_grad_(True) for x in (z, mu, logvar)]
+            loss = tc_loss(*tc_cuda.tc_logsumexp_reference(*args, DATASET_SIZE))
+            t["plain_bwd"] = median_ms(
+                lambda: torch.autograd.grad(loss, args, retain_graph=True))
+        bounds = tc_bounds(b, b)
+        print(f"phase 3: B={b} Z={Z_DIM} N={tc_dataset_size(b)} median ms per call "
               + json.dumps({k: round(v, 5) for k, v in t.items()})
+              + "; bound ms " + json.dumps({k: round(v["bound_ms"], 5)
+                                            for k, v in bounds.items()})
+              + "; bound / time " + json.dumps({k: round(v["bound_ms"] / t[k], 3)
+                                                for k, v in bounds.items()})
+              + "; time / launch floor "
+              + json.dumps({k: round(t[k] / t["launch_floor"], 2) for k in bounds})
               + f" on {card}")
         if b == MAIN_B:
             times = t
@@ -373,8 +475,9 @@ def phase_gathered_kernels(card: str) -> dict:
     Checks: each against the plain gathered version in float64 (rtol
     1e-4, atol 1e-5); the ranks' pm, qz, dz and dlogvar rows,
     concatenated, bit-equal to the single-device kernels on the whole
-    batch (each block redoes the same row's loop, only the row's weight
-    index is offset); the sum over ranks of the full-bank dmu equal to the
+    batch (each block redoes the same row's slices, only the row's weight
+    index is offset: the order of every sum follows from the bank's length
+    alone); the sum over ranks of the full-bank dmu equal to the
     single-device dmu within the same tolerance (R float32 roundings).
     Returns max_abs_err and the median times at R = 2, rank 1."""
     import numpy as np
@@ -387,15 +490,7 @@ def phase_gathered_kernels(card: str) -> dict:
     arrays = tc_inputs(gb, seed=gb)
 
     def run(fn, dtype, rows, *extra):
-        args = [torch.tensor(a, device=dev, dtype=dtype, requires_grad=True)
-                for a in (arrays[0][rows], arrays[1], arrays[2][rows])]
-        pm, qz = fn(*args, *extra)
-        ((qz - pm).sum() / gb + 0.5e-3 * pm.sum()).backward()  # the rows' share
-        torch.cuda.synchronize()
-        z, mu, logvar = args
-        return {k: v.detach().double().cpu().numpy() for k, v in
-                {"pm": pm, "qz": qz, "dz": z.grad, "dlogvar": logvar.grad,
-                 "dmu": mu.grad}.items()}
+        return tc_run(fn, dtype, arrays, rows, dev, *extra)
 
     whole = run(tc_cuda.tc_logsumexp_cuda, torch.float32, slice(None), DATASET_SIZE)
     err = 0.0
@@ -429,24 +524,9 @@ def phase_gathered_kernels(card: str) -> dict:
 
     # times at R = 2, rank 1: each kernel alone, and the float32 plain version
     b, off = gb // 2, gb // 2
+    t = time_tc_kernels(arrays, b, off, dev)
     z, mu, logvar = (torch.tensor(a, device=dev) for a in arrays)
     z, logvar = z[off:].contiguous(), logvar[off:].contiguous()
-    f64 = dict(device=dev, dtype=torch.float64)
-    lm, lj = torch.empty((b, Z_DIM), **f64), torch.empty(b, **f64)
-    pm, qz = torch.empty(b, device=dev), torch.empty(b, device=dev)
-    g_m = torch.full((b,), -1.0 / gb + 5e-4, device=dev)
-    g_j = torch.full((b,), 1.0 / gb, device=dev)
-    dz, dlv, dmu = torch.empty_like(z), torch.empty_like(z), torch.empty_like(mu)
-    launch = tc_cuda.launch
-    common = (b, gb, Z_DIM, DATASET_SIZE, dev, off)
-    t = {
-        "tc_fwd": median_ms(lambda: launch("tc_fwd", (z, mu, logvar, lm, lj, pm, qz),
-                                           *common)),
-        "tc_bwd_dz": median_ms(lambda: launch(
-            "tc_bwd_dz", (z, mu, logvar, lm, lj, g_m, g_j, dz, dlv), *common)),
-        "tc_bwd_dmu": median_ms(lambda: launch(
-            "tc_bwd_dmu", (z, mu, logvar, lm, lj, g_m, g_j, dmu), *common)),
-    }
     plain = tc_cuda.tc_logsumexp_reference_gathered
     with torch.no_grad():
         t["plain_fwd"] = median_ms(lambda: plain(z, mu, logvar, off, DATASET_SIZE, gb))
@@ -1021,12 +1101,13 @@ def phase_other_paths(card: str) -> dict:
     conv3x3_dw_reduce once: 6, 3, 3. tc: one TC call, differentiated: 1 of
     each TC kernel. Both run in fp32, so every conv launch is an fp32 body
     (no wgmma body), and every conv3x3_fwd packs its weights first:
-    conv3x3_pack_w 6. The runs go through the CLI, which sets no TF32
-    flag: the flags in effect are printed. Returns the launches of the
+    conv3x3_pack_w 6. The runs go through the CLI; the trainer turns TF32
+    off for ``precision: "fp32"``, so at every optimizer call both switches
+    must be off: cuDNN's convs of the 'xla' arm are true fp32 like the
+    routed ones of the 'pallas' arm. Returns the launches of the
     vae_synthetic run."""
     from intro_tc_vae_tpu_torch.train import images_per_second
 
-    print("phase 6: " + tf32_flags())
     rates, general = {}, {}
     for label, config, update, tc in (
             ("vae_synthetic (res, vae)", VAE_SYNTHETIC, {}, 0),
@@ -1040,16 +1121,23 @@ def phase_other_paths(card: str) -> dict:
                     "conv3x3_dw_reduce": 20 * 3 * k, "conv3x3_pack_w": 20 * 6 * k,
                     "conv3x3_fwd_wgmma": 0, "conv3x3_dw_wgmma": 0}
             reset_all_launches()
-            state = run_cli(config, {**update, "conv_impl": conv_impl, "num_epochs": 1}, run)
+            with tf32_at_optimizer_calls() as tf32:
+                state = run_cli(config, {**update, "conv_impl": conv_impl, "num_epochs": 1},
+                                run)
             counts = all_launches()
             if counts != want:
                 die(f"{run}: launches {counts}, expected {want}")
+            if tf32 != {(False, False)}:
+                die(f"{run}: an fp32 run stepped with (cudnn.allow_tf32, cuda.matmul."
+                    f"allow_tf32) = {sorted(tf32)}, expected both off")
             if config == VAE_SYNTHETIC and conv_impl == "pallas":
                 general = counts
             rates[run] = images_per_second(state, MAIN_B)
             print(f"phase 6: {run}: 20 steps, finite losses (last loss "
                   f"{state.history[-1]['loss_enc']:.6g}), launches {counts}")
-    print("phase 6: img/s (steps 4-20, fp32, batch 64) "
+    print(f"phase 6: TF32 off at every optimizer call of the four runs; outside them "
+          f"(cudnn.allow_tf32, cuda.matmul.allow_tf32) = {tf32_flags()}")
+    print("phase 6: img/s (steps 4-20, fp32 with TF32 off, batch 64) "
           + json.dumps({k: round(v, 1) for k, v in rates.items()}) + f" on {card}")
     return general
 
@@ -1348,8 +1436,8 @@ def device_time(card: str) -> None:
     20-step run through the CLI, the arms of a config in turns and then in
     reverse; a step ends at the decoder's optimizer call (both solvers call
     the encoder's optimizer, then the decoder's). Prints each run's total
-    and the conv kernels' and cuDNN's share of it, and the TF32 flags the
-    runs were made under (the CLI's: PyTorch's defaults)."""
+    and the conv kernels' and cuDNN's share of it, and the TF32 switches the
+    steps ran under (the trainer turns them off for precision "fp32")."""
     import torch
     from torch.optim.optimizer import register_optimizer_step_pre_hook
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -1362,11 +1450,11 @@ def device_time(card: str) -> None:
                 for tc_impl, conv_impl in INTRO_ARMS]
     vae = [(f"vae_synthetic, conv {conv_impl}", VAE_SYNTHETIC,
             {"conv_impl": conv_impl, "num_epochs": 1}) for conv_impl in ("pallas", "xla")]
-    print("device time: " + tf32_flags())
     for arm, config, update in flagship + flagship[::-1] + vae + vae[::-1]:
         calls = {"n": 0}
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=13, warmup=1, active=active)) as prof:
+        with tf32_at_optimizer_calls() as tf32, \
+                profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                        schedule=schedule(wait=13, warmup=1, active=active)) as prof:
             def hook(optimizer, args, kwargs):
                 calls["n"] += 1
                 if calls["n"] % 2 == 0:  # encoder's call, then the decoder's: one step
@@ -1397,7 +1485,8 @@ def device_time(card: str) -> None:
                                          "implicit_gemm", "convolve", "wgrad", "dgrad")}
         results.setdefault(arm, []).append(rec)
         print(f"device time: {arm}: " + json.dumps({k: round(v, 3) for k, v in rec.items()})
-              + f" on {card}", flush=True)
+              + f"; (cudnn.allow_tf32, cuda.matmul.allow_tf32) at its optimizer calls "
+              f"{sorted(tf32)} on {card}", flush=True)
     print("device time: ms/step (1st, 2nd run) "
           + json.dumps({arm: [round(r["device_ms_per_step"], 2) for r in runs]
                         for arm, runs in results.items()}) + f" on {card}")

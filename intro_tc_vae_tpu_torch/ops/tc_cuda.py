@@ -10,8 +10,20 @@ kernels in ``csrc/tc_kernels.cu`` (design notes there):
 * ``tc_bwd_dz``  replaces ``_tc_bwd_dz_kernel``  (tc_pallas.py:174),
 * ``tc_bwd_dmu`` replaces ``_tc_bwd_dmu_kernel`` (tc_pallas.py:202).
 
-The forward saves (z, mu, logvar, lm, lj); the backward recomputes the
-densities, as the Pallas VJP does, so no [B, B, z] residual is stored.
+The forward leaves three float64 tensors for the backward: ``terms``
+[B, Z, 4] (per (j, l): z, 1/v, c, c - lm, so that P = c - 0.5 d^2/v), ``lj``
+[B] and ``psum`` [B, GB] = sum_l P[j, i, l], the one thing the backward
+needs a sum over l for. The backward recomputes the densities, as the
+Pallas VJP does, so no [B, B, z] residual is stored; ``psum`` is O(B^2)
+(``scratch_bytes``: 32 KB at B = 64, 2.1 GB at B = 16384), and a shape
+whose scratch the device cannot hold is refused, not rerouted.
+
+The two backward kernels cut the reduced axis (i for ``tc_bwd_dz``, j for
+``tc_bwd_dmu``) into slices, one warp each, and add the slices' partial
+sums in ascending order. ``reduce_slices`` is that cut, a function of the
+reduced length alone; ``backward_plan`` adds how many output rows a thread
+takes, which changes no sum. ``tc_backward_split_reference`` is
+the plain PyTorch version that sums in the same split order.
 
 ``tc_logsumexp_cuda_gathered(z, mu_bank, logvar, row_off, dataset_size,
 global_batch)`` is the data-parallel form: a rank's [B_local, Z] rows of
@@ -34,11 +46,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from intro_tc_vae_tpu_torch.ops.cuda_build import load_library
 from intro_tc_vae_tpu_torch.ops.density import (
+    LOG_2PI,
+    LOG_PROB_FLOOR,
+    VAR_FLOOR,
     gaussian_log_density_nll,
     log_importance_weight_block,
     minibatch_stratified_sampling,
@@ -49,13 +65,55 @@ LAUNCHES = dict.fromkeys(KERNELS, 0)
 CALLS = dict.fromkeys(("tc_logsumexp", "tc_logsumexp_gathered"), 0)
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# pointers, then B_j, B_i, Z, dataset_size, row_off, global_batch, device, stream
-_TAIL = [_I, _I, _I, _LL, _I, _I, _I, _P]
+# pointers, then B_j, B_i, Z, dataset_size, row_off, global_batch, [the
+# backward's plan: rows, slice_len, n_slices,] device, stream
+_SHAPE, _PLAN, _WHERE = [_I, _I, _I, _LL, _I, _I], [_I] * 3, [_I, _P]
 _ARGTYPES = {
-    "tc_fwd": [_P] * 7 + _TAIL,
-    "tc_bwd_dz": [_P] * 9 + _TAIL,
-    "tc_bwd_dmu": [_P] * 8 + _TAIL,
+    "tc_fwd": [_P] * 8 + _SHAPE + _WHERE,
+    "tc_bwd_dz": [_P] * 9 + _SHAPE + _PLAN + _WHERE,
+    "tc_bwd_dmu": [_P] * 7 + _SHAPE + _PLAN + _WHERE,
+    "tc_empty": _WHERE,
 }
+
+MAX_SLICES = 16       # slices of the reduced axis, one warp each: 512 threads
+MIN_SLICE_LEN = 8     # rows of the reduced axis a warp takes at least
+
+
+def reduce_slices(n_red: int) -> tuple[int, int]:
+    """(slice_len, n_slices): how the backward kernels cut a reduced axis
+    of ``n_red`` rows. Slices of 8 rows up to 128 rows (a short chain per
+    warp where the kernels are bound by latency), then 16 slices of a
+    multiple of 8 rows. The order of every gradient sum follows from this
+    cut and from nothing else."""
+    per_slice = -(-n_red // MAX_SLICES)
+    slice_len = max(MIN_SLICE_LEN, -(-per_slice // 8) * 8)
+    return slice_len, -(-n_red // slice_len)
+
+
+class BackwardPlan(NamedTuple):
+    rows: int        # output rows a thread takes
+    slice_len: int
+    n_slices: int
+
+
+def backward_plan(name: str, b_j: int, b_i: int, zdim: int) -> BackwardPlan:
+    """The launch of ``tc_bwd_dz`` (b_j output rows, b_i reduced) or
+    ``tc_bwd_dmu`` (the reverse). One row a thread fills the card at small
+    batches; at larger ones a thread takes 2 rows, and 4 in ``tc_bwd_dmu``,
+    whose other operand is 32 bytes a row and column: it is then loaded once
+    for those rows. The thresholds are where the H100's times cross
+    (PERF.md); ``rows`` changes no sum."""
+    n_out, n_red = (b_j, b_i) if name == "tc_bwd_dz" else (b_i, b_j)
+    slice_len, n_slices = reduce_slices(n_red)
+    warps = n_out * -(-zdim // 32) * n_slices  # at one row a thread
+    rows = 1 if warps < 4096 else 4 if name == "tc_bwd_dmu" and warps >= 8192 else 2
+    return BackwardPlan(rows, slice_len, n_slices)
+
+
+def scratch_bytes(b: int, global_batch: int, zdim: int) -> int:
+    """Bytes of float64 the forward keeps for the backward: psum
+    [b, global_batch], terms [b, zdim, 4] and lj [b]."""
+    return 8 * (b * global_batch + 4 * b * zdim + b)
 
 
 def reset_launch_counts() -> None:
@@ -75,17 +133,47 @@ def _library() -> ctypes.CDLL:
 
 
 def launch(name: str, tensors, b_j: int, b_i: int, zdim: int,
-           dataset_size: int, device: torch.device, row_off: int = 0) -> None:
+           dataset_size: int, device: torch.device, row_off: int = 0,
+           plan: BackwardPlan | None = None) -> None:
     """One kernel launch: b_j z rows (rows row_off.. of the global batch)
     against b_i mu rows, the whole bank, so the global batch whose weights
-    apply is b_i."""
+    apply is b_i. A backward kernel takes ``backward_plan``'s launch unless
+    ``plan`` gives another (of the same slices, or the kernel refuses)."""
     fn = getattr(_library(), f"{name}_launch")
     stream = torch.cuda.current_stream(device).cuda_stream
+    if name == "tc_fwd":
+        plan = ()
+    elif plan is None:
+        plan = backward_plan(name, b_j, b_i, zdim)
     err = fn(*(t.data_ptr() for t in tensors), b_j, b_i, zdim, int(dataset_size),
-             int(row_off), b_i, device.index, stream)
+             int(row_off), b_i, *plan, device.index, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
     LAUNCHES[name] += 1
+
+
+def launch_empty(device: torch.device) -> None:
+    """An empty kernel on the current stream: what a launch costs."""
+    err = _library().tc_empty_launch(device.index,
+                                     torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel tc_empty failed to launch: cudaError {err}")
+
+
+def forward_buffers(b: int, global_batch: int, zdim: int, device: torch.device):
+    """(terms [b, zdim, 4], psum [b, global_batch], lj [b]), float64: what
+    tc_fwd writes for the backward kernels. Raises if the device cannot hold
+    them; nothing else computes the op."""
+    f64 = dict(device=device, dtype=torch.float64)
+    try:
+        return (torch.empty((b, zdim, 4), **f64), torch.empty((b, global_batch), **f64),
+                torch.empty(b, **f64))
+    except torch.cuda.OutOfMemoryError as e:
+        raise RuntimeError(
+            f"the TC kernels keep sum_l P[j, i, l] for the backward, a float64 "
+            f"[{b}, {global_batch}] scratch: {scratch_bytes(b, global_batch, zdim):,} "
+            f"bytes with the per-row terms, which {device} cannot allocate"
+        ) from e
 
 
 def _check(z: torch.Tensor, mu: torch.Tensor, logvar: torch.Tensor,
@@ -123,34 +211,33 @@ class _TCLogsumexp(torch.autograd.Function):
     def forward(ctx, z, mu, logvar, row_off: int, dataset_size: int):
         b, zdim = z.shape
         gb = mu.shape[0]
-        # float64 logsumexps, kept for the backward (precision note in
+        # float64, kept for the backward (precision note in
         # csrc/tc_kernels.cu); the outputs are float32
-        lm = torch.empty((b, zdim), device=z.device, dtype=torch.float64)
-        lj = torch.empty(b, device=z.device, dtype=torch.float64)
+        terms, psum, lj = forward_buffers(b, gb, zdim, z.device)
         pm = torch.empty(b, device=z.device, dtype=torch.float32)
         qz = torch.empty(b, device=z.device, dtype=torch.float32)
-        launch("tc_fwd", (z, mu, logvar, lm, lj, pm, qz), b, gb, zdim,
+        launch("tc_fwd", (z, mu, logvar, terms, psum, lj, pm, qz), b, gb, zdim,
                dataset_size, z.device, row_off)
-        ctx.save_for_backward(z, mu, logvar, lm, lj)
+        ctx.save_for_backward(mu, logvar, terms, psum, lj)
         ctx.row_off, ctx.dataset_size = row_off, dataset_size
         return pm, qz
 
     @staticmethod
     def backward(ctx, g_pm, g_qz):
-        z, mu, logvar, lm, lj = ctx.saved_tensors
-        b, zdim = z.shape
+        mu, logvar, terms, psum, lj = ctx.saved_tensors
+        b, zdim = logvar.shape
         gb = mu.shape[0]
         # grads of (sum_l lm, lj): g_pm reaches every lm[j, l] (broadcast
         # over l inside the kernel, as _tc_bwd does)
         g_m = g_pm.float().contiguous()
         g_j = g_qz.float().contiguous()
-        dz = torch.empty_like(z)
+        dz = torch.empty_like(logvar)
         dlogvar = torch.empty_like(logvar)
         dmu = torch.empty_like(mu)  # the whole bank
-        launch("tc_bwd_dz", (z, mu, logvar, lm, lj, g_m, g_j, dz, dlogvar),
-               b, gb, zdim, ctx.dataset_size, z.device, ctx.row_off)
-        launch("tc_bwd_dmu", (z, mu, logvar, lm, lj, g_m, g_j, dmu),
-               b, gb, zdim, ctx.dataset_size, z.device, ctx.row_off)
+        launch("tc_bwd_dz", (terms, mu, logvar, psum, lj, g_m, g_j, dz, dlogvar),
+               b, gb, zdim, ctx.dataset_size, logvar.device, ctx.row_off)
+        launch("tc_bwd_dmu", (terms, mu, psum, lj, g_m, g_j, dmu),
+               b, gb, zdim, ctx.dataset_size, logvar.device, ctx.row_off)
         return dz, dmu, dlogvar, None, None
 
 
@@ -181,6 +268,42 @@ def tc_logsumexp_reference_gathered(z: torch.Tensor, mu_bank: torch.Tensor,
     ).sum(dim=1)
     log_qz = torch.logsumexp(log_iw + log_qz_prob.sum(dim=2), dim=1)
     return logqz_prodmarginals, log_qz
+
+
+def tc_backward_split_reference(z: torch.Tensor, mu_bank: torch.Tensor,
+                                logvar: torch.Tensor, g_m: torch.Tensor,
+                                g_j: torch.Tensor, dataset_size: int,
+                                row_off: int = 0):
+    """(dz, dlogvar, dmu) of g_m . pm + g_j . qz as the backward kernels
+    compute them, written out with plain tensor ops: the [B, GB, z] densities
+    and their incoming gradient dP, then every sum over the reduced axis (i
+    for dz and dlogvar, j for dmu) as partial sums over ``reduce_slices``'
+    slices added in ascending order. In the inputs' dtype."""
+    var = torch.clamp(torch.exp(logvar), min=VAR_FLOOR)[:, None, :]
+    d = z[:, None, :] - mu_bank[None, :, :]
+    q = d / var
+    raw = -0.5 * (torch.log(var) + d * q + LOG_2PI)
+    p = torch.clamp(raw, min=LOG_PROB_FLOOR)
+    iw = log_importance_weight_block(row_off, z.shape[0], mu_bank.shape[0],
+                                     dataset_size, z.device).to(z.dtype)
+    lm = torch.logsumexp(iw[:, :, None] + p, dim=1)
+    psum = p.sum(dim=2)
+    lj = torch.logsumexp(iw + psum, dim=1)
+    joint = g_j[:, None] * torch.exp(iw + psum - lj[:, None])
+    dp = g_m[:, None, None] * torch.exp(iw[:, :, None] + p - lm[:, None, :]) + joint[:, :, None]
+    dp = torch.where(raw > LOG_PROB_FLOOR, dp, torch.zeros_like(dp))
+
+    def sum_slices(x, dim):
+        parts = [part.sum(dim) for part in x.split(reduce_slices(x.shape[dim])[0], dim)]
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        return total
+
+    dz = sum_slices(-dp * q, 1)
+    dlogvar = 0.5 * sum_slices(dp * (d * q - 1.0), 1)
+    dlogvar = torch.where(torch.exp(logvar) > VAR_FLOOR, dlogvar, torch.zeros_like(dlogvar))
+    return dz, dlogvar, sum_slices(dp * q, 0)
 
 
 def tc_logsumexp_cuda(z: torch.Tensor, mu: torch.Tensor, logvar: torch.Tensor,

@@ -14,6 +14,11 @@ and only rank 0 prints. ``data_parallel`` must be 0 or the number of
 processes: a process cannot be left out of the mesh, so where JAX
 shrinks the mesh to a size that divides the batch, the port raises.
 
+``precision: "fp32"`` means fp32 on the card too: for such a run both
+TF32 switches are off (PyTorch lets cuDNN compute fp32 convolutions in TF32
+by default), as the JAX counterpart computes in true fp32 and as the
+``conv_impl: pallas`` kernels do; they are restored when the run ends.
+
 Options this port does not carry yet raise ``NotImplementedError``
 naming their ROADMAP item (``check_ported``). Checkpoints are not ported
 yet either: the loop says so and saves none.
@@ -21,6 +26,7 @@ yet either: the loop says so and saves none.
 
 from __future__ import annotations
 
+import contextlib
 import random
 import time
 from typing import Optional
@@ -90,10 +96,32 @@ def _quiet(*args, **kwargs) -> None:
     pass
 
 
+@contextlib.contextmanager
+def true_fp32(precision: str):
+    """For ``precision`` "fp32": cuDNN convolutions and matrix products in
+    fp32 proper, not TF32 (10 mantissa bits), until the block ends, however
+    it ends. A bf16 run leaves the switches as it found them."""
+    if precision != "fp32":
+        yield
+        return
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
 def train_soft_intro_vae(config: Config,
                          device: Optional[torch.device] = None) -> TrainState:
     """Run one training job from a Config; returns the final TrainState,
     whose ``history`` holds one record per step (losses and seconds)."""
+    with true_fp32(config.precision):
+        return _train(config, device)
+
+
+def _train(config: Config, device: Optional[torch.device]) -> TrainState:
     validate_config(config)
     check_ported(config)
     distributed = initialize_distributed()

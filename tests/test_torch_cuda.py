@@ -114,6 +114,117 @@ def test_gathered_kernels_match_plain(dev, world, rank):
         {"tc_logsumexp": 0, "tc_logsumexp_gathered": 1}
 
 
+def _tc_grads(fn, dtype, arrays, rows, dev, *extra):
+    """pm, qz and the gradients of z, the whole bank and logvar for the
+    rows' share of the loss, as float64 numpy."""
+    gb = arrays[1].shape[0]
+    args = [torch.tensor(a, device=dev, dtype=dtype, requires_grad=True)
+            for a in (arrays[0][rows], arrays[1], arrays[2][rows])]
+    pm, qz = fn(*args, *extra)
+    ((qz - pm).sum() / gb + 0.5e-3 * pm.sum()).backward()
+    torch.cuda.synchronize()
+    return {k: v.detach().double().cpu().numpy() for k, v in
+            dict(pm=pm, qz=qz, dz=args[0].grad, dmu=args[1].grad, dlogvar=args[2].grad).items()}
+
+
+# (rows, row_off, bank, Z): Z no multiple of 32; rows and a bank that differ
+# and are no multiple of a slice (8) or a chunk (32); a single short slice;
+# 16 slices of 16 with two rows a thread
+TC_SHAPES = [(40, 0, 40, 72), (37, 5, 90, 72), (3, 0, 3, 5), (64, 64, 128, 128),
+             (256, 0, 256, 128), (200, 0, 200, 33)]
+
+
+@pytest.mark.parametrize("b,off,gb,zdim", TC_SHAPES)
+def test_backward_kernels_match_plain_and_repeat_bit_for_bit(dev, b, off, gb, zdim):
+    """tc_bwd_dz and tc_bwd_dmu (and tc_fwd, whose terms and psum they read)
+    against the float64 plain version; a second run gives the same bits
+    (ordered partial sums, no atomics)."""
+    arrays = _inputs(gb, zdim, seed=gb)
+    rows, extra = slice(off, off + b), (off, 20 * gb, gb)
+    got = _tc_grads(tc_cuda.tc_logsumexp_cuda_gathered, torch.float32, arrays, rows, dev, *extra)
+    again = _tc_grads(tc_cuda.tc_logsumexp_cuda_gathered, torch.float32, arrays, rows, dev,
+                      *extra)
+    want = _tc_grads(tc_cuda.tc_logsumexp_reference_gathered, torch.float64, arrays, rows, dev,
+                     *extra)
+    assert got["dmu"].shape == (gb, zdim)
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], err_msg=key, **TOL)
+        np.testing.assert_array_equal(got[key], again[key], err_msg=key)
+
+
+@pytest.mark.parametrize("world", [2, 8])
+def test_gathered_rows_equal_the_single_device_rows_bit_for_bit(dev, world):
+    """The ranks' pm, qz, dz and dlogvar rows (global batch 128, Z 128),
+    concatenated, are the single-device kernels' bit for bit: their sums run
+    over the bank, whose cut into slices follows from its length alone. dmu
+    sums over a rank's rows; the ranks' banks add up to the single-device
+    dmu within the tolerance."""
+    gb = 128
+    arrays = _inputs(gb, 128)
+    whole = _tc_grads(tc_cuda.tc_logsumexp_cuda, torch.float32, arrays, slice(None), dev, 1280)
+    b = gb // world
+    parts = [_tc_grads(tc_cuda.tc_logsumexp_cuda_gathered, torch.float32, arrays,
+                       slice(r * b, (r + 1) * b), dev, r * b, 1280, gb) for r in range(world)]
+    for key in ("pm", "qz", "dz", "dlogvar"):
+        np.testing.assert_array_equal(np.concatenate([p[key] for p in parts]), whole[key],
+                                      err_msg=key)
+    np.testing.assert_allclose(sum(p["dmu"] for p in parts), whole["dmu"], **TOL)
+
+
+@pytest.mark.parametrize("b,gb", [(64, 64), (64, 128), (256, 256)])
+def test_rows_a_thread_change_no_bit(dev, b, gb):
+    """``backward_plan`` picks how many output rows a thread takes from the
+    size of the launch; any other choice the kernels are built for gives the
+    same bits, since the slices (``reduce_slices``) are the same."""
+    zdim, n = 128, 20 * gb
+    z, mu, logvar = (torch.tensor(a, device=dev) for a in _inputs(gb, zdim))
+    z, logvar = z[:b].contiguous(), logvar[:b].contiguous()
+    terms, psum, lj = tc_cuda.forward_buffers(b, gb, zdim, dev)
+    pm, qz = torch.empty(b, device=dev), torch.empty(b, device=dev)
+    g_m = torch.linspace(0.5, 1.5, b, device=dev) * (-1.0 / gb + 5e-4)
+    g_j = torch.linspace(0.5, 1.5, b, device=dev) / gb
+    tc_cuda.launch("tc_fwd", (z, mu, logvar, terms, psum, lj, pm, qz), b, gb, zdim, n, dev)
+    results = {}
+    for name, rows in (("tc_bwd_dz", (1, 2)), ("tc_bwd_dmu", (1, 2, 4))):
+        base = tc_cuda.backward_plan(name, b, gb, zdim)
+        for r in rows:
+            dz, dlv, dmu = torch.zeros_like(z), torch.zeros_like(z), torch.zeros_like(mu)
+            tensors = ((terms, mu, logvar, psum, lj, g_m, g_j, dz, dlv) if name == "tc_bwd_dz"
+                       else (terms, mu, psum, lj, g_m, g_j, dmu))
+            tc_cuda.launch(name, tensors, b, gb, zdim, n, dev, plan=base._replace(rows=r))
+            torch.cuda.synchronize()
+            results[name, r] = (dz, dlv) if name == "tc_bwd_dz" else (dmu,)
+        for r in rows[1:]:
+            for a, c in zip(results[name, rows[0]], results[name, r]):
+                assert a.abs().sum() > 0 and torch.equal(a, c), (name, r)
+
+
+def test_backward_launchers_refuse_a_plan_that_is_not_the_cut(dev):
+    """The launchers check the plan they are given: rows they are not built
+    for, slices that do not cover the reduced axis exactly once, more than
+    16 slices. And the forward's scratch that the card cannot hold is
+    refused with the size it would take; nothing else computes the op."""
+    b = zdim = 64
+    z, mu, logvar = (torch.tensor(a, device=dev) for a in _inputs(b, zdim))
+    terms, psum, lj = tc_cuda.forward_buffers(b, b, zdim, dev)
+    g = torch.ones(b, device=dev)
+    dz, dlv, dmu = torch.empty_like(z), torch.empty_like(z), torch.empty_like(mu)
+    dz_args = (terms, mu, logvar, psum, lj, g, g, dz, dlv)
+    good = tc_cuda.backward_plan("tc_bwd_dz", b, b, zdim)
+    assert good == (1, 8, 8)
+    before = dict(tc_cuda.LAUNCHES)
+    for bad in ((3, 8, 8), (4, 8, 8), (1, 8, 7), (1, 8, 9), (1, 0, 8), (1, 2, 32)):
+        with pytest.raises(RuntimeError, match="tc_bwd_dz"):
+            tc_cuda.launch("tc_bwd_dz", dz_args, b, b, zdim, 1280, dev,
+                           plan=tc_cuda.BackwardPlan(*bad))
+    with pytest.raises(RuntimeError, match="tc_bwd_dmu"):
+        tc_cuda.launch("tc_bwd_dmu", (terms, mu, psum, lj, g, g, dmu), b, b, zdim, 1280, dev,
+                       plan=tc_cuda.BackwardPlan(3, 8, 8))
+    assert tc_cuda.LAUNCHES == before  # a refused launch is not counted
+    with pytest.raises(RuntimeError, match=r"scratch.*cannot allocate"):
+        tc_cuda.forward_buffers(400_000, 400_000, 128, dev)  # psum alone: 1.28 TB
+
+
 def test_gathered_wrapper_rejects_what_the_kernels_do_not_take(dev):
     z, mu, logvar = (torch.tensor(a, device=dev) for a in _inputs(16, 8))
     zl, lvl = z[8:].contiguous(), logvar[8:].contiguous()
@@ -250,6 +361,41 @@ def test_intro_step_launches_no_weight_gradient_in_phase_e(dev):
     # fp32: the fp32 bodies, one pack per forward or dx
     assert at_opt_e == [conv_counts(24, 4, "fp32")]
     assert conv_cuda.LAUNCHES == conv_counts(44, 12, "fp32")
+
+
+def test_fp32_cli_step_computes_cudnn_convs_in_true_fp32(dev):
+    """``precision: "fp32"`` through the CLI with ``conv_impl: "xla"``
+    (cuDNN computes every conv): configs/vae_synthetic.json at the
+    synthetic_small size, one step of batch 64. Entered with both TF32
+    switches on, as PyTorch leaves cuDNN's by default, the run equals the
+    same run entered with both off: parameters within 2 * lr (Adam's first
+    update is lr * sign(g)), the step's losses within rtol 1e-5, where TF32's
+    10-bit products would move them by ~1e-3. The switches come back as
+    they were."""
+    import os
+
+    from intro_tc_vae_tpu_torch import main
+
+    config = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "configs", "vae_synthetic.json")
+    update = ('{"dataset": "synthetic_small", "conv_impl": "xla", "num_epochs": 1, '
+              '"batch_size": 64, "z_dim": 8, "use_tensorboard": false}')
+    runs = {}
+    for tf32 in (True, False):
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        state = main.cli(["-f", config, "-u", update])
+        assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == \
+            (tf32, tf32)
+        assert state.step == 1
+        runs[tf32] = state
+    lr = runs[True].opt_e.param_groups[0]["lr"]
+    for k in ("loss_enc", "loss_rec", "loss_kl"):
+        np.testing.assert_allclose(runs[True].history[0][k], runs[False].history[0][k],
+                                   rtol=1e-5, err_msg=k)
+    want = runs[False].model.state_dict()
+    for k, v in runs[True].model.state_dict().items():
+        assert float((v - want[k]).abs().max()) <= 2 * lr, k
 
 
 def test_conv_wrapper_rejects_what_the_kernels_do_not_take(dev):

@@ -25,6 +25,7 @@ from intro_tc_vae_tpu_torch.models import (
     conv_output_size,
 )
 from intro_tc_vae_tpu_torch.utils import flax_to_port
+from tests._torch_bf16 import assert_close_bf16, rounded_layers
 
 SMALL = dict(arch="conv", cdim=3, zdim=8, channels=(16, 32), image_size=32)
 COS = conv_output_size(32, (16, 32))
@@ -152,6 +153,59 @@ def test_bf16_compute_keeps_fp32_params_and_heads(rng):
     assert all(b.dtype == torch.float32 for b in dec.buffers())
     # BN outputs the compute dtype
     assert enc.main["1"](enc.main["0"](x)).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("side", ["encoder", "decoder"])
+@pytest.mark.parametrize("train,groups", [(True, 1), (True, 2), (False, 1)])
+def test_bf16_models_match_jax(jax_model, rng, side, train, groups):
+    """``compute_dtype=torch.bfloat16`` (what ``precision: "bf16"`` builds)
+    against the JAX modules with ``dtype=jnp.bfloat16`` on the same float32
+    weights: outputs and BatchNorm running statistics, train and eval mode.
+
+    Tolerance (tests/_torch_bf16.py): L layers round to bf16, 18 in this
+    encoder and 21 in this decoder, so every entry within L * 2^-8 of the
+    largest and the whole within sqrt(L) * 2^-8 in the 2-norm. A running
+    statistic moves by 1 - 0.9^groups of a batch statistic, a mean over the
+    batch and the pixels: within that share of sqrt(L) * 2^-8 of its largest
+    entry. In eval mode the statistics must not move at all."""
+    _, _, params, stats = jax_model
+    kw = dict(SMALL, dtype=jnp.bfloat16)
+    module = JEncoder(**kw) if side == "encoder" else JDecoder(**kw)
+    inp = (rng.rand(8, 32, 32, 3) if side == "encoder" else rng.randn(8, 8)).astype(np.float32)
+    ref, upd = module.apply({"params": params[side], "batch_stats": stats[side]},
+                            jnp.asarray(inp), train, groups, mutable=["batch_stats"])
+    refs = ref if side == "encoder" else (ref,)
+    assert all(r.dtype == jnp.float32 for r in refs)  # the heads are fp32 in both
+
+    kw = dict(SMALL, compute_dtype=torch.bfloat16)
+    model = SoftIntroVAE(Encoder(**kw), Decoder(**kw))
+    model.load_state_dict(flax_to_port(params, stats, "conv", COS))
+    model.train(train)
+    net = getattr(model, side)
+    layers = rounded_layers(net)
+    assert layers == (18 if side == "encoder" else 21)
+    with torch.no_grad():
+        if side == "encoder":
+            outs = net(torch.from_numpy(inp.transpose(0, 3, 1, 2).copy()), groups)
+        else:
+            outs = (net(torch.from_numpy(inp), groups).permute(0, 2, 3, 1),)
+    for o, r in zip(outs, refs):
+        assert o.dtype == torch.float32
+        assert_close_bf16(o.numpy(), np.asarray(r), layers, side)
+
+    want = flax_to_port(params, dict(stats, **{side: upd.get("batch_stats", stats[side])}),
+                        "conv", COS)
+    got = model.state_dict()
+    keys = [k for k in want if k.endswith(("running_mean", "running_var"))]
+    assert keys
+    for k in keys:
+        if not train or not k.startswith(side):
+            np.testing.assert_array_equal(got[k].numpy(), want[k].numpy(), err_msg=k)
+            continue
+        assert got[k].dtype == torch.float32
+        moved = float(np.abs(got[k].numpy() - want[k].numpy()).max())
+        bound = (1 - 0.9 ** groups) * np.sqrt(layers) * 2.0 ** -8 * float(want[k].abs().max())
+        assert moved <= bound, f"{k}: {moved:.3g} > {bound:.3g}"
 
 
 @pytest.mark.parametrize("kwargs", [dict(tile_rows=16), dict(arch="inception")])

@@ -42,6 +42,8 @@ from intro_tc_vae_tpu_torch.data import Synthetic
 from intro_tc_vae_tpu_torch.models import Decoder, Encoder, SoftIntroVAE, conv_output_size
 from intro_tc_vae_tpu_torch.solvers import NOISE_KEYS, make_optimizer, make_solver
 from intro_tc_vae_tpu_torch.utils import flax_to_port
+from tests._torch_bf16 import U as BF16_U
+from tests._torch_bf16 import rounded_layers
 
 SMALL = dict(arch="conv", cdim=3, zdim=8, channels=(16, 32), image_size=32)
 COS = conv_output_size(32, (16, 32))
@@ -182,6 +184,64 @@ def _assert_step_matches(want, got, metric_names):
 def test_intro_tc_step_matches_jax(runs, k):
     jax_out, port_out = runs
     _assert_step_matches(jax_out[k - 1], port_out[k - 1], METRICS)
+
+
+@pytest.mark.parametrize("paired", [True, False], ids=["paired", "unpaired"])
+def test_bf16_intro_tc_step_matches_jax(paired):
+    """One ``precision: "bf16"`` step (float32 parameters, bf16 compute,
+    the flagship recipe's precision) in both packages on the same weights,
+    batch and noise: the step's metrics and the BatchNorm running statistics
+    it leaves.
+
+    Tolerance (tests/_torch_bf16.py): a metric is a mean over the batch and
+    the pixels or latents of values that passed L = 18 + 21 rounded layers
+    (one encoder and one decoder pass; the deeper chains of the fake passes
+    are renormalized by every BatchNorm on the way), so the two packages'
+    independent roundings leave it within sqrt(L) * 2^-8 = 2.4 %. A running
+    statistic is an average of such batch means: within the same share of
+    its tensor's largest entry. The updated parameters are not compared:
+    Adam's first update is lr * sign(g) and bf16 flips the sign of small
+    gradients."""
+    kw = dict(SMALL, dtype=jnp.bfloat16)
+    solver = jmake_solver(
+        "intro_tc", dataset=_dataset(), encoder=JEncoder(**kw), decoder=JDecoder(**kw),
+        batch_size=B, optimizer_e=jmake_optimizer("adam", 2e-4),
+        optimizer_d=jmake_optimizer("adam", 2e-4), tc_impl="xla", **HYPER)
+    batch = _batches()[0]
+    state = solver.init_state(jax.random.key(0), jnp.asarray(batch))
+    init = jax.tree_util.tree_map(np.asarray, (state.params, state.batch_stats))
+    step = jax.jit(jbuild_intro_step(solver.hyper, solver.encoder, solver.decoder,
+                                     solver.optimizer_e, solver.optimizer_d, paired=paired))
+    state, want = _jax_step(step, state, batch)
+
+    enc = Encoder(**SMALL, compute_dtype=torch.bfloat16)
+    dec = Decoder(**SMALL, compute_dtype=torch.bfloat16)
+    model = SoftIntroVAE(enc, dec)
+    model.load_state_dict(flax_to_port(*init, "conv", COS))
+    port = make_solver(
+        "intro_tc", dataset=Synthetic(image_size=32, cdim=3, sizes=(2, 2, 4, 4)),
+        encoder=enc, decoder=dec, batch_size=B, optimizer_e=make_optimizer("adam", 2e-4),
+        optimizer_d=make_optimizer("adam", 2e-4), tc_impl="pallas", fuse_passes=paired,
+        **HYPER)
+    _, metrics = port.train_step(
+        port.init_state(0), torch.from_numpy(batch.transpose(0, 3, 1, 2).copy()),
+        noise={k: torch.tensor(v) for k, v in want["noise"].items()})
+
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    layers = rounded_layers(enc) + rounded_layers(dec)
+    assert layers == 39
+    tol = np.sqrt(layers) * BF16_U
+    for name in METRICS:
+        assert np.isfinite(float(metrics[name])), name
+        np.testing.assert_allclose(float(metrics[name]), want["metrics"][name], rtol=tol,
+                                   err_msg=name)
+    got = model.state_dict()
+    keys = [k for k in want["state"] if k.endswith(("running_mean", "running_var"))]
+    assert keys
+    for k in keys:
+        ref = want["state"][k].numpy()
+        np.testing.assert_allclose(got[k].numpy(), ref, rtol=0, err_msg=k,
+                                   atol=tol * float(np.abs(ref).max()))
 
 
 # the single-phase ELBO step: 'vae' on the res arch (configs/vae_synthetic.json),

@@ -98,6 +98,57 @@ def test_elbo_configs_train_on_cpu(path, update):
     assert state.history[-1]["loss_enc"] != state.history[0]["loss_enc"]
 
 
+def _tf32_flags():
+    return (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+
+
+@pytest.fixture
+def tf32_on():
+    """Both TF32 switches on for the test, then back as they were."""
+    saved = _tf32_flags()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("precision,during", [("fp32", (False, False)),
+                                              ("bf16", (True, True))])
+def test_precision_fp32_turns_tf32_off_for_the_run(tf32_on, precision, during):
+    """precision "fp32" computes in fp32 proper: both TF32 switches are off
+    at every optimizer call of the run and back on after it; a bf16 run
+    leaves them as they were."""
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    seen = []
+    handle = register_optimizer_step_pre_hook(lambda *a: seen.append(_tf32_flags()))
+    try:
+        config = load_config(FLAGSHIP, {**SMALL_RUN, "precision": precision})
+        state = train_soft_intro_vae(config, device=CPU)
+    finally:
+        handle.remove()
+    assert len(seen) == 2 * state.step == 16  # the encoder's and the decoder's, 8 steps
+    assert set(seen) == {during}
+    assert _tf32_flags() == (True, True)
+
+
+def test_precision_fp32_restores_tf32_when_the_run_raises(tf32_on):
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    def fail(*args):
+        assert _tf32_flags() == (False, False)
+        raise FloatingPointError("stop")
+
+    handle = register_optimizer_step_pre_hook(fail)
+    try:
+        with pytest.raises(FloatingPointError, match="stop"):
+            train_soft_intro_vae(load_config(FLAGSHIP, {**SMALL_RUN, "precision": "fp32"}),
+                                 device=CPU)
+    finally:
+        handle.remove()
+    assert _tf32_flags() == (True, True)
+
+
 def test_every_config_loads_like_jax():
     paths = sorted(glob.glob(os.path.join(REPO, "configs", "*.json")))
     assert paths
