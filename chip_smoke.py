@@ -18,12 +18,14 @@ result line):
 3. Kernels vs plain, TF32 off.
    TC: tc_fwd, tc_bwd_dz and tc_bwd_dmu against the plain PyTorch version
    (evaluated in float64 on the same inputs) at B in {64, 512}, Z=128,
-   N=1280, at B=40, Z=72 (no multiple of a warp) and at 37 rows from row 5
-   of a bank of 90 (no multiple of a slice), with the variance floor and
-   the -50 clamp active; rtol 1e-4, atol 1e-5 on every element; two runs
-   bit-equal. Median times of each kernel at B in {64, 512, 2048} (2048:
-   time only) beside its bound (``tc_bounds``) and beside an empty kernel
-   timed the same way, the launch floor; and of the float32 plain version.
+   N=1280, at B=40, Z=72 (no multiple of a warp), at 37 rows from row 5
+   of a bank of 90 (no multiple of a slice) and at B=48, Z=1024 (32
+   latents a lane of tc_fwd), with the variance floor and the -50 clamp
+   active; rtol 1e-4, atol 1e-5 on every element; two runs bit-equal.
+   Median times of each kernel at B in {64, 512, 2048} (2048: time only)
+   beside its bound (``tc_bounds``) and beside an empty kernel timed the
+   same way, the launch floor; and of the float32 plain version. tc_fwd's
+   targets (``TC_FWD_TARGETS``) are printed, not enforced.
    Conv: the wrappers conv3x3_fwd (forward and dx), conv3x3_dw (with
    conv3x3_dw_reduce) and conv3x3_pack_w at the flagship's shapes, NCHW [128, 64, 64, 64] and
    [128, 64, 32, 32], at [8, 64, 128, 128] (W = 128), at the ragged
@@ -34,7 +36,8 @@ result line):
    version in float64 on the same (bf16-rounded) inputs; tolerances in
    ``conv_bound``; conv3x3_dw twice, bit-equal. Median times, the bodies in
    turns beside cuDNN's forward, backward-data and backward-weight, in
-   bf16 and fp32 (TF32 off), with each fp32 body's time over cuDNN's and
+   bf16 (the general bodies also at the ragged shape, which they serve)
+   and fp32 (TF32 off), with each fp32 body's time over cuDNN's and
    its share of the bound beside the targets (at or under cuDNN, at least
    half the bound; printed, not enforced); the kernels are named as
    ``conv_cuda.LAUNCHES`` counts them: conv3x3_fwd and conv3x3_dw are the
@@ -233,26 +236,31 @@ def bound(bytes_moved: float, ops: float, kind: str) -> dict:
 # fused multiply-add and an add), x - k ln 2 with ln 2 in two parts (two), a
 # polynomial of degree 11 in Horner form (eleven); putting k into the exponent
 # is integer work: 14 fused multiply-adds and an add, 29, for the CUDA
-# library's exp, which tc_fwd calls, and for the backward kernels' own alike
-# (a shorter polynomial does not keep the train step: csrc/tc_kernels.cu::
-# exp_in_range). The density of a pair (j, i, l): z - mu, times 1/v, times d,
-# c - 0.5 d^2/v: 5.
+# library's exp and for the kernels' own alike (a shorter polynomial does not
+# keep the train step: csrc/tc_kernels.cu::exp_in_range). The density of a
+# pair (j, i, l): z - mu, times 1/v, times d, c - 0.5 d^2/v: 5.
 TC_EXP_OPS, TC_DENSITY_OPS = 29, 5
 TC_OPS = {
-    # per (j, i, l): density, clamp, + iw, running max, - max, exp, two sums;
-    # per (j, i): the joint term's + iw, max, - max, exp, sum
-    "tc_fwd": (TC_DENSITY_OPS + 4 + TC_EXP_OPS + 2, 4 + TC_EXP_OPS),
+    # per (j, i, l): density, clamp, exp, two sums (the marginal's and
+    # psum's); per (j, i): the joint term's + iw, max, - max, exp, sum. What
+    # the function needs: the marginal's exponents have a shift known in
+    # advance, so no element needs a max or its own + iw
+    "tc_fwd": (TC_DENSITY_OPS + 1 + TC_EXP_OPS + 2, 4 + TC_EXP_OPS),
     # per (j, i, l): density, the clamp's compare, the exponent (one fma), exp,
     # dP (fma), the dz product (fma), d^2/v - 1 and the dlogvar product (fma);
     # per (j, i): the joint weight's exponent (two adds), exp, times g_j
     "tc_bwd_dz": (TC_DENSITY_OPS + 1 + 2 + TC_EXP_OPS + 2 + 2 + 3, 3 + TC_EXP_OPS),
     "tc_bwd_dmu": (TC_DENSITY_OPS + 1 + 2 + TC_EXP_OPS + 2 + 2, 3 + TC_EXP_OPS),
 }
+# tc_fwd's count before, with + iw, a running max and - max per (j, i, l):
+# a share of the bound under it compares with the shares printed before
+TC_FWD_OPS_OLD = (TC_DENSITY_OPS + 4 + TC_EXP_OPS + 2, 4 + TC_EXP_OPS)
 
 
-def tc_bounds(b: int, bank: int, zdim: int = 128) -> dict:
-    """Bounds of the three TC kernels for b rows against a bank of `bank`.
-    Operations: TC_OPS per (row, bank row, latent) and per (row, bank row),
+def tc_bounds(b: int, bank: int, zdim: int = 128, ops: dict | None = None) -> dict:
+    """Bounds of the TC kernels (those of `ops`, default TC_OPS) for b rows
+    against a bank of `bank`. Operations: `ops` per (row, bank row, latent)
+    and per (row, bank row),
     all float64, at the data sheet's fp64 rate. Bytes, each input read once
     and each output written once: z, mu, logvar, dz, dlogvar, dmu, pm, qz,
     g_m, g_j in float32; terms [b, Z, 4], psum [b, bank] and lj [b], which
@@ -265,7 +273,7 @@ def tc_bounds(b: int, bank: int, zdim: int = 128) -> dict:
              "tc_bwd_dz": kept + bank_rows + rows + 2 * b * 4 + 2 * rows,
              "tc_bwd_dmu": kept + bank_rows + 2 * b * 4 + bank_rows}
     return {k: bound(moved[k], b * bank * (zdim * per_pair + per_row_pair), "fp64")
-            for k, (per_pair, per_row_pair) in TC_OPS.items()}
+            for k, (per_pair, per_row_pair) in (ops or TC_OPS).items()}
 
 
 def conv_bounds(shape, kind: str, n_parts: int) -> dict:
@@ -320,8 +328,16 @@ def tc_loss(pm, qz):
 
 TC_TIMED = (MAIN_B, 512, 2048)   # batches the TC kernels are timed at
 # correctness only, (rows, row_off, bank, Z): a Z that is no multiple of 32;
-# rows and a bank that differ and are no multiple of a slice or a chunk
-TC_RAGGED = ((40, 0, 40, 72), (37, 5, 90, 72))
+# rows and a bank that differ and are no multiple of a slice or a chunk; Z =
+# 1024, the largest the kernels take (32 latents a lane of tc_fwd)
+TC_RAGGED = ((40, 0, 40, 72), (37, 5, 90, 72), (48, 0, 48, 1024))
+# tc_fwd's targets at Z = 128 (ms, or a ratio), printed beside its times:
+# at most 3x the launch floor at B = 64, twice as fast as 0.30574 ms at
+# B = 512, half its bound (TC_OPS) at B = 2048; gathered (R = 2, rank 1) at
+# most 0.010 ms, the three kernels summed at most 0.025 ms
+TC_FWD_TARGETS = {"B=64 time / launch floor": 3.0, "B=512 ms": 0.30574 / 2,
+                  "B=2048 bound / time": 0.5, "gathered ms": 0.010,
+                  "gathered three kernels ms": 0.025}
 
 
 def tc_dataset_size(bank: int) -> int:
@@ -396,6 +412,7 @@ def phase_kernels(card: str) -> dict:
 
     dev = torch.device("cuda", 0)
     errs = dict.fromkeys(tc_cuda.KERNELS, 0.0)
+    fwd = {}  # tc_fwd at each timed B: ms, bound ms, launch floor ms
 
     def check(b, off, gb, zdim):
         """Rows [off, off + b) of a bank of gb: kernels (single-device form
@@ -457,11 +474,16 @@ def phase_kernels(card: str) -> dict:
               + "; time / launch floor "
               + json.dumps({k: round(t[k] / t["launch_floor"], 2) for k in bounds})
               + f" on {card}")
+        old = tc_bounds(b, b, ops={"tc_fwd": TC_FWD_OPS_OLD})["tc_fwd"]["bound_ms"]
+        print(f"phase 3: B={b} tc_fwd bound / time under its earlier count "
+              f"({TC_FWD_OPS_OLD[0]} a (j, i, l), for comparison with earlier shares): "
+              f"{old / t['tc_fwd']:.3f} on {card}")
+        fwd[b] = (t["tc_fwd"], bounds["tc_fwd"]["bound_ms"], t["launch_floor"])
         if b == MAIN_B:
             times = t
     print("phase 3: kernels match the plain version (rtol 1e-4, atol 1e-5, TF32 off); "
           "max abs err " + json.dumps(errs))
-    return {"errs": errs, "times": times}
+    return {"errs": errs, "times": times, "fwd": fwd}
 
 
 def phase_gathered_kernels(card: str) -> dict:
@@ -673,9 +695,11 @@ def phase_conv_kernels(card: str) -> dict:
     # no cuDNN autotuning); the bodies and cuDNN in turns, two rounds.
     # The kernels line takes the wgmma bodies, the reduce and the pack at
     # the flagship's bf16 [128, 64, 64, 64] and the fp32 bodies at the
-    # shape phase 6 launches them at, each with that shape's bounds
+    # shape phase 6 launches them at, each with that shape's bounds. The
+    # bf16 general bodies are timed on the wgmma shapes (forced) and at the
+    # ragged shape, which only they serve
     times, bounds = {}, {}
-    for shape, dtype in [(sh, bf16) for sh in (*CONV_SHAPES, CONV_WIDE)] + \
+    for shape, dtype in [(sh, bf16) for sh in (*CONV_SHAPES, CONV_WIDE, CONV_RAGGED)] + \
                         [(sh, fp32) for sh in (*CONV_SHAPES, CONV_FP32_PATH)]:
         x = torch.randn(shape, device=dev, dtype=dtype)
         w = torch.randn((64, 64, 3, 3), device=dev, dtype=dtype) * 0.05
@@ -685,10 +709,18 @@ def phase_conv_kernels(card: str) -> dict:
         kind = "fp32" if dtype == fp32 else "bf16"
         launch = conv_cuda.launch
         dw = torch.empty((64, 64, 3, 3), device=dev, dtype=dtype)
-        _, n_parts, rc = conv_cuda.dw_parts(shape, dtype, dev)
+        body, n_parts, rc = conv_cuda.dw_parts(shape, dtype, dev)
         part = torch.empty((n_parts, 576, 64), device=dev)
         wp = conv_cuda.conv3x3_pack_w(w)
-        if dtype == bf16:
+        if body == "general":
+            fns = {
+                "conv3x3_fwd": lambda: launch("conv3x3_fwd", x, w, y, n, h, wd, device=dev),
+                "conv3x3_dw": lambda: launch("conv3x3_dw", x, gy, part, n, h, wd, n_parts,
+                                             device=dev),
+                "conv3x3_dw_reduce_general": lambda: launch("conv3x3_dw_reduce", part, dw,
+                                                            n_parts, 1, device=dev),
+            }
+        elif dtype == bf16:
             _, g_parts, _ = conv_cuda.dw_parts(shape, dtype, dev, general=True)
             g_part = torch.empty((g_parts, 576, 64), device=dev)
             fns = {
@@ -731,9 +763,9 @@ def phase_conv_kernels(card: str) -> dict:
               + "; the rounds " + json.dumps({k: [round(r[k], 5) for r in rounds] for k in fns})
               + f" on {card}")
         b = conv_bounds(shape, kind, n_parts)
-        pair = ("conv3x3_dw_wgmma", "conv3x3_dw_reduce") if dtype == bf16 else \
-            ("conv3x3_dw", "conv3x3_dw_reduce_fp32")
-        fwd = "conv3x3_fwd_wgmma" if dtype == bf16 else "conv3x3_fwd"
+        pair, fwd = {"general": (("conv3x3_dw", "conv3x3_dw_reduce_general"), "conv3x3_fwd"),
+                     "wgmma": (("conv3x3_dw_wgmma", "conv3x3_dw_reduce"), "conv3x3_fwd_wgmma"),
+                     "fp32": (("conv3x3_dw", "conv3x3_dw_reduce_fp32"), "conv3x3_fwd")}[body]
         both = t[pair[0]] + t[pair[1]]
         print(f"phase 3: conv {list(shape)} {kind} bounds (each input read once, each output "
               "written once; the fp32 partials between dW and its reduce count in neither) "
@@ -1508,11 +1540,22 @@ def main() -> None:
         kernels = timed("phase 3 (TC)", phase_kernels, card)
         gathered = timed("phase 3 (TC gathered)", phase_gathered_kernels, card)
         conv = timed("phase 3 (conv)", phase_conv_kernels, card)
+    fwd, g = kernels["fwd"], gathered["times"]
+    reached = {"B=64 time / launch floor": fwd[MAIN_B][0] / fwd[MAIN_B][2],
+               "B=512 ms": fwd[512][0], "B=2048 bound / time": fwd[2048][1] / fwd[2048][0],
+               "gathered ms": g["tc_fwd"], "gathered three kernels ms": g["kernels"]}
+    met = {k: v >= TC_FWD_TARGETS[k] if "bound" in k else v <= TC_FWD_TARGETS[k]
+           for k, v in reached.items()}
+    print("phase 3: tc_fwd targets (printed, not enforced): reached "
+          + json.dumps({k: round(v, 5) for k, v in reached.items()}) + ", target "
+          + json.dumps(TC_FWD_TARGETS) + ", met " + json.dumps(met) + f" on {card}")
+
     main_path = timed("phase 4", phase_main_path, card)
     with fp32_exact():  # same conv algorithms in both runs
         timed("phase 5", phase_in_context, torch.device("cuda", 0))
     other = timed("phase 6", phase_other_paths, card)
     dp = timed("phase 7", phase_data_parallel, card)
+
 
     # What the wgmma wrappers' extra host time comes to in a flagship step:
     # their calls per step (conv pallas arm) times the host microseconds a

@@ -27,18 +27,43 @@
 // the gradient sums are carried in VMEM scratch across grid steps. Here
 // blocks run in no order.
 //
-// tc_fwd takes one block per z row j and reduces over i itself; a thread
-// owns one latent column l (blockDim = Z rounded up to a warp, Z <= 1024).
-// The reduced axis is walked in tiles of 32 rows; a tile's sum over l of P
-// (the joint term) is a 32-wide butterfly reduce-transpose inside each warp
-// (31 shuffles for 32 sums) and one shared-memory pass across warps,
-// double-buffered so one __syncthreads per tile suffices. Beside pm and lj it
-// writes what the two backward kernels would otherwise recompute per
-// (i, j, l): `terms` [B_j, Z] of four float64 each, {z, 1/v, c, c - lm} with
+// tc_fwd takes one block per z row j. Beside pm and lj it writes what the
+// two backward kernels would otherwise recompute per (i, j, l): `terms`
+// [B_j, Z] of four float64 each, {z, 1/v, c, c - lm} with
 // c = -0.5*(log v + log 2pi), so that P = c - 0.5*d*d/v; and `psum`
 // [B_j, B_i] float64, psum[j,i] = sum_l P[j,i,l], the only quantity of the
 // backward that needs a sum over l. psum is O(B^2), 32 KB at B = 64 and
 // 2.1 GB at B = 16384, against the O(B^2 Z) tensor the kernels avoid.
+// The bank (the reduced axis i) is cut into the backward kernels' slices
+// (tc_cuda.reduce_slices), one warp each. A lane takes the latents l = lane,
+// lane + 32, ... of the row (tc_cuda.forward_plan), whose z, 1/v and c the
+// block computes once, into shared memory, while the first mu values load.
+// A warp walks its slice in chunks of 8 rows, and a chunk's latents a group
+// of 32 at a time in a loop (so that the code is small: at B = 64 every
+// instruction runs a few times a launch), each group's mu values copied by
+// cp.async into a warp's ring 2 items ahead, so that the loop waits for no
+// load (the first two load beside z and logvar). After
+// the last group, a lane's 8 sums over its
+// latents of P are summed over the warp by recursive halving (each of 3
+// steps hands half of the remaining rows to the partner lane, 7 shuffles,
+// then 2 butterfly steps: lane t ends with the chunk's row t / 4); there is
+// no barrier in the loop.
+// The marginal logsumexp needs no running max and no rescaling: iw <=
+// log(1/M), the largest of the three weights (N > M), and -50 <= P <= 3.69
+// (v >= 1e-4), so with the shift log(1/M), known in advance, every exponent
+// x = P + (iw - log(1/M)) lies in [-50 - log N, 3.69]: the weights differ by
+// at most max(log(N/M), log(N/(N-M))) <= log N, N - M >= 1. That is above
+// -94 for any N < 2^63: no float64 term underflows or overflows, and the
+// slices' sums add as they are. (A shift by max(c, -50) as well would put
+// every x under 0 at one more operation an element; float64 does not need
+// it.) The joint has no such bound (psum reaches -50 Z): the
+// lane that completes a row of psum keeps an online logsumexp over its rows,
+// one row a chunk (two exps a chunk, against the chunk's 8 a latent), and
+// the warp combines its lanes once. The slices' sums meet after the block's
+// second __syncthreads, where warp w adds them in ascending order for the
+// latent groups w, w + n_slices, ... (the logs of the groups run in
+// parallel) and the last warp the joint's; warp 0 adds the warps' sums of
+// lm, in order, after the third.
 //
 // tc_bwd_dz and tc_bwd_dmu share one shape. With psum given, an output
 // element (row, l) needs no other column, so the card is filled by cutting
@@ -84,7 +109,14 @@
 // reach about half the float64 rate of the data sheet; a block holds 512
 // threads of up to 128 registers, so an SM scheduler has 4 warps to cover the
 // latency of each warp's dependent chains (8 exps in flight a warp; unrolling
-// to 16 gains 2 % at B=2048 and loses 10 % at B=64).
+// to 16 gains 2 % at B=2048 and loses 10 % at B=64). An element of tc_fwd is
+// 20 float64 instructions (the density 3, the clamp, the l-sum, the exp 15,
+// the marginal sum) and a conversion of mu, beside a shared load a row and
+// the halving's 9 shuffles a chunk; at B = 2048 it reaches a little under
+// half the bound, about where the backward kernels are. At B = 64 a row is one block on one SM (64 of
+// 132 busy) and the time is its chain: z and logvar, then the group loop,
+// float64-bound on that SM, then the slices' sums, the logs and a barrier
+// (PERF.md, section 6).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -92,12 +124,16 @@
 
 namespace {
 
-constexpr int TILE = 32;        // rows of the reduced axis per tile (= warp size)
-constexpr int MAX_WARPS = 32;   // blockDim.x <= 1024
-constexpr int MAX_SLICES = 16;  // warps of a backward block, one a slice
+constexpr int MAX_Z = 1024;
+constexpr int MAX_SLICES = 16;    // slices of the reduced axis, one warp each
+constexpr int MIN_SLICE_LEN = 8;  // rows of the reduced axis a warp takes at least
+constexpr int LOG_CHUNK = 3;
+constexpr int CHUNK = 1 << LOG_CHUNK;  // bank rows a forward warp sums over l at once
+constexpr int RING = 2;           // items of mu a forward warp keeps in flight
 constexpr double LOG_2PI = 1.8378770664093453;
 constexpr double LOG_PROB_FLOOR = -50.0;
 constexpr double VAR_FLOOR = 1e-4;
+constexpr double LOG_VAR_FLOOR = -9.210340371976182;  // log(1e-4)
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
 struct IwConsts {
@@ -113,10 +149,6 @@ __device__ __forceinline__ double log_iw(int row, int col, const IwConsts& c) {
   return c.log1m;
 }
 
-__device__ __forceinline__ double log_density(double d, double lvf, double inv_v) {
-  return -0.5 * (lvf + d * d * inv_v + LOG_2PI);  // unclamped
-}
-
 __device__ __forceinline__ double warp_sum(double x) {
 #pragma unroll
   for (int o = 16; o >= 1; o >>= 1) x += __shfl_xor_sync(FULL_MASK, x, o);
@@ -127,126 +159,6 @@ __device__ __forceinline__ double warp_max(double x) {
 #pragma unroll
   for (int o = 16; o >= 1; o >>= 1) x = fmax(x, __shfl_xor_sync(FULL_MASK, x, o));
   return x;
-}
-
-// v[t] in every lane -> returns, in lane t, the sum over the warp's lanes
-// of v[t]. Recursive halving: each step exchanges half of the remaining
-// entries with the partner lane, 16+8+4+2+1 shuffles in all. v is clobbered.
-__device__ __forceinline__ double warp_transpose_sum(double (&v)[TILE]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int o = 16; o >= 1; o >>= 1) {
-    const bool upper = (lane & o) != 0;
-#pragma unroll
-    for (int k = 0; k < o; ++k) {
-      const double send = upper ? v[k] : v[k + o];
-      const double keep = upper ? v[k + o] : v[k];
-      v[k] = keep + __shfl_xor_sync(FULL_MASK, send, o);
-    }
-  }
-  return v[0];
-}
-
-// Sum over the block's warps of each warp's transpose-sum: lane t of every
-// warp gets the sum over all threads (all l) of r[t]. One __syncthreads;
-// the caller alternates buf between tiles.
-__device__ __forceinline__ double block_tile_sum(double (&r)[TILE],
-                                                 double (*red)[MAX_WARPS][TILE],
-                                                 int buf) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  red[buf][warp][lane] = warp_transpose_sum(r);
-  __syncthreads();
-  double s = 0.0;
-  for (int w = 0; w < nwarps; ++w) s += red[buf][w][lane];
-  return s;
-}
-
-struct RowStats {  // per (j, l): log of the floored variance and its inverse
-  double lvf, inv_v;
-  bool not_floored;
-};
-
-__device__ __forceinline__ RowStats row_stats(float logvar) {
-  const double e = exp((double)logvar);
-  const double v = fmax(e, VAR_FLOOR);
-  return RowStats{log(v), 1.0 / v, e > VAR_FLOOR};
-}
-
-__global__ void tc_fwd(const float* __restrict__ z, const float* __restrict__ mu,
-                       const float* __restrict__ logvar, double2* __restrict__ terms,
-                       double* __restrict__ psum, double* __restrict__ lj,
-                       float* __restrict__ pm_out, float* __restrict__ lj_out,
-                       int B_i, int Z, int row_off, IwConsts c) {
-  __shared__ double red[2][MAX_WARPS][TILE];
-  const int j = blockIdx.x, l = threadIdx.x;
-  const int lane = l & 31, warp = l >> 5, nwarps = blockDim.x >> 5;
-  const bool active = l < Z;
-  const int row = row_off + j;
-  const size_t jl = (size_t)j * Z + l;
-
-  double zl = 0.0;
-  RowStats st{0.0, 0.0, false};
-  if (active) {
-    zl = z[jl];
-    st = row_stats(logvar[jl]);
-  }
-  double m_m = -INFINITY, s_m = 0.0;  // marginal online logsumexp of (j, l)
-  double m_j = -INFINITY, s_j = 0.0;  // joint online logsumexp of j (all lanes)
-
-  int buf = 0;
-  for (int i0 = 0; i0 < B_i; i0 += TILE, buf ^= 1) {
-    double x[TILE], r[TILE];
-    double tmax = -INFINITY;
-#pragma unroll
-    for (int t = 0; t < TILE; ++t) {
-      const int i = i0 + t;
-      double p = 0.0;
-      if (active && i < B_i) {
-        const double d = zl - (double)__ldg(&mu[(size_t)i * Z + l]);
-        p = fmax(log_density(d, st.lvf, st.inv_v), LOG_PROB_FLOOR);
-      }
-      r[t] = p;
-      x[t] = i < B_i ? log_iw(row, i, c) + p : -INFINITY;
-      tmax = fmax(tmax, x[t]);
-    }
-    if (active) {
-      const double new_m = fmax(m_m, tmax);
-      double acc = 0.0;
-#pragma unroll
-      for (int t = 0; t < TILE; ++t) acc += exp(x[t] - new_m);
-      s_m = s_m * exp(m_m - new_m) + acc;
-      m_m = new_m;
-    }
-    // lane t: S = sum_l P[j, i0+t, l]
-    const double S = block_tile_sum(r, red, buf);
-    const int i = i0 + lane;
-    if (warp == 0 && i < B_i) psum[(size_t)j * B_i + i] = S;
-    const double xj = i < B_i ? log_iw(row, i, c) + S : -INFINITY;
-    const double new_mj = fmax(m_j, warp_max(xj));
-    s_j = s_j * exp(m_j - new_mj) + warp_sum(exp(xj - new_mj));
-    m_j = new_mj;
-  }
-
-  double lm_jl = 0.0;
-  if (active) {
-    lm_jl = log(s_m) + m_m;
-    terms[2 * jl] = make_double2(zl, st.inv_v);
-    const double c_jl = -0.5 * (st.lvf + LOG_2PI);
-    terms[2 * jl + 1] = make_double2(c_jl, c_jl - lm_jl);
-  }
-  const double part = warp_sum(lm_jl);
-  __syncthreads();  // every warp is done reading red
-  if (lane == 0) red[0][warp][0] = part;
-  __syncthreads();
-  if (l == 0) {
-    double tot = 0.0;
-    for (int w = 0; w < nwarps; ++w) tot += red[0][w][0];
-    const double lj_j = log(s_j) + m_j;
-    lj[j] = lj_j;
-    pm_out[j] = (float)tot;
-    lj_out[j] = (float)lj_j;
-  }
 }
 
 // exp(x) for |x| <= 700 without a branch, so that the exps of an unrolled
@@ -283,6 +195,231 @@ __device__ __forceinline__ double exp_in_range(double x) {
   return __hiloint2double(__double2hiint(e) + scale, __double2loint(e));
 }
 
+template <int K> struct Kind { static constexpr int value = K; };
+
+// What tc_fwd keeps per latent l of its row, in shared memory: z, a = -0.5/v
+// and c = -0.5*(log v + log 2pi), so that P = max(fma(d*a, d, c), -50) for
+// d = z - mu[i,l]. A slot past Z (the last group's) has z = a = c = 0 and
+// reads column Z - 1 of mu: its P is 0 for every row, so it adds nothing to
+// psum.
+struct Latent {
+  double z, a, c;
+};
+
+__device__ __forceinline__ Latent latent_of(float z, float logvar, bool active) {
+  if (!active) return Latent{0.0, 0.0, 0.0};
+  // v = max(exp(logvar), 1e-4), so log v is logvar itself or log(1e-4), and
+  // 1/v = exp(-logvar) where it is not floored
+  const double lv = logvar;
+  const bool floored = !(exp_in_range(fmin(lv, 700.0)) > VAR_FLOOR);
+  return Latent{z, -0.5 * (floored ? 1.0 / VAR_FLOOR : exp_in_range(fmax(-lv, -700.0))),
+                -0.5 * ((floored ? LOG_VAR_FLOOR : lv) + LOG_2PI)};
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(RING - 1) : "memory");
+}
+
+// A warp's ring of mu values in shared memory: RING stages of [CHUNK][32]
+// floats, one (chunk, latent group) item each, filled by cp.async RING items
+// ahead of their use, so that the loop waits for no load. Lane t copies and
+// reads column 32 g + t only (rows past the slice read its last row, which
+// is never counted): the ring needs no barrier.
+struct MuRing {
+  float* stages;  // this warp's [RING][CHUNK][32], at its lane's column
+  int c0, g, i_end, G, Z;  // the next item to copy
+
+  __device__ __forceinline__ void issue(const float* __restrict__ mu, int q, int lane) {
+    if (c0 < i_end) {
+      const float* src = mu + min(g * 32 + lane, Z - 1);
+      float* dst = stages + (q % RING) * CHUNK * 32;
+#pragma unroll
+      for (int r = 0; r < CHUNK; ++r) cp_async4(dst + r * 32, src + (size_t)min(c0 + r, i_end - 1) * Z);
+      if (++g == G) g = 0, c0 += CHUNK;
+    }
+    cp_async_commit();  // an empty group past the slice's end keeps the count
+  }
+};
+
+// The chunk's sums over the warp by recursive halving (see "Design"): node
+// (H, K) of the tree over v[k], k < CHUNK, a lane's sum over its latents
+// for the chunk's row k. A node of level H pairs the nodes K and
+// K + CHUNK / 2^H of level H - 1 across lane bit 16 / 2^(H-1): the lane with
+// that bit set keeps the second and sends the first, so that after level
+// LOG_CHUNK lane t holds its quarter-warp's sum of row t / 4.
+template <int H, int K>
+__device__ __forceinline__ double halve(const double (&v)[CHUNK], int lane) {
+  if constexpr (H == 0) {
+    return v[K];
+  } else {
+    const double lo = halve<H - 1, K>(v, lane);
+    const double hi = halve<H - 1, K + (CHUNK >> H)>(v, lane);
+    constexpr int O = 16 >> (H - 1);
+    const bool upper = (lane & O) != 0;
+    return (upper ? hi : lo) + __shfl_xor_sync(FULL_MASK, upper ? lo : hi, O);
+  }
+}
+
+// One chunk of a warp's slice, rows c0.. (FULL: all CHUNK of them lie before
+// i_end), against every latent of the row, a group of 32 (one a lane) at a
+// time: adds each latent's sum of exp(x) over the chunk's rows to the warp's
+// marginal sums `mine` [G][32] in shared memory and returns, in lane t,
+// psum of the chunk's row t / 4. q counts the items taken from the ring. x0
+// and x1 are the weights of the columns 0 and 1 less log(1/M), 0 unless
+// c0 == 0.
+template <bool FULL>
+__device__ __forceinline__ double chunk_sum(MuRing& ring, int& q, const float* __restrict__ mu,
+                                            const Latent* st, double* mine, int c0, int i_end,
+                                            int G, double x0, double x1, int lane) {
+  double rows[CHUNK];
+#pragma unroll
+  for (int r = 0; r < CHUNK; ++r) rows[r] = 0.0;
+  for (int g = 0; g < G; ++g, ++q) {
+    cp_async_wait_ring();
+    float m[CHUNK];
+    const float* stage = ring.stages + (q % RING) * CHUNK * 32;
+#pragma unroll
+    for (int r = 0; r < CHUNK; ++r) m[r] = stage[r * 32];
+    ring.issue(mu, q, lane);  // into the stage just read
+    const Latent t = st[g * 32 + lane];
+    double se = 0.0;
+#pragma unroll
+    for (int r = 0; r < CHUNK; ++r) {
+      const double d = t.z - (double)m[r];
+      const double p = fmax(fma(d * t.a, d, t.c), LOG_PROB_FLOOR);
+      rows[r] += p;
+      double x = p;
+      if (r == 0) x += x0;
+      if (r == 1) x += x1;
+      const double e = exp_in_range(x);
+      se += (FULL || c0 + r < i_end) ? e : 0.0;
+    }
+    mine[g * 32] += se;
+  }
+  double v = halve<LOG_CHUNK, 0>(rows, lane);
+#pragma unroll
+  for (int o = 16 >> LOG_CHUNK; o >= 1; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
+  return v;
+}
+
+// Dynamic shared memory of tc_fwd: the row's latents [G * 32], each
+// slice's marginal sums [n_slices][G][32], G = ceil(Z / 32), and each
+// slice's ring of mu values [n_slices][RING][CHUNK][32].
+size_t fwd_shared_bytes(int Z, int n_slices) {
+  const size_t slots = (size_t)(Z + 31) / 32 * 32;
+  return slots * sizeof(Latent) + (size_t)n_slices * slots * sizeof(double) +
+         (size_t)n_slices * RING * CHUNK * 32 * sizeof(float);
+}
+
+__global__ void __launch_bounds__(MAX_SLICES * 32, 1)
+tc_fwd(const float* __restrict__ z, const float* __restrict__ mu,
+       const float* __restrict__ logvar, double2* __restrict__ terms,
+       double* __restrict__ psum, double* __restrict__ lj, float* __restrict__ pm_out,
+       float* __restrict__ lj_out, int B_i, int Z, int row_off, int slice_len,
+       int n_slices, IwConsts c) {
+  extern __shared__ double smem[];
+  __shared__ double2 joint[MAX_SLICES];  // the slices' joint max and sum
+  __shared__ double pm_part[MAX_SLICES];  // the warps' sums of lm
+  const int G = (Z + 31) / 32;
+  Latent* st = (Latent*)smem;
+  double* part = (double*)(st + G * 32);
+  const int j = blockIdx.x, lane = threadIdx.x & 31, slice = threadIdx.x >> 5;
+  const int row = row_off + j;
+  const int i_begin = slice * slice_len, i_end = min(B_i, i_begin + slice_len);
+  const size_t zrow = (size_t)j * Z;
+  double* prow = psum + (size_t)j * B_i;
+  double* mine = part + (size_t)slice * G * 32 + lane;
+  const double lg_m = c.log1m;
+  const double w0 = log_iw(row, 0, c) - lg_m, w1 = log_iw(row, 1, c) - lg_m;
+
+  // z and logvar of the thread's first latent, then the first RING items of
+  // mu: all of them load at once
+  const int l0 = threadIdx.x;
+  const float z0 = l0 < Z ? z[zrow + l0] : 0.0f, lv0 = l0 < Z ? logvar[zrow + l0] : 0.0f;
+  MuRing ring{(float*)(part + (size_t)n_slices * G * 32) + (size_t)slice * RING * CHUNK * 32 + lane,
+              i_begin, 0, i_end, G, Z};
+#pragma unroll
+  for (int q = 0; q < RING; ++q) ring.issue(mu, q, lane);
+  if (l0 < G * 32) st[l0] = latent_of(z0, lv0, l0 < Z);
+  for (int l = l0 + blockDim.x; l < G * 32; l += blockDim.x)
+    st[l] = latent_of(l < Z ? z[zrow + l] : 0.0f, l < Z ? logvar[zrow + l] : 0.0f, l < Z);
+  for (int g = 0; g < G; ++g) mine[g * 32] = 0.0;
+  __syncthreads();
+
+  // the row of psum a lane completes in each chunk (lanes 0, 4, ..., 28),
+  // and its online logsumexp over those rows for the joint
+  const bool writer = (lane & ((32 >> LOG_CHUNK) - 1)) == 0;
+  double jm = -INFINITY, js = 0.0;
+  int q = 0;
+  for (int c0 = i_begin; c0 < i_end; c0 += CHUNK) {
+    const double x0 = c0 == 0 ? w0 : 0.0, x1 = c0 == 0 ? w1 : 0.0;
+    const double v = c0 + CHUNK <= i_end
+                         ? chunk_sum<true>(ring, q, mu, st, mine, c0, i_end, G, x0, x1, lane)
+                         : chunk_sum<false>(ring, q, mu, st, mine, c0, i_end, G, x0, x1, lane);
+    const int i = c0 + (lane >> (5 - LOG_CHUNK));
+    if (writer && i < i_end) {
+      prow[i] = v;
+      const double x = log_iw(row, i, c) + v, nm = fmax(jm, x);
+      js = js * exp_in_range(fmax(jm - nm, -700.0)) + exp_in_range(fmax(x - nm, -700.0));
+      jm = nm;
+    }
+  }
+  {
+    const double m = warp_max(jm);
+    const double sum = warp_sum(js * exp_in_range(fmax(jm - m, -700.0)));
+    if (lane == 0) joint[slice] = make_double2(m, sum);
+  }
+  __syncthreads();
+
+  // the last warp: the joint over the slices, against their largest max
+  if (slice == n_slices - 1) {
+    double mj = joint[0].x;
+    for (int sl = 1; sl < n_slices; ++sl) mj = fmax(mj, joint[sl].x);
+    double sj = 0.0;
+#pragma unroll 4
+    for (int sl = 0; sl < n_slices; ++sl)
+      sj += joint[sl].y * exp_in_range(fmax(joint[sl].x - mj, -700.0));
+    if (lane == 0) {
+      const double lj_j = mj + log(sj);
+      lj[j] = lj_j;
+      lj_out[j] = (float)lj_j;
+    }
+  }
+  // the slices' sums, in ascending order: warp w takes the latent groups
+  // w, w + n_slices, ...; then its sum of lm, which warp 0 adds up in the
+  // warps' order after the block's last barrier
+  double pm_lane = 0.0;
+  for (int g = slice; g < G; g += n_slices) {
+    const int l = g * 32 + lane;
+    double tot = part[(size_t)g * 32 + lane];
+    for (int sl = 1; sl < n_slices; ++sl) tot += part[((size_t)sl * G + g) * 32 + lane];
+    if (l < Z) {
+      const Latent t = st[l];
+      const double lm = log(tot) + lg_m;
+      terms[2 * (zrow + l)] = make_double2(t.z, -2.0 * t.a);
+      terms[2 * (zrow + l) + 1] = make_double2(t.c, t.c - lm);
+      pm_lane += lm;
+    }
+  }
+  const double pm_w = warp_sum(pm_lane);
+  if (lane == 0) pm_part[slice] = pm_w;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double pm = pm_part[0];
+    for (int w = 1; w < n_slices; ++w) pm += pm_part[w];
+    pm_out[j] = (float)pm;
+  }
+}
+
 // The joint weight g_j * exp(x), x = iw + psum - lj <= 0 up to rounding;
 // below -700 it is 0 to every digit kept.
 __device__ __forceinline__ double joint_weight(double g_j, double x) {
@@ -311,8 +448,6 @@ __device__ __forceinline__ Terms load_terms(const double2* __restrict__ terms, s
   const double2 a = __ldg(&terms[2 * jl]), b = __ldg(&terms[2 * jl + 1]);
   return Terms{a.x, a.y, b.x, b.y};
 }
-
-template <int K> struct Kind { static constexpr int value = K; };
 
 // The place of a warp in a backward block (see "Design"): its slice of the
 // reduced axis (the warp's number), the first of its thread's R output rows,
@@ -537,10 +672,27 @@ IwConsts iw_consts(int global_batch, long long dataset_size) {
   return IwConsts{(float)log(1.0 / m), (float)log(1.0 / n), (float)log(strat), m - 1};
 }
 
-int threads_for(int Z) { return ((Z + 31) / 32) * 32; }
+// The cut of tc_cuda.forward_plan, a function of the bank's length alone:
+// the slices of tc_cuda.reduce_slices. (The latents a lane holds follow from
+// Z inside the kernel.)
+struct FwdCut {
+  int slice_len, n_slices;
+};
+
+FwdCut forward_cut(int B_i) {
+  const int per_slice = (B_i + MAX_SLICES - 1) / MAX_SLICES;
+  const int slice_len = per_slice <= MIN_SLICE_LEN ? MIN_SLICE_LEN : (per_slice + 7) / 8 * 8;
+  return FwdCut{slice_len, (B_i + slice_len - 1) / slice_len};
+}
+
+// The dynamic shared memory tc_fwd may take on each device so far: above the
+// 48 KB a kernel gets without asking it is raised once per device and size,
+// not on every launch.
+constexpr int MAX_DEVICES = 64;
+size_t fwd_shared_granted[MAX_DEVICES];
 
 int check_args(int B_j, int B_i, int Z, long long dataset_size, int global_batch) {
-  if (B_j < 1 || B_i < 1 || Z < 1 || Z > 32 * MAX_WARPS || global_batch < 2 ||
+  if (B_j < 1 || B_i < 1 || Z < 1 || Z > MAX_Z || global_batch < 2 ||
       dataset_size < global_batch) {
     return (int)cudaErrorInvalidValue;
   }
@@ -577,20 +729,34 @@ int bwd_launch(int n_out, int n_red, int Z, int rows, int max_rows, int slice_le
 // C interface, loaded with ctypes. Each launcher enqueues one kernel on
 // `stream` and returns cudaGetLastError() (0 on success); it neither
 // allocates nor synchronises. terms [B_j, Z, 4], psum [B_j, B_i] and lj [B_j]
-// are float64. The backward launchers take the plan of
-// tc_cuda.backward_plan: rows a thread, slice_len, n_slices.
+// are float64. The forward launcher takes tc_cuda.forward_plan's cut
+// (slice_len, n_slices) and refuses any other; the backward launchers
+// the plan of tc_cuda.backward_plan: rows a thread, slice_len, n_slices.
 extern "C" {
 
 int tc_fwd_launch(const float* z, const float* mu, const float* logvar,
                   double* terms, double* psum, double* lj, float* pm, float* qz,
                   int B_j, int B_i, int Z, long long dataset_size, int row_off,
-                  int global_batch, int device, void* stream) {
+                  int global_batch, int slice_len, int n_slices, int device, void* stream) {
   int bad = check_args(B_j, B_i, Z, dataset_size, global_batch);
   if (bad) return bad;
+  const FwdCut cut = forward_cut(B_i);
+  if (slice_len != cut.slice_len || n_slices != cut.n_slices || device < 0 ||
+      device >= MAX_DEVICES) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  tc_fwd<<<B_j, threads_for(Z), 0, (cudaStream_t)stream>>>(
-      z, mu, logvar, (double2*)terms, psum, lj, pm, qz, B_i, Z, row_off,
+  // 51 KB at Z = 128 and 16 slices, 184 KB at Z = 1024: from Z = 128 with
+  // 16 slices (a bank of 128 or more) above the 48 KB given without asking
+  const size_t shared = fwd_shared_bytes(Z, n_slices);
+  if (shared > 48 * 1024 && shared > fwd_shared_granted[device]) {
+    err = cudaFuncSetAttribute(tc_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+    if (err != cudaSuccess) return (int)err;
+    fwd_shared_granted[device] = shared;
+  }
+  tc_fwd<<<B_j, n_slices * 32, shared, (cudaStream_t)stream>>>(
+      z, mu, logvar, (double2*)terms, psum, lj, pm, qz, B_i, Z, row_off, slice_len, n_slices,
       iw_consts(global_batch, dataset_size));
   return (int)cudaGetLastError();
 }

@@ -23,7 +23,9 @@ The two backward kernels cut the reduced axis (i for ``tc_bwd_dz``, j for
 sums in ascending order. ``reduce_slices`` is that cut, a function of the
 reduced length alone; ``backward_plan`` adds how many output rows a thread
 takes, which changes no sum. ``tc_backward_split_reference`` is
-the plain PyTorch version that sums in the same split order.
+the plain PyTorch version that sums in the same split order. The forward
+cuts the bank the same way (``forward_plan``, which its launcher checks);
+``tc_forward_split_reference`` is its plain version in its order.
 
 ``tc_logsumexp_cuda_gathered(z, mu_bank, logvar, row_off, dataset_size,
 global_batch)`` is the data-parallel form: a rank's [B_local, Z] rows of
@@ -46,9 +48,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from intro_tc_vae_tpu_torch.ops.cuda_build import load_library
 from intro_tc_vae_tpu_torch.ops.density import (
@@ -65,11 +69,12 @@ LAUNCHES = dict.fromkeys(KERNELS, 0)
 CALLS = dict.fromkeys(("tc_logsumexp", "tc_logsumexp_gathered"), 0)
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# pointers, then B_j, B_i, Z, dataset_size, row_off, global_batch, [the
-# backward's plan: rows, slice_len, n_slices,] device, stream
+# pointers, then B_j, B_i, Z, dataset_size, row_off, global_batch, the
+# plan (the forward's cut: slice_len, n_slices; a backward kernel's: rows,
+# slice_len, n_slices), device, stream
 _SHAPE, _PLAN, _WHERE = [_I, _I, _I, _LL, _I, _I], [_I] * 3, [_I, _P]
 _ARGTYPES = {
-    "tc_fwd": [_P] * 8 + _SHAPE + _WHERE,
+    "tc_fwd": [_P] * 8 + _SHAPE + [_I] * 2 + _WHERE,
     "tc_bwd_dz": [_P] * 9 + _SHAPE + _PLAN + _WHERE,
     "tc_bwd_dmu": [_P] * 7 + _SHAPE + _PLAN + _WHERE,
     "tc_empty": _WHERE,
@@ -110,6 +115,22 @@ def backward_plan(name: str, b_j: int, b_i: int, zdim: int) -> BackwardPlan:
     return BackwardPlan(rows, slice_len, n_slices)
 
 
+class ForwardPlan(NamedTuple):
+    slice_len: int
+    n_slices: int
+    latents: int     # latents a lane holds: l = lane, lane + 32, ...
+
+
+def forward_plan(b_i: int, zdim: int) -> ForwardPlan:
+    """How ``tc_fwd`` sums against a bank of ``b_i`` rows: the bank cut as
+    ``reduce_slices`` cuts it, one warp a slice, and Z spread over the lanes
+    of each warp. A function of the bank's length and Z alone, never of the
+    rows or ``row_off``: so a rank's pm and qz are summed in the
+    single-device kernel's order. The launcher is given the cut and refuses
+    any other; the lanes' latents follow from Z in the kernel."""
+    return ForwardPlan(*reduce_slices(b_i), -(-zdim // 32))
+
+
 def scratch_bytes(b: int, global_batch: int, zdim: int) -> int:
     """Bytes of float64 the forward keeps for the backward: psum
     [b, global_batch], terms [b, zdim, 4] and lj [b]."""
@@ -134,17 +155,19 @@ def _library() -> ctypes.CDLL:
 
 def launch(name: str, tensors, b_j: int, b_i: int, zdim: int,
            dataset_size: int, device: torch.device, row_off: int = 0,
-           plan: BackwardPlan | None = None) -> None:
+           plan: ForwardPlan | BackwardPlan | None = None) -> None:
     """One kernel launch: b_j z rows (rows row_off.. of the global batch)
     against b_i mu rows, the whole bank, so the global batch whose weights
-    apply is b_i. A backward kernel takes ``backward_plan``'s launch unless
-    ``plan`` gives another (of the same slices, or the kernel refuses)."""
+    apply is b_i. The forward takes ``forward_plan``'s cut and a backward
+    kernel ``backward_plan``'s launch, unless ``plan`` gives another (the
+    forward refuses any other cut, a backward kernel one of other slices)."""
     fn = getattr(_library(), f"{name}_launch")
     stream = torch.cuda.current_stream(device).cuda_stream
+    if plan is None:
+        plan = (forward_plan(b_i, zdim) if name == "tc_fwd"
+                else backward_plan(name, b_j, b_i, zdim))
     if name == "tc_fwd":
-        plan = ()
-    elif plan is None:
-        plan = backward_plan(name, b_j, b_i, zdim)
+        plan = plan[:2]  # the cut
     err = fn(*(t.data_ptr() for t in tensors), b_j, b_i, zdim, int(dataset_size),
              int(row_off), b_i, *plan, device.index, stream)
     if err != 0:
@@ -270,6 +293,88 @@ def tc_logsumexp_reference_gathered(z: torch.Tensor, mu_bank: torch.Tensor,
     return logqz_prodmarginals, log_qz
 
 
+def tc_plain_intermediates(z: torch.Tensor, mu_bank: torch.Tensor,
+                           logvar: torch.Tensor, row_off: int, dataset_size: int) -> dict:
+    """The plain quantities of rows row_off.. of the global batch against the
+    whole bank, materialised in the inputs' dtype: ``d`` = z - mu and ``q`` =
+    d / v [B, GB, Z], the ``raw`` and clamped (``p``) log densities, the
+    log-weights ``iw`` [B, GB], ``lm`` [B, Z] and ``lj`` [B] by
+    ``torch.logsumexp``, and ``psum`` [B, GB] = sum_l P."""
+    var = torch.clamp(torch.exp(logvar), min=VAR_FLOOR)[:, None, :]
+    d = z[:, None, :] - mu_bank[None, :, :]
+    q = d / var
+    raw = -0.5 * (torch.log(var) + d * q + LOG_2PI)
+    p = torch.clamp(raw, min=LOG_PROB_FLOOR)
+    iw = log_importance_weight_block(row_off, z.shape[0], mu_bank.shape[0],
+                                     dataset_size, z.device).to(z.dtype)
+    psum = p.sum(dim=2)
+    return dict(d=d, q=q, raw=raw, p=p, iw=iw, psum=psum,
+                lm=torch.logsumexp(iw[:, :, None] + p, dim=1),
+                lj=torch.logsumexp(iw + psum, dim=1))
+
+
+class ForwardSplit(NamedTuple):
+    psum: torch.Tensor       # [B, GB]
+    lm: torch.Tensor         # [B, Z]
+    lj: torch.Tensor         # [B]
+    pm: torch.Tensor         # [B]
+    qz: torch.Tensor         # [B]: lj, which the kernel also writes in float32
+    exponents: torch.Tensor  # [B, GB, Z]: the marginal's shifted exponents
+
+
+def _sum_in_order(parts):
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total
+
+
+def tc_forward_split_reference(z: torch.Tensor, mu_bank: torch.Tensor,
+                               logvar: torch.Tensor, row_off: int,
+                               dataset_size: int) -> ForwardSplit:
+    """psum, lm, lj, pm and qz as ``tc_fwd`` computes them, written out with
+    plain tensor ops in the inputs' dtype, for rows row_off.. of the global
+    batch against the whole bank, in ``forward_plan``'s order:
+
+    * psum: each lane's latents in order, then the lanes of a warp pairwise
+      across lane bits 16, 8, 4, 2 and 1 (the kernel's halving);
+    * lm: exp of iw + P less the fixed shift log(1/M), summed over each
+      slice of the bank, the slices in ascending order; the ``exponents``
+      lie in [-50 - log N, 3.69];
+    * lj: each slice's max of iw + psum and its sum of exp(x - max), then
+      the slices in ascending order against their largest max."""
+    b, zdim = z.shape
+    gb = mu_bank.shape[0]
+    plan = forward_plan(gb, zdim)
+    e = torch.exp(logvar)
+    floored = ~(e > VAR_FLOOR)
+    a = -0.5 * (1.0 / torch.where(floored, torch.full_like(e, VAR_FLOOR), e))
+    c = -0.5 * (torch.where(floored, torch.full_like(e, math.log(VAR_FLOOR)), logvar)
+                + LOG_2PI)
+    d = z[:, None, :] - mu_bank[None, :, :]
+    p = torch.clamp(d * a[:, None, :] * d + c[:, None, :], min=LOG_PROB_FLOOR)
+
+    lanes = F.pad(p, (0, 32 * plan.latents - zdim)).reshape(b, gb, plan.latents, 32)
+    s = _sum_in_order(lanes.unbind(2))
+    for half in (16, 8, 4, 2, 1):
+        s = s[..., :half] + s[..., half:2 * half]
+    psum = s[..., 0]
+
+    iw = log_importance_weight_block(row_off, b, gb, dataset_size, z.device).to(z.dtype)
+    log1m = float(torch.tensor(math.log(1.0 / (gb - 1)), dtype=torch.float32))
+    x = p + (iw - log1m)[:, :, None]
+    lm = torch.log(_sum_in_order([part.sum(1) for part in
+                                  torch.exp(x).split(plan.slice_len, 1)])) + log1m
+
+    xj = (iw + psum).split(plan.slice_len, 1)
+    maxes = [part.max(1).values for part in xj]
+    m = torch.stack(maxes, 1).max(1).values
+    sj = _sum_in_order([torch.exp(part - mx[:, None]).sum(1) * torch.exp(mx - m)
+                        for part, mx in zip(xj, maxes)])
+    lj = m + torch.log(sj)
+    return ForwardSplit(psum, lm, lj, lm.sum(1), lj, x)
+
+
 def tc_backward_split_reference(z: torch.Tensor, mu_bank: torch.Tensor,
                                 logvar: torch.Tensor, g_m: torch.Tensor,
                                 g_j: torch.Tensor, dataset_size: int,
@@ -279,26 +384,15 @@ def tc_backward_split_reference(z: torch.Tensor, mu_bank: torch.Tensor,
     and their incoming gradient dP, then every sum over the reduced axis (i
     for dz and dlogvar, j for dmu) as partial sums over ``reduce_slices``'
     slices added in ascending order. In the inputs' dtype."""
-    var = torch.clamp(torch.exp(logvar), min=VAR_FLOOR)[:, None, :]
-    d = z[:, None, :] - mu_bank[None, :, :]
-    q = d / var
-    raw = -0.5 * (torch.log(var) + d * q + LOG_2PI)
-    p = torch.clamp(raw, min=LOG_PROB_FLOOR)
-    iw = log_importance_weight_block(row_off, z.shape[0], mu_bank.shape[0],
-                                     dataset_size, z.device).to(z.dtype)
-    lm = torch.logsumexp(iw[:, :, None] + p, dim=1)
-    psum = p.sum(dim=2)
-    lj = torch.logsumexp(iw + psum, dim=1)
-    joint = g_j[:, None] * torch.exp(iw + psum - lj[:, None])
-    dp = g_m[:, None, None] * torch.exp(iw[:, :, None] + p - lm[:, None, :]) + joint[:, :, None]
-    dp = torch.where(raw > LOG_PROB_FLOOR, dp, torch.zeros_like(dp))
+    t = tc_plain_intermediates(z, mu_bank, logvar, row_off, dataset_size)
+    d, q, iw, p = t["d"], t["q"], t["iw"], t["p"]
+    joint = g_j[:, None] * torch.exp(iw + t["psum"] - t["lj"][:, None])
+    dp = g_m[:, None, None] * torch.exp(iw[:, :, None] + p - t["lm"][:, None, :]) + joint[:, :, None]
+    dp = torch.where(t["raw"] > LOG_PROB_FLOOR, dp, torch.zeros_like(dp))
 
     def sum_slices(x, dim):
-        parts = [part.sum(dim) for part in x.split(reduce_slices(x.shape[dim])[0], dim)]
-        total = parts[0]
-        for part in parts[1:]:
-            total = total + part
-        return total
+        return _sum_in_order([part.sum(dim) for part in
+                              x.split(reduce_slices(x.shape[dim])[0], dim)])
 
     dz = sum_slices(-dp * q, 1)
     dlogvar = 0.5 * sum_slices(dp * (d * q - 1.0), 1)

@@ -152,6 +152,63 @@ def test_backward_kernels_match_plain_and_repeat_bit_for_bit(dev, b, off, gb, zd
         np.testing.assert_array_equal(got[key], again[key], err_msg=key)
 
 
+@pytest.mark.parametrize("b,off,gb,zdim", TC_SHAPES + [(48, 0, 48, 1024), (16, 40, 64, 1024)])
+def test_forward_kernel_matches_its_split_reference_and_repeats_bit_for_bit(dev, b, off, gb,
+                                                                           zdim):
+    """tc_fwd's psum, terms (z, 1/v, c, c - lm) and lj against
+    ``tc_forward_split_reference`` in float64 on the same float32 inputs,
+    which sums in the kernel's order, at rtol 1e-10 / atol 1e-10 (the
+    kernel's exp, a degree-11 polynomial, is within 6e-15 of the result);
+    pm and qz, written in float32, at rtol 1e-4 / atol 1e-5. Z = 1024 takes
+    32 latents a lane. A second run gives the same bits."""
+    z, mu, logvar = (torch.tensor(a, device=dev) for a in _inputs(gb, zdim, seed=gb))
+    z, logvar = z[off:off + b].contiguous(), logvar[off:off + b].contiguous()
+    n = 20 * gb
+    runs = []
+    for _ in range(2):
+        terms, psum, lj = tc_cuda.forward_buffers(b, gb, zdim, dev)
+        pm, qz = torch.empty(b, device=dev), torch.empty(b, device=dev)
+        tc_cuda.launch("tc_fwd", (z, mu, logvar, terms, psum, lj, pm, qz), b, gb, zdim, n,
+                       dev, off)
+        torch.cuda.synchronize()
+        runs.append(dict(terms=terms, psum=psum, lj=lj, pm=pm, qz=qz))
+    z64, mu64, lv64 = z.double(), mu.double(), logvar.double()
+    ref = tc_cuda.tc_forward_split_reference(z64, mu64, lv64, off, n)
+    v = torch.clamp(torch.exp(lv64), min=1e-4)
+    c = -0.5 * (torch.log(v) + np.log(2 * np.pi))
+    want = dict(terms=torch.stack([z64, 1.0 / v, c, c - ref.lm], dim=-1), psum=ref.psum,
+                lj=ref.lj, pm=ref.pm, qz=ref.qz)
+    for key, w in want.items():
+        got = runs[0][key]
+        assert got.shape == w.shape, key
+        tol = TOL if got.dtype == torch.float32 else dict(rtol=1e-10, atol=1e-10)
+        np.testing.assert_allclose(got.double().cpu().numpy(), w.cpu().numpy(), err_msg=key,
+                                   **tol)
+        assert torch.equal(got, runs[1][key]), key
+
+
+def test_forward_launcher_refuses_a_plan_that_is_not_forward_plans(dev):
+    """tc_fwd_launch recomputes ``forward_plan``'s cut of the bank and
+    launches nothing on any other; on that cut it launches."""
+    b = zdim = 64
+    z, mu, logvar = (torch.tensor(a, device=dev) for a in _inputs(b, zdim))
+    terms, psum, lj = tc_cuda.forward_buffers(b, b, zdim, dev)
+    pm, qz = torch.empty(b, device=dev), torch.empty(b, device=dev)
+    good = tc_cuda.forward_plan(b, zdim)
+    assert good == (8, 8, 2)
+    before = dict(tc_cuda.LAUNCHES)
+    for bad in (good._replace(slice_len=16, n_slices=4), good._replace(n_slices=7),
+                good._replace(slice_len=16), tc_cuda.ForwardPlan(64, 1, 2)):
+        with pytest.raises(RuntimeError, match="tc_fwd"):
+            tc_cuda.launch("tc_fwd", (z, mu, logvar, terms, psum, lj, pm, qz), b, b, zdim,
+                           1280, dev, plan=bad)
+    assert tc_cuda.LAUNCHES == before
+    tc_cuda.launch("tc_fwd", (z, mu, logvar, terms, psum, lj, pm, qz), b, b, zdim, 1280, dev,
+                   plan=good)
+    torch.cuda.synchronize()
+    assert tc_cuda.LAUNCHES["tc_fwd"] == before["tc_fwd"] + 1
+
+
 @pytest.mark.parametrize("world", [2, 8])
 def test_gathered_rows_equal_the_single_device_rows_bit_for_bit(dev, world):
     """The ranks' pm, qz, dz and dlogvar rows (global batch 128, Z 128),

@@ -200,3 +200,149 @@ def test_split_reference_matches_jax_pallas_gathered_interpret(world, rank):
     assert dmu.shape == (gb, zdim)
     for got, want in zip((dz, dmu, dlogvar), ref):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TC)
+
+
+# ---- the forward: forward_plan and tc_forward_split_reference ----
+
+FORWARD_PLANS = [(1, 1), (3, 5), (40, 72), (90, 33), (64, 128), (128, 128), (200, 129),
+                 (512, 160), (2048, 128), (16384, 1024), (9, 1024)]
+
+
+@pytest.mark.parametrize("b_i,zdim", FORWARD_PLANS)
+def test_forward_plan_depends_on_the_bank_and_z_only(b_i, zdim):
+    """The bank is cut as the backward kernels cut it (``reduce_slices``),
+    whatever the rows, in slices of whole chunks of 8 rows up to the bank's
+    end; a lane takes the latents lane, lane + 32, ...: every latent in
+    exactly one (group, lane), the slots past Z in the last group only. One
+    warp a slice: a block is at most 512 threads, and its shared memory (the
+    row's latents, 3 doubles each, every slice's marginal sums and its ring
+    of 2 stages of 8 x 32 floats of mu, and the 48 doubles of its joint and
+    pm partials) fits the 227 KB a block can have."""
+    plan = tc_cuda.forward_plan(b_i, zdim)
+    assert (plan.slice_len, plan.n_slices) == tc_cuda.reduce_slices(b_i)
+    assert plan.slice_len % 8 == 0
+    cover = sorted(32 * g + lane for g in range(plan.latents) for lane in range(32))
+    assert cover == list(range(32 * plan.latents)) and 0 <= 32 * plan.latents - zdim < 32
+    assert plan.n_slices * 32 <= 512
+    shared = 32 * plan.latents * (3 * 8 + plan.n_slices * 8) + plan.n_slices * 2 * 8 * 32 * 4
+    assert shared + 48 * 8 <= 232_448
+
+
+def test_forward_plan_at_the_shapes_the_port_runs():
+    assert tc_cuda.forward_plan(64, 128) == (8, 8, 4)      # the training shape
+    assert tc_cuda.forward_plan(128, 128) == (8, 16, 4)    # the gathered bank of dp8
+    assert tc_cuda.forward_plan(512, 128) == (32, 16, 4)
+    assert tc_cuda.forward_plan(2048, 128) == (128, 16, 4)
+    assert tc_cuda.forward_plan(2048, 160) == (128, 16, 5)
+    assert tc_cuda.forward_plan(64, 32) == (8, 8, 1)
+    assert tc_cuda.forward_plan(64, 1024) == (8, 8, 32)
+
+
+def _inputs64(gb, zdim, seed, logvar=None):
+    """_inputs in float64; logvar all one value where given."""
+    z, mu, lv = (torch.tensor(a, dtype=torch.float64) for a in _inputs(gb, zdim, seed))
+    if logvar is not None:
+        lv = torch.full_like(lv, logvar)
+    return z, mu, lv
+
+
+def _check_forward(b, off, gb, zdim, n, logvar=None):
+    """The split forward against the materialised plain version: psum and lm
+    at rtol 1e-12 (atol 1e-12 for entries near 0), lj, pm and qz against the
+    plain gathered version; every shifted exponent in [-50 - log N, 3.69]."""
+    z, mu, lv = _inputs64(gb, zdim, gb + zdim, logvar)
+    z, lv = z[off:off + b], lv[off:off + b]
+    got = tc_cuda.tc_forward_split_reference(z, mu, lv, off, n)
+    plain = tc_cuda.tc_plain_intermediates(z, mu, lv, off, n)
+    pm, qz = tc_cuda.tc_logsumexp_reference_gathered(z, mu, lv, off, n, gb)
+    assert got.psum.shape == (b, gb) and got.lm.shape == (b, zdim)
+    for key, value in got._asdict().items():
+        assert torch.isfinite(value).all(), key
+    for g, w in ((got.psum, plain["psum"]), (got.lm, plain["lm"]), (got.lj, plain["lj"]),
+                 (got.pm, pm), (got.qz, qz)):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-12, atol=1e-12)
+    x = got.exponents
+    assert float(x.max()) <= -0.5 * (np.log(1e-4) + np.log(2 * np.pi))  # 3.686: v >= 1e-4
+    assert float(x.min()) >= -50.0 - np.log(n) - 1e-5  # float32 weights
+    assert float(x.min()) > -94.0
+    return got
+
+
+# (rows, row_off, bank, Z, N): ragged Z (5, 33, 72) and banks that are no
+# multiple of a slice; Z = 1024 (8 passes); a rank's rows
+FORWARD_SHAPES = [(3, 0, 3, 5, 60), (20, 0, 20, 33, 400), (40, 0, 40, 72, 800),
+                  (37, 5, 90, 72, 1800), (200, 0, 200, 16, 4000), (16, 3, 40, 1024, 800),
+                  (9, 0, 9, 160, 180)]
+
+
+@pytest.mark.parametrize("b,off,gb,zdim,n", FORWARD_SHAPES)
+def test_forward_split_reference_matches_the_materialised_plain_version(b, off, gb, zdim, n):
+    _check_forward(b, off, gb, zdim, n)
+
+
+@pytest.mark.parametrize("logvar,n,what", [
+    (100.0, 400, "c < -50: every P clamps and chat = -50"),
+    (-40.0, 400, "every variance floored"),
+    (None, 10 ** 15, "N = 1e15: log(1/N) far under log(1/M)"),
+    (None, 20, "N = B_i: N - M = 1, the stratified weight at its least"),
+], ids=["clamped", "floored", "n1e15", "n_eq_b"])
+def test_forward_split_reference_at_extreme_inputs(logvar, n, what):
+    got = _check_forward(20, 0, 20, 33, n, logvar)
+    if logvar == 100.0:
+        assert torch.all(got.exponents[:, 2:] == -50.0)  # P = -50 everywhere
+        assert torch.all(got.psum == -50.0 * 33)
+
+
+def test_forward_split_reference_reaches_both_ends_of_the_exponents():
+    """Both ends are reached: a clamped density with the weight log(1/N) of
+    column 0 gives -50 - log(N/M); a floored variance at d = 0 gives
+    -0.5 (log 1e-4 + log 2 pi) = 3.69."""
+    gb, n = 16, 10 ** 15
+    got = _check_forward(gb, 0, gb, 8, n, logvar=-40.0)
+    np.testing.assert_allclose(float(got.exponents.min()), -50.0 - np.log(n / (gb - 1)),
+                               rtol=1e-6)
+    z, mu, lv = _inputs64(gb, 8, 3, logvar=-40.0)
+    top = tc_cuda.tc_forward_split_reference(mu.clone(), mu, lv, 0, n).exponents.max()
+    np.testing.assert_allclose(float(top), -0.5 * (np.log(1e-4) + np.log(2 * np.pi)),
+                               rtol=1e-12)
+
+
+@pytest.mark.parametrize("b,zdim,n", [(8, 8, 64), (32, 16, 5000), (24, 5, 480), (12, 33, 240)])
+def test_forward_split_reference_matches_jax_pallas_interpret(b, zdim, n):
+    """float64 against the JAX Pallas forward in interpret mode (float32
+    inside): pm and qz, rtol 1e-4 / atol 1e-5."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    z, mu, logvar = _inputs(b, zdim, b + zdim)
+    with pltpu.force_tpu_interpret_mode():
+        pm, qz = tc_pallas.tc_logsumexp_pallas(z, mu, logvar, n)
+    got = tc_cuda.tc_forward_split_reference(
+        *(torch.tensor(a, dtype=torch.float64) for a in (z, mu, logvar)), 0, n)
+    np.testing.assert_allclose(got.pm.numpy(), np.asarray(pm), **TC)
+    np.testing.assert_allclose(got.qz.numpy(), np.asarray(qz), **TC)
+
+
+@pytest.mark.parametrize("world,rank", [(2, 0), (2, 1), (4, 1), (4, 3)])
+def test_forward_split_reference_matches_jax_pallas_gathered_interpret(world, rank):
+    """A rank's rows against the whole bank (B = 32, Z = 16, N = 5000): pm
+    and qz against ``tc_logsumexp_pallas_gathered`` in interpret mode; the
+    ranks' rows concatenated equal the single-device split rows bit for bit
+    (the plan depends on the bank alone)."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    gb, zdim, n = 32, 16, 5000
+    z, mu, logvar = _inputs(gb, zdim, 7)
+    b = gb // world
+    off = rank * b
+    rows = slice(off, off + b)
+    with pltpu.force_tpu_interpret_mode():
+        pm, qz = tc_pallas.tc_logsumexp_pallas_gathered(z[rows], mu, logvar[rows],
+                                                        jnp.int32(off), n, gb)
+    z64, mu64, lv64 = (torch.tensor(a, dtype=torch.float64) for a in (z, mu, logvar))
+    got = tc_cuda.tc_forward_split_reference(z64[rows], mu64, lv64[rows], off, n)
+    np.testing.assert_allclose(got.pm.numpy(), np.asarray(pm), **TC)
+    np.testing.assert_allclose(got.qz.numpy(), np.asarray(qz), **TC)
+    whole = tc_cuda.tc_forward_split_reference(z64, mu64, lv64, 0, n)
+    for key in ("psum", "lm", "lj", "pm"):
+        assert torch.equal(getattr(got, key), getattr(whole, key)[rows]), key
