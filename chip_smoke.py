@@ -55,8 +55,13 @@ result line):
    epoch = 20 steps in four arms: (tc_impl, conv_impl) = (pallas, xla),
    (xla, xla), (pallas, pallas), (pallas, hybrid). Every loss is finite;
    the launch counters of each phase of each step rise by exactly the
-   counts derived in ``expected_intro_launches``. The rates in img/s,
-   steps after the first 3.
+   counts derived in ``expected_intro_launches``, and the run's total by
+   those and the eval-mode decode after the last epoch
+   (``final_decode_launches``). The rates in img/s, steps after the first
+   3, each bound by the completion of the epoch's last step (the metrics
+   are read on the host two steps behind the card). Every run of phases
+   4-8 saves its checkpoints in a temporary directory, deleted
+   afterwards.
 5. In context, fp32, TF32 off. (a) One step with tc_impl 'pallas' and one
    with 'xla' from the same weights, batch and noise agree (metrics rtol
    1e-4, updated parameters atol 1e-5); as in phase 3, the 'xla' step
@@ -81,7 +86,17 @@ result line):
    train through the CLI's entry: (a) one epoch, 10 steps, with finite
    losses and exactly 5 gathered TC calls per step and rank (3 in phase
    E, 2 in phase D), 0 single-device TC calls and 0 conv kernels; (b) one
-   fp32 step on the 2 ranks against one process on the whole batch.
+   fp32 step on the 2 ranks against one process on the whole batch; and
+   phase 8 (g): the ranks' one final checkpoint (rank 0 writes it), loaded
+   in this process, equals both ranks' parameters.
+8. Checkpoint, resume and sampling at the flagship's full width
+   (``phase_checkpoints``; (a)-(f) there, (g) in phase 7): the final
+   checkpoint of a CLI run and the launches of its eval-mode decode, a
+   bit-equal restore, a bit-equal step from the restored and the saved
+   state, a background save equal to a synchronous one, ``resume: "auto"``
+   continuing the step count, and the sampler CLI's PNG against the
+   in-process decode; the save and load seconds and the checkpoint's
+   bytes.
 
 Each phase prints its seconds. Then one JSON line describing the kernels,
 and as the last line ``{"ok": true, "device": {...}}``.
@@ -897,19 +912,42 @@ def launches_per_phase(read=all_launches):
         handle.remove()
 
 
-def run_cli(config: str, update: dict, name: str):
-    """20 steps through the CLI; checks the step count and that every
-    recorded value is finite; returns the final TrainState."""
+def run_cli(config: str, update: dict, name: str, steps: int = 20):
+    """``steps`` steps through the CLI; checks the step count and that every
+    recorded value is finite; returns the final TrainState. The run's
+    checkpoints go to a temporary directory, deleted afterwards, unless
+    ``update`` names a ``checkpoint_dir``."""
+    import shutil
+    import tempfile
+
     from intro_tc_vae_tpu_torch import main
 
-    state = main.cli(["-f", config, "-u", json.dumps(update)])
-    if len(state.history) != 20:
-        die(f"{name}: {len(state.history)} steps, expected 20")
+    work = None
+    if "checkpoint_dir" not in update:
+        work = tempfile.mkdtemp(prefix="chip_smoke_saves_")
+        update = {**update, "checkpoint_dir": work}
+    try:
+        state = main.cli(["-f", config, "-u", json.dumps(update)])
+    finally:
+        if work is not None:
+            shutil.rmtree(work)
+    if len(state.history) != steps:
+        die(f"{name}: {len(state.history)} steps, expected {steps}")
     for rec in state.history:
         for k, v in rec.items():
             if isinstance(v, float) and not math.isfinite(v):
                 die(f"{name}: non-finite {k} at step {rec['step']}")
     return state
+
+
+# The eval-mode decode of one batch of noise after a run's last epoch
+# (train.py): the three routed decoder convs forward, no backward, in the
+# wgmma bodies for bf16 and the fp32 bodies for fp32; 'hybrid' and 'xla'
+# run the stock forward
+def final_decode_launches(conv_impl: str, fp32: bool = False) -> dict:
+    n = 3 if conv_impl == "pallas" else 0
+    fwd = "conv3x3_fwd" if fp32 else "conv3x3_fwd_wgmma"
+    return {fwd: n, "conv3x3_pack_w": n}
 
 
 INTRO_ARMS = (("pallas", "xla"), ("xla", "xla"), ("pallas", "pallas"), ("pallas", "hybrid"))
@@ -929,12 +967,14 @@ def phase_main_path(card: str) -> dict:
             state = run_cli(FLAGSHIP, update, arm)
         counts = all_launches()
         want_e, want_d = expected_intro_launches(tc_impl, conv_impl)
-        for label, got, want in (("phase E", phase_e, want_e), ("phase D", phase_d, want_d),
+        tail = final_decode_launches(conv_impl)
+        for label, got, want in (("phase E", phase_e, {k: 20 * v for k, v in want_e.items()}),
+                                 ("phase D", phase_d, {k: 20 * v for k, v in want_d.items()}),
                                  ("total", counts,
-                                  {k: want_e[k] + want_d[k] for k in want_e})):
-            want20 = {k: 20 * v for k, v in want.items()}
-            if got != want20:
-                die(f"{arm}: {label} launches {got}, expected {want20}")
+                                  {k: 20 * (want_e[k] + want_d[k]) + tail.get(k, 0)
+                                   for k in want_e})):
+            if got != want:
+                die(f"{arm}: {label} launches {got}, expected {want}")
         rates[arm] = images_per_second(state, MAIN_B)
         launches[arm] = counts
         last = state.history[-1]
@@ -1148,9 +1188,11 @@ def phase_other_paths(card: str) -> dict:
         for conv_impl in ("pallas", "xla"):
             run = f"{label}, conv {conv_impl}"
             k = 1 if conv_impl == "pallas" else 0
+            tail = final_decode_launches(conv_impl, fp32=True)
             want = {"tc_fwd": 20 * tc, "tc_bwd_dz": 20 * tc, "tc_bwd_dmu": 20 * tc,
-                    "conv3x3_fwd": 20 * 6 * k, "conv3x3_dw": 20 * 3 * k,
-                    "conv3x3_dw_reduce": 20 * 3 * k, "conv3x3_pack_w": 20 * 6 * k,
+                    "conv3x3_fwd": 20 * 6 * k + tail["conv3x3_fwd"], "conv3x3_dw": 20 * 3 * k,
+                    "conv3x3_dw_reduce": 20 * 3 * k,
+                    "conv3x3_pack_w": 20 * 6 * k + tail["conv3x3_pack_w"],
                     "conv3x3_fwd_wgmma": 0, "conv3x3_dw_wgmma": 0}
             reset_all_launches()
             with tf32_at_optimizer_calls() as tf32:
@@ -1251,9 +1293,11 @@ def dp_rank(out_path: str) -> None:
     def counts():
         return {**all_launches(), **{f"calls.{k}": v for k, v in tc_cuda.CALLS.items()}}
 
+    # the final checkpoint (rank 0 writes) beside the results, for (g)
+    update = {**DP_UPDATE, "checkpoint_dir": os.path.join(os.path.dirname(out_path), "saves")}
     reset_all_launches()
     with launches_per_phase(counts) as (phase_e, phase_d):
-        state = cli_main.cli(["-f", DP_CONFIG, "-u", json.dumps(DP_UPDATE)])
+        state = cli_main.cli(["-f", DP_CONFIG, "-u", json.dumps(update)])
     train = dict(history=state.history, counts=counts(), phase_e=phase_e,
                  phase_d=phase_d, digest=state_digest(state.model),
                  rate=images_per_second(state, load_config(DP_CONFIG, DP_UPDATE).batch_size),
@@ -1324,6 +1368,8 @@ def phase_data_parallel(card: str) -> dict:
         f.close()
     ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
              for r in range(DP_RANKS)]
+    saves = sorted(os.listdir(os.path.join(work, "saves")))
+    dp_digest = dp_checkpoint_digest(os.path.join(work, "saves", saves[-1])) if saves else None
     shutil.rmtree(work)
 
     # (a)
@@ -1408,7 +1454,238 @@ def phase_data_parallel(card: str) -> dict:
           f"{n_over} of {n_params} entries over {ATOL}; BN running stats max abs diff "
           f"{bn_worst:.3g}; both ranks bit-equal")
     calls = sum(out["train"]["counts"]["calls.tc_logsumexp_gathered"] for out in ranks)
+
+    # (g), phase 8's part here: the ranks' one final checkpoint, written by
+    # rank 0, loaded in this process, holds both ranks' parameters
+    want = f"{cfg.fingerprint()}model_epoch_0_iter_{steps}"
+    if saves != [want]:
+        die(f"phase 8 (g): the ranks left {saves}, expected [{want!r}]")
+    for r, out in enumerate(ranks):
+        if out["train"]["digest"] != dp_digest:
+            die(f"phase 8 (g): the checkpoint differs from rank {r}'s parameters")
+    print(f"phase 8 (g): {DP_RANKS} ranks, one checkpoint {want} (rank 0 wrote it); loaded in "
+          "one process it equals both ranks' parameters and BatchNorm statistics bit for bit")
     return {"gathered_calls": calls, "rate": rate}
+
+
+def dp_checkpoint_digest(path: str) -> str:
+    """state_digest of the dp8 model holding the checkpoint's weights."""
+    from intro_tc_vae_tpu_torch.config import load_config
+    from intro_tc_vae_tpu_torch.data import load_dataset
+    from intro_tc_vae_tpu_torch.models import Decoder, Encoder, SoftIntroVAE
+    from intro_tc_vae_tpu_torch.parallel import state_digest
+    from intro_tc_vae_tpu_torch.utils import load_model
+
+    cfg = load_config(DP_CONFIG, DP_UPDATE)
+    _, size, channels, cdim = load_dataset(cfg.dataset)
+    kw = dict(arch=cfg.arch, cdim=cdim, zdim=cfg.z_dim, channels=tuple(channels),
+              image_size=size)
+    model = SoftIntroVAE(Encoder(**kw), Decoder(**kw)).to(DP_DEVICE)
+    return state_digest(load_model(model, path))
+
+
+def same(a, b) -> bool:
+    """Equal structure and values, tensors bit for bit (dtype and shape too)."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.cpu(), b.cpu()))
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def train_state_parts(state) -> dict:
+    return {"step": state.step, "model": state.model.state_dict(),
+            "opt_e": state.opt_e.state_dict(), "opt_d": state.opt_d.state_dict()}
+
+
+def phase_checkpoints(card: str) -> dict:
+    """Phase 8: checkpoint, resume and sampling on the card, at the
+    flagship's full width (FLAGSHIP on synthetic: 64x64x3, conv 64-512, z
+    128, batch 64, bf16, paired, tc_impl and conv_impl 'pallas'); every file
+    in a temporary directory, deleted afterwards.
+    (a) One epoch, 20 steps, through the CLI, which writes its final
+    checkpoint; the eval-mode decode after the last step (the launches
+    after the decoder's last optimizer call) launches 3 conv3x3_fwd_wgmma
+    and their 3 weight packs, and no other kernel.
+    (b) Loaded into a fresh state (other weights): parameters, BatchNorm
+    statistics, both Adam states and the step bit-equal to the saved ones.
+    (d) A background save equals a synchronous save of the same state.
+    (c) One step from the restored state and one from the saved state, on
+    the same batch and noise, cuDNN deterministic: bit-equal results.
+    (e) resume "auto" with num_epochs 2 continues the step count from 20;
+    its checkpoint ranks after (a)'s.
+    (f) ``python -m intro_tc_vae_tpu_torch.sample`` on (a)'s checkpoint
+    writes a PNG whose pixels equal the u8 decode of the same seed's noise
+    in this process; the sampler launches no hand kernel.
+    (g) is phase 7's: the data-parallel ranks' checkpoint."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    from intro_tc_vae_tpu_torch import sample
+    from intro_tc_vae_tpu_torch.config import load_config
+    from intro_tc_vae_tpu_torch.models import Decoder, Encoder, SoftIntroVAE
+    from intro_tc_vae_tpu_torch.solvers.base import decode, draw_noise
+    from intro_tc_vae_tpu_torch.train import build_solver, setup, true_fp32
+    from intro_tc_vae_tpu_torch.utils.checkpoint import (
+        finalize_checkpoints,
+        find_latest_checkpoint,
+        load_checkpoint,
+        load_model,
+        save_checkpoint,
+    )
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_phase8_")
+    try:
+        saves = os.path.join(work, "saves")
+        update = {"dataset": "synthetic", "tc_impl": "pallas", "conv_impl": "pallas",
+                  "num_epochs": 1, "use_tensorboard": False, "checkpoint_dir": saves}
+        config = load_config(FLAGSHIP, update)
+        prefix = config.fingerprint()
+        dev = torch.device("cuda", 0)
+
+        # (a)
+        marks = {}
+        handle = register_optimizer_step_pre_hook(
+            lambda *a: marks.update(last=all_launches()))
+        reset_all_launches()
+        try:
+            state_a = run_cli(FLAGSHIP, update, "phase 8 (a)")
+        finally:
+            handle.remove()
+        end = all_launches()
+        after = {k: end[k] - marks["last"][k] for k in end}
+        want = {**dict.fromkeys(end, 0), **final_decode_launches("pallas")}
+        if after != want:
+            die(f"phase 8 (a): the eval decode launched {after}, expected {want}")
+        x = state_a.samples
+        if (x is None or tuple(x.shape) != (MAIN_B, 3, 64, 64) or not bool(torch.isfinite(x).all())
+                or float(x.min()) < 0 or float(x.max()) > 1):
+            die(f"phase 8 (a): the eval decode gave {None if x is None else tuple(x.shape)}, "
+                "expected finite [64, 3, 64, 64] in [0, 1]")
+        path_a = find_latest_checkpoint(saves, prefix)
+        name_a = f"{prefix}model_epoch_0_iter_20"
+        if path_a is None or os.path.basename(path_a) != name_a or os.listdir(saves) != [name_a]:
+            die(f"phase 8 (a): checkpoints {os.listdir(saves)}, expected [{name_a!r}]")
+        size = os.path.getsize(path_a)
+        print(f"phase 8 (a): 20 steps, final checkpoint {name_a}, {size} bytes; the eval "
+              f"decode after the last step launched {after}")
+
+        # (b)
+        run_b = setup(config, dev)
+        with torch.no_grad():
+            for p in run_b.state.model.parameters():
+                p.add_(1.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, epoch = load_checkpoint(path_a, run_b.state)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        saved, restored = train_state_parts(state_a), train_state_parts(run_b.state)
+        for part in saved:
+            if not same(saved[part], restored[part]):
+                die(f"phase 8 (b): the restored {part} differs from the saved one")
+        if restored["step"] != 20 or epoch != 0:
+            die(f"phase 8 (b): restored step {restored['step']}, epoch {epoch}")
+        n_adam = sum(len(s["state"]) for s in (restored["opt_e"], restored["opt_d"]))
+        print(f"phase 8 (b): loaded in {load_s:.3f} s into a fresh state: parameters, BatchNorm "
+              f"statistics, both Adam states ({n_adam} parameters' exp_avg, exp_avg_sq, step) "
+              "and the step (20) bit-equal to the saved ones")
+
+        # (d)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_sync = save_checkpoint(state_a, 0, 20, "sync_", os.path.join(work, "d"))
+        sync_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p_async = save_checkpoint(state_a, 0, 20, "async_", os.path.join(work, "d"),
+                                  async_save=True)
+        async_return_s = time.perf_counter() - t0
+        finalize_checkpoints()
+        async_s = time.perf_counter() - t0
+        if not same(load_checkpoint(p_sync), load_checkpoint(p_async)):
+            die("phase 8 (d): the background save differs from the synchronous one")
+        print(f"phase 8 (d): a background save equals a synchronous one; save {sync_s:.3f} s "
+              f"synchronous, {async_return_s:.3f} s to return and {async_s:.3f} s to the file "
+              f"in the background; {size} bytes on {card}")
+
+        # (c)
+        solver_a = build_solver(config, run_b.solver.dataset, state_a.model.encoder,
+                                state_a.model.decoder, run_b.mesh)
+        batch = next(iter(run_b.loader))
+        noise = draw_noise(torch.Generator(device=dev).manual_seed(11), MAIN_B, Z_DIM, dev)
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            _, m_a = solver_a.train_step(state_a, batch, noise)
+            _, m_b = run_b.solver.train_step(run_b.state, batch, noise)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        if not same(state_a.model.state_dict(), run_b.state.model.state_dict()):
+            die("phase 8 (c): a step from the restored state differs from one from the saved")
+        if {k: float(v) for k, v in m_a.items()} != {k: float(v) for k, v in m_b.items()}:
+            die(f"phase 8 (c): metrics differ: {m_a} vs {m_b}")
+        print("phase 8 (c): one step from the restored state and one from the saved state "
+              "(same batch and noise, cuDNN deterministic): parameters, statistics and "
+              "metrics bit-equal")
+        del run_b, solver_a, state_a
+        torch.cuda.empty_cache()
+
+        # (e)
+        state_e = run_cli(FLAGSHIP, {**update, "num_epochs": 2, "resume": "auto"},
+                          "phase 8 (e)", steps=40)
+        steps = [r["step"] for r in state_e.history]
+        name_e = f"{prefix}model_epoch_1_iter_60"
+        latest = find_latest_checkpoint(saves, prefix)
+        if steps != list(range(21, 61)) or os.path.basename(latest or "") != name_e:
+            die(f"phase 8 (e): steps {steps[0]}..{steps[-1]}, newest checkpoint {latest}")
+        print(f"phase 8 (e): resume auto from {name_a}: steps 21-60 (epoch 0 again, then 1), "
+              f"newest checkpoint {name_e}")
+        del state_e
+        torch.cuda.empty_cache()
+
+        # (f)
+        png = os.path.join(work, "samples.png")
+        argv = ["--checkpoint", path_a, "--dataset", "synthetic", "--arch", "conv",
+                "--z-dim", str(Z_DIM), "--num", "16", "--seed", "3"]
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "intro_tc_vae_tpu_torch.sample", *argv,
+                              "--out", png], cwd=HERE, capture_output=True, text=True,
+                             timeout=300)
+        cli_s = time.perf_counter() - t0
+        if out.returncode != 0 or not os.path.exists(png):
+            die(f"phase 8 (f): the sampler failed:\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+        written = np.asarray(Image.open(png))
+        reset_all_launches()
+        grid = sample.main([*argv, "--out", os.path.join(work, "again.png")])
+        launched = {k: v for k, v in all_launches().items() if v}
+        if launched:
+            die(f"phase 8 (f): the sampler launched {launched}")
+        kw = dict(arch="conv", cdim=3, zdim=Z_DIM, channels=(64, 128, 256, 512), image_size=64)
+        model = load_model(SoftIntroVAE(Encoder(**kw), Decoder(**kw)).to(dev), path_a)
+        with true_fp32("fp32"):
+            z = torch.randn((16, Z_DIM), generator=torch.Generator(device=dev).manual_seed(3),
+                            device=dev)
+            want = sample.sample_grid(sample.to_host_u8(decode(model.decoder, z, train=False)))
+        if not (np.array_equal(written, want) and np.array_equal(grid, want)):
+            die(f"phase 8 (f): the PNG {written.shape} differs from the in-process decode "
+                f"{want.shape}")
+        print(f"phase 8 (f): python -m intro_tc_vae_tpu_torch.sample wrote {written.shape} "
+              f"({cli_s:.1f} s with start-up) equal to the in-process u8 decode of the same "
+              "noise; no hand kernel launched")
+    finally:
+        shutil.rmtree(work)
+    return {"save_s": sync_s, "async_return_s": async_return_s, "load_s": load_s,
+            "bytes": size}
 
 
 def start():
@@ -1461,20 +1738,47 @@ def start():
     return name, card
 
 
-def device_time(card: str) -> None:
-    """``--device-time``: device ms per step of the flagship's four arms
-    (bf16) and of configs/vae_synthetic.json (fp32) with conv_impl 'pallas'
-    and 'xla', torch.profiler over 5 steady steps (after 14) of each
-    20-step run through the CLI, the arms of a config in turns and then in
-    reverse; a step ends at the decoder's optimizer call (both solvers call
-    the encoder's optimizer, then the decoder's). Prints each run's total
-    and the conv kernels' and cuDNN's share of it, and the TF32 switches the
-    steps ran under (the trainer turns them off for precision "fp32")."""
+PROFILED_STEPS = 5
+
+
+def profiled_steps(run) -> dict:
+    """Device microseconds by kernel name over PROFILED_STEPS steady steps
+    (after 14) of ``run()``, a 20-step run through the CLI: torch.profiler,
+    a step ending at the decoder's optimizer call (both solvers call the
+    encoder's optimizer, then the decoder's). Kernels and device copies
+    only: a step's annotation spans the step. ``--device-time`` and
+    loop_times.py measure a step's device time with this."""
     import torch
     from torch.optim.optimizer import register_optimizer_step_pre_hook
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    active = 5
+    calls = {"n": 0}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=13, warmup=1, active=PROFILED_STEPS)) as prof:
+        def hook(optimizer, args, kwargs):
+            calls["n"] += 1
+            if calls["n"] % 2 == 0:  # encoder's call, then the decoder's: one step
+                torch.cuda.synchronize()
+                prof.step()
+
+        handle = register_optimizer_step_pre_hook(hook)
+        try:
+            run()
+        finally:
+            handle.remove()
+    return {e.key: e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation and not e.key.startswith("ProfilerStep")}
+
+
+def device_time(card: str) -> None:
+    """``--device-time``: device ms per step (``profiled_steps``) of the
+    flagship's four arms (bf16) and of configs/vae_synthetic.json (fp32)
+    with conv_impl 'pallas' and 'xla', each a 20-step run through the CLI,
+    the arms of a config in turns and then in reverse. Prints each run's
+    total and the conv kernels' and cuDNN's share of it, and the TF32
+    switches the steps ran under (the trainer turns them off for precision
+    "fp32")."""
     results = {}
     flagship = [(f"tc {tc_impl}, conv {conv_impl}", FLAGSHIP,
                  {"dataset": "synthetic", "tc_impl": tc_impl, "conv_impl": conv_impl,
@@ -1483,34 +1787,17 @@ def device_time(card: str) -> None:
     vae = [(f"vae_synthetic, conv {conv_impl}", VAE_SYNTHETIC,
             {"conv_impl": conv_impl, "num_epochs": 1}) for conv_impl in ("pallas", "xla")]
     for arm, config, update in flagship + flagship[::-1] + vae + vae[::-1]:
-        calls = {"n": 0}
-        with tf32_at_optimizer_calls() as tf32, \
-                profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                        schedule=schedule(wait=13, warmup=1, active=active)) as prof:
-            def hook(optimizer, args, kwargs):
-                calls["n"] += 1
-                if calls["n"] % 2 == 0:  # encoder's call, then the decoder's: one step
-                    torch.cuda.synchronize()
-                    prof.step()
-
-            handle = register_optimizer_step_pre_hook(hook)
-            try:
-                run_cli(config, update, arm)
-            finally:
-                handle.remove()
-        # kernels and device copies only: a step's annotation spans the step
-        by_name = {e.key: e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not e.is_user_annotation and not e.key.startswith("ProfilerStep")}
+        with tf32_at_optimizer_calls() as tf32:
+            by_name = profiled_steps(lambda: run_cli(config, update, arm))
         total = sum(by_name.values())
         if total <= 0:
             die(f"--device-time: {arm}: the profiler recorded no device time")
 
         def share(*words):
             return sum(v for k, v in by_name.items()
-                       if any(w in k.lower() for w in words)) / active / 1e3
+                       if any(w in k.lower() for w in words)) / PROFILED_STEPS / 1e3
 
-        rec = {"device_ms_per_step": total / active / 1e3,
+        rec = {"device_ms_per_step": total / PROFILED_STEPS / 1e3,
                "conv3x3_fwd": share("conv3x3_fwd"), "conv3x3_dw": share("conv3x3_dw"),
                "conv3x3_pack_w": share("conv3x3_pack_w"),
                "cudnn_and_layout": share("cudnn", "nchwtonhwc", "nhwctonchw", "xmma",
@@ -1555,6 +1842,12 @@ def main() -> None:
         timed("phase 5", phase_in_context, torch.device("cuda", 0))
     other = timed("phase 6", phase_other_paths, card)
     dp = timed("phase 7", phase_data_parallel, card)
+    ckpt = timed("phase 8", phase_checkpoints, card)
+    print(f"phase 8: flagship checkpoint {ckpt['bytes']} bytes; save {ckpt['save_s']:.3f} s, "
+          f"background save returns in {ckpt['async_return_s']:.3f} s, load "
+          f"{ckpt['load_s']:.3f} s; phase 4 img/s with the metric ring "
+          + json.dumps({k: round(v, 1) for k, v in main_path["rates"].items()})
+          + f" on {card}")
 
 
     # What the wgmma wrappers' extra host time comes to in a flagship step:

@@ -115,6 +115,6 @@ def load_dataset(
         raise NotImplementedError(f"dataset '{name}' is not supported")
     image_size, channels, cdim = _TABLE[name]
     if not name.startswith("synthetic"):
-        raise not_ported(f"the file-backed dataset '{name}'", "Queue 1 item 7")
+        raise not_ported(f"the file-backed dataset '{name}'", "Queue 1 item 3")
     sizes = (2, 2, 4, 4) if name == "synthetic_small" else (4, 5, 8, 8)
     return Synthetic(image_size=image_size, cdim=cdim, sizes=sizes), image_size, channels, cdim

@@ -193,7 +193,7 @@ class ConvolutionalBlock(nn.Module):
                  conv_impl: str = "xla", tile_rows: int = 0):
         super().__init__()
         if tile_rows > 0:
-            raise not_ported("tile_rows > 0", "Queue 1 item 10")
+            raise not_ported("tile_rows > 0", "Queue 1 item 9")
         dt = compute_dtype
         self.conv1 = conv(inc, outc, 3, compute_dtype=dt, impl=conv_impl)
         self.bn1 = GroupedBatchNorm(outc, eps=1e-4, compute_dtype=dt)
@@ -219,7 +219,7 @@ class ResidualBlock(nn.Module):
                  conv_impl: str = "xla", tile_rows: int = 0):
         super().__init__()
         if tile_rows > 0:
-            raise not_ported("tile_rows > 0", "Queue 1 item 10")
+            raise not_ported("tile_rows > 0", "Queue 1 item 9")
         dt = compute_dtype
         self.conv_expand = Conv2d(inc, outc, 1, compute_dtype=dt) if inc != outc else None
         self.conv1 = conv(inc, outc, 3, compute_dtype=dt, impl=conv_impl)

@@ -55,7 +55,7 @@ def make_mesh(n_devices: int = 0, model_parallel: int = 1,
     """
     if model_parallel > 1:
         raise not_ported("model_parallel > 1 (tensor parallelism, param_spec)",
-                         "Queue 1 item 9")
+                         "Queue 1 item 8")
     world = process_count()
     n = n_devices or world
     if n > world:

@@ -8,7 +8,11 @@ follow from PyTorch rather than from the model:
   in place; ``TrainState`` holds the modules, the two optimizers (one per
   network, reference train.py:143-144) and the noise generator.
 * ``make_optimizer`` returns a factory over parameters — the counterpart
-  of an optax transform, which holds no state until ``init``.
+  of an optax transform, which holds no state until ``init`` — with
+  optax's semantics and defaults (``solvers/optim.py``).
+* Each step's metrics go on a ring (``MetricRing``) that the train loop
+  reads on the host behind the card, as the JAX package's
+  ``drain_metrics`` does.
 * Noise comes from an explicit ``torch.Generator`` on the device, or is
   passed in (parity tests hand both packages the same draws).
 * Data parallel (``mesh``, a ``parallel.DataGroup`` of several ranks):
@@ -36,13 +40,26 @@ import torch
 from intro_tc_vae_tpu_torch import not_ported, ops
 from intro_tc_vae_tpu_torch.models.vae import SoftIntroVAE, set_data_group
 from intro_tc_vae_tpu_torch.parallel.collectives import all_reduce_mean_
+from intro_tc_vae_tpu_torch.solvers import optim
 
 # the 7-way key split of the JAX step (solvers/intro.py:81-83) minus the
 # carried key: the step's six N(0, I) [B, z] draws, in this order
 NOISE_KEYS = ("prior", "real", "rec_e", "fake_e", "rec_d", "fake_d")
+# steps queued on the metric ring before the loop reads it (JAX ring_depth)
+RING_DEPTH = 8
 
-_OPTAX_NAMES = ("adam", "adamw", "adagrad", "adadelta", "sgd", "rmsprop",
-                "lamb", "lion")
+# optax's defaults, which are not torch's where both have the optimizer
+_OPTIMIZERS = {
+    "adam": functools.partial(torch.optim.Adam, betas=(0.9, 0.999), eps=1e-8),
+    "adamw": functools.partial(torch.optim.AdamW, betas=(0.9, 0.999), eps=1e-8,
+                               weight_decay=1e-4),
+    "adagrad": optim.Adagrad,
+    "adadelta": functools.partial(torch.optim.Adadelta, rho=0.9, eps=1e-6),
+    "sgd": functools.partial(torch.optim.SGD, momentum=0.0),
+    "rmsprop": optim.RMSprop,
+    "lamb": optim.Lamb,
+    "lion": optim.Lion,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,18 +94,20 @@ class TrainState:
     opt_d: torch.optim.Optimizer
     generator: torch.Generator
     history: list = dataclasses.field(default_factory=list)
+    # the eval-mode decode of fresh noise the train loop makes after its
+    # last epoch (JAX train.py:317-331), [B, C, H, W] in [0, 1]
+    samples: Optional[torch.Tensor] = None
 
 
 def make_optimizer(name: str, lr: float) -> Callable[[Iterable], torch.optim.Optimizer]:
-    """Optimizer factory by name. 'adam' is torch.optim.Adam with optax's
-    defaults (b1 0.9, b2 0.999, eps 1e-8 — torch's too); the other optax
-    names differ from torch's defaults and are not ported yet."""
+    """Optimizer factory by name (case-insensitive): optax's transform of
+    that name with optax's defaults (JAX solvers/base.py:68-86), as a
+    ``torch.optim`` class where one computes the same update, else a class
+    of ``solvers/optim.py``."""
     key = name.lower()
-    if key == "adam":
-        return functools.partial(torch.optim.Adam, lr=lr, betas=(0.9, 0.999), eps=1e-8)
-    if key in _OPTAX_NAMES:
-        raise not_ported(f"optimizer '{name}'", "Queue 1 item 6")
-    raise ValueError(f"unknown optimizer '{name}' (known: {sorted(_OPTAX_NAMES)})")
+    if key not in _OPTIMIZERS:
+        raise ValueError(f"unknown optimizer '{name}' (known: {sorted(_OPTIMIZERS)})")
+    return functools.partial(_OPTIMIZERS[key], lr=lr)
 
 
 def draw_noise(generator: torch.Generator, batch: int, zdim: int,
@@ -198,14 +217,93 @@ def frozen(module: torch.nn.Module):
             p.requires_grad_(True)
 
 
-def encode(encoder, x, groups: int = 1):
-    """Run the encoder: (mu, logvar). Train or eval follows the module's
-    mode; groups > 1 gives per-group BatchNorm statistics."""
-    return encoder(x, groups)
+@contextlib.contextmanager
+def eval_mode(module: torch.nn.Module):
+    """Run the block with ``module`` in eval mode under ``no_grad``, then
+    give it back the mode it had, however the block ends."""
+    was_training = module.training
+    module.eval()
+    try:
+        with torch.no_grad():
+            yield
+    finally:
+        module.train(was_training)
 
 
-def decode(decoder, z, groups: int = 1):
-    return decoder(z, groups)
+def encode(encoder, x, groups: int = 1, train: bool = True):
+    """Run the encoder: (mu, logvar). ``train`` True follows the module's
+    mode (the step's passes; groups > 1 gives per-group BatchNorm
+    statistics); False is an eval-mode pass under ``no_grad`` with the
+    running statistics, and the module's mode is restored after it (JAX
+    ``encode(..., train=False)``, solvers/base.py:163)."""
+    if train:
+        return encoder(x, groups)
+    with eval_mode(encoder):
+        return encoder(x)
+
+
+def decode(decoder, z, groups: int = 1, train: bool = True):
+    """Run the decoder; ``train`` as in ``encode``."""
+    if train:
+        return decoder(z, groups)
+    with eval_mode(decoder):
+        return decoder(z)
+
+
+def unit_f32_to_u8(img: torch.Tensor) -> torch.Tensor:
+    """[0, 1] float image -> uint8 on the device, bit-equal to the host
+    export ``(np.clip(x, 0, 1) * 255).astype(np.uint8)`` (JAX
+    solvers/base.py:201-212). numpy's cast truncates; the floor makes that
+    explicit, and clip, multiply and floor are each one exact IEEE float32
+    operation on either side."""
+    x = torch.clamp(img.float(), 0.0, 1.0) * 255.0
+    return torch.floor(x).to(torch.uint8)
+
+
+class MetricRing:
+    """Each step's metrics, queued on the device and read on the host
+    behind it (JAX solvers/base.py:372-373, :446-481).
+
+    ``push`` stacks a step's metrics into one float32 device tensor, starts
+    its copy into a pinned host buffer without blocking, and records a CUDA
+    event after it. ``drain(keep_tail)`` reads every entry but the newest
+    ``keep_tail``, oldest first, waiting on each entry's event: the train
+    loop drains with ``keep_tail=2`` once ``RING_DEPTH + 2`` entries are
+    queued, so it reads only steps two or more behind the one just queued,
+    which have finished by then in the steady state, and never waits on
+    the newest. On the CPU the copy is the tensor itself and there is no
+    event."""
+
+    def __init__(self):
+        self._entries: list = []
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def push(self, metrics: dict, step: int) -> None:
+        stacked = torch.stack([v.detach().float() for v in metrics.values()])
+        event = None
+        if stacked.is_cuda:
+            host = torch.empty(stacked.shape, dtype=stacked.dtype, pin_memory=True)
+            host.copy_(stacked, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        else:
+            host = stacked
+        self._entries.append((tuple(metrics), host, event, step))
+
+    def drain(self, keep_tail: int = 0) -> list:
+        """[(host metrics dict, step), ...] of the drained entries, in step order."""
+        n = len(self._entries) - keep_tail
+        if n <= 0:
+            return []
+        drained, self._entries = self._entries[:n], self._entries[n:]
+        out = []
+        for names, host, event, step in drained:
+            if event is not None:
+                event.synchronize()
+            out.append((dict(zip(names, host.tolist())), step))
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -270,6 +368,8 @@ class VAESolver:
             mesh=group,
         )
         self._step_fn = self.build_step()
+        # every step's metrics, read on the host behind the device
+        self.metric_ring = MetricRing()
 
     def build_step(self) -> Callable:
         from intro_tc_vae_tpu_torch.solvers.vae import build_vae_step
@@ -292,9 +392,22 @@ class VAESolver:
                    noise: Optional[dict] = None):
         """One optimization step, in place. Returns (state, metrics), the
         metrics as 0-d device tensors (their mean over the ranks under a
-        data group). ``batch`` is this rank's rows; ``noise``, when given,
-        holds the global batch's draws."""
-        return state, average_metrics(self._step_fn(state, batch, noise), self.hyper.mesh)
+        data group), and queues them on the metric ring. ``batch`` is this
+        rank's rows; ``noise``, when given, holds the global batch's draws."""
+        metrics = average_metrics(self._step_fn(state, batch, noise), self.hyper.mesh)
+        self.metric_ring.push(metrics, state.step)
+        return state, metrics
+
+    def drain_metrics(self, keep_tail: int = 0) -> list:
+        """The ring's entries but the newest ``keep_tail`` on the host:
+        ``[(metrics dict, step), ...]`` in step order (JAX
+        ``drain_metrics``)."""
+        return self.metric_ring.drain(keep_tail)
+
+    def flush_writes(self) -> list:
+        """Drain the metric ring completely; returns what ``drain_metrics``
+        returns."""
+        return self.drain_metrics(0)
 
     def check_finite(self, metrics: dict) -> None:
         """Raise RuntimeError on a non-finite loss (reference

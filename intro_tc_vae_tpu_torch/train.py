@@ -1,18 +1,31 @@
 """Training entry: dataset/model/solver wiring + epoch loop.
 
 Counterpart of ``intro_tc_vae_tpu/train.py::train_soft_intro_vae``:
-seeding, dataset, model, two optimizers, loader, solver, and an epoch
-loop that checks every step's losses are finite. Runs on ``cuda:0``
-unless the caller passes another device; there is no CPU fallback (the
-tests pass ``torch.device("cpu")`` explicitly).
+seeding, dataset, model, two optimizers, loader, solver, resume, and the
+epoch loop (JAX ``train.py:220-356``): periodic and final checkpoints
+(``utils/checkpoint.py``), the metric ring drained two steps behind the
+device (``solvers/base.py::MetricRing``), ``profile`` and
+``anomaly_detection``, the eval-mode decode of fresh noise after the last
+epoch, and a ``finally`` that drains the ring and waits for any save in
+flight however the loop ends. Runs on ``cuda:0`` unless the caller
+passes another device; there is no CPU fallback (the tests pass
+``torch.device("cpu")`` explicitly).
+
+``resume`` takes a checkpoint path, or ``"auto"`` for the newest
+checkpoint of this run's hyperparameters (``Config.fingerprint()``) in
+``checkpoint_dir``. It restores parameters, BatchNorm statistics, both
+optimizer states and the step, from which the step count continues; the
+epoch restarts at the saved one. The noise generator and the loader's
+order start again from the seed, as in the JAX package.
 
 Data parallel (JAX ``train.py:90-138``, ``:219``): started as R
 processes (``parallel/distributed.py`` says how), each rank trains on
 its card, ``cuda:(LOCAL_RANK % device_count)``, with its rows of every
 global batch of ``batch_size``; rank 0's weights are broadcast to all,
-and only rank 0 prints. ``data_parallel`` must be 0 or the number of
-processes: a process cannot be left out of the mesh, so where JAX
-shrinks the mesh to a size that divides the batch, the port raises.
+only rank 0 prints and writes checkpoints, and every rank loads them.
+``data_parallel`` must be 0 or the number of processes: a process cannot
+be left out of the mesh, so where JAX shrinks the mesh to a size that
+divides the batch, the port raises.
 
 ``precision: "fp32"`` means fp32 on the card too: for such a run both
 TF32 switches are off (PyTorch lets cuDNN compute fp32 convolutions in TF32
@@ -20,16 +33,16 @@ by default), as the JAX counterpart computes in true fp32 and as the
 ``conv_impl: pallas`` kernels do; they are restored when the run ends.
 
 Options this port does not carry yet raise ``NotImplementedError``
-naming their ROADMAP item (``check_ported``). Checkpoints are not ported
-yet either: the loop says so and saves none.
+naming their ROADMAP item (``check_ported``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import random
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -47,24 +60,31 @@ from intro_tc_vae_tpu_torch.parallel import (
 )
 from intro_tc_vae_tpu_torch.parallel.distributed import process_count, rank_device
 from intro_tc_vae_tpu_torch.solvers import TrainState, make_optimizer, make_solver
+from intro_tc_vae_tpu_torch.solvers.base import RING_DEPTH, VAESolver, decode
+from intro_tc_vae_tpu_torch.utils.checkpoint import (
+    finalize_checkpoints,
+    find_latest_checkpoint,
+    load_checkpoint,
+    save_checkpoint,
+)
+from intro_tc_vae_tpu_torch.utils.nan import anomaly_detection, check_unit_range
+from intro_tc_vae_tpu_torch.utils.profiling import StepTimer, profile_trace
 
 PRINT_EVERY = 5     # steps between progress lines
 WARMUP_STEPS = 3    # steps left out of the final img/s figure
+PROFILE_STEPS = 50  # profile: true stops after the step at this iteration
 
 
 def check_ported(config: Config) -> None:
     """Raise for every option whose behaviour this port does not carry."""
     unported = [
-        (config.use_tensorboard, "use_tensorboard: true", "Queue 1 item 6"),
-        (config.resume, "resume", "Queue 1 item 7"),
-        (config.profile, "profile: true", "Queue 1 item 7"),
-        (config.anomaly_detection, "anomaly_detection: true", "Queue 1 item 7"),
-        (config.model_parallel > 1, "model_parallel > 1", "Queue 1 item 9"),
+        (config.use_tensorboard, "use_tensorboard: true", "Queue 1 item 4"),
+        (config.model_parallel > 1, "model_parallel > 1", "Queue 1 item 8"),
         (config.scan_steps > 1, "scan_steps > 1", "Queue 1 item 6"),
         (config.remat, f"remat: {config.remat!r}", "Queue 1 item 6"),
-        (config.pack_predict > 1, "pack_predict > 1", "Queue 1 item 10"),
-        (config.device_cache == "force", "device_cache: 'force'", "Queue 1 item 7"),
-        (config.transfer_dtype == "uint8", "transfer_dtype: 'uint8'", "Queue 1 item 7"),
+        (config.pack_predict > 1, "pack_predict > 1", "Queue 1 item 9"),
+        (config.device_cache == "force", "device_cache: 'force'", "Queue 1 item 3"),
+        (config.transfer_dtype == "uint8", "transfer_dtype: 'uint8'", "Queue 1 item 3"),
         (config.tc_sampling == "weighted", "tc_sampling: 'weighted'", "Queue 1 item 6"),
     ]
     for bad, what, item in unported:
@@ -116,12 +136,33 @@ def true_fp32(precision: str):
 def train_soft_intro_vae(config: Config,
                          device: Optional[torch.device] = None) -> TrainState:
     """Run one training job from a Config; returns the final TrainState,
-    whose ``history`` holds one record per step (losses and seconds)."""
+    whose ``history`` holds one record per step (losses, epoch, step and
+    seconds) and ``samples`` the decode after the last epoch."""
     with true_fp32(config.precision):
         return _train(config, device)
 
 
-def _train(config: Config, device: Optional[torch.device]) -> TrainState:
+@dataclasses.dataclass
+class Run:
+    """What the loop works on, as ``setup`` builds it."""
+
+    seed: int
+    device: torch.device
+    mesh: object
+    loader: DeviceLoader
+    solver: VAESolver
+    state: TrainState
+    say: Callable = print  # print on rank 0, nothing on the others
+
+    @property
+    def group(self):
+        """The data group for the checkpoints (None in one process)."""
+        return self.mesh if self.mesh.size > 1 else None
+
+
+def setup(config: Config, device: Optional[torch.device] = None) -> Run:
+    """Seeding, dataset, model, optimizers, loader, solver and a fresh
+    state, as a run starts (reference train.py:38-192)."""
     validate_config(config)
     check_ported(config)
     distributed = initialize_distributed()
@@ -160,9 +201,18 @@ def _train(config: Config, device: Optional[torch.device]) -> TrainState:
     loader = DeviceLoader(train_set, batch_size=config.batch_size, device=device,
                           shuffle=True, seed=seed,
                           rows=batch_sharding(mesh, config.batch_size))
-    solver = make_solver(
+    solver = build_solver(config, train_set, encoder, decoder, mesh)
+    state = replicate_state(solver.init_state(seed), mesh)
+    return Run(seed=seed, device=device, mesh=mesh, loader=loader, solver=solver,
+               state=state, say=say)
+
+
+def build_solver(config: Config, dataset, encoder, decoder, mesh) -> VAESolver:
+    """The config's solver over these modules, with fresh optimizer
+    factories (reference train.py:140-192)."""
+    return make_solver(
         config.solver,
-        dataset=train_set,
+        dataset=dataset,
         encoder=encoder,
         decoder=decoder,
         batch_size=config.batch_size,
@@ -179,45 +229,138 @@ def _train(config: Config, device: Optional[torch.device]) -> TrainState:
         kl_kind=config.kl_kind,
         # None (auto) pairs the passes; the crossover batch past which
         # unpaired passes win is not measured on this card yet (ROADMAP
-        # Queue 1 item 6)
+        # Queue 1 item 1)
         fuse_passes=config.fuse_passes is not False,
         mesh=mesh,
     )
-    state = replicate_state(solver.init_state(seed), mesh)
-    say("checkpoints are not yet ported (ROADMAP Queue 1 item 7): "
-        "this run saves none")
 
-    # ----- epoch loop (reference train.py:194-242) -----
-    encoder.train()
-    decoder.train()
-    t_prev = time.perf_counter()
-    for epoch in range(config.start_epoch, config.num_epochs):
-        for batch in loader:
-            state, metrics = solver.train_step(state, batch)
-            # one device->host copy of all metrics; waits for the step
-            values = torch.stack([v.float() for v in metrics.values()]).tolist()
-            record = dict(zip(metrics, values))
-            solver.check_finite(record)
-            t_now = time.perf_counter()
-            record.update(epoch=epoch, step=state.step, seconds=t_now - t_prev)
-            t_prev = t_now
-            state.history.append(record)
-            if state.step % PRINT_EVERY == 0:
-                say(f"epoch {epoch} step {state.step}: "
-                      f"loss_enc {record['loss_enc']:.4f} loss_dec {record['loss_dec']:.4f} "
-                      f"kl {record['loss_kl']:.4f} rec {record['loss_rec']:.4f}")
 
+def _train(config: Config, device: Optional[torch.device]) -> TrainState:
+    run = setup(config, device)
+    solver, loader, group, say = run.solver, run.loader, run.group, run.say
+    state = run.state
+
+    # ----- resume (JAX train.py:222-240) -----
+    start_epoch = config.start_epoch
+    prefix = config.fingerprint()
+    resume_path = config.resume
+    if resume_path == "auto":  # crash recovery: newest matching checkpoint
+        resume_path = find_latest_checkpoint(config.checkpoint_dir, prefix)
+        if resume_path is None:
+            say("resume=auto: no checkpoint found, starting fresh")
+    cur_iter = 0
+    if resume_path:
+        state, resumed_epoch = load_checkpoint(resume_path, state, group=group)
+        start_epoch = max(start_epoch, resumed_epoch)
+        # the step count goes on, so later checkpoints rank after this one
+        cur_iter = state.step
+        say(f"resumed from {resume_path} at epoch {start_epoch} iter {cur_iter}")
+
+    # ----- epoch loop (JAX train.py:242-348) -----
+    state.model.train()
+    timer = StepTimer(run.device if config.profile else None)
+    trace_dir = f"{config.log_dir or 'runs'}/profile"
+    epoch_rates: list = []  # img/s of each epoch, the wait for its last step included
+    step_seconds: dict = {}  # host seconds of each queued step, by step
+    batch = None
+    epoch = start_epoch
+
+    def record(entries: list) -> list:
+        """Drained ring entries become history records, in step order."""
+        for metrics, step in entries:
+            rec = dict(metrics, epoch=epoch, step=step, seconds=step_seconds.pop(step))
+            state.history.append(rec)
+            if step % PRINT_EVERY == 0:
+                say(f"epoch {epoch} step {step}: loss_enc {rec['loss_enc']:.4f} "
+                    f"loss_dec {rec['loss_dec']:.4f} kl {rec['loss_kl']:.4f} "
+                    f"rec {rec['loss_rec']:.4f}")
+        return entries
+
+    def consume(keep_tail: int = 0) -> None:
+        """The ring's entries but the newest ``keep_tail`` become history
+        records, and then each is checked for a finite loss: a step that
+        raises is recorded, with the steps drained beside it, as JAX writes
+        a drain to TensorBoard before its check."""
+        for metrics, _ in record(solver.drain_metrics(keep_tail)):
+            solver.check_finite(metrics)
+
+    try:
+        with anomaly_detection(config.anomaly_detection):
+            for epoch in range(start_epoch, config.num_epochs):
+                # save_interval <= 0: no periodic checkpoints (the final one
+                # still saves); the reference divides by zero here
+                if (config.save_interval > 0
+                        and epoch % config.save_interval == 0 and epoch > 0):
+                    save_epoch = (epoch // config.save_interval) * config.save_interval
+                    save_checkpoint(state, save_epoch, cur_iter, prefix,
+                                    checkpoint_dir=config.checkpoint_dir,
+                                    async_save=config.async_checkpoint, group=group)
+
+                epoch_t0 = t_prev = time.perf_counter()
+                n_steps = 0
+                with profile_trace(trace_dir, enabled=config.profile):
+                    for batch in loader:
+                        if config.anomaly_detection:
+                            check_unit_range(batch)
+                        timer.start()
+                        state, _ = solver.train_step(state, batch)
+                        timer.stop()
+                        t_now = time.perf_counter()
+                        step_seconds[state.step], t_prev = t_now - t_prev, t_now
+                        n_steps += 1
+                        if len(solver.metric_ring) >= RING_DEPTH + 2:
+                            consume(keep_tail=2)
+                        if config.profile and cur_iter >= PROFILE_STEPS:
+                            break
+                        cur_iter += 1
+                consume()  # waits for the last step: the epoch's time is completion-bound
+                t_end = time.perf_counter()
+                if n_steps:
+                    state.history[-1]["seconds"] += t_end - t_prev
+                    epoch_rates.append(n_steps * config.batch_size / (t_end - epoch_t0))
+
+                if config.profile:
+                    say("profile:", timer.summary())
+                    break
+
+                if epoch == config.num_epochs - 1 and batch is not None:
+                    # fresh noise, fixed by the seed and the step, as JAX's
+                    # fold_in(root_key, cur_iter)
+                    gen = torch.Generator(device=run.device).manual_seed(run.seed + cur_iter)
+                    noise = torch.randn((config.batch_size, config.z_dim), generator=gen,
+                                        device=run.device)
+                    state.samples = decode(state.model.decoder, noise, train=False)
+                    save_checkpoint(state, epoch, cur_iter, prefix,
+                                    checkpoint_dir=config.checkpoint_dir,
+                                    async_save=config.async_checkpoint, group=group)
+    finally:
+        # an abort (a non-finite loss, a loader error, Ctrl-C) still records
+        # the ring's steps, which show the blow-up, unchecked so that the
+        # original error propagates, and leaves no save half written
+        try:
+            record(solver.flush_writes())
+        except Exception as flush_err:  # never mask the original error
+            print(f"flush_writes failed during teardown: {flush_err!r}")
+        finalize_checkpoints()
+
+    if len(epoch_rates) > 1:  # epoch 0 includes the warm-up
+        steady = float(np.median(epoch_rates[1:]))
+        say(f"training throughput: {steady:,.0f} img/s "
+            f"(median of epochs after the first; {len(epoch_rates)} epochs)")
     rate = images_per_second(state, config.batch_size)  # the global batch
     if rate is not None:
-        say(f"training throughput: {rate:,.1f} img/s on {mesh.size} x "
-            f"{device_name(device)} (steps after the first {WARMUP_STEPS}; "
+        say(f"training throughput: {rate:,.1f} img/s on {run.mesh.size} x "
+            f"{device_name(run.device)} (steps after the first {WARMUP_STEPS}; "
             f"{len(state.history)} steps)")
     return state
 
 
 def images_per_second(state: TrainState, batch_size: int) -> Optional[float]:
     """Images per second of wall time over the steps after the warm-up,
-    data loading and the per-step finite check included."""
+    data loading and the finite checks included. Each step's seconds run
+    from the previous step's enqueueing to its own, and an epoch's last
+    step also holds the wait for the card to finish it, so the figure is
+    bound by completion, not by enqueueing."""
     steady = state.history[WARMUP_STEPS:]
     if not steady:
         return None

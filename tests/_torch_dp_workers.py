@@ -247,3 +247,56 @@ def train_cli_config(config_path: str, update: dict, bad_updates: list) -> dict:
     state = train_soft_intro_vae(load_config(config_path, update), device=CPU)
     return dict(errors=errors, history=state.history, digest=state_digest(state.model),
                 routes=routes)
+
+
+def _dp_solver(init: dict, batch_size: int, mesh=None, bump: float = 0.0):
+    """The small float64 intro_tc solver from the weights ``init`` (plus
+    ``bump`` on every parameter), under ``mesh`` or in one process."""
+    enc = Encoder(**SMALL, compute_dtype=torch.float64)
+    dec = Decoder(**SMALL, compute_dtype=torch.float64)
+    model = SoftIntroVAE(enc, dec).double()
+    model.load_state_dict(init)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(bump)
+    solver = make_solver(
+        "intro_tc", dataset=Synthetic(image_size=32, cdim=3, sizes=(2, 2, 4, 4)),
+        encoder=enc, decoder=dec, batch_size=batch_size,
+        optimizer_e=make_optimizer("adam", 2e-4), optimizer_d=make_optimizer("adam", 2e-4),
+        tc_impl="pallas", mesh=mesh, beta_kl=0.5, beta_rec=0.75, beta_neg=512.0)
+    state = solver.init_state(0)
+    return solver, (state if mesh is None else replicate_state(state, mesh))
+
+
+def checkpoint_resume(init: dict, batches: list, noises: list, ckpt_dir: str) -> dict:
+    """One step on this rank's rows, a background save (rank 0 writes),
+    then every rank loads it into a fresh state built from other weights
+    and takes the second step from there. Returns the digests of the saved
+    and the loaded state, the writes this rank made, and the second step's
+    metrics and state dict."""
+    from intro_tc_vae_tpu_torch.utils import checkpoint
+
+    writes = []
+    write = checkpoint._write
+    checkpoint._write = lambda payload, path: (writes.append(path), write(payload, path))
+    mesh = make_mesh(device=CPU)
+    rows = batch_sharding(mesh, batches[0].shape[0])
+
+    def x(batch):
+        return torch.from_numpy(batch[rows].transpose(0, 3, 1, 2).copy())
+
+    solver, state = _dp_solver(init, batches[0].shape[0], mesh)
+    solver.train_step(state, x(batches[0]), noise=noises[0])
+    saved = state_digest(state.model)
+    path = checkpoint.save_checkpoint(state, 0, state.step, "dp_", checkpoint_dir=ckpt_dir,
+                                      async_save=True, group=mesh)
+    solver_r, restored = _dp_solver(init, batches[0].shape[0], mesh, bump=0.5)
+    checkpoint.load_checkpoint(path, restored, group=mesh)  # waits for rank 0's write
+    loaded = state_digest(restored.model)
+    step = restored.step
+    _, metrics = solver_r.train_step(restored, x(batches[1]), noise=noises[1])
+    checkpoint.finalize_checkpoints()
+    return dict(saved=saved, loaded=loaded, step=step, writes=writes,
+                metrics={k: float(v) for k, v in metrics.items()},
+                state={k: v.clone() for k, v in restored.model.state_dict().items()},
+                digest=state_digest(restored.model))

@@ -420,7 +420,7 @@ def test_intro_step_launches_no_weight_gradient_in_phase_e(dev):
     assert conv_cuda.LAUNCHES == conv_counts(44, 12, "fp32")
 
 
-def test_fp32_cli_step_computes_cudnn_convs_in_true_fp32(dev):
+def test_fp32_cli_step_computes_cudnn_convs_in_true_fp32(dev, tmp_path):
     """``precision: "fp32"`` through the CLI with ``conv_impl: "xla"``
     (cuDNN computes every conv): configs/vae_synthetic.json at the
     synthetic_small size, one step of batch 64. Entered with both TF32
@@ -428,15 +428,17 @@ def test_fp32_cli_step_computes_cudnn_convs_in_true_fp32(dev):
     same run entered with both off: parameters within 2 * lr (Adam's first
     update is lr * sign(g)), the step's losses within rtol 1e-5, where TF32's
     10-bit products would move them by ~1e-3. The switches come back as
-    they were."""
+    they were. The runs' checkpoints go under ``tmp_path``."""
+    import json
     import os
 
     from intro_tc_vae_tpu_torch import main
 
     config = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                           "configs", "vae_synthetic.json")
-    update = ('{"dataset": "synthetic_small", "conv_impl": "xla", "num_epochs": 1, '
-              '"batch_size": 64, "z_dim": 8, "use_tensorboard": false}')
+    update = json.dumps({"dataset": "synthetic_small", "conv_impl": "xla", "num_epochs": 1,
+                         "batch_size": 64, "z_dim": 8, "use_tensorboard": False,
+                         "checkpoint_dir": str(tmp_path)})
     runs = {}
     for tf32 in (True, False):
         torch.backends.cudnn.allow_tf32 = tf32

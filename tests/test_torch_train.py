@@ -1,9 +1,11 @@
 """PyTorch port: the trainer, the CLI, the loader and config surface, and
 the package's import hygiene. CPU only: the trainer runs here only
-because the tests pass ``device=torch.device("cpu")`` explicitly."""
+because the tests pass ``device=torch.device("cpu")`` explicitly. Every
+run writes its checkpoints and traces under the test's ``tmp_path``."""
 
 import dataclasses
 import glob
+import json
 import math
 import os
 import subprocess
@@ -20,6 +22,7 @@ from intro_tc_vae_tpu_torch import main
 from intro_tc_vae_tpu_torch.config import load_config
 from intro_tc_vae_tpu_torch.data import DeviceLoader, Synthetic, load_dataset
 from intro_tc_vae_tpu_torch.train import train_soft_intro_vae
+from tests._torch_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = os.path.join(REPO, "configs", "intro_tc_ukiyo64.json")
@@ -28,16 +31,29 @@ SMALL_RUN = dict(dataset="synthetic_small", tc_impl="pallas", num_epochs=1,
 CPU = torch.device("cpu")
 
 
-def test_train_one_epoch_on_cpu():
+def small_config(tmp_path, path=FLAGSHIP, **update):
+    """``path`` at the synthetic_small size, saving under ``tmp_path``."""
+    return load_config(path, {**SMALL_RUN, "checkpoint_dir": str(tmp_path / "saves"),
+                              "log_dir": str(tmp_path / "runs"), **update})
+
+
+def test_train_one_epoch_on_cpu(tmp_path):
     """The flagship recipe (bf16 compute, paired, tc_impl 'pallas') at the
-    synthetic_small size: 64 images / batch 8 = 8 steps, finite losses."""
-    config = load_config(FLAGSHIP, SMALL_RUN)
+    synthetic_small size: 64 images / batch 8 = 8 steps, finite losses, in
+    step order; after the epoch, an eval-mode decode of one batch of noise
+    and the final checkpoint, named as the JAX package names it."""
+    config = small_config(tmp_path)
     state = train_soft_intro_vae(config, device=CPU)
     assert state.step == len(state.history) == 8
+    assert [r["step"] for r in state.history] == list(range(1, 9))
     for record in state.history:
         assert all(math.isfinite(record[k]) for k in ("lossE", "lossD", "loss_kl",
                                                       "loss_rec", "expelbo_r"))
+        assert record["epoch"] == 0 and record["seconds"] > 0
     assert all(p.dtype == torch.float32 for p in state.model.parameters())
+    assert state.samples.shape == (8, 3, 32, 32)
+    assert 0.0 <= float(state.samples.min()) <= float(state.samples.max()) <= 1.0
+    assert os.listdir(tmp_path / "saves") == [f"{config.fingerprint()}model_epoch_0_iter_8"]
 
 
 def test_cli_requires_cuda(monkeypatch):
@@ -48,45 +64,74 @@ def test_cli_requires_cuda(monkeypatch):
                   '"num_epochs": 1, "use_tensorboard": false}'])
 
 
-@pytest.mark.parametrize("update", [
-    dict(use_tensorboard=True), dict(resume="auto"), dict(profile=True),
-    dict(anomaly_detection=True), dict(model_parallel=2),
-    dict(scan_steps=2), dict(remat="pass"), dict(pack_predict=2),
-    dict(device_cache="force"), dict(transfer_dtype="uint8"),
-    dict(tc_sampling="weighted", tc_impl="xla"), dict(tile_rows=16),
-    dict(arch="inception"), dict(optimizer="sgd"), dict(dataset="ukiyo_e64"),
-    dict(kl_kind="tc_full"),
-], ids=lambda u: ",".join(f"{k}={v}" for k, v in u.items()))
-def test_unported_options_raise(update):
+def _raises(update: dict, item: str):
+    return pytest.param(update, item, id=",".join(f"{k}={v}" for k, v in update.items()))
+
+
+@pytest.mark.parametrize("update,item", [
+    _raises(dict(use_tensorboard=True), "Queue 1 item 4"),
+    _raises(dict(model_parallel=2), "Queue 1 item 8"),
+    _raises(dict(scan_steps=2), "Queue 1 item 6"),
+    _raises(dict(remat="pass"), "Queue 1 item 6"),
+    _raises(dict(pack_predict=2), "Queue 1 item 9"),
+    _raises(dict(device_cache="force"), "Queue 1 item 3"),
+    _raises(dict(transfer_dtype="uint8"), "Queue 1 item 3"),
+    _raises(dict(tc_sampling="weighted", tc_impl="xla"), "Queue 1 item 6"),
+    _raises(dict(tile_rows=16), "Queue 1 item 9"),
+    _raises(dict(arch="inception"), "Queue 1 item 6"),
+    _raises(dict(dataset="ukiyo_e64"), "Queue 1 item 3"),
+    _raises(dict(kl_kind="tc_full"), "Queue 1 item 6"),
+])
+def test_unported_options_raise(update, item):
+    """Each option the port does not carry raises, naming the ROADMAP item
+    that ports it."""
     config = load_config(FLAGSHIP, {**SMALL_RUN, **update})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}\\)"):
         train_soft_intro_vae(config, device=CPU)
 
 
 @pytest.mark.parametrize("update", [
     dict(conv_impl="pallas"), dict(arch="res"), dict(solver="vae"),
+    dict(resume="auto"), dict(profile=True), dict(anomaly_detection=True),
+    dict(optimizer="sgd"), dict(optimizer="lamb"), dict(async_checkpoint=True),
+    dict(save_interval=0),
 ], ids=lambda u: ",".join(f"{k}={v}" for k, v in u.items()))
-def test_options_that_once_raised_train(update):
+def test_options_that_once_raised_train(tmp_path, update):
     """The flagship recipe with each option at the synthetic_small size:
     8 finite steps (at this width no conv routes to the kernels; the
-    routed widths are tests/test_torch_conv.py's and _models.py's)."""
-    config = load_config(FLAGSHIP, {**SMALL_RUN, **update})
-    state = train_soft_intro_vae(config, device=CPU)
+    routed widths are tests/test_torch_conv.py's and _models.py's).
+    ``resume: "auto"`` finds no checkpoint and starts fresh; ``profile``
+    stops at the epoch's end, before iteration 50, without a final save;
+    ``anomaly_detection`` is on at every optimizer call and off after."""
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    config = small_config(tmp_path, **update)
+    anomaly = set()
+    handle = register_optimizer_step_pre_hook(lambda *a: anomaly.add(torch.is_anomaly_enabled()))
+    try:
+        state = train_soft_intro_vae(config, device=CPU)
+    finally:
+        handle.remove()
+    assert anomaly == {config.anomaly_detection}
+    assert not torch.is_anomaly_enabled()
     assert state.step == len(state.history) == 8
     assert all(math.isfinite(r[k]) for r in state.history for k in ("loss_enc", "loss_dec"))
+    saves = sorted(os.listdir(tmp_path / "saves")) if (tmp_path / "saves").exists() else []
+    assert saves == ([] if config.profile
+                     else [f"{config.fingerprint()}model_epoch_0_iter_8"])
 
 
 @pytest.mark.parametrize("path,update", [
     ("vae_synthetic.json", {"conv_impl": "pallas"}),
     ("tc_dsprites.json", {"tc_impl": "pallas", "conv_impl": "hybrid"}),
 ], ids=["vae_synthetic", "tc_dsprites"])
-def test_elbo_configs_train_on_cpu(path, update):
+def test_elbo_configs_train_on_cpu(tmp_path, path, update):
     """configs/vae_synthetic.json (res arch, vae solver) and
     configs/tc_dsprites.json on the synthetic dataset (conv arch, tc
     solver), both fp32, at the synthetic_small size: 8 finite steps, the
     metric names of the JAX ELBO step, and the parameters moved."""
-    config = load_config(os.path.join(REPO, "configs", path),
-                         {**SMALL_RUN, **update, "dataset": "synthetic_small"})
+    config = small_config(tmp_path, os.path.join(REPO, "configs", path),
+                          **update, dataset="synthetic_small")
     torch.manual_seed(config.seed)
     state = train_soft_intro_vae(config, device=CPU)
     assert state.step == len(state.history) == 8
@@ -114,7 +159,7 @@ def tf32_on():
 
 @pytest.mark.parametrize("precision,during", [("fp32", (False, False)),
                                               ("bf16", (True, True))])
-def test_precision_fp32_turns_tf32_off_for_the_run(tf32_on, precision, during):
+def test_precision_fp32_turns_tf32_off_for_the_run(tmp_path, tf32_on, precision, during):
     """precision "fp32" computes in fp32 proper: both TF32 switches are off
     at every optimizer call of the run and back on after it; a bf16 run
     leaves them as they were."""
@@ -123,7 +168,7 @@ def test_precision_fp32_turns_tf32_off_for_the_run(tf32_on, precision, during):
     seen = []
     handle = register_optimizer_step_pre_hook(lambda *a: seen.append(_tf32_flags()))
     try:
-        config = load_config(FLAGSHIP, {**SMALL_RUN, "precision": precision})
+        config = small_config(tmp_path, precision=precision)
         state = train_soft_intro_vae(config, device=CPU)
     finally:
         handle.remove()
@@ -132,7 +177,7 @@ def test_precision_fp32_turns_tf32_off_for_the_run(tf32_on, precision, during):
     assert _tf32_flags() == (True, True)
 
 
-def test_precision_fp32_restores_tf32_when_the_run_raises(tf32_on):
+def test_precision_fp32_restores_tf32_when_the_run_raises(tmp_path, tf32_on):
     from torch.optim.optimizer import register_optimizer_step_pre_hook
 
     def fail(*args):
@@ -142,8 +187,7 @@ def test_precision_fp32_restores_tf32_when_the_run_raises(tf32_on):
     handle = register_optimizer_step_pre_hook(fail)
     try:
         with pytest.raises(FloatingPointError, match="stop"):
-            train_soft_intro_vae(load_config(FLAGSHIP, {**SMALL_RUN, "precision": "fp32"}),
-                                 device=CPU)
+            train_soft_intro_vae(small_config(tmp_path, precision="fp32"), device=CPU)
     finally:
         handle.remove()
     assert _tf32_flags() == (True, True)
@@ -200,3 +244,211 @@ print(len([n for n in sys.modules if n.startswith("intro_tc_vae_tpu_torch")]), b
     n_modules, bad = out.stdout.split(" ", 1)
     assert int(n_modules) >= 20
     assert bad.strip() == "[]"
+
+
+# ---------------------------------------------------------------------------
+# the loop's modes: profile, anomaly detection, the metric ring
+# ---------------------------------------------------------------------------
+
+class _Scaled:
+    """A dataset whose batches are the wrapped one's times ``factor`` from
+    batch index ``start`` on (NaN: every value NaN)."""
+
+    def __init__(self, dataset, factor: float, start: int = 0):
+        self.dataset, self.factor, self.start = dataset, factor, start
+        self.calls = 0
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def get_batch(self, idx):
+        x = self.dataset.get_batch(idx)
+        self.calls += 1
+        return x * self.factor if self.calls > self.start else x
+
+
+def _patch_dataset(monkeypatch, factor: float, start: int = 0) -> None:
+    from intro_tc_vae_tpu_torch import train
+
+    def load(name, data_root=None):
+        ds, size, channels, cdim = load_dataset(name, data_root)
+        return _Scaled(ds, factor, start), size, channels, cdim
+
+    monkeypatch.setattr(train, "load_dataset", load)
+
+
+def _capture_run(monkeypatch) -> list:
+    """The ``train.Run`` of the next run, appended to the returned list."""
+    from intro_tc_vae_tpu_torch import train
+
+    runs, setup = [], train.setup
+
+    def capture(*args, **kwargs):
+        runs.append(setup(*args, **kwargs))
+        return runs[-1]
+
+    monkeypatch.setattr(train, "setup", capture)
+    return runs
+
+
+def test_profile_stops_at_iteration_50_and_writes_a_trace(tmp_path, capsys):
+    """profile: true traces the first epoch and stops after the step at
+    iteration 50 (JAX train.py:297-315): 51 steps of the 64 an epoch of
+    batch 1 has, the timer's summary printed, a Chrome trace written, no
+    final checkpoint."""
+    config = small_config(tmp_path, solver="vae", batch_size=1, profile=True, num_epochs=2)
+    state = train_soft_intro_vae(config, device=CPU)
+    assert state.step == len(state.history) == 51
+    assert [r["step"] for r in state.history] == list(range(1, 52))
+    traces = glob.glob(str(tmp_path / "runs" / "profile" / "*.pt.trace.json"))
+    assert len(traces) == 1
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("conv2d" in e.get("name", "") for e in events)
+    out = capsys.readouterr().out
+    assert "profile: {'steps': 50" in out and "profiler trace written to" in out
+    assert not (tmp_path / "saves").exists()
+
+
+def test_anomaly_detection_raises_on_an_out_of_range_batch(tmp_path, monkeypatch):
+    """Every batch is checked to lie in [0, 1] (JAX train.py:166-169); the
+    anomaly switch is off again after the run raises."""
+    _patch_dataset(monkeypatch, factor=2.0, start=3)
+    runs = _capture_run(monkeypatch)
+    with pytest.raises(ValueError, match=r"outside \[0, 1\]"):
+        train_soft_intro_vae(small_config(tmp_path, anomaly_detection=True), device=CPU)
+    assert not torch.is_anomaly_enabled()
+    assert runs[0].state.step == 3  # the fourth batch was refused before its step
+    assert len(runs[0].solver.metric_ring) == 0
+
+
+class _NanBackward(torch.autograd.Function):
+    """Identity forward, NaN gradient."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * float("nan")
+
+
+def test_anomaly_detection_raises_on_a_nan_made_in_backward(tmp_path, monkeypatch):
+    """With anomaly_detection the first backward function that returns a
+    NaN raises at once; the anomaly switch is off again afterwards. The
+    same NaN without it raises only when the ring reads the non-finite loss
+    of a later step."""
+    from intro_tc_vae_tpu_torch import ops
+
+    reparameterize = ops.reparameterize
+    monkeypatch.setattr(ops, "reparameterize",
+                        lambda mu, logvar, eps: _NanBackward.apply(reparameterize(mu, logvar, eps)))
+    runs = _capture_run(monkeypatch)
+    with pytest.raises(RuntimeError, match="returned nan values"):
+        train_soft_intro_vae(small_config(tmp_path, anomaly_detection=True), device=CPU)
+    assert not torch.is_anomaly_enabled()
+    assert runs[0].state.step == 0
+    # without it: phase D of step 1 already runs the encoder the NaN updated
+    with pytest.raises(RuntimeError, match="non-finite loss_dec: nan"):
+        train_soft_intro_vae(small_config(tmp_path), device=CPU)
+    assert not torch.is_anomaly_enabled()
+    assert runs[1].state.step == 8  # read at the epoch's end
+
+
+def test_nan_loss_raises_from_the_ring_and_the_finally_drains(tmp_path, monkeypatch):
+    """A NaN batch at step 1 (16 steps an epoch): the loop reads the ring
+    once ring_depth + 2 steps are queued, keeping the newest 2, so the
+    non-finite loss raises after step ring_depth + 2, ring_depth + 1 steps
+    after the one that made it (JAX train.py:294-295). The drain that
+    raised and the ``finally``'s drain of the newest 2 are both recorded,
+    unchecked past the raise: the history holds every queued step, the
+    blow-up included, as JAX writes them all to TensorBoard."""
+    from intro_tc_vae_tpu_torch.solvers.base import RING_DEPTH
+
+    _patch_dataset(monkeypatch, factor=float("nan"))
+    runs = _capture_run(monkeypatch)
+    with pytest.raises(RuntimeError, match="non-finite loss_enc: nan"):
+        train_soft_intro_vae(small_config(tmp_path, batch_size=4), device=CPU)
+    run = runs[0]
+    assert RING_DEPTH == 8
+    assert run.state.step == RING_DEPTH + 2
+    assert len(run.solver.metric_ring) == 0
+    history = run.state.history
+    assert [r["step"] for r in history] == list(range(1, RING_DEPTH + 3))
+    assert all(r["epoch"] == 0 and r["seconds"] > 0 for r in history)
+    assert math.isnan(history[0]["loss_enc"])
+    assert not (tmp_path / "saves").exists()
+
+
+def test_metric_ring_reads_in_step_order_behind_the_newest():
+    from intro_tc_vae_tpu_torch.solvers.base import MetricRing
+
+    ring = MetricRing()
+    for step in range(1, 11):
+        ring.push({"a": torch.tensor(step * 1.5), "b": torch.tensor(-step, dtype=torch.int64)},
+                  step)
+    assert len(ring) == 10
+    first = ring.drain(keep_tail=2)
+    assert [s for _, s in first] == list(range(1, 9))
+    assert first[0][0] == {"a": 1.5, "b": -1.0}
+    assert len(ring) == 2 and ring.drain(keep_tail=2) == []
+    assert [m["a"] for m, _ in ring.drain()] == [13.5, 15.0]
+    assert len(ring) == 0
+
+
+def test_eval_mode_encode_and_decode_restore_the_mode():
+    """encode/decode with train=False: eval mode (running statistics, which
+    stay as they were) under no_grad, and the module's mode back after."""
+    from intro_tc_vae_tpu_torch.models import Decoder, Encoder
+    from intro_tc_vae_tpu_torch.solvers.base import decode, encode
+
+    small = dict(arch="conv", cdim=3, zdim=8, channels=(16, 32), image_size=32)
+    torch.manual_seed(0)
+    enc, dec = Encoder(**small), Decoder(**small)
+    x = torch.rand(4, 3, 32, 32)
+    enc(x)  # a train-mode pass: running statistics move off their init
+    stats = {k: v.clone() for k, v in enc.state_dict().items()}
+    for module, fn, arg in ((enc, encode, x), (dec, decode, torch.randn(4, 8))):
+        for training in (True, False):
+            module.train(training)
+            out = fn(module, arg, train=False)
+            assert module.training is training
+            module.eval()
+            want = module(arg)
+            module.train(training)
+            outs = out if isinstance(out, tuple) else (out,)
+            wants = want if isinstance(want, tuple) else (want,)
+            for o, w in zip(outs, wants):
+                assert not o.requires_grad
+                torch.testing.assert_close(o, w.detach(), rtol=0, atol=0)
+    for k, v in enc.state_dict().items():
+        assert torch.equal(v, stats[k]), k
+
+
+def test_check_non_finite_gradients_names_the_parameters(capsys):
+    from intro_tc_vae_tpu_torch.utils import check_non_finite_gradients, check_non_finite_gradints
+
+    net = torch.nn.Sequential(torch.nn.Linear(3, 4), torch.nn.Linear(4, 2))
+    assert check_non_finite_gradints is check_non_finite_gradients
+    assert check_non_finite_gradients(net.named_parameters()) == []  # no gradients yet
+    for p in net.parameters():
+        p.grad = torch.zeros_like(p)
+    net[0].weight.grad[1, 2] = float("nan")
+    net[1].bias.grad[0] = float("inf")
+    net[1].bias.grad[1] = float("-inf")
+    assert check_non_finite_gradients(net.named_parameters()) == ["0.weight", "1.bias"]
+    out = capsys.readouterr().out
+    assert "Non-finite gradients in 0.weight: 1 values" in out
+    assert "Non-finite gradients in 1.bias: 2 values" in out
+
+
+def test_loss_dict_matches_jax():
+    from intro_tc_vae_tpu.utils.lossdict import LossDict as JLossDict
+    from intro_tc_vae_tpu_torch.utils import LossDict
+
+    a, b = dict(loss_enc=1.5, kl=2.0), dict(kl=0.25, rec=4.0)
+    got = (LossDict(a) + LossDict(b)) / 2
+    want = (JLossDict(a) + JLossDict(b)) / 2
+    assert isinstance(got, LossDict) and got == want == dict(kl=1.125, loss_enc=0.75, rec=2.0)
+    assert list(got) == list(want)
