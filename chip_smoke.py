@@ -14,7 +14,8 @@ result line):
    tc_kernels.cu), the general 3x3 conv kernels (csrc/conv_kernels.cu), the
    wgmma 3x3 conv kernels (csrc/conv_wgmma.cu) and the fp32 3x3 conv
    kernels (csrc/conv_fp32.cu) from the checkout's sources, one nvcc each,
-   started together, and loads them.
+   and the native data core (runtime/data_core.cpp, g++), all started
+   together, and loads them.
 3. Kernels vs plain, TF32 off.
    TC: tc_fwd, tc_bwd_dz and tc_bwd_dmu against the plain PyTorch version
    (evaluated in float64 on the same inputs) at B in {64, 512}, Z=128,
@@ -97,6 +98,17 @@ result line):
    continuing the step count, and the sampler CLI's PNG against the
    in-process decode; the save and load seconds and the checkpoint's
    bytes.
+9. The data paths (``phase_data_paths``), in a temporary directory: a
+   dSprites-layout npz (1,300 rows of 64x64 0/1 sprites) and an ARC
+   Ukiyo-E-layout directory (1,280 procedural 256x256 JPEGs and the
+   27-column CSV), written from a seeded RNG; the native data core loaded;
+   per dataset one epoch through the loader's float32, uint8 and cache
+   paths on the card, bit-equal to each other and to the host's float
+   path, and the uint8 table against numpy's /255; configs/tc_dsprites.json
+   through the CLI in the three data arms (losses agree, rtol 1e-5); the
+   flagship config on its own ukiyo_e64 data with the cache engaged and
+   phase 4's launch counts; the decode cache's seconds, host ms per batch
+   and H2D bytes per step of each path, and the img/s beside phase 4's.
 
 Each phase prints its seconds. Then one JSON line describing the kernels,
 and as the last line ``{"ok": true, "device": {...}}``.
@@ -1688,6 +1700,264 @@ def phase_checkpoints(card: str) -> dict:
             "bytes": size}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the data paths
+# ---------------------------------------------------------------------------
+
+DSPRITES_NPZ = "dsprites_ndarray_co1sh3sc6or40x32y32_64x64.npz"
+DSPRITES_ROWS = 1300     # 20 steps of 64, and 20 rows the epoch drops
+UKIYO_IMAGES = 1280      # 20 steps of 64
+DATA_SEED, FLIP_SEED = 9, 17
+PAINTERS = ("Kunisada", "Hiroshige", "Kuniyoshi", "Toyokuni", "Yoshitoshi", "Hokusai",
+            "Kunichika", "Eisen")
+# (transfer_dtype, device_cache) of each data path
+DATA_ARMS = {"float32": {"transfer_dtype": "float32", "device_cache": "off"},
+             "uint8": {"transfer_dtype": "uint8", "device_cache": "off"},
+             "cache": {"device_cache": "force"}}
+
+
+def write_dsprites(root: str) -> None:
+    """A dSprites-layout npz at the real 64x64: ``imgs`` 0/1 uint8 sprites
+    (squares, ellipses, diamonds at random places and scales) and
+    ``latents_values`` [N, 6] (color 1, shape 1-3, scale, orientation,
+    posX, posY), from a seeded RNG."""
+    import numpy as np
+
+    rng = np.random.RandomState(DATA_SEED)
+    n = DSPRITES_ROWS
+    shape = rng.randint(0, 3, n)
+    scale = rng.choice(np.linspace(0.5, 1.0, 6), n)
+    px, py = rng.choice(np.linspace(0, 1, 32), n), rng.choice(np.linspace(0, 1, 32), n)
+    r = (scale * 12)[:, None, None]
+    cx, cy = (12 + px * 40)[:, None, None], (12 + py * 40)[:, None, None]
+    yy, xx = np.mgrid[0:64, 0:64]
+    dx, dy = np.abs(xx[None] - cx), np.abs(yy[None] - cy)
+    sel = shape[:, None, None]
+    imgs = np.where(sel == 0, np.maximum(dx, dy) <= r,
+                    np.where(sel == 1, dx**2 + (1.5 * dy) ** 2 <= r**2, dx + dy <= r))
+    lv = np.stack([np.ones(n), shape + 1.0, scale, np.zeros(n), px, py], axis=1)
+    np.savez(os.path.join(root, DSPRITES_NPZ), imgs=imgs.astype(np.uint8), latents_values=lv)
+
+
+def write_ukiyo(root: str) -> None:
+    """An ARC Ukiyo-E-layout directory: UKIYO_IMAGES procedural 256x256
+    JPEGs (smooth colour fields, PIL) under arc_extracted_face_images/ and
+    the 27-column metadata CSV naming each file and its painter."""
+    import csv
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    from intro_tc_vae_tpu_torch.data import UkiyoE
+
+    rng = np.random.RandomState(DATA_SEED + 1)
+    images = os.path.join(root, "arc_extracted_face_images")
+    os.makedirs(images)
+    seeds = rng.randint(0, 256, (UKIYO_IMAGES, 6, 6, 3)).astype(np.uint8)
+    names = [f"{i:08d}.jpg" for i in range(UKIYO_IMAGES)]
+
+    def one(i):
+        img = Image.fromarray(seeds[i]).resize((256, 256), Image.BICUBIC)
+        img.save(os.path.join(images, names[i]), quality=90)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(one, range(UKIYO_IMAGES)))
+    painters = rng.randint(0, len(PAINTERS), UKIYO_IMAGES)
+    with open(os.path.join(root, "arc_extracted_face_metadata.csv"), "w", newline="") as f:
+        out = csv.writer(f)
+        out.writerow(UkiyoE.COLUMN_NAMES)
+        for i, name in enumerate(names):
+            row = [f"arcFX{i:05d}"] + [""] * 26
+            row[9], row[11], row[13], row[26] = PAINTERS[painters[i]], 1850, "Edo", name
+            out.writerow(row)
+
+
+def loader_epochs(make_dataset, label: str, card: str) -> dict:
+    """(c) for one dataset: an epoch of batch 64 on each path on the card
+    (prefetch 2), each batch normalized as the train step normalizes it,
+    bit-equal across the paths and to the host's float path (a loader on
+    the CPU); host ms per batch and H2D bytes per step from the loader's
+    stats. ``make_dataset()`` gives a fresh dataset with the injected flip
+    stream, so every path draws the same flips."""
+    import torch
+
+    from intro_tc_vae_tpu_torch.data import DeviceLoader
+    from intro_tc_vae_tpu_torch.solvers.base import normalize_input
+
+    dev = torch.device("cuda", 0)
+    host = list(DeviceLoader(make_dataset(), MAIN_B, torch.device("cpu"), seed=DATA_SEED))
+    out = {}
+    for path, kw in DATA_ARMS.items():
+        loader = DeviceLoader(make_dataset(), MAIN_B, dev, seed=DATA_SEED, **kw)
+        t0 = time.perf_counter()
+        batches = [normalize_input(b) for b in loader]
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        if (loader.cache is not None) != (path == "cache"):
+            die(f"phase 9 (c): {label} {path}: cache {loader.cache is not None}")
+        if len(batches) != len(host) or len(host) != 20:
+            die(f"phase 9 (c): {label} {path}: {len(batches)} batches, host {len(host)}")
+        for k, (b, h) in enumerate(zip(batches, host)):
+            if b.dtype != torch.float32 or not torch.equal(b, h.to(dev)):
+                die(f"phase 9 (c): {label} {path}: batch {k} differs from the host float path")
+        st = loader.stats
+        out[path] = {"host_ms_per_batch": 1e3 * st.host_s / st.batches,
+                     "h2d_bytes_per_step": st.h2d_bytes / st.batches,
+                     "epoch_ms": 1e3 * epoch_s}
+    print(f"phase 9 (c): {label}: float32, uint8 and cache paths, one epoch of 20 batches "
+          f"each, bit-equal to each other and to the host float path; per path "
+          + json.dumps({p: {k: round(v, 3) for k, v in r.items()} for p, r in out.items()})
+          + f" on {card}")
+    return out
+
+
+def run_cli_captured(config: str, update: dict, name: str):
+    """``run_cli`` with the run's printed lines captured; returns (state,
+    lines)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        state = run_cli(config, update, name)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        if line.startswith(("device cache:", "training throughput:")):
+            print(f"{name}: {line}")
+    return state, lines
+
+
+def phase_data_paths(card: str, main_path: dict) -> dict:
+    """Phase 9: the file-backed datasets, the native data core, the
+    prefetching loader, uint8 transfer and the device-resident cache, at
+    the flagship's full width; every file in a temporary directory.
+    (a) The native data core (built in phase 2) is loaded.
+    (b) A dSprites-layout npz (DSPRITES_ROWS rows at 64x64) and an
+    ARC Ukiyo-E-layout directory (UKIYO_IMAGES 256x256 JPEGs and the
+    27-column CSV), from a seeded RNG.
+    (c) Per dataset (dSprites; Ukiyo-E at 64 px, its decode cache built
+    once and timed, flips from one injected RNG): the float32, uint8 and
+    cache paths of the loader give bit-equal float batches on the card for
+    a whole epoch, equal to the host's float path; the uint8 table on the
+    card equals numpy's /255 for all 256 values.
+    (d) configs/tc_dsprites.json through the CLI in the three data arms
+    (fp32, TF32 off, cuDNN deterministic): 20 finite steps each, the cache
+    arm reports the cache, the per-step losses agree across arms (rtol
+    1e-5).
+    (e) configs/intro_tc_ukiyo64.json through the CLI on its own
+    ukiyo_e64 layout, the defaults (transfer auto, cache auto: the cache
+    engages), tc_impl and conv_impl 'pallas': 20 finite steps, every
+    kernel launched as often as in phase 4's (pallas, pallas) arm, none of
+    the bf16 general bodies.
+    (f) The timings of (c), (d) and (e)."""
+    import copy
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from intro_tc_vae_tpu_torch.data import DSprites, UkiyoE
+    from intro_tc_vae_tpu_torch.runtime import native
+    from intro_tc_vae_tpu_torch.solvers.base import u8_to_unit_f32
+    from intro_tc_vae_tpu_torch.train import images_per_second
+
+    # (a)
+    if not native.available():
+        die("phase 9 (a): the native data core did not load")
+    print(f"phase 9 (a): native data core {os.path.relpath(native.library_path(), HERE)} "
+          "loaded")
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_phase9_")
+    try:
+        # (b)
+        t0 = time.perf_counter()
+        dsprites_root = os.path.join(work, "dsprites")
+        ukiyo_root = os.path.join(work, "ukiyo")
+        os.makedirs(dsprites_root)
+        write_dsprites(dsprites_root)
+        write_ukiyo(ukiyo_root)
+        print(f"phase 9 (b): wrote {DSPRITES_ROWS} dSprites rows and {UKIYO_IMAGES} Ukiyo-E "
+              f"JPEGs in {time.perf_counter() - t0:.1f} s")
+
+        # (c)
+        u8 = torch.arange(256, dtype=torch.uint8, device="cuda").reshape(1, 1, 16, 16)
+        want = np.arange(256, dtype=np.float32) / 255.0
+        if not np.array_equal(u8_to_unit_f32(u8).cpu().numpy().ravel(), want):
+            die("phase 9 (c): the uint8 table on the card differs from numpy's /255")
+        plain = (u8.float() / 255).cpu().numpy().ravel()
+        print("phase 9 (c): u8_to_unit_f32 on the card equals numpy's /255 for all 256 "
+              f"values; a plain divide on the card differs in {int((plain != want).sum())}")
+        dsprites = DSprites.load_data(data_root=dsprites_root)
+        ukiyo = UkiyoE.load_data(resize=64, data_root=ukiyo_root)
+        t0 = time.perf_counter()
+        ukiyo.raw_array()
+        decode_s = time.perf_counter() - t0
+
+        def ukiyo_copy():
+            ds = copy.copy(ukiyo)  # shares the decoded cache
+            ds._rng = np.random.RandomState(FLIP_SEED)
+            return ds
+
+        print(f"phase 9 (c): Ukiyo-E decode cache ({len(ukiyo)} images, 256 px JPEG to "
+              f"64 px uint8, {ukiyo.decode_workers} threads) built in {decode_s:.3f} s "
+              f"on {card}")
+        loaders = {"dsprites": loader_epochs(lambda: dsprites, "dSprites 64x64x1", card),
+                   "ukiyo_e64": loader_epochs(ukiyo_copy, "Ukiyo-E 64x64x3", card)}
+        del dsprites, ukiyo
+
+        # (d)
+        base = {"data_root": dsprites_root, "num_epochs": 1, "use_tensorboard": False}
+        runs, rates = {}, {}
+        with fp32_exact():
+            for arm, update in DATA_ARMS.items():
+                state, lines = run_cli_captured(TC_DSPRITES, {**base, **update},
+                                                f"phase 9 (d) {arm}")
+                cached = any(line.startswith("device cache:") for line in lines)
+                if cached != (arm == "cache"):
+                    die(f"phase 9 (d): {arm}: the cache {'engaged' if cached else 'did not'}")
+                runs[arm], rates[arm] = state.history, images_per_second(state, MAIN_B)
+        worst = 0.0
+        for arm in ("uint8", "cache"):
+            for a, b in zip(runs[arm], runs["float32"]):
+                for k in ("loss_enc", "loss_kl", "loss_rec"):
+                    rel = abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                    worst = max(worst, rel)
+                    if rel > 1e-5:
+                        die(f"phase 9 (d): {arm} step {a['step']} {k} {a[k]!r} vs float32 "
+                            f"{b[k]!r}")
+        print(f"phase 9 (d): tc_dsprites in three data arms: 20 finite steps each, the cache "
+              f"engaged in the cache arm only, losses agree (largest relative difference "
+              f"{worst:.3g}); img/s (steps 4-20, fp32 TF32 off, batch 64) "
+              + json.dumps({k: round(v, 1) for k, v in rates.items()}) + f" on {card}")
+        del runs
+
+        # (e)
+        update = {"data_root": ukiyo_root, "use_tensorboard": False, "num_epochs": 1,
+                  "tc_impl": "pallas", "conv_impl": "pallas"}
+        reset_all_launches()
+        state, lines = run_cli_captured(FLAGSHIP, update, "phase 9 (e)")
+        counts = all_launches()
+        if not any(line.startswith("device cache:") for line in lines):
+            die("phase 9 (e): the flagship on ukiyo_e64 did not engage the cache")
+        if counts != main_path["launches"]:
+            die(f"phase 9 (e): launches {counts}, phase 4's (pallas, pallas) "
+                f"{main_path['launches']}")
+        if counts["conv3x3_fwd"] or counts["conv3x3_dw"]:
+            die(f"phase 9 (e): the bf16 general conv bodies launched: {counts}")
+        rate = images_per_second(state, MAIN_B)
+        synthetic = main_path["rates"]["tc pallas, conv pallas"]
+        print(f"phase 9 (e): the flagship on ukiyo_e64 (auto/auto: the cache engaged), tc and "
+              f"conv pallas: 20 finite steps, launches equal to phase 4's (pallas, pallas), "
+              f"0 of the bf16 general bodies; {rate:.1f} img/s (steps 4-20) against phase 4's "
+              f"{synthetic:.1f} on synthetic, on {card}")
+        del state
+    finally:
+        shutil.rmtree(work)
+    return {"decode_s": decode_s, "loaders": loaders, "tc_dsprites_rates": rates,
+            "flagship_ukiyo_rate": rate}
+
+
 def start():
     """Phases 1 and 2: the device, then every kernel library built from
     this checkout's sources, one nvcc each, started together. Returns
@@ -1722,14 +1992,15 @@ def start():
     from concurrent.futures import ThreadPoolExecutor
 
     from intro_tc_vae_tpu_torch.ops import conv_cuda, cuda_build, tc_cuda
+    from intro_tc_vae_tpu_torch.runtime import native
 
     libraries = ("tc_kernels", *conv_cuda.LIBRARIES)  # every source under csrc/
-    for lib in libraries:
-        path = cuda_build.library_path(lib)
+    for path in [cuda_build.library_path(lib) for lib in libraries] + [native.library_path()]:
         if path.exists():
             path.unlink()  # always compile this checkout's source
-    with ThreadPoolExecutor(len(libraries)) as pool:
-        built = list(pool.map(cuda_build.build, libraries))
+    with ThreadPoolExecutor(len(libraries) + 1) as pool:
+        host_build = pool.submit(native.build)  # the data core, g++ (phase 9)
+        built = list(pool.map(cuda_build.build, libraries)) + [host_build.result()]
     tc_cuda._library()
     for lib in conv_cuda.LIBRARIES:
         conv_cuda._library(lib)
@@ -1843,6 +2114,7 @@ def main() -> None:
     other = timed("phase 6", phase_other_paths, card)
     dp = timed("phase 7", phase_data_parallel, card)
     ckpt = timed("phase 8", phase_checkpoints, card)
+    data = timed("phase 9", phase_data_paths, card, main_path)
     print(f"phase 8: flagship checkpoint {ckpt['bytes']} bytes; save {ckpt['save_s']:.3f} s, "
           f"background save returns in {ckpt['async_return_s']:.3f} s, load "
           f"{ckpt['load_s']:.3f} s; phase 4 img/s with the metric ring "
@@ -1858,6 +2130,17 @@ def main() -> None:
     extra_ms = (per_step["conv3x3_fwd_wgmma"] * (host["fwd_wgmma"] - host["fwd_general"])
                 + per_step["conv3x3_dw_wgmma"] * (host["dw_wgmma"] - host["dw_general"])) / 1e3
     wall_ms = MAIN_B / main_path["rates"]["tc pallas, conv pallas"] * 1e3
+    for label, paths in data["loaders"].items():
+        print(f"phase 9 (f): {label}, batch 64, host ms per batch "
+              + json.dumps({p: round(r["host_ms_per_batch"], 3) for p, r in paths.items()})
+              + ", H2D bytes per step "
+              + json.dumps({p: round(r["h2d_bytes_per_step"]) for p, r in paths.items()})
+              + f" on {card}")
+    print(f"phase 9 (f): Ukiyo-E decode cache {data['decode_s']:.3f} s; flagship img/s on "
+          f"ukiyo_e64 (cache) {data['flagship_ukiyo_rate']:.1f}, phase 4 on synthetic "
+          f"{main_path['rates']['tc pallas, conv pallas']:.1f}; tc_dsprites img/s "
+          + json.dumps({k: round(v, 1) for k, v in data["tc_dsprites_rates"].items()})
+          + f" on {card}")
     print(f"host: the wgmma wrappers' tensor maps and pack launch add {extra_ms:.3f} ms of "
           f"host time to a flagship step of {wall_ms:.1f} ms on the host clock "
           f"({100 * extra_ms / wall_ms:.2f} %)")

@@ -35,6 +35,7 @@ import functools
 import math
 from typing import Any, Callable, Iterable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from intro_tc_vae_tpu_torch import not_ported, ops
@@ -250,6 +251,33 @@ def decode(decoder, z, groups: int = 1, train: bool = True):
         return decoder(z)
 
 
+# x / 255 for every uint8 value, computed on the host with numpy's IEEE
+# divide (JAX solvers/base.py:186-198). A divide by a scalar on the card is
+# a multiply by its reciprocal in PyTorch's CUDA kernel, as in XLA, which
+# is 1 ULP off the host's quotient for some values; a lookup in this
+# 256-entry table gives the host's bits exactly.
+_U8_UNIT = np.arange(256, dtype=np.float32) / 255.0
+
+
+@functools.lru_cache(maxsize=None)
+def _u8_unit_table(device: torch.device) -> torch.Tensor:
+    """The table on ``device``, copied there once (a copy from pageable
+    memory at every step would wait for the device's queue)."""
+    return torch.from_numpy(_U8_UNIT).to(device)
+
+
+def u8_to_unit_f32(batch: torch.Tensor) -> torch.Tensor:
+    """uint8 image batch -> float32 in [0, 1] on its device, bit-equal to
+    the host pipeline's ``/ 255`` (see ``_U8_UNIT``)."""
+    return _u8_unit_table(batch.device)[batch.long()]
+
+
+def normalize_input(batch: torch.Tensor) -> torch.Tensor:
+    """A uint8 batch (the loader's uint8 and cache paths) as float32 in
+    [0, 1]; any other batch as it is (JAX ``_normalize_input``)."""
+    return u8_to_unit_f32(batch) if batch.dtype == torch.uint8 else batch
+
+
 def unit_f32_to_u8(img: torch.Tensor) -> torch.Tensor:
     """[0, 1] float image -> uint8 on the device, bit-equal to the host
     export ``(np.clip(x, 0, 1) * 255).astype(np.uint8)`` (JAX
@@ -393,7 +421,10 @@ class VAESolver:
         """One optimization step, in place. Returns (state, metrics), the
         metrics as 0-d device tensors (their mean over the ranks under a
         data group), and queues them on the metric ring. ``batch`` is this
-        rank's rows; ``noise``, when given, holds the global batch's draws."""
+        rank's rows, float32 in [0, 1] or uint8 (normalized here on the
+        device, ``normalize_input``); ``noise``, when given, holds the
+        global batch's draws."""
+        batch = normalize_input(batch)
         metrics = average_metrics(self._step_fn(state, batch, noise), self.hyper.mesh)
         self.metric_ring.push(metrics, state.step)
         return state, metrics

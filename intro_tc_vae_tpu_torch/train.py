@@ -27,6 +27,13 @@ only rank 0 prints and writes checkpoints, and every rank loads them.
 be left out of the mesh, so where JAX shrinks the mesh to a size that
 divides the batch, the port raises.
 
+Data (JAX ``train.py:165-186``): the loader stages ``num_workers``
+batches ahead on a thread, transfers them as uint8 where the dataset
+stores its images exactly so (``transfer_dtype``), or keeps the whole
+dataset on the card and gathers there (``device_cache``,
+``data/loader.py``); a uint8 batch is normalized on the device before the
+range check and the step see it.
+
 ``precision: "fp32"`` means fp32 on the card too: for such a run both
 TF32 switches are off (PyTorch lets cuDNN compute fp32 convolutions in TF32
 by default), as the JAX counterpart computes in true fp32 and as the
@@ -60,7 +67,12 @@ from intro_tc_vae_tpu_torch.parallel import (
 )
 from intro_tc_vae_tpu_torch.parallel.distributed import process_count, rank_device
 from intro_tc_vae_tpu_torch.solvers import TrainState, make_optimizer, make_solver
-from intro_tc_vae_tpu_torch.solvers.base import RING_DEPTH, VAESolver, decode
+from intro_tc_vae_tpu_torch.solvers.base import (
+    RING_DEPTH,
+    VAESolver,
+    decode,
+    normalize_input,
+)
 from intro_tc_vae_tpu_torch.utils.checkpoint import (
     finalize_checkpoints,
     find_latest_checkpoint,
@@ -83,8 +95,6 @@ def check_ported(config: Config) -> None:
         (config.scan_steps > 1, "scan_steps > 1", "Queue 1 item 6"),
         (config.remat, f"remat: {config.remat!r}", "Queue 1 item 6"),
         (config.pack_predict > 1, "pack_predict > 1", "Queue 1 item 9"),
-        (config.device_cache == "force", "device_cache: 'force'", "Queue 1 item 3"),
-        (config.transfer_dtype == "uint8", "transfer_dtype: 'uint8'", "Queue 1 item 3"),
         (config.tc_sampling == "weighted", "tc_sampling: 'weighted'", "Queue 1 item 6"),
     ]
     for bad, what, item in unported:
@@ -198,9 +208,14 @@ def setup(config: Config, device: Optional[torch.device] = None) -> Run:
     decoder = Decoder(**model_kwargs).to(device)
     say(f"{num_params(SoftIntroVAE(encoder, decoder)):,} Parameters")
 
+    # ----- loader (JAX train.py:165-186) -----
     loader = DeviceLoader(train_set, batch_size=config.batch_size, device=device,
                           shuffle=True, seed=seed,
-                          rows=batch_sharding(mesh, config.batch_size))
+                          rows=batch_sharding(mesh, config.batch_size),
+                          prefetch=max(1, config.num_workers),
+                          transfer_dtype=config.transfer_dtype,
+                          device_cache=config.device_cache,
+                          device_cache_budget_mb=config.device_cache_budget_mb)
     solver = build_solver(config, train_set, encoder, decoder, mesh)
     state = replicate_state(solver.init_state(seed), mesh)
     return Run(seed=seed, device=device, mesh=mesh, loader=loader, solver=solver,
@@ -298,8 +313,10 @@ def _train(config: Config, device: Optional[torch.device]) -> TrainState:
 
                 epoch_t0 = t_prev = time.perf_counter()
                 n_steps = 0
-                with profile_trace(trace_dir, enabled=config.profile):
-                    for batch in loader:
+                with (profile_trace(trace_dir, enabled=config.profile),
+                      contextlib.closing(iter(loader)) as batches):
+                    for batch in batches:
+                        batch = normalize_input(batch)  # uint8 paths: on the device
                         if config.anomaly_detection:
                             check_unit_range(batch)
                         timer.start()

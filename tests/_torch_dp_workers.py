@@ -22,6 +22,7 @@ import sys
 import time
 import traceback
 
+import numpy as np
 import torch
 import torch.multiprocessing as mp
 
@@ -300,3 +301,28 @@ def checkpoint_resume(init: dict, batches: list, noises: list, ckpt_dir: str) ->
                 metrics={k: float(v) for k, v in metrics.items()},
                 state={k: v.clone() for k, v in restored.model.state_dict().items()},
                 digest=state_digest(restored.model))
+
+
+def loader_rows(imgs, batch_size: int, seed: int) -> dict:
+    """This rank's loader over a uint8 array dataset of ``imgs`` [N, H, W,
+    C] (stored at its target size): one epoch with the defaults auto /
+    auto, which under data parallel decline the cache and transfer this
+    rank's rows of each global batch as uint8; and the error of
+    ``device_cache: "force"``."""
+    from intro_tc_vae_tpu_torch.data import DeviceLoader
+    from intro_tc_vae_tpu_torch.data.datasets import _ArrayDataset
+
+    mesh = make_mesh(device=CPU)
+    ds = _ArrayDataset(imgs, np.zeros((len(imgs), 1)), resize=imgs.shape[1])
+    rows = batch_sharding(mesh, batch_size)
+    loader = DeviceLoader(ds, batch_size, CPU, seed=seed, rows=rows,
+                          transfer_dtype="auto", device_cache="auto")
+    batches = list(loader)
+    forced = DeviceLoader(ds, batch_size, CPU, seed=seed, rows=rows, device_cache="force")
+    try:
+        list(forced)
+        force_error = None
+    except ValueError as e:
+        force_error = str(e)
+    return dict(batches=batches, cache=loader.cache is not None, rows=(rows.start, rows.stop),
+                force_error=force_error)

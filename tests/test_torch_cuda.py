@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card (marker ``cuda``): the TC kernels
-and the 3x3 conv kernels.
+and the 3x3 conv kernels; and the loader's device side (the uint8 table,
+the cache's gather and flip, the prefetch stream).
 
 These need a CUDA device and ``nvcc``; without one they skip. The file
 imports no jax, so on the machine with the card, which has none, run it
@@ -33,7 +34,8 @@ import torch
 
 import torch.nn.functional as F
 
-from intro_tc_vae_tpu_torch.data import Synthetic
+from intro_tc_vae_tpu_torch.data import DeviceLoader, Synthetic
+from intro_tc_vae_tpu_torch.data.datasets import _ArrayDataset
 from intro_tc_vae_tpu_torch.models import Decoder, Encoder
 from intro_tc_vae_tpu_torch.ops import conv, conv_cuda, tc_cuda
 from intro_tc_vae_tpu_torch.solvers import make_optimizer, make_solver
@@ -613,3 +615,74 @@ def test_wgmma_conv_autograd_matches_plain(dev, impl):
         d = (got[name].double() - want[name]).abs()
         assert bool((d <= conv_bound(name, dtype, want[name], s)).all()), \
             f"{name}: max |d| {float(d.max()):.3g}"
+
+
+# ---------------------------------------------------------------------------
+# the loader's device side
+# ---------------------------------------------------------------------------
+
+def test_uint8_table_on_the_card_equals_the_host_divide(dev):
+    """All 256 values through ``u8_to_unit_f32`` on the card bit-equal
+    numpy's ``/ 255``; whether a plain divide on the card is too is printed
+    (the table stays unless it is)."""
+    from intro_tc_vae_tpu_torch.solvers.base import u8_to_unit_f32
+
+    u8 = torch.arange(256, dtype=torch.uint8, device=dev).reshape(1, 1, 16, 16)
+    want = np.arange(256, dtype=np.float32) / 255.0
+    np.testing.assert_array_equal(u8_to_unit_f32(u8).cpu().numpy().ravel(), want)
+    plain = (u8.float() / 255).cpu().numpy().ravel()
+    print(f"u8.float() / 255 on the card: {int((plain != want).sum())} of 256 values "
+          "differ from the host's divide")
+
+
+class _Flips(_ArrayDataset):
+    """uint8 images with flips drawn per batch from a seeded RNG."""
+
+    def __init__(self, imgs, seed):
+        super().__init__(imgs, np.zeros((len(imgs), 1)), resize=imgs.shape[1])
+        self._flip_rng = np.random.RandomState(seed)
+
+    def flip_flags(self, n):
+        return (self._flip_rng.rand(n) < 0.5).astype(np.uint8)
+
+    def get_batch_raw(self, indices):
+        arr = super().get_batch_raw(indices).copy()
+        flags = self.flip_flags(len(arr)).astype(bool)
+        arr[flags] = arr[flags, :, ::-1, :]
+        return arr
+
+
+def test_cached_gather_and_flip_equal_the_host_path(dev):
+    """The cache on the card (gather and flip there) gives the uint8
+    batches the host path gathers and flips, with the same flag stream;
+    each step copies only the index and flag vectors."""
+    imgs = np.random.RandomState(0).randint(0, 256, (96, 64, 64, 3), dtype=np.uint8)
+    cached = DeviceLoader(_Flips(imgs, 3), 32, dev, seed=1, device_cache="force")
+    host = DeviceLoader(_Flips(imgs, 3), 32, torch.device("cpu"), seed=1,
+                        transfer_dtype="uint8")
+    got, want = list(cached), list(host)
+    assert cached.cache is not None and cached.cache.is_cuda
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.dtype == torch.uint8
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+    assert cached.stats.h2d_bytes == 3 * 32 * (8 + 1)
+
+
+@pytest.mark.parametrize("transfer", ["float32", "uint8"])
+def test_prefetch_stream_batches_equal_the_cpu_loader(dev, transfer):
+    """Batches copied on the producer's stream, three ahead, equal the
+    CPU loader's (no stream, no thread's copy) after the consumer's stream
+    has waited on them and run a kernel on each."""
+    imgs = np.random.RandomState(1).randint(0, 256, (256, 64, 64, 3), dtype=np.uint8)
+    ds = _ArrayDataset(imgs, np.zeros((256, 1)), resize=64)
+    card = DeviceLoader(ds, 64, dev, seed=2, prefetch=3, transfer_dtype=transfer)
+    cpu = DeviceLoader(ds, 64, torch.device("cpu"), seed=2, transfer_dtype=transfer)
+    for epoch in range(2):
+        got = [(x * 1).cpu() for x in card]  # a kernel on the consumer's stream
+        want = list(cpu)
+        assert len(got) == len(want) == 4
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    per = 64 * 3 * 64 * 64 * (4 if transfer == "float32" else 1)
+    assert card.stats.batches == 8 and card.stats.h2d_bytes == 8 * per

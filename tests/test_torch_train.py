@@ -74,12 +74,9 @@ def _raises(update: dict, item: str):
     _raises(dict(scan_steps=2), "Queue 1 item 6"),
     _raises(dict(remat="pass"), "Queue 1 item 6"),
     _raises(dict(pack_predict=2), "Queue 1 item 9"),
-    _raises(dict(device_cache="force"), "Queue 1 item 3"),
-    _raises(dict(transfer_dtype="uint8"), "Queue 1 item 3"),
     _raises(dict(tc_sampling="weighted", tc_impl="xla"), "Queue 1 item 6"),
     _raises(dict(tile_rows=16), "Queue 1 item 9"),
     _raises(dict(arch="inception"), "Queue 1 item 6"),
-    _raises(dict(dataset="ukiyo_e64"), "Queue 1 item 3"),
     _raises(dict(kl_kind="tc_full"), "Queue 1 item 6"),
 ])
 def test_unported_options_raise(update, item):
@@ -119,6 +116,59 @@ def test_options_that_once_raised_train(tmp_path, update):
     saves = sorted(os.listdir(tmp_path / "saves")) if (tmp_path / "saves").exists() else []
     assert saves == ([] if config.profile
                      else [f"{config.fingerprint()}model_epoch_0_iter_8"])
+
+
+UKIYO_FIXTURE = os.path.join(REPO, "tests", "test_data")
+
+
+@pytest.mark.parametrize("update,path", [
+    (dict(device_cache="force"), "cache"),
+    (dict(transfer_dtype="uint8", device_cache="off"), "uint8"),
+    (dict(), "cache"),  # the defaults, auto / auto: the cache engages
+    (dict(device_cache="off"), "uint8"),  # auto transfer: uint8, the cache decoded
+    (dict(transfer_dtype="float32", device_cache="off"), "float32"),
+], ids=["device_cache=force", "transfer_dtype=uint8", "defaults", "device_cache=off",
+        "transfer_dtype=float32"])
+def test_options_that_once_raised_train_on_the_ukiyo_fixture(tmp_path, monkeypatch, capsys,
+                                                              update, path):
+    """The flagship config on its own dataset, ukiyo_e64, read from the
+    fixture (5 images, tests/test_data), with each data path: 2 epochs of
+    one step of 4 images, finite losses; the batches the loop steps on are
+    float32 in [0, 1] whichever dtype crossed, and the cache reports itself
+    where it engages. Widths cut to [8, 16], as the JAX test does."""
+    from intro_tc_vae_tpu_torch import train
+
+    def load(name, data_root=None):
+        ds, size, _, cdim = load_dataset(name, data_root)
+        return ds, size, [8, 16], cdim
+
+    monkeypatch.setattr(train, "load_dataset", load)
+    runs, stepped = _capture_run(monkeypatch), _capture_steps(monkeypatch)
+    config = small_config(tmp_path, dataset="ukiyo_e64", data_root=UKIYO_FIXTURE,
+                          batch_size=4, num_epochs=2, **update)
+    state = train_soft_intro_vae(config, device=CPU)
+    assert state.step == len(state.history) == 2
+    assert all(math.isfinite(r[k]) for r in state.history for k in ("loss_enc", "loss_dec"))
+    loader = runs[0].loader
+    assert (loader.cache is not None) == (path == "cache")
+    assert ("device cache: 0 MB dataset resident" in capsys.readouterr().out) == (path == "cache")
+    assert {b.dtype for b in stepped} == {torch.float32}
+    assert all(0.0 <= float(b.min()) and float(b.max()) <= 1.0 for b in stepped)
+    assert loader.stats.batches == 2
+
+
+def _capture_steps(monkeypatch) -> list:
+    """Every batch the solvers step on from now on."""
+    from intro_tc_vae_tpu_torch.solvers.base import VAESolver
+
+    stepped, step = [], VAESolver.train_step
+
+    def spy(self, state, batch, noise=None):
+        stepped.append(batch)
+        return step(self, state, batch, noise)
+
+    monkeypatch.setattr(VAESolver, "train_step", spy)
+    return stepped
 
 
 @pytest.mark.parametrize("path,update", [
