@@ -110,6 +110,19 @@ result line):
    phase 4's launch counts; the decode cache's seconds, host ms per batch
    and H2D bytes per step of each path, and the img/s beside phase 4's.
 
+10. Observability and evaluation (``phase_observability``), in a
+   temporary directory: the flagship config as shipped, TensorBoard on,
+   tc and conv 'pallas', on phase 9's Ukiyo-E layout, written again (one
+   epoch, test_iter 10: phase 4's launches plus the image grids' eval
+   decodes, every tag read back through the port's tb_reader);
+   configs/tc_dsprites.json on a dSprites layout on the full factor grid
+   (dataset dsprites_small, one epoch, test_iter 56: MIG and modularity
+   written, each sklearn-backed score written or failed for want of
+   sklearn, the encodes on the card); ``evaluate --fid`` on the
+   flagship's checkpoint with random Inception weights, and the Inception
+   net on the card against the CPU. Prints the seconds of one test_iter's
+   heavy metrics, the host ms of a drain's writes and Inception img/s.
+
 Each phase prints its seconds. Then one JSON line describing the kernels,
 and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -1958,6 +1971,359 @@ def phase_data_paths(card: str, main_path: dict) -> dict:
             "flagship_ukiyo_rate": rate}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: observability and evaluation
+# ---------------------------------------------------------------------------
+
+DSPRITES_GRID_PX = 8      # the full grid's stored size (the archive's: 64)
+OBS_TEST_ITER = {"flagship": 10, "tc_dsprites": 56}  # heavy metrics at 0 and test_iter
+# each sklearn-backed score's writer and a sub-run it writes
+SKLEARN_SUBRUN = {"write_bvae_score": "bvae_score_score",
+                  "write_dci_score": "dci_dci_completeness_score",
+                  "write_mod_expl_score": "mod_expl_explicitness_score"}
+SKLEARN_SCORES = tuple(SKLEARN_SUBRUN)
+INCEPTION_IMAGES = 640
+
+
+def write_dsprites_grid(root: str) -> None:
+    """A dSprites-layout npz on the archive's full factor grid: 737,280 rows
+    in its mixed-radix order (so the latent generator's factors index real
+    rows), each sprite rendered from its shape, scale and position at
+    DSPRITES_GRID_PX px (the dataset resizes to 64), from no RNG."""
+    import numpy as np
+
+    grids = [np.array([1.0]), np.arange(1.0, 4.0), np.linspace(0.5, 1.0, 6),
+             np.linspace(0.0, 2.0 * np.pi, 40), np.linspace(0.0, 1.0, 32),
+             np.linspace(0.0, 1.0, 32)]
+    lv = np.stack([g.ravel() for g in np.meshgrid(*grids, indexing="ij")], axis=1)
+    s = DSPRITES_GRID_PX
+    r = (lv[:, 2] * s / 4).astype(np.float32)[:, None, None]
+    cx = (1.5 + lv[:, 4] * (s - 3)).astype(np.float32)[:, None, None]
+    cy = (1.5 + lv[:, 5] * (s - 3)).astype(np.float32)[:, None, None]
+    yy, xx = np.mgrid[0:s, 0:s].astype(np.float32)
+    dx, dy = np.abs(xx[None] - cx), np.abs(yy[None] - cy)
+    shape = lv[:, 1][:, None, None]
+    imgs = np.where(shape == 1, np.maximum(dx, dy) <= r,
+                    np.where(shape == 2, dx**2 + (1.5 * dy) ** 2 <= r**2, dx + dy <= r))
+    np.savez(os.path.join(root, DSPRITES_NPZ), imgs=imgs.astype(np.uint8), latents_values=lv)
+
+
+@contextlib.contextmanager
+def timed_calls(*targets):
+    """Wraps each (owner, attribute, sync) callable for the block: its
+    seconds (after a CUDA synchronize where ``sync``) and calls, by
+    attribute name."""
+    import functools
+
+    import torch
+
+    stats = {name: [0.0, 0] for _, name, _ in targets}
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in targets]
+
+    def wrap(name, fn, sync):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                if sync:
+                    torch.cuda.synchronize()
+                stats[name][0] += time.perf_counter() - t0
+                stats[name][1] += 1
+        return inner
+
+    for (owner, name, fn), (_, _, sync) in zip(saved, targets):
+        setattr(owner, name, wrap(name, fn, sync))
+    try:
+        yield stats
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+@contextlib.contextmanager
+def eval_encoder_devices():
+    """The device of every input an encoder got in eval mode in the block
+    (the heavy metrics' encodes)."""
+    import torch
+
+    from intro_tc_vae_tpu_torch.models import Encoder
+
+    seen = set()
+
+    def hook(module, args):
+        if isinstance(module, Encoder) and not module.training:
+            seen.add(args[0].device.type)
+
+    handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
+    try:
+        yield seen
+    finally:
+        handle.remove()
+
+
+def observed_cli(config: str, update: dict, name: str, steps: int):
+    """``run_cli`` with the heavy metrics' and the drains' writes timed and
+    the printed lines captured: (state, lines, per-call stats, devices of
+    the eval-mode encodes)."""
+    import io
+
+    from torch.utils.tensorboard import SummaryWriter
+
+    from intro_tc_vae_tpu_torch.evaluation import metrics as em
+    from intro_tc_vae_tpu_torch.solvers.base import VAESolver
+
+    buf = io.StringIO()
+    with (timed_calls((VAESolver, "_write_images_helper", True),
+                      (VAESolver, "_write_scalar_metrics", False),
+                      (SummaryWriter, "flush", False),
+                      *((em, w, True) for w in ("write_bvae_score", "write_dci_score",
+                                                "write_mig_score", "write_mod_expl_score")))
+          as stats, eval_encoder_devices() as devices, contextlib.redirect_stdout(buf)):
+        state = run_cli(config, update, name, steps)
+    return state, buf.getvalue().splitlines(), stats, devices
+
+
+def read_run(log_root: str, name: str, config: str):
+    """The one run under ``log_root`` through the port's tb_reader, which
+    finds it by the config's hparam fingerprint too."""
+    from intro_tc_vae_tpu_torch.config import load_config
+    from intro_tc_vae_tpu_torch.utils.tb_reader import TensorboardReader
+
+    runs = os.listdir(log_root)
+    if len(runs) != 1:
+        die(f"phase 10 {name}: runs {runs} under {log_root}")
+    reader = TensorboardReader(log_root, runs[0])
+    c = load_config(config)
+    found = TensorboardReader.get_reader(log_root, c.arch, c.beta_kl, c.beta_neg, c.beta_rec,
+                                         c.gamma_r)
+    if found.run_path != reader.run_path:
+        die(f"phase 10 {name}: the fingerprint found {found.run_path}, not {reader.run_path}")
+    return reader
+
+
+def check_steps(name: str, label: str, df, want: list) -> None:
+    import numpy as np
+
+    got = list(df["step"])
+    if got != want or not np.isfinite(df["value"]).all():
+        die(f"phase 10 {name}: {label} at steps {got}, expected {want} (finite)")
+
+
+def heavy_seconds(stats: dict, fires: int) -> dict:
+    """Seconds of one test_iter's heavy metrics: the image grid and each score."""
+    keys = ("_write_images_helper", "write_bvae_score", "write_dci_score", "write_mig_score",
+            "write_mod_expl_score")
+    return {("images" if k.startswith("_") else k[6:]): stats[k][0] / fires
+            for k in keys if stats[k][1]}
+
+
+def drain_ms(stats: dict) -> float:
+    """Host ms of one drain's writes: every step's scalars and one flush."""
+    flushes = stats["flush"][1]
+    return 1e3 * (stats["_write_scalar_metrics"][0] + stats["flush"][0]) / max(flushes, 1)
+
+
+def phase_observability(card: str, main_path: dict) -> dict:
+    """Phase 10: TensorBoard, the disentanglement metrics and FID on the card;
+    every file in a temporary directory.
+    (a) configs/intro_tc_ukiyo64.json as shipped (use_tensorboard on), tc and
+    conv 'pallas', on phase 9's Ukiyo-E layout (``write_ukiyo``, the same
+    seed): one epoch of 20 steps, test_iter 10 (the image grid at 0 and 10,
+    and after the epoch at 20; the dataset has no factors, so no scores);
+    finite losses; the launches of phase 4's (pallas, pallas) arm plus the
+    grids' five eval decodes; every expected tag read back through the
+    port's tb_reader, which also finds the run by its fingerprint.
+    (b) configs/tc_dsprites.json (use_tensorboard on), tc and conv 'pallas',
+    on a dSprites layout where the factors exist (``write_dsprites_grid``;
+    dataset dsprites_small, the repo's 7,200-row grid subset): one epoch of
+    112 steps, test_iter 56; MIG and modularity written at 0 and 56; each
+    sklearn-backed score written, or failed with ModuleNotFoundError for
+    sklearn and nothing else; every eval-mode encode on the card.
+    (c) ``python -m intro_tc_vae_tpu_torch.evaluate --fid`` on (a)'s final
+    checkpoint, with a random-valued Inception state_dict as
+    ITCVAE_INCEPTION_WEIGHTS; the Inception net on the card against itself
+    on the CPU (float32, TF32 off; rtol 1e-4, atol 1e-5 of the largest
+    feature, tests/test_torch_fid.py's tolerance); its img/s.
+    Printed: the seconds of one test_iter's heavy metrics (the grid, each
+    score), the host ms a drain's writes add, Inception img/s."""
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_phase10_")
+    try:
+        return observe(card, main_path, work)
+    finally:
+        shutil.rmtree(work)
+
+
+def observe(card: str, main_path: dict, work: str) -> dict:
+    """Phase 10's (a), (b) and (c) in ``work``; returns their measurements."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from intro_tc_vae_tpu_torch import evaluate
+    from intro_tc_vae_tpu_torch.models import inception
+    from intro_tc_vae_tpu_torch.train import images_per_second
+
+    out = {}
+    # (a)
+    ukiyo_root = os.path.join(work, "ukiyo")
+    write_ukiyo(ukiyo_root)
+    log_a, saves_a = os.path.join(work, "runs_a"), os.path.join(work, "saves_a")
+    update = {"data_root": ukiyo_root, "num_epochs": 1, "tc_impl": "pallas",
+              "conv_impl": "pallas", "test_iter": OBS_TEST_ITER["flagship"],
+              "log_dir": os.path.join(log_a, "tb"), "checkpoint_dir": saves_a}
+    reset_all_launches()
+    state, lines, stats, devices = observed_cli(FLAGSHIP, update, "phase 10 (a)", 20)
+    counts = all_launches()
+    decode = final_decode_launches("pallas")
+    want = {k: v + 5 * decode.get(k, 0) for k, v in main_path["launches"].items()}
+    if counts != want:
+        die(f"phase 10 (a): launches {counts}, expected phase 4's (pallas, pallas) and five "
+            f"eval decodes {want}")
+    reader = read_run(log_a, "(a)", FLAGSHIP)
+    steps = list(range(20))
+    for label, df in (("losses/r_loss", reader.r_loss_scaled),
+                      ("losses/kl_loss", reader.kl_loss_scaled),
+                      ("losses/expelbo_f", reader.expelbo_f_loss_scaled),
+                      ("r_loss_unscaled", reader.r_loss), ("kl_loss_unscaled", reader.kl_loss),
+                      ("lossE", reader.loss_e), ("lossD", reader.loss_d),
+                      ("diff_kl", reader.diff_kl),
+                      ("fc_grad_norm", reader.base_event.get_df("fc_grad_norm"))):
+        check_steps("(a)", label, df, steps)
+    check_steps("(a)", "perf/images_per_sec", reader.base_event.get_df("perf/images_per_sec"),
+                [0])
+    if [im.step for im in reader.reconstructions] != [0, 10, 20]:
+        die(f"phase 10 (a): image grids at {[im.step for im in reader.reconstructions]}")
+    grid = reader.last_reconstruction
+    hparams, metrics = reader.hparams
+    if hparams["solver"].string_value != "intro_tc" or sorted(metrics) != [
+            "loss_dec", "loss_enc", "loss_kl", "loss_rec"]:
+        die(f"phase 10 (a): hparams {dict(hparams)}, metrics {metrics}")
+    if devices != {"cuda"}:
+        die(f"phase 10 (a): eval-mode encodes on {devices}")
+    out["a"] = {"heavy_s": heavy_seconds(stats, 2), "drain_ms": drain_ms(stats),
+                "drains": stats["flush"][1]}
+    print(f"phase 10 (a): the flagship as shipped (writer on), tc and conv pallas, on "
+          f"ukiyo_e64: 20 finite steps; launches = phase 4's (pallas, pallas) + 5 eval decodes; "
+          f"tb_reader read 9 scalar tags x 20 steps, img/s, the grid at 0, 10, 20 "
+          f"({grid.size[0]}x{grid.size[1]} px) and the hparams; "
+          f"{images_per_second(state, MAIN_B):.1f} img/s (steps 4-20) on {card}")
+    del state
+
+    # (b)
+    dsprites_root = os.path.join(work, "dsprites_grid")
+    os.makedirs(dsprites_root)
+    t0 = time.perf_counter()
+    write_dsprites_grid(dsprites_root)
+    grid_s = time.perf_counter() - t0
+    log_b = os.path.join(work, "runs_b")
+    update = {"dataset": "dsprites_small", "data_root": dsprites_root, "num_epochs": 1,
+              "tc_impl": "pallas", "conv_impl": "pallas",
+              "test_iter": OBS_TEST_ITER["tc_dsprites"], "log_dir": os.path.join(log_b, "tb")}
+    reset_all_launches()
+    state, lines, stats, devices = observed_cli(TC_DSPRITES, update, "phase 10 (b)", 112)
+    counts = all_launches()
+    if not counts["tc_fwd"] == counts["tc_bwd_dz"] == counts["tc_bwd_dmu"] == 112:
+        die(f"phase 10 (b): TC launches {counts}, expected 112 each")
+    if devices != {"cuda"}:
+        die(f"phase 10 (b): eval-mode encodes on {devices}")
+    reader = read_run(log_b, "(b)", TC_DSPRITES)
+    heavy = [0, OBS_TEST_ITER["tc_dsprites"]]
+    check_steps("(b)", "mig_score", reader.mig_score, heavy)
+    check_steps("(b)", "mod_expl/modularity_score", reader.modularity_score, heavy)
+    check_steps("(b)", "losses/r_loss", reader.r_loss_scaled, list(range(112)))
+    run = reader.run_path
+    failed = {w: [line for line in lines if line.startswith(f"disentanglement metric {w} ")]
+              for w in ("write_mig_score", *SKLEARN_SCORES)}
+    if failed["write_mig_score"]:
+        die(f"phase 10 (b): {failed['write_mig_score']}")
+    sklearn_missing = []
+    for w in SKLEARN_SCORES:
+        written = os.path.isdir(os.path.join(run, SKLEARN_SUBRUN[w]))
+        if written and not failed[w]:
+            continue
+        if written or len(failed[w]) != 2 or not all(
+                "ModuleNotFoundError" in f and "sklearn" in f for f in failed[w]):
+            die(f"phase 10 (b): {w}: written {written}, failures {failed[w]}")
+        sklearn_missing.append(w)
+    out["b"] = {"heavy_s": heavy_seconds(stats, 2), "drain_ms": drain_ms(stats),
+                "drains": stats["flush"][1]}
+    print(f"phase 10 (b): tc_dsprites (writer on), tc and conv pallas, on dsprites_small "
+          f"(the full grid written in {grid_s:.1f} s): 112 finite steps, 112 launches of each "
+          f"TC kernel; MIG and modularity at {heavy}; sklearn-backed scores "
+          + ("failed with ModuleNotFoundError for sklearn: " + ", ".join(sklearn_missing)
+             if sklearn_missing else "written") + "; every eval-mode encode on the card; "
+          f"{images_per_second(state, MAIN_B):.1f} img/s (steps 4-112) on {card}")
+    del state
+
+    # (c)
+    sd = {}
+    rng = np.random.RandomState(0)
+    for k, v in inception.InceptionV3Features().state_dict().items():
+        shape = tuple(v.shape)
+        if k.endswith("conv.weight"):
+            sd[k] = torch.from_numpy((rng.randn(*shape) * np.sqrt(2.0 / np.prod(shape[1:])))
+                                     .astype(np.float32))
+        elif k.endswith(("bn.weight", "running_var")):
+            sd[k] = torch.from_numpy(rng.uniform(0.5, 1.5, shape).astype(np.float32))
+        elif k.endswith(("bn.bias", "running_mean")):
+            sd[k] = torch.from_numpy(rng.uniform(-0.2, 0.2, shape).astype(np.float32))
+        else:
+            sd[k] = v
+    weights = os.path.join(work, "inception_v3.pth")
+    torch.save(sd, weights)
+    checkpoint, = os.listdir(saves_a)
+    saved_env = os.environ.get(inception.WEIGHTS_ENV)
+    os.environ[inception.WEIGHTS_ENV] = weights
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            scores = evaluate.main(["--checkpoint", os.path.join(saves_a, checkpoint),
+                                    "--dataset", "ukiyo_e64", "--data-root", ukiyo_root,
+                                    "--arch", "conv", "--z-dim", str(Z_DIM), "--fid"])
+    finally:
+        if saved_env is None:
+            del os.environ[inception.WEIGHTS_ENV]
+        else:
+            os.environ[inception.WEIGHTS_ENV] = saved_env
+    eval_s = time.perf_counter() - t0
+    fids = (scores.get("fid_inception_pool3"), scores.get("fid_encoder_features"))
+    if not all(isinstance(f, float) and math.isfinite(f) and f >= 0 for f in fids):
+        die(f"phase 10 (c): evaluate --fid gave {scores}")
+    if "no ground-truth factors" not in scores.get("disentanglement", ""):
+        die(f"phase 10 (c): evaluate on ukiyo_e64 gave {scores}")
+
+    dev = torch.device("cuda", 0)
+    model = inception.load_inception_weights(inception.InceptionV3Features(), weights).eval()
+    x = torch.from_numpy(np.random.RandomState(1).rand(4, 3, 64, 64).astype(np.float32))
+    with torch.no_grad():
+        want = model(x).numpy()
+    fn = inception.inception_feature_fn(weights, device=dev)
+    got = fn(x.permute(0, 2, 3, 1).numpy())
+    err = float(np.abs(got - want).max())
+    if not np.allclose(got, want, rtol=RTOL, atol=ATOL * np.abs(want).max()):
+        die(f"phase 10 (c): Inception on the card vs the CPU: max abs diff {err!r}")
+    images = np.random.RandomState(2).rand(INCEPTION_IMAGES, 64, 64, 3).astype(np.float32)
+    fn(images[:MAIN_B])  # warm-up: cuDNN's algorithms for the batch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(0, INCEPTION_IMAGES, MAIN_B):
+        fn(images[i:i + MAIN_B])
+    inception_rate = INCEPTION_IMAGES / (time.perf_counter() - t0)
+    out["c"] = {"eval_s": eval_s, "inception_img_s": inception_rate}
+    print(f"phase 10 (c): evaluate --fid on (a)'s checkpoint in {eval_s:.1f} s: FID pool3 "
+          f"{fids[0]} (random Inception weights), encoder FID {fids[1]}; Inception on the card "
+          f"vs the CPU, 4 images 64 px: max abs diff {err:.3g} (largest feature "
+          f"{np.abs(want).max():.3g}); Inception pool3 {inception_rate:.1f} img/s (batch 64, "
+          f"64 px resized to 299, fp32 TF32 off) on {card}")
+    return out
+
+
 def start():
     """Phases 1 and 2: the device, then every kernel library built from
     this checkout's sources, one nvcc each, started together. Returns
@@ -2115,6 +2481,7 @@ def main() -> None:
     dp = timed("phase 7", phase_data_parallel, card)
     ckpt = timed("phase 8", phase_checkpoints, card)
     data = timed("phase 9", phase_data_paths, card, main_path)
+    obs = timed("phase 10", phase_observability, card, main_path)
     print(f"phase 8: flagship checkpoint {ckpt['bytes']} bytes; save {ckpt['save_s']:.3f} s, "
           f"background save returns in {ckpt['async_return_s']:.3f} s, load "
           f"{ckpt['load_s']:.3f} s; phase 4 img/s with the metric ring "
@@ -2141,6 +2508,14 @@ def main() -> None:
           f"{main_path['rates']['tc pallas, conv pallas']:.1f}; tc_dsprites img/s "
           + json.dumps({k: round(v, 1) for k, v in data["tc_dsprites_rates"].items()})
           + f" on {card}")
+    for cell in ("a", "b"):
+        o = obs[cell]
+        print(f"phase 10 ({cell}): one test_iter's heavy metrics, s "
+              + json.dumps({k: round(v, 3) for k, v in o["heavy_s"].items()})
+              + f"; a drain's writes {o['drain_ms']:.3f} host ms ({o['drains']} drains) on "
+              f"{card}")
+    print(f"phase 10 (c): Inception pool3 {obs['c']['inception_img_s']:.1f} img/s; evaluate "
+          f"--fid {obs['c']['eval_s']:.1f} s on {card}")
     print(f"host: the wgmma wrappers' tensor maps and pack launch add {extra_ms:.3f} ms of "
           f"host time to a flagship step of {wall_ms:.1f} ms on the host clock "
           f"({100 * extra_ms / wall_ms:.2f} %)")

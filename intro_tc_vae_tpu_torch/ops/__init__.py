@@ -8,6 +8,7 @@ from intro_tc_vae_tpu_torch.ops.density import (
     minibatch_stratified_sampling,
 )
 from intro_tc_vae_tpu_torch.ops.losses import (
+    entropy,
     kl_divergence,
     kl_no_reduce,
     reconstruction_loss,
@@ -31,6 +32,7 @@ __all__ = [
     "log_importance_weight_block",
     "log_importance_weight_matrix",
     "minibatch_stratified_sampling",
+    "entropy",
     "kl_divergence",
     "kl_no_reduce",
     "reconstruction_loss",

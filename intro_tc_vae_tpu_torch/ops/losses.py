@@ -1,4 +1,5 @@
-"""Core VAE loss primitives (KL, reconstruction, reparameterization).
+"""Core VAE loss primitives (KL, reconstruction, reparameterization) and
+the host-side entropy of the DCI metric.
 
 Counterpart of ``intro_tc_vae_tpu/ops/losses.py`` with the same
 semantics: per-sample sums over latent/pixel axes followed by the
@@ -7,6 +8,7 @@ requested batch reduction.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -74,3 +76,18 @@ def reconstruction_loss(
     if reduction == "mean":
         return per_sample.mean()
     return per_sample
+
+
+def entropy(x: np.ndarray, base=None, axis: int = 0, eps: float = 1e-9) -> np.ndarray:
+    """Entropy of a sequence of classes/probabilities (host-side numpy).
+
+    Used by the DCI disentanglement metric. Reference: ops.py:125-133
+    (JAX ``ops/losses.py:92-103``).
+    """
+    if not isinstance(x, np.ndarray):
+        raise TypeError("Input x has to be a numpy.ndarray object!")
+    p = (x + eps) / np.sum(x + eps, axis=axis, keepdims=True)
+    h = -np.sum(p * np.log(p + eps), axis=axis)
+    if base is not None:
+        h /= np.log(base + eps)
+    return h

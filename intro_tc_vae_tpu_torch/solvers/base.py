@@ -25,6 +25,13 @@ follow from PyTorch rather than from the model:
   ``DistributedDataParallel``: the intro step differentiates one network
   with ``torch.autograd.grad`` while the other is ``frozen``, which DDP's
   ``.backward()`` hooks do not follow.
+* Observability (JAX solvers/base.py:491-665): with a ``writer`` (rank 0
+  only under data parallel), each drain of the metric ring writes every
+  step's scalars at its own global step and flushes once; every
+  ``test_iter`` steps the image grid and, for factor datasets, the four
+  disentanglement metric families run on the step's new state, through
+  the eval-mode encoder on the device. sklearn, matplotlib and the
+  TensorBoard packages are imported where they are used.
 """
 
 from __future__ import annotations
@@ -369,6 +376,8 @@ class VAESolver:
         kl_kind: Optional[str] = None,
         fuse_passes: bool = True,
         mesh=None,
+        writer=None,
+        test_iter: int = 1000,
     ):
         self.dataset = dataset
         self.encoder = encoder
@@ -395,6 +404,16 @@ class VAESolver:
             zdim=encoder.zdim,
             mesh=group,
         )
+        self.writer = writer
+        self.test_iter = test_iter
+        self.latent_generator = None
+        try:
+            if dataset is not None and dataset.latent_indices is not None:
+                from intro_tc_vae_tpu_torch.evaluation.generator import LatentGenerator
+
+                self.latent_generator = LatentGenerator(dataset)
+        except (NotImplementedError, AttributeError):
+            pass  # plain (non-factor) dataset: no disentanglement metrics
         self._step_fn = self.build_step()
         # every step's metrics, read on the host behind the device
         self.metric_ring = MetricRing()
@@ -423,17 +442,31 @@ class VAESolver:
         data group), and queues them on the metric ring. ``batch`` is this
         rank's rows, float32 in [0, 1] or uint8 (normalized here on the
         device, ``normalize_input``); ``noise``, when given, holds the
-        global batch's draws."""
+        global batch's draws. With a writer, the image grid and the
+        disentanglement scores run on the new state when the step's global
+        iteration (JAX's ``cur_iter``: the steps before it, ``state.step``
+        on entry, resumed runs included) is a multiple of ``test_iter``."""
+        cur_iter = state.step
         batch = normalize_input(batch)
         metrics = average_metrics(self._step_fn(state, batch, noise), self.hyper.mesh)
         self.metric_ring.push(metrics, state.step)
+        if self.writer is not None and cur_iter % self.test_iter == 0:
+            self._write_heavy_metrics(state, batch, cur_iter)
         return state, metrics
 
     def drain_metrics(self, keep_tail: int = 0) -> list:
         """The ring's entries but the newest ``keep_tail`` on the host:
         ``[(metrics dict, step), ...]`` in step order (JAX
-        ``drain_metrics``)."""
-        return self.metric_ring.drain(keep_tail)
+        ``drain_metrics``). With a writer, each entry's scalars are written
+        at its global iteration, ``step - 1`` (the ring records the step
+        count after the step; JAX writes at the count before it), and the
+        writer is flushed once per drain."""
+        out = self.metric_ring.drain(keep_tail)
+        if self.writer is not None and out:
+            for metrics, step in out:
+                self._write_scalar_metrics(metrics, step - 1)
+            self.writer.flush()
+        return out
 
     def flush_writes(self) -> list:
         """Drain the metric ring completely; returns what ``drain_metrics``
@@ -446,6 +479,157 @@ class VAESolver:
         for name in ("loss_enc", "loss_dec"):
             if name in metrics and not math.isfinite(float(metrics[name])):
                 raise RuntimeError(f"non-finite {name}: {float(metrics[name])}")
+
+    # -- observability ----------------------------------------------------
+
+    def _write_scalar_metrics(self, metrics: dict, cur_iter: int) -> None:
+        """Write one step's (host-side) scalar dict to TensorBoard (JAX
+        solvers/base.py:491-513)."""
+        losses = dict(r_loss=float(metrics["loss_rec"]), kl_loss=float(metrics["loss_kl"]))
+        if "expelbo_f" in metrics:
+            losses["expelbo_f"] = float(metrics["expelbo_f"])
+        self.write_scalars(cur_iter, losses)
+        for tag in ("kl_loss_unscaled", "r_loss_unscaled", "lossE", "lossD",
+                    "diff_kl", "fc_grad_norm"):
+            if tag in metrics:
+                self.writer.add_scalar(tag, float(metrics[tag]), global_step=cur_iter)
+        if self.hyper.clip and "total_norm" in metrics:
+            self.writer.add_scalar("total_norm", float(metrics["total_norm"]),
+                                   global_step=cur_iter)
+
+    def _write_heavy_metrics(self, state: TrainState, batch: torch.Tensor,
+                             cur_iter: int) -> None:
+        self._write_images_helper(state, batch, cur_iter)
+        self.write_disentanglemnt_scores(state, cur_iter)
+
+    def write_scalars(self, cur_iter: int, losses: dict, **kwargs) -> None:
+        if self.writer is not None:
+            self.writer.add_scalars("losses", losses, global_step=cur_iter)
+            for name, value in kwargs.items():
+                self.writer.add_scalar(name, value, global_step=cur_iter)
+
+    def _write_images_helper(self, state: TrainState, batch: torch.Tensor, cur_iter: int,
+                             noise: Optional[torch.Tensor] = None) -> None:
+        """Prior samples of ``noise`` (drawn from a generator seeded with
+        ``cur_iter`` unless given; JAX folds ``cur_iter`` into key 0), then
+        ``write_images``."""
+        if self.writer is None or cur_iter % self.test_iter != 0:
+            return
+        if noise is None:
+            gen = torch.Generator(device=batch.device).manual_seed(cur_iter)
+            noise = torch.randn((batch.shape[0], self.hyper.zdim), generator=gen,
+                                device=batch.device)
+        fake = decode(state.model.decoder, noise, train=False)
+        self.write_images(state, batch, fake, cur_iter)
+
+    def write_images(self, state: TrainState, batch: torch.Tensor,
+                     fake_batch: torch.Tensor, cur_iter: int) -> None:
+        """Real / deterministic-reconstruction / sampled grids, 16 each, as
+        one NCHW grid tagged "reconstructions" (reference
+        solvers/vae.py:147-163)."""
+        if self.writer is None or cur_iter % self.test_iter != 0:
+            return
+        batch = normalize_input(batch)  # the uint8 paths: normalize here
+        mu, _ = encode(state.model.encoder, batch, train=False)
+        rec_det = decode(state.model.decoder, mu, train=False)
+        n = min(batch.shape[0], 16)
+        grid = torch.cat([batch[:n].float(), rec_det[:n], fake_batch[:n].float()])
+        self.writer.add_images("reconstructions", grid.cpu().numpy(), global_step=cur_iter)
+
+    def write_disentanglemnt_scores(self, state: TrainState, cur_iter: int,
+                                    num_samples: int = 10000) -> None:
+        """Four disentanglement metric families (reference vae.py:188-213).
+
+        Name spelled as in the reference API (quirk Q9). Each family runs in
+        its own ``try``: a failure (a degenerate draw, or sklearn absent on
+        this host) is printed and the others still run.
+        """
+        if (
+            self.writer is None
+            or self.latent_generator is None
+            or cur_iter % self.test_iter != 0
+        ):
+            return
+        from intro_tc_vae_tpu_torch.evaluation import metrics as em
+
+        if len(self.dataset) < num_samples:
+            num_samples = len(self.dataset) // 2
+        kwargs = dict(
+            latent_generator=self.latent_generator,
+            encode_fn=self.make_eval_encoder(state),
+            num_samples=num_samples,
+            batch_size=self.batch_size,
+        )
+        for write in (em.write_bvae_score, em.write_dci_score,
+                      em.write_mig_score, em.write_mod_expl_score):
+            try:
+                write(self.writer, cur_iter, **kwargs)
+            except Exception as e:
+                print(f"disentanglement metric {write.__name__} failed: {e!r}")
+
+    def make_eval_encoder(self, state: TrainState) -> Callable:
+        """Eval-mode encode on the encoder's device: NHWC numpy images ->
+        (mu, logvar) numpy (JAX solvers/base.py:593-612)."""
+        encoder = state.model.encoder
+        device = next(encoder.parameters()).device
+
+        def encode_fn(x):
+            x = torch.from_numpy(np.ascontiguousarray(np.asarray(x).transpose(0, 3, 1, 2)))
+            mu, logvar = encode(encoder, normalize_input(x.to(device)), train=False)
+            return mu.cpu().numpy(), logvar.cpu().numpy()
+
+        return encode_fn
+
+    def write_gradient_flow(self, state: TrainState, batch: torch.Tensor,
+                            cur_iter: int) -> None:
+        """Per-layer |grad| mean/max bar chart (reference vae.py:215-254) of
+        the ELBO's gradient on ``batch``; nothing in the loop calls it. The
+        BatchNorm statistics the train-mode passes update are restored."""
+        if self.writer is None or cur_iter % self.test_iter != 0:
+            return
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        h, model = self.hyper, state.model
+        batch = normalize_input(batch)
+        buffers = {k: v.clone() for k, v in model.named_buffers()}
+        gen = torch.Generator(device=batch.device).manual_seed(12345 + cur_iter)
+        try:
+            mu, logvar = encode(model.encoder, batch)
+            eps = torch.randn(mu.shape, generator=gen, device=mu.device)
+            z = ops.reparameterize(mu, logvar, eps)
+            rec = decode(model.decoder, z)
+            l_kl, _ = kl_term(h, z, mu, logvar)
+            loss = h.scale * (rec_term(h, batch, rec, reduction="mean") + l_kl)
+            named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+            grads = torch.autograd.grad(loss, [p for _, p in named])
+        finally:
+            with torch.no_grad():
+                for k, v in model.named_buffers():
+                    v.copy_(buffers[k])
+        layers, ave, mx = [], [], []
+        for (name, _), g in zip(named, grads):
+            if name.endswith("bias"):
+                continue
+            layers.append(name)
+            g = g.detach().abs().float()
+            ave.append(float(g.mean()))
+            mx.append(float(g.max()))
+        fig, ax = plt.subplots(figsize=(12, 4))
+        ax.bar(np.arange(len(mx)), mx, alpha=0.3, lw=1, color="c", label="max-gradient")
+        ax.bar(np.arange(len(ave)), ave, alpha=0.3, lw=1, color="b", label="mean-gradient")
+        ax.set_xticks(range(len(layers)))
+        ax.set_xticklabels(layers, rotation="vertical", fontsize=4)
+        ax.set_ylim(bottom=-0.001, top=0.02)
+        ax.set_xlabel("Layers")
+        ax.set_ylabel("average gradient")
+        ax.set_title("Gradient flow")
+        ax.legend()
+        fig.tight_layout()
+        self.writer.add_figure("gradient_flow", fig, global_step=cur_iter)
+        plt.close(fig)
 
 
 def make_solver(name: str, **kwargs) -> VAESolver:

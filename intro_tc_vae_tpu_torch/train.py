@@ -39,6 +39,15 @@ TF32 switches are off (PyTorch lets cuDNN compute fp32 convolutions in TF32
 by default), as the JAX counterpart computes in true fp32 and as the
 ``conv_impl: pallas`` kernels do; they are restored when the run ends.
 
+TensorBoard (``use_tensorboard``; JAX ``train.py:105-113``, ``:310-311``,
+``:356-377``): rank 0 makes the writer (``utils/writer.py``) in
+``log_dir + run_comment()``; each drain of the metric ring writes every
+step's scalars at its global iteration, every ``test_iter`` iterations
+the image grid and, for factor datasets, the disentanglement scores are
+written, each epoch its img/s (``perf/images_per_sec``), and at the end
+the hparams table with the last epoch's mean losses. A resumed run
+continues the iteration count.
+
 Options this port does not carry yet raise ``NotImplementedError``
 naming their ROADMAP item (``check_ported``).
 """
@@ -79,8 +88,10 @@ from intro_tc_vae_tpu_torch.utils.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
+from intro_tc_vae_tpu_torch.utils.lossdict import LossDict
 from intro_tc_vae_tpu_torch.utils.nan import anomaly_detection, check_unit_range
 from intro_tc_vae_tpu_torch.utils.profiling import StepTimer, profile_trace
+from intro_tc_vae_tpu_torch.utils.writer import SingletonWriter, make_writer
 
 PRINT_EVERY = 5     # steps between progress lines
 WARMUP_STEPS = 3    # steps left out of the final img/s figure
@@ -90,7 +101,6 @@ PROFILE_STEPS = 50  # profile: true stops after the step at this iteration
 def check_ported(config: Config) -> None:
     """Raise for every option whose behaviour this port does not carry."""
     unported = [
-        (config.use_tensorboard, "use_tensorboard: true", "Queue 1 item 4"),
         (config.model_parallel > 1, "model_parallel > 1", "Queue 1 item 8"),
         (config.scan_steps > 1, "scan_steps > 1", "Queue 1 item 6"),
         (config.remat, f"remat: {config.remat!r}", "Queue 1 item 6"),
@@ -163,6 +173,7 @@ class Run:
     solver: VAESolver
     state: TrainState
     say: Callable = print  # print on rank 0, nothing on the others
+    writer: object = None  # TensorBoard's, on rank 0 with use_tensorboard
 
     @property
     def group(self):
@@ -204,6 +215,13 @@ def setup(config: Config, device: Optional[torch.device] = None) -> Run:
         conv_impl=resolve_conv_impl(config.conv_impl),
         tile_rows=max(0, config.tile_rows),
     )
+    # ----- writer (reference train.py:94-103): rank 0 only -----
+    writer = (make_writer(comment=config.run_comment(), log_dir=config.log_dir)
+              if config.use_tensorboard and mesh.rank == 0 else None)
+    SingletonWriter().writer = writer
+    SingletonWriter().cur_iter = 0
+    SingletonWriter().test_iter = max(1, len(train_set) // config.batch_size)
+
     encoder = Encoder(**model_kwargs).to(device)
     decoder = Decoder(**model_kwargs).to(device)
     say(f"{num_params(SoftIntroVAE(encoder, decoder)):,} Parameters")
@@ -216,13 +234,14 @@ def setup(config: Config, device: Optional[torch.device] = None) -> Run:
                           transfer_dtype=config.transfer_dtype,
                           device_cache=config.device_cache,
                           device_cache_budget_mb=config.device_cache_budget_mb)
-    solver = build_solver(config, train_set, encoder, decoder, mesh)
+    solver = build_solver(config, train_set, encoder, decoder, mesh, writer)
     state = replicate_state(solver.init_state(seed), mesh)
     return Run(seed=seed, device=device, mesh=mesh, loader=loader, solver=solver,
-               state=state, say=say)
+               state=state, say=say, writer=writer)
 
 
-def build_solver(config: Config, dataset, encoder, decoder, mesh) -> VAESolver:
+def build_solver(config: Config, dataset, encoder, decoder, mesh,
+                 writer=None) -> VAESolver:
     """The config's solver over these modules, with fresh optimizer
     factories (reference train.py:140-192)."""
     return make_solver(
@@ -238,6 +257,8 @@ def build_solver(config: Config, dataset, encoder, decoder, mesh) -> VAESolver:
         beta_rec=config.beta_rec,
         beta_neg=config.beta_neg,
         gamma_r=config.gamma_r,
+        writer=writer,
+        test_iter=config.test_iter,
         clip=config.clip,
         tc_impl=config.tc_impl,
         tc_sampling=config.tc_sampling,
@@ -252,7 +273,8 @@ def build_solver(config: Config, dataset, encoder, decoder, mesh) -> VAESolver:
 
 def _train(config: Config, device: Optional[torch.device]) -> TrainState:
     run = setup(config, device)
-    solver, loader, group, say = run.solver, run.loader, run.group, run.say
+    solver, loader, group, say, writer = (run.solver, run.loader, run.group, run.say,
+                                          run.writer)
     state = run.state
 
     # ----- resume (JAX train.py:222-240) -----
@@ -268,7 +290,9 @@ def _train(config: Config, device: Optional[torch.device]) -> TrainState:
         state, resumed_epoch = load_checkpoint(resume_path, state, group=group)
         start_epoch = max(start_epoch, resumed_epoch)
         # the step count goes on, so later checkpoints rank after this one
+        # and TensorBoard's global step keeps increasing
         cur_iter = state.step
+        SingletonWriter().cur_iter = cur_iter
         say(f"resumed from {resume_path} at epoch {start_epoch} iter {cur_iter}")
 
     # ----- epoch loop (JAX train.py:242-348) -----
@@ -277,14 +301,20 @@ def _train(config: Config, device: Optional[torch.device]) -> TrainState:
     trace_dir = f"{config.log_dir or 'runs'}/profile"
     epoch_rates: list = []  # img/s of each epoch, the wait for its last step included
     step_seconds: dict = {}  # host seconds of each queued step, by step
+    last_epoch_loss = LossDict()  # the hparams table's metrics (JAX train.py:283-292)
     batch = None
     epoch = start_epoch
 
     def record(entries: list) -> list:
         """Drained ring entries become history records, in step order."""
+        nonlocal last_epoch_loss
         for metrics, step in entries:
             rec = dict(metrics, epoch=epoch, step=step, seconds=step_seconds.pop(step))
             state.history.append(rec)
+            if epoch == config.num_epochs - 1:
+                last_epoch_loss += LossDict({k: rec[k] for k in
+                                             ("loss_enc", "loss_dec", "loss_kl", "loss_rec")
+                                             if k in rec})
             if step % PRINT_EVERY == 0:
                 say(f"epoch {epoch} step {step}: loss_enc {rec['loss_enc']:.4f} "
                     f"loss_dec {rec['loss_dec']:.4f} kl {rec['loss_kl']:.4f} "
@@ -330,11 +360,14 @@ def _train(config: Config, device: Optional[torch.device]) -> TrainState:
                         if config.profile and cur_iter >= PROFILE_STEPS:
                             break
                         cur_iter += 1
+                        SingletonWriter().cur_iter = cur_iter
                 consume()  # waits for the last step: the epoch's time is completion-bound
                 t_end = time.perf_counter()
                 if n_steps:
                     state.history[-1]["seconds"] += t_end - t_prev
                     epoch_rates.append(n_steps * config.batch_size / (t_end - epoch_t0))
+                    if writer is not None:  # loader + steps + writes, this epoch
+                        writer.add_scalar("perf/images_per_sec", epoch_rates[-1], epoch)
 
                 if config.profile:
                     say("profile:", timer.summary())
@@ -347,6 +380,7 @@ def _train(config: Config, device: Optional[torch.device]) -> TrainState:
                     noise = torch.randn((config.batch_size, config.z_dim), generator=gen,
                                         device=run.device)
                     state.samples = decode(state.model.decoder, noise, train=False)
+                    solver.write_images(state, batch, state.samples, cur_iter)
                     save_checkpoint(state, epoch, cur_iter, prefix,
                                     checkpoint_dir=config.checkpoint_dir,
                                     async_save=config.async_checkpoint, group=group)
@@ -369,6 +403,29 @@ def _train(config: Config, device: Optional[torch.device]) -> TrainState:
         say(f"training throughput: {rate:,.1f} img/s on {run.mesh.size} x "
             f"{device_name(run.device)} (steps after the first {WARMUP_STEPS}; "
             f"{len(state.history)} steps)")
+
+    # ----- hparams table (reference train.py:244-264) -----
+    if writer is not None:
+        last_epoch_loss = last_epoch_loss / max(len(loader), 1)
+        writer.add_hparams(
+            dict(
+                optimizer=config.optimizer,
+                recon_loss_type=config.recon_loss_type,
+                lr=config.lr,
+                batch_size=config.batch_size,
+                solver=config.solver,
+                dataset=config.dataset,
+                z_dim=config.z_dim,
+                beta_kl=config.beta_kl,
+                beta_neg=config.beta_neg,
+                beta_rec=config.beta_rec,
+                gamma_r=config.gamma_r,
+                arch=config.arch,
+                clip=config.clip if config.clip is not None else 0.0,
+            ),
+            metric_dict=dict(last_epoch_loss),
+        )
+        writer.close()
     return state
 
 

@@ -1,5 +1,6 @@
 """Host-side utilities: checkpoints, loss averaging, non-finite checks,
-profiling, and the weight bridge from the JAX package."""
+profiling, the TensorBoard writer (the reader is ``utils.tb_reader``), and
+the weight bridge from the JAX package."""
 
 from intro_tc_vae_tpu_torch.utils.checkpoint import (
     find_latest_checkpoint,
@@ -13,6 +14,7 @@ from intro_tc_vae_tpu_torch.utils.lossdict import LossDict
 from intro_tc_vae_tpu_torch.utils.nan import check_non_finite_gradients, check_non_finite_gradints
 from intro_tc_vae_tpu_torch.utils.profiling import StepTimer, profile_trace
 from intro_tc_vae_tpu_torch.utils.transplant import flax_to_port
+from intro_tc_vae_tpu_torch.utils.writer import SingletonWriter, make_writer
 
 __all__ = [
     "LossDict",
@@ -27,4 +29,6 @@ __all__ = [
     "profile_trace",
     "StepTimer",
     "flax_to_port",
+    "SingletonWriter",
+    "make_writer",
 ]

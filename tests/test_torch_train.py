@@ -69,7 +69,6 @@ def _raises(update: dict, item: str):
 
 
 @pytest.mark.parametrize("update,item", [
-    _raises(dict(use_tensorboard=True), "Queue 1 item 4"),
     _raises(dict(model_parallel=2), "Queue 1 item 8"),
     _raises(dict(scan_steps=2), "Queue 1 item 6"),
     _raises(dict(remat="pass"), "Queue 1 item 6"),
@@ -91,7 +90,7 @@ def test_unported_options_raise(update, item):
     dict(conv_impl="pallas"), dict(arch="res"), dict(solver="vae"),
     dict(resume="auto"), dict(profile=True), dict(anomaly_detection=True),
     dict(optimizer="sgd"), dict(optimizer="lamb"), dict(async_checkpoint=True),
-    dict(save_interval=0),
+    dict(save_interval=0), dict(use_tensorboard=True, test_iter=4),
 ], ids=lambda u: ",".join(f"{k}={v}" for k, v in u.items()))
 def test_options_that_once_raised_train(tmp_path, update):
     """The flagship recipe with each option at the synthetic_small size:
@@ -99,7 +98,9 @@ def test_options_that_once_raised_train(tmp_path, update):
     routed widths are tests/test_torch_conv.py's and _models.py's).
     ``resume: "auto"`` finds no checkpoint and starts fresh; ``profile``
     stops at the epoch's end, before iteration 50, without a final save;
-    ``anomaly_detection`` is on at every optimizer call and off after."""
+    ``anomaly_detection`` is on at every optimizer call and off after;
+    ``use_tensorboard`` writes one run under ``log_dir`` (the tags are
+    tests/test_torch_writer.py's)."""
     from torch.optim.optimizer import register_optimizer_step_pre_hook
 
     config = small_config(tmp_path, **update)
@@ -116,6 +117,9 @@ def test_options_that_once_raised_train(tmp_path, update):
     saves = sorted(os.listdir(tmp_path / "saves")) if (tmp_path / "saves").exists() else []
     assert saves == ([] if config.profile
                      else [f"{config.fingerprint()}model_epoch_0_iter_8"])
+    runs = sorted(os.listdir(tmp_path)) if config.use_tensorboard else []
+    assert runs == (["runs" + config.run_comment(), "saves"] if config.use_tensorboard
+                    else [])
 
 
 UKIYO_FIXTURE = os.path.join(REPO, "tests", "test_data")
