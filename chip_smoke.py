@@ -123,6 +123,22 @@ result line):
    net on the card against the CPU. Prints the seconds of one test_iter's
    heavy metrics, the host ms of a drain's writes and Inception img/s.
 
+11. The rest of the solver surface (``phase_solver_surface``), in a
+   temporary directory: (a) the flagship recipe with arch 'inception'
+   through the CLI, 20 steps, tc and conv 'pallas': finite losses, the TC
+   kernels 3 + 2 calls x 3 kernels a step and no conv kernel, host img/s
+   and device ms/step, and one fp32 step with the TC kernels against the
+   float64 plain TC at phase 5's gate; (b) remat false, "block" and "pass"
+   on the flagship (tc and conv 'pallas') through the trainer's setup, 5
+   steps at batch 64 and at 256, cuDNN deterministic: the launches of each
+   phase equal ``expected_intro_launches`` (recompute launches each routed
+   conv's forward once more), "block" and "pass" bit-equal to false, peak
+   device memory and device ms/step of each; (c) scan_steps 4 against 1 on
+   an ARC Ukiyo-E layout with the device cache, 20 steps through the CLI:
+   bit-equal, img/s of each; (d) kl_kind 'tc_full' and tc_sampling
+   'weighted', one step each with the writer on: finite, the tc_decomp
+   group read back through tb_reader.
+
 Each phase prints its seconds. Then one JSON line describing the kernels,
 and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -880,7 +896,7 @@ def reset_all_launches() -> None:
     conv_cuda.reset_launch_counts()
 
 
-def expected_intro_launches(tc_impl: str, conv_impl: str) -> tuple:
+def expected_intro_launches(tc_impl: str, conv_impl: str, remat: bool = False) -> tuple:
     """Launches in phase E and in phase D of one paired flagship step,
     derived from the pass list of solvers/intro.py.
 
@@ -897,9 +913,15 @@ def expected_intro_launches(tc_impl: str, conv_impl: str) -> tuple:
     ([128, 64, 64, 64], [128, 64, 32, 32]) take the wgmma bodies: every
     call launches conv3x3_fwd_wgmma or conv3x3_dw_wgmma, none the general
     conv3x3_fwd or conv3x3_dw, and every forward packs its weights first:
-    conv3x3_pack_w as often."""
+    conv3x3_pack_w as often.
+    ``remat`` ("block" or "pass"; the two recompute the same convs): every
+    decoder call is differentiated, so its backward recomputes each routed
+    conv's forward once more, a kernel launch under 'pallas' (the stock
+    forward under 'hybrid'); the TC calls lie outside the recomputed
+    regions (tests/test_torch_solver_surface.py counts the same on the
+    CPU)."""
     tc = 1 if tc_impl == "pallas" else 0
-    fwd_per_conv = {"pallas": 2, "hybrid": 1, "xla": 0}[conv_impl]
+    fwd_per_conv = {"pallas": 2 + bool(remat), "hybrid": 1, "xla": 0}[conv_impl]
     dw = 6 if conv_impl != "xla" else 0
 
     def counts(tc_calls, fwd, dws):
@@ -1031,6 +1053,42 @@ def plain_tc_in_float64():
         tc.tc_logsumexp_reference = plain
 
 
+def fp32_step(dev, cfg, ds, kw: dict, init: dict, batch, noise: dict, impl: str,
+              conv_impl: str = "xla"):
+    """One intro_tc step of the model ``kw`` from the weights ``init`` on
+    ``batch`` with ``noise``, tc_impl ``impl``: (metrics, state dict) on the
+    host. Phases 5 and 11 (a)."""
+    import torch
+
+    from intro_tc_vae_tpu_torch.models import Decoder, Encoder, SoftIntroVAE
+    from intro_tc_vae_tpu_torch.solvers import make_optimizer, make_solver
+
+    model = SoftIntroVAE(Encoder(**kw, conv_impl=conv_impl), Decoder(**kw, conv_impl=conv_impl))
+    model.load_state_dict(init)
+    model.to(dev)
+    solver = make_solver(
+        "intro_tc", dataset=ds, encoder=model.encoder, decoder=model.decoder,
+        batch_size=MAIN_B, optimizer_e=make_optimizer("adam", cfg.lr),
+        optimizer_d=make_optimizer("adam", cfg.lr),
+        recon_loss_type=cfg.recon_loss_type, beta_kl=cfg.beta_kl,
+        beta_rec=cfg.beta_rec, beta_neg=cfg.beta_neg, gamma_r=cfg.gamma_r,
+        tc_impl=impl, fuse_passes=True)
+    state = solver.init_state(0)
+    state, metrics = solver.train_step(state, batch.to(dev), noise=noise)
+    torch.cuda.synchronize()
+    return ({k: float(v) for k, v in metrics.items()},
+            {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()})
+
+
+def params_diff(p_a: dict, p_b: dict) -> tuple:
+    """(largest absolute difference, entries over ATOL) of two state dicts."""
+    import numpy as np
+
+    worst = max(float(np.abs(p_a[k] - p_b[k]).max()) for k in p_b)
+    n_over = sum(int((np.abs(p_a[k] - p_b[k]) > ATOL).sum()) for k in p_b)
+    return worst, n_over
+
+
 def phase_in_context(dev) -> None:
     """Phase 5: one fp32 step with the kernels vs one with the plain
     versions, from the same weights, batch and noise: (a) the TC kernels,
@@ -1052,7 +1110,7 @@ def phase_in_context(dev) -> None:
     from intro_tc_vae_tpu_torch.config import load_config
     from intro_tc_vae_tpu_torch.data import load_dataset
     from intro_tc_vae_tpu_torch.models import Decoder, Encoder, SoftIntroVAE
-    from intro_tc_vae_tpu_torch.solvers import NOISE_KEYS, make_optimizer, make_solver
+    from intro_tc_vae_tpu_torch.solvers import NOISE_KEYS
 
     cfg = load_config(FLAGSHIP, {"dataset": "synthetic", "precision": "fp32"})
     ds, image_size, channels, cdim = load_dataset(cfg.dataset)
@@ -1065,27 +1123,7 @@ def phase_in_context(dev) -> None:
     noise = {k: torch.randn((MAIN_B, cfg.z_dim), generator=gen, device=dev)
              for k in NOISE_KEYS}
     def one_step(impl: str, conv_impl: str = "xla"):
-        model = SoftIntroVAE(Encoder(**kw, conv_impl=conv_impl),
-                             Decoder(**kw, conv_impl=conv_impl))
-        model.load_state_dict(init)
-        model.to(dev)
-        solver = make_solver(
-            "intro_tc", dataset=ds, encoder=model.encoder, decoder=model.decoder,
-            batch_size=MAIN_B, optimizer_e=make_optimizer("adam", cfg.lr),
-            optimizer_d=make_optimizer("adam", cfg.lr),
-            recon_loss_type=cfg.recon_loss_type, beta_kl=cfg.beta_kl,
-            beta_rec=cfg.beta_rec, beta_neg=cfg.beta_neg, gamma_r=cfg.gamma_r,
-            tc_impl=impl, fuse_passes=True)
-        state = solver.init_state(0)
-        state, metrics = solver.train_step(state, batch.to(dev), noise=noise)
-        torch.cuda.synchronize()
-        return ({k: float(v) for k, v in metrics.items()},
-                {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()})
-
-    def params_diff(p_a, p_b):
-        worst = max(float(np.abs(p_a[k] - p_b[k]).max()) for k in p_b)
-        n_over = sum(int((np.abs(p_a[k] - p_b[k]) > ATOL).sum()) for k in p_b)
-        return worst, n_over
+        return fp32_step(dev, cfg, ds, kw, init, batch, noise, impl, conv_impl)
 
     names = ("lossE", "lossD", "loss_kl", "loss_rec", "expelbo_r", "expelbo_f")
     m_k, p_k = one_step("pallas")
@@ -2324,6 +2362,362 @@ def observe(card: str, main_path: dict, work: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the rest of the solver surface
+# ---------------------------------------------------------------------------
+
+REMAT_MODES = (False, "block", "pass")
+REMAT_BATCHES = (MAIN_B, 256)
+SURFACE_STEPS = 5  # steps a remat run: one epoch of synthetic at batch 256
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """Deterministic cuDNN algorithms, chosen without autotuning, so that a
+    recomputed forward takes the algorithm and the bits of the first."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+@contextlib.contextmanager
+def seeded_flips(seed: int):
+    """Ukiyo-E datasets built in the block draw their random flips from a
+    RandomState seeded with ``seed`` (the dataset's own is unseeded, as in
+    the JAX package), so that two runs see the same batches."""
+    import numpy as np
+
+    from intro_tc_vae_tpu_torch.data import datasets
+
+    init = datasets.UkiyoE.__init__
+
+    def seeded(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        self._rng = np.random.RandomState(seed)
+
+    datasets.UkiyoE.__init__ = seeded
+    try:
+        yield
+    finally:
+        datasets.UkiyoE.__init__ = init
+
+
+def trainer_setup(update: dict, steps: int):
+    """The flagship through the trainer's own ``setup`` (seed, model,
+    optimizers, loader, solver) and the first ``steps`` batches of its
+    loader, on the card."""
+    from intro_tc_vae_tpu_torch.config import load_config
+    from intro_tc_vae_tpu_torch.solvers.base import normalize_input
+    from intro_tc_vae_tpu_torch.train import setup
+
+    run = setup(load_config(FLAGSHIP, {"dataset": "synthetic", "use_tensorboard": False,
+                                       **update}))
+    run.state.model.train()
+    with contextlib.closing(iter(run.loader)) as batches:
+        batches = [normalize_input(next(batches)) for _ in range(steps)]
+    return run, batches
+
+
+def profiled_run(label: str, solver, state, batches: list, active: int = 3) -> dict:
+    """``solver``'s steps on ``batches``, the last ``active`` under
+    torch.profiler: device ms per step (the kernels' and copies' device
+    time), peak device memory over the steps (``max_memory_allocated``),
+    the launches of phase E and phase D, every step's metrics and the
+    final state dict on the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    metrics = []
+    with (launches_per_phase() as (phase_e, phase_d),
+          profile(activities=[ProfilerActivity.CUDA],
+                  schedule=schedule(wait=len(batches) - active - 1, warmup=1,
+                                    active=active)) as prof):
+        for batch in batches:
+            _, m = solver.train_step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+            torch.cuda.synchronize()
+            prof.step()
+    device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.is_user_annotation and not e.key.startswith("ProfilerStep"))
+    if device_us <= 0:
+        die(f"phase 11: {label}: the profiler recorded no device time")
+    for m in metrics:
+        if not all(math.isfinite(v) for v in m.values()):
+            die(f"phase 11: {label}: non-finite metrics {m}")
+    return {"device_ms": device_us / active / 1e3,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "phase_e": dict(phase_e), "phase_d": dict(phase_d), "metrics": metrics,
+            "state": {k: v.detach().cpu() for k, v in state.model.state_dict().items()}}
+
+
+def remat_runs(steps: int) -> dict:
+    """Phase 11 (b): the flagship (tc and conv 'pallas') in every remat
+    mode at every batch of REMAT_BATCHES, each from the same weights, the
+    same generator seed and the same batches (one trainer set-up at the
+    largest batch; a smaller batch is the first rows of each): the models'
+    ``remat`` for "block", the solver's ``remat_passes`` for "pass", fresh
+    optimizers for every run (``build_solver``, as ``setup`` builds it)."""
+    from intro_tc_vae_tpu_torch.config import load_config
+    from intro_tc_vae_tpu_torch.train import build_solver
+
+    import gc
+
+    base = {"tc_impl": "pallas", "conv_impl": "pallas"}
+    run, batches = trainer_setup({**base, "batch_size": max(REMAT_BATCHES)}, steps)
+    model = run.state.model
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    del run.state, run.solver  # their optimizers hold no state yet
+
+    def one(b: int, mode) -> dict:
+        model.load_state_dict(init)
+        model.encoder.remat = model.decoder.remat = mode in (True, "block")
+        config = load_config(FLAGSHIP, {"dataset": "synthetic", **base, "batch_size": b,
+                                        "remat": mode})
+        solver = build_solver(config, run.loader.dataset, model.encoder, model.decoder,
+                              run.mesh)
+        return profiled_run(f"batch {b} remat {mode!r}", solver, solver.init_state(run.seed),
+                            [x[:b] for x in batches])
+
+    out = {}
+    for b in REMAT_BATCHES:
+        for mode in REMAT_MODES:
+            gc.collect()  # the last run's optimizer states, before the peak is reset
+            out[(b, mode)] = one(b, mode)
+    return out
+
+
+def phase_solver_surface(card: str) -> dict:
+    """Phase 11: the rest of the solver surface on the card, each path
+    driven with the launch counters set to 0 just before it.
+    (a) The flagship recipe with arch 'inception', tc and conv 'pallas',
+    through the CLI (20 steps): finite losses; the TC kernels launched
+    3 + 2 calls x 3 kernels a step and no conv kernel (the block's convs
+    are 1x1); its device ms per step (``profiled_run``) and host img/s;
+    one fp32 step with the TC kernels against the plain TC in float64 at
+    phase 5's gate (metrics rtol 1e-4, updated params atol 1e-5).
+    (b) remat false, "block" and "pass" on the flagship (tc and conv
+    'pallas') from one trainer set-up (``remat_runs``), 5 steps each at
+    batch 64 and 256, cuDNN deterministic: the launches of each phase equal to
+    ``expected_intro_launches``; metrics, parameters and BatchNorm
+    statistics of "block" and "pass" bit-equal to remat false's; peak
+    device memory and device ms per step of each.
+    (c) scan_steps 4 against 1 on the flagship config on an ARC Ukiyo-E
+    layout (``write_ukiyo``) with the device cache engaged, through the
+    CLI, cuDNN deterministic, the flips seeded (``seeded_flips``): the 20
+    steps' metrics and the final parameters bit-equal; img/s of each.
+    (d) kl_kind 'tc_full' (intro_tc) and tc_sampling 'weighted' (tc
+    'xla') on the same layout, writer on, one step each through the
+    trainer's setup: finite; the tc_decomp group read back through the
+    port's tb_reader."""
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_phase11_")
+    try:
+        return solver_surface(card, work)
+    finally:
+        shutil.rmtree(work)
+
+
+def rate_after(state, skip: int) -> float:
+    """Host-clock img/s over the steps after the first ``skip``: with
+    ``skip`` a multiple of scan_steps, whole calls only (a call's seconds
+    are split evenly over its steps, so a partial call would carry a share
+    of the first call's warm-up)."""
+    steady = state.history[skip:]
+    return MAIN_B * len(steady) / sum(r["seconds"] for r in steady)
+
+
+def solver_surface(card: str, work: str) -> dict:
+    """Phase 11's (a)-(d) in ``work``; returns their measurements."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from intro_tc_vae_tpu_torch.config import load_config
+    from intro_tc_vae_tpu_torch.data import load_dataset
+    from intro_tc_vae_tpu_torch.models import Decoder, Encoder, SoftIntroVAE
+    from intro_tc_vae_tpu_torch.solvers import NOISE_KEYS
+    from intro_tc_vae_tpu_torch.train import images_per_second
+
+    out = {}
+    saves = os.path.join(work, "saves")
+    t0 = time.perf_counter()
+    # (a) the inception arch
+    inception = {"dataset": "synthetic", "arch": "inception", "tc_impl": "pallas",
+                 "conv_impl": "pallas", "num_epochs": 1, "use_tensorboard": False,
+                 "checkpoint_dir": saves}
+    reset_all_launches()
+    with launches_per_phase() as (phase_e, phase_d):
+        state = run_cli(FLAGSHIP, inception, "phase 11 (a)")
+    counts = all_launches()
+    want_e, want_d = expected_intro_launches("pallas", "xla")  # 1x1 convs: none routes
+    for label, got, want in (("phase E", phase_e, {k: 20 * v for k, v in want_e.items()}),
+                             ("phase D", phase_d, {k: 20 * v for k, v in want_d.items()}),
+                             ("total", counts, {k: 20 * (want_e[k] + want_d[k])
+                                                for k in want_e})):
+        if got != want:
+            die(f"phase 11 (a): {label} launches {got}, expected {want}")
+    rate = images_per_second(state, MAIN_B)
+    del state
+    shutil.rmtree(saves, ignore_errors=True)  # the next run's saves
+    run, batches = trainer_setup({"arch": "inception", "tc_impl": "pallas",
+                                  "conv_impl": "pallas"}, SURFACE_STEPS)
+    profiled = profiled_run("inception", run.solver, run.state, batches)
+    del run, batches
+    out["inception"] = {"img_s": rate, "device_ms": profiled["device_ms"]}
+
+    cfg = load_config(FLAGSHIP, {"dataset": "synthetic", "precision": "fp32",
+                                 "arch": "inception"})
+    ds, image_size, channels, cdim = load_dataset(cfg.dataset)
+    kw = dict(arch="inception", cdim=cdim, zdim=cfg.z_dim, channels=channels,
+              image_size=image_size, compute_dtype=torch.float32)
+    torch.manual_seed(0)
+    init = SoftIntroVAE(Encoder(**kw), Decoder(**kw)).state_dict()
+    dev = torch.device("cuda", 0)
+    batch = torch.from_numpy(ds.get_batch(np.arange(MAIN_B)).transpose(0, 3, 1, 2).copy())
+    gen = torch.Generator(device=dev).manual_seed(1)
+    noise = {k: torch.randn((MAIN_B, cfg.z_dim), generator=gen, device=dev)
+             for k in NOISE_KEYS}
+    with fp32_exact():
+        m_k, p_k = fp32_step(dev, cfg, ds, kw, init, batch, noise, "pallas")
+        with plain_tc_in_float64():
+            m_x, p_x = fp32_step(dev, cfg, ds, kw, init, batch, noise, "xla")
+    names = ("lossE", "lossD", "loss_kl", "loss_rec", "expelbo_r", "expelbo_f")
+    for name in names:
+        if not math.isclose(m_k[name], m_x[name], rel_tol=RTOL, abs_tol=1e-30):
+            die(f"phase 11 (a): {name} pallas {m_k[name]!r} vs float64 plain {m_x[name]!r}")
+    worst, n_over = params_diff(p_k, p_x)
+    if n_over:
+        die(f"phase 11 (a): updated params differ by up to {worst!r} ({n_over} over {ATOL})")
+    print(f"phase 11 (a): inception arch, tc and conv pallas: 20 finite steps; launches a step "
+          f"phase E {dict((k, v // 20) for k, v in phase_e.items() if v)}, phase D "
+          f"{dict((k, v // 20) for k, v in phase_d.items() if v)}, no conv kernel; one fp32 "
+          f"step with the TC kernels vs the float64 plain TC: metrics within rtol 1e-4, "
+          f"updated params max abs diff {worst:.3g} (atol 1e-5); {rate:.1f} img/s (steps "
+          f"4-20, host clock), {profiled['device_ms']:.2f} device ms/step (bf16, batch 64) "
+          f"on {card}")
+
+    out["seconds"] = {"a": time.perf_counter() - t0}
+    # (b) remat
+    with cudnn_deterministic():
+        remat = remat_runs(SURFACE_STEPS)
+    for (b, mode), r in remat.items():
+        if b == MAIN_B:
+            want_e, want_d = expected_intro_launches("pallas", "pallas", bool(mode))
+            for label, got, want in (("phase E", r["phase_e"], want_e),
+                                     ("phase D", r["phase_d"], want_d)):
+                want = {k: SURFACE_STEPS * v for k, v in want.items()}
+                if got != want:
+                    die(f"phase 11 (b): remat {mode!r}: {label} launches {got}, "
+                        f"expected {want}")
+        base = remat[(b, False)]
+        if r["metrics"] != base["metrics"] or any(
+                not torch.equal(v, base["state"][k]) for k, v in r["state"].items()):
+            die(f"phase 11 (b): batch {b}: remat {mode!r} differs from remat false "
+                "(metrics, parameters or BatchNorm statistics)")
+    table = {f"batch {b}": {str(mode): {"peak_MiB": remat[(b, mode)]["peak_bytes"] / 2**20,
+                                        "device_ms": remat[(b, mode)]["device_ms"]}
+                            for mode in REMAT_MODES} for b in REMAT_BATCHES}
+    out["remat"] = table
+    print(f"phase 11 (b): remat false / block / pass, flagship, tc and conv pallas, "
+          f"{SURFACE_STEPS} steps each, cuDNN deterministic: launches per phase equal the "
+          f"derived counts (recompute adds 6 conv3x3_fwd_wgmma + 6 conv3x3_pack_w a phase); "
+          f"block and pass bit-equal to false (metrics, parameters, BatchNorm statistics) at "
+          f"batch 64 and 256")
+    print("phase 11 (b): peak device MiB and device ms/step "
+          + json.dumps({b: {m: {k: round(v, 2) for k, v in d.items()} for m, d in t.items()}
+                        for b, t in table.items()}) + f" on {card}")
+
+    out["seconds"]["b"] = time.perf_counter() - t0 - sum(out["seconds"].values())
+    # (c) scan_steps
+    ukiyo = os.path.join(work, "ukiyo")
+    write_ukiyo(ukiyo)
+    scan = {}
+    with cudnn_deterministic():
+        for k in (1, 4):
+            with seeded_flips(DATA_SEED):
+                state = run_cli(FLAGSHIP, {
+                    "data_root": ukiyo, "tc_impl": "pallas", "conv_impl": "pallas",
+                    "num_epochs": 1, "use_tensorboard": False, "device_cache": "force",
+                    "scan_steps": k, "checkpoint_dir": saves}, f"phase 11 (c) scan_steps {k}")
+            scan[k] = (rate_after(state, 4),
+                       [{n: v for n, v in r.items() if n not in ("seconds",)}
+                        for r in state.history],
+                       {n: v.detach().cpu() for n, v in state.model.state_dict().items()})
+            del state
+            shutil.rmtree(saves, ignore_errors=True)  # the next run's saves
+    if scan[4][1] != scan[1][1] or any(not torch.equal(v, scan[1][2][n])
+                                       for n, v in scan[4][2].items()):
+        die("phase 11 (c): scan_steps 4 differs from scan_steps 1 (metrics or parameters)")
+    out["scan"] = {k: v[0] for k, v in scan.items()}
+    print(f"phase 11 (c): scan_steps 4 vs 1, the flagship on ukiyo_e64 with the device cache, "
+          f"20 steps through the CLI, cuDNN deterministic: every step's metrics and the final "
+          f"parameters bit-equal; img/s (steps 5-20, host clock) 1: {scan[1][0]:.1f}, 4: "
+          f"{scan[4][0]:.1f} on {card}")
+
+    out["seconds"]["c"] = time.perf_counter() - t0 - sum(out["seconds"].values())
+    # (d) tc_full and weighted, one step each, the writer on
+    for label, update in (("tc_full", {"kl_kind": "tc_full", "tc_impl": "pallas"}),
+                          ("weighted", {"tc_sampling": "weighted", "tc_impl": "xla"})):
+        log_root = os.path.join(work, f"runs_{label}")
+        values = one_logged_step({"data_root": ukiyo, "conv_impl": "pallas",
+                                  "use_tensorboard": True,
+                                  "log_dir": os.path.join(log_root, "tb"), **update})
+        if label == "tc_full":
+            reader = read_run(log_root, "(d)", FLAGSHIP)
+            for tag, df in (("mi", reader.tc_decomp_mi), ("tc", reader.tc_decomp_tc),
+                            ("kl", reader.tc_decomp_kl)):
+                got = list(df["value"])
+                if list(df["step"]) != [0] or not math.isclose(
+                        got[0], values[f"tc_decomp/{tag}"], rel_tol=1e-6):
+                    die(f"phase 11 (d): tc_decomp/{tag} read back {list(df['step'])} {got}, "
+                        f"the step gave {values[f'tc_decomp/{tag}']}")
+        print(f"phase 11 (d): {label}: one step, finite (lossE {values['lossE']:.6g}, lossD "
+              f"{values['lossD']:.6g})"
+              + ("; tc_decomp mi/tc/kl read back through tb_reader at step 0 "
+                 + json.dumps({k: values[f"tc_decomp/{k}"] for k in ("mi", "tc", "kl")})
+                 if label == "tc_full" else ""))
+    out["seconds"]["d"] = time.perf_counter() - t0 - sum(out["seconds"].values())
+    print("phase 11: seconds of (a)-(d) "
+          + json.dumps({k: round(v, 1) for k, v in out["seconds"].items()}))
+    return out
+
+
+def one_logged_step(update: dict) -> dict:
+    """One flagship step through the trainer's setup with the writer on,
+    drained and flushed: its metrics on the host (finite, or the phase fails)."""
+    from intro_tc_vae_tpu_torch.config import load_config
+    from intro_tc_vae_tpu_torch.solvers.base import normalize_input
+    from intro_tc_vae_tpu_torch.train import setup
+    from intro_tc_vae_tpu_torch.utils.writer import SingletonWriter
+
+    run = setup(load_config(FLAGSHIP, update))
+    try:
+        run.state.model.train()
+        with contextlib.closing(iter(run.loader)) as batches:
+            batch = normalize_input(next(batches))
+        run.solver.train_step(run.state, batch)
+        (values, step), = run.solver.flush_writes()
+        if step != 1 or not all(math.isfinite(v) for v in values.values()):
+            die(f"phase 11 (d): {update}: step {step} metrics {values}")
+    finally:
+        if run.writer is not None:
+            run.writer.close()
+        SingletonWriter().writer = None
+    return values
+
+
 def start():
     """Phases 1 and 2: the device, then every kernel library built from
     this checkout's sources, one nvcc each, started together. Returns
@@ -2482,6 +2876,7 @@ def main() -> None:
     ckpt = timed("phase 8", phase_checkpoints, card)
     data = timed("phase 9", phase_data_paths, card, main_path)
     obs = timed("phase 10", phase_observability, card, main_path)
+    timed("phase 11", phase_solver_surface, card)
     print(f"phase 8: flagship checkpoint {ckpt['bytes']} bytes; save {ckpt['save_s']:.3f} s, "
           f"background save returns in {ckpt['async_return_s']:.3f} s, load "
           f"{ckpt['load_s']:.3f} s; phase 4 img/s with the metric ring "

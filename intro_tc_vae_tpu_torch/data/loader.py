@@ -38,6 +38,12 @@ such program, so the loader yields the gathered uint8 batch.
 
 Data parallel (``rows``): every rank draws the same seeded global order
 and gathers only its own rows of each global batch of ``batch_size``.
+
+``stack_steps`` K > 1 (the trainer's ``scan_steps``; JAX
+``stack_steps``): each item holds K consecutive global batches as one
+[K, B, C, H, W] tensor, drawn as one chunk of K·B indices of the same
+order (an epoch yields ``per_epoch // K`` items, only whole chunks), and
+a rank takes its rows of each of the K steps.
 """
 
 from __future__ import annotations
@@ -85,6 +91,7 @@ class DeviceLoader:
         transfer_dtype: "float32" | "uint8" | "auto".
         device_cache: "off" | "auto" | "force" (or False / True).
         device_cache_budget_mb: the most the cache may take.
+        stack_steps: K global batches an item, [K, B, ...].
     """
 
     def __init__(
@@ -102,6 +109,7 @@ class DeviceLoader:
         transfer_dtype: str = "float32",
         device_cache="off",
         device_cache_budget_mb: int = 4096,
+        stack_steps: int = 1,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -112,6 +120,7 @@ class DeviceLoader:
         self.prefetch = max(1, prefetch)
         self.pre_process = pre_process
         self.include_labels = include_labels
+        self.stack_steps = max(1, int(stack_steps))
         if transfer_dtype not in ("float32", "uint8", "auto"):
             raise ValueError(f"transfer_dtype: {transfer_dtype!r}")
         self.transfer_dtype = transfer_dtype
@@ -131,17 +140,28 @@ class DeviceLoader:
 
     def __len__(self) -> int:
         n = len(self.dataset)
-        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        per_epoch = n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        return per_epoch // self.stack_steps
 
     def _index_batches(self):
         n = len(self.dataset)
         order = np.arange(n)
         if self.shuffle:
             self._rng.shuffle(order)
-        stop = (n // self.batch_size) * self.batch_size if self.drop_last else n
-        for start in range(0, stop, self.batch_size):
-            idx = order[start : start + self.batch_size]
-            yield idx if self.rows is None else idx[self.rows]
+        k, b = self.stack_steps, self.batch_size
+        if k > 1:
+            stop = (n // (k * b)) * k * b  # whole chunks of K batches only
+        else:
+            stop = (n // b) * b if self.drop_last else n
+        for start in range(0, stop, k * b):
+            idx = order[start : start + k * b]
+            if self.rows is not None:  # this rank's rows of each of the K steps
+                idx = idx.reshape(k, -1)[:, self.rows].reshape(-1) if k > 1 else idx[self.rows]
+            yield idx
+
+    def _stacked(self, x: torch.Tensor) -> torch.Tensor:
+        """[K*b, ...] -> [K, b, ...] when items stack K steps."""
+        return x.view(self.stack_steps, -1, *x.shape[1:]) if self.stack_steps > 1 else x
 
     # ----- the streamed paths (float32, uint8) -----
 
@@ -227,6 +247,7 @@ class DeviceLoader:
                     consumer = torch.cuda.current_stream(self.device)
                     consumer.wait_event(event)
                     x.record_stream(consumer)
+                x = self._stacked(x)
                 yield (x, labels) if self.include_labels else x
         finally:
             stop.set()
@@ -292,6 +313,7 @@ class DeviceLoader:
         if flags is not None:
             f = self._to_device(np.asarray(flags, np.uint8))
             x = torch.where(f.view(-1, 1, 1, 1) != 0, x.flip(3), x)
+        x = self._stacked(x)
         self.stats.batches += 1
         self.stats.host_s += time.perf_counter() - t0
         return (x, self._labels_for(idx)) if self.include_labels else x

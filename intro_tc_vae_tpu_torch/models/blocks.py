@@ -1,4 +1,5 @@
-"""Conv building blocks, NCHW: the 'conv' and 'res' archs of the JAX package.
+"""Conv building blocks, NCHW: the 'conv', 'res' and 'inception' archs of
+the JAX package.
 
 Counterpart of ``intro_tc_vae_tpu/models/blocks.py``. Parameters stay
 float32; ``Conv2d`` and ``Linear`` cast their input and parameters to the
@@ -14,9 +15,12 @@ custom initializer is needed.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from intro_tc_vae_tpu_torch import not_ported
 from intro_tc_vae_tpu_torch.ops.conv import supported
@@ -112,7 +116,10 @@ class GroupedBatchNorm(nn.Module):
     G EMA updates composed in group order — so one batch-G*B pass equals G
     sequential batch-B passes (JAX ``GroupedBatchNorm``, blocks.py:188).
     ``momentum`` is torch's convention (0.1 here == flax 0.9). The running
-    buffers are updated in place on every train-mode forward.
+    buffers are updated in place on every train-mode forward, except the
+    forward that recomputes a ``remat`` region in the backward
+    (``update_stats`` False there): they update once per forward the step
+    takes, as JAX's ``nn.remat`` threads ``batch_stats`` once.
 
     Data parallel: with ``data_group`` set (``models.set_data_group``) to
     a group of several ranks, each rank holds its rows of every group, and
@@ -136,6 +143,7 @@ class GroupedBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.update_stats = True
 
     def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
         c = x.shape[1]
@@ -157,19 +165,23 @@ class GroupedBatchNorm(nn.Module):
             var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
         else:
             mean, var = self._global_stats(xf, axes)
-        with torch.no_grad():
-            keep = 1.0 - self.momentum
-            rm, rv = self.running_mean, self.running_var
-            for g in range(groups):  # sequential per-pass EMA composition
-                rm = keep * rm + (1.0 - keep) * mean[g]
-                rv = keep * rv + (1.0 - keep) * var[g]
-            self.running_mean.copy_(rm)
-            self.running_var.copy_(rv)
+        if self.update_stats:
+            self._update_running(mean.detach(), var.detach(), groups)
         gshape = (groups, 1) + bshape
         y = (xg - mean.reshape(gshape)) * (
             torch.rsqrt(var.reshape(gshape) + self.eps) * self.weight.reshape(bshape)
         ) + self.bias.reshape(bshape)
         return y.reshape(x.shape).to(self.compute_dtype)
+
+    @torch.no_grad()
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor, groups: int) -> None:
+        keep = 1.0 - self.momentum
+        rm, rv = self.running_mean, self.running_var
+        for g in range(groups):  # sequential per-pass EMA composition
+            rm = keep * rm + (1.0 - keep) * mean[g]
+            rv = keep * rv + (1.0 - keep) * var[g]
+        self.running_mean.copy_(rm)
+        self.running_var.copy_(rv)
 
     def _global_stats(self, xf: torch.Tensor, axes: tuple):
         """[G, C] mean and var over the rows of every rank."""
@@ -180,6 +192,33 @@ class GroupedBatchNorm(nn.Module):
         total, sq, n = all_reduce_sum(sums, self.data_group).split([c, c, 1], dim=1)
         mean = total / n
         return mean, torch.clamp(sq / n - mean * mean, min=0.0)
+
+
+@contextlib.contextmanager
+def recomputing(module: nn.Module):
+    """The BatchNorms of ``module`` leave their running statistics as they
+    are until the block ends (``GroupedBatchNorm.update_stats``)."""
+    bns = [m for m in module.modules() if isinstance(m, GroupedBatchNorm)]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_stats = True
+
+
+def remat(module: nn.Module, fn, *args):
+    """``fn(*args)``, a region of ``module``, whose activations the
+    backward recomputes instead of keeping them (``torch.utils.checkpoint``,
+    non-reentrant; JAX ``nn.remat`` / ``jax.checkpoint``). The recompute
+    updates no BatchNorm statistics (``recomputing``). Nothing random runs
+    in a region (the steps draw their noise first), so no RNG state is
+    stashed. The conv kernels' autograd reads ``needs_input_grad`` in the
+    recompute as in the forward: the callers differentiate inside the same
+    ``frozen`` block as they ran the forward."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), recomputing(module)))
 
 
 class ConvolutionalBlock(nn.Module):
@@ -233,13 +272,58 @@ class ResidualBlock(nn.Module):
         return leaky_relu(self.bn2(self.conv2(y), groups) + identity)
 
 
-_BLOCKS = {"conv": ConvolutionalBlock, "res": ResidualBlock}
+class Conv2dBatchNorm(nn.Module):
+    """1x1 conv (no bias) -> BN(1e-4) -> LReLU (reference models.py:118-138;
+    JAX models/blocks.py:352)."""
+
+    def __init__(self, inc: int, outc: int, compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv = Conv2d(inc, outc, 1, compute_dtype=compute_dtype)
+        self.batch_norm = GroupedBatchNorm(outc, eps=1e-4, compute_dtype=compute_dtype)
+
+    def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
+        return leaky_relu(self.batch_norm(self.conv(x), groups))
+
+
+class InceptionResnetBlock(nn.Module):
+    """Two-branch 1x1 inception block with a residual add (reference
+    models.py:141-182; JAX models/blocks.py:367).
+
+    branch_0: 1x1 -> outc/2; branch_1: 1x1 -> midc -> 1x1 -> outc/2;
+    concat -> 1x1 ``conv`` (with bias) -> + identity (a 1x1 ``conv_expand``
+    when inc != outc) -> LReLU. Every conv is 1x1, so ``conv_impl`` and
+    ``tile_rows`` route nothing (accepted as the other blocks accept them).
+    """
+
+    def __init__(self, inc: int, outc: int, scale: float = 1.0,
+                 compute_dtype: torch.dtype = torch.float32,
+                 conv_impl: str = "xla", tile_rows: int = 0):
+        super().__init__()
+        if outc % 2:
+            raise ValueError(f"outc {outc} must be even")
+        dt = compute_dtype
+        midc = int(outc * scale)
+        self.conv_expand = Conv2d(inc, outc, 1, compute_dtype=dt) if inc != outc else None
+        self.branch_0 = Conv2dBatchNorm(inc, outc // 2, compute_dtype=dt)
+        self.branch_1 = nn.ModuleList([Conv2dBatchNorm(inc, midc, compute_dtype=dt),
+                                       Conv2dBatchNorm(midc, outc // 2, compute_dtype=dt)])
+        self.conv = Conv2d(outc, outc, 1, bias=True, compute_dtype=dt)
+
+    def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
+        identity = x if self.conv_expand is None else self.conv_expand(x)
+        x0 = self.branch_0(x, groups)
+        x1 = self.branch_1[1](self.branch_1[0](x, groups), groups)
+        y = self.conv(torch.cat([x0, x1], dim=1))
+        return leaky_relu(y + identity)
+
+
+_BLOCKS = {"conv": ConvolutionalBlock, "res": ResidualBlock,
+           "inception": InceptionResnetBlock}
 
 
 def get_conv_class(arch: str):
     """Block class for an architecture string (reference models.py:185-193)."""
-    if arch in _BLOCKS:
+    try:
         return _BLOCKS[arch]
-    if arch == "inception":
-        raise not_ported(f"arch='{arch}'", "Queue 1 item 6")
-    raise ValueError(f"unknown arch '{arch}' (expected one of ['conv', 'res', 'inception'])")
+    except KeyError:
+        raise ValueError(f"unknown arch '{arch}' (expected one of {list(_BLOCKS)})")

@@ -20,6 +20,11 @@ reference; the JAX package flattens NHWC, and the weight bridge
 
 Train/eval follow ``module.train()``/``module.eval()``. mu, logvar and
 the pre-sigmoid output are cast to float32 whatever the conv dtype.
+
+``remat=True`` (config ``remat: true | "block"``; JAX
+``models/vae.py:104-118``, ``:161-167``) recomputes each encoder and
+decoder block in the backward (``blocks.remat``); the stem, the fc layers
+and the predict conv stay outside, as in JAX.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from intro_tc_vae_tpu_torch.models.blocks import (
     avg_pool2,
     get_conv_class,
     leaky_relu,
+    remat,
     upsample_nearest2,
 )
 
@@ -60,17 +66,26 @@ def resolve_conv_impl(conv_impl: str) -> str:
     return conv_impl
 
 
+def run_block(block: nn.Module, y: torch.Tensor, groups: int, checkpointed: bool):
+    """One block's forward, recomputed in the backward when ``checkpointed``
+    and a graph is being built."""
+    if checkpointed and torch.is_grad_enabled():
+        return remat(block, block, y, groups)
+    return block(y, groups)
+
+
 class Encoder(nn.Module):
     """Conv encoder producing (mu, logvar). Reference models.py:196-244."""
 
     def __init__(self, arch: str = "res", cdim: int = 3, zdim: int = 512,
                  channels: Sequence[int] = (64, 128, 256, 512, 512, 512),
                  image_size: int = 256, compute_dtype: torch.dtype = torch.float32,
-                 conv_impl: str = "xla", tile_rows: int = 0):
+                 conv_impl: str = "xla", tile_rows: int = 0, remat: bool = False):
         super().__init__()
         block = get_conv_class(arch)
         self.cdim, self.zdim, self.image_size = cdim, zdim, image_size
         self.channels = tuple(channels)
+        self.remat = remat
         dt = compute_dtype
         cc = channels[0]
         self.main = nn.ModuleDict()
@@ -96,8 +111,8 @@ class Encoder(nn.Module):
     def forward(self, x: torch.Tensor, groups: int = 1):
         y = avg_pool2(leaky_relu(self.main["1"](self.main["0"](x), groups)))
         for name in self.stages[:-1]:
-            y = avg_pool2(self.main[name](y, groups))
-        y = self.main[self.stages[-1]](y, groups)
+            y = avg_pool2(run_block(self.main[name], y, groups, self.remat))
+        y = run_block(self.main[self.stages[-1]], y, groups, self.remat)
         y = self.fc(y.flatten(1))
         # loss math runs in fp32 regardless of the conv compute dtype
         mu, logvar = y.float().chunk(2, dim=1)
@@ -110,11 +125,12 @@ class Decoder(nn.Module):
     def __init__(self, arch: str = "res", cdim: int = 3, zdim: int = 512,
                  channels: Sequence[int] = (64, 128, 256, 512, 512, 512),
                  image_size: int = 256, compute_dtype: torch.dtype = torch.float32,
-                 conv_impl: str = "xla", tile_rows: int = 0):
+                 conv_impl: str = "xla", tile_rows: int = 0, remat: bool = False):
         super().__init__()
         block = get_conv_class(arch)
         self.cdim, self.zdim, self.image_size = cdim, zdim, image_size
         self.channels = tuple(channels)
+        self.remat = remat
         dt = compute_dtype
         cc = channels[-1]
         self.conv_input_size = conv_output_size(image_size, channels)
@@ -140,8 +156,8 @@ class Decoder(nn.Module):
         y = self.fc(z.reshape(z.shape[0], -1))  # LReLU limits the pre-conv range
         y = y.reshape(z.shape[0], c, h, w)
         for name in self.stages[:-1]:
-            y = upsample_nearest2(self.main[name](y, groups))
-        y = self.main[self.stages[-1]](y, groups)
+            y = upsample_nearest2(run_block(self.main[name], y, groups, self.remat))
+        y = run_block(self.main[self.stages[-1]], y, groups, self.remat)
         y = self.main["predict"](y)
         # sigmoid + reconstruction losses in fp32
         return torch.sigmoid(y.float())

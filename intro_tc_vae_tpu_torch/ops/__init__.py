@@ -6,6 +6,7 @@ from intro_tc_vae_tpu_torch.ops.density import (
     log_importance_weight_block,
     log_importance_weight_matrix,
     minibatch_stratified_sampling,
+    minibatch_weighted_sampling,
 )
 from intro_tc_vae_tpu_torch.ops.losses import (
     entropy,
@@ -15,6 +16,7 @@ from intro_tc_vae_tpu_torch.ops.losses import (
     reparameterize,
 )
 from intro_tc_vae_tpu_torch.ops.tc import (
+    tc_decomposition,
     tc_logsumexp_blockwise,
     total_correlation,
     total_correlation_sharded,
@@ -32,11 +34,13 @@ __all__ = [
     "log_importance_weight_block",
     "log_importance_weight_matrix",
     "minibatch_stratified_sampling",
+    "minibatch_weighted_sampling",
     "entropy",
     "kl_divergence",
     "kl_no_reduce",
     "reconstruction_loss",
     "reparameterize",
+    "tc_decomposition",
     "tc_logsumexp_blockwise",
     "total_correlation",
     "total_correlation_sharded",

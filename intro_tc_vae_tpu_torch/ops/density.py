@@ -1,5 +1,5 @@
-"""Gaussian log densities and minibatch stratified sampling for the
-β-TC-VAE total-correlation estimator.
+"""Gaussian log densities and minibatch stratified and weighted sampling
+for the β-TC-VAE total-correlation estimator.
 
 Counterpart of ``intro_tc_vae_tpu/ops/density.py``, with its two
 deliberate quirks of the reference: the variance floor 1e-4 (of
@@ -106,4 +106,14 @@ def minibatch_stratified_sampling(log_qz_prob: torch.Tensor, batch_size: int,
         log_iw[:, :, None] + log_qz_prob, dim=1
     ).sum(dim=1)
     log_qz = torch.logsumexp(log_iw + log_qz_prob.sum(dim=2), dim=1)
+    return logqz_prodmarginals, log_qz
+
+
+def minibatch_weighted_sampling(log_qz_prob: torch.Tensor, batch_size: int,
+                                dataset_size: int):
+    """Minibatch-weighted (log prod_l q(z_l), log q(z)) from the same
+    [B, B, z] tensor (reference ops.py:92-101; JAX ops/density.py:89)."""
+    log_bn = math.log(batch_size * dataset_size)
+    logqz_prodmarginals = (torch.logsumexp(log_qz_prob, dim=1) - log_bn).sum(dim=1)
+    log_qz = torch.logsumexp(log_qz_prob.sum(dim=2), dim=1) - log_bn
     return logqz_prodmarginals, log_qz

@@ -13,16 +13,25 @@ log q(z(x_j)_l | x_i) and two logsumexp reductions over i:
   which never write the [B, B, z] tensor; the name is the JAX package's
   config value.
 
+``sampling='weighted'`` (the minibatch-weighted estimate) and
+``tc_decomposition`` (the full ELBO decomposition of ``kl_kind:
+"tc_full"``) are the materialized form only, as in the JAX package.
+
 Under a data group of several ranks (``mesh``), ``total_correlation``
 computes the global-batch TC with every impl
 (``total_correlation_sharded``: one all-gather of mu, then each rank's
 rows against the whole bank). The JAX package does that for the scaling
 impls only and leaves 'xla' to GSPMD, which also computes the global
-batch; the port has no GSPMD, so it routes all three.
+batch; the port has no GSPMD, so it routes all three. The weighted
+estimate and the decomposition need every sample's z and variance too,
+so they gather z, mu and logvar and compute the global batch's
+materialized form on every rank, which then keeps its rows
+(``rows_of_global_batch``), as GSPMD partitions the JAX form.
 
 Indexing quirk kept from the as-executed reference: entry [j, i, l] is
 log N(z_j | mu_i, var_j) — the *sample's* variance, not the
-distribution's.
+distribution's. ``tc_decomposition`` indexes the variance by i, as the
+reference's full decomposition does.
 """
 
 from __future__ import annotations
@@ -33,10 +42,12 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from intro_tc_vae_tpu_torch import not_ported
 from intro_tc_vae_tpu_torch.ops.density import (
+    gaussian_log_density,
     gaussian_log_density_nll,
     log_importance_weight_block,
+    minibatch_stratified_sampling,
+    minibatch_weighted_sampling,
 )
 from intro_tc_vae_tpu_torch.ops.tc_cuda import (
     tc_logsumexp_cuda,
@@ -47,6 +58,7 @@ from intro_tc_vae_tpu_torch.ops.tc_cuda import (
 from intro_tc_vae_tpu_torch.parallel.collectives import all_gather_rows, all_reduce_sum
 
 IMPLS = ("xla", "blockwise", "pallas")
+SAMPLINGS = ("stratified", "weighted")
 
 
 def total_correlation(
@@ -59,24 +71,75 @@ def total_correlation(
     sampling: str = "stratified",
     mesh=None,
 ) -> torch.Tensor:
-    """Minibatch (stratified) estimate of TC(z): E_j[log q(z_j) - log prod_l q(z_jl)].
+    """Minibatch estimate of TC(z): E_j[log q(z_j) - log prod_l q(z_jl)],
+    stratified (what the reference executes) or ``sampling='weighted'``
+    (the materialized form whatever ``impl``, JAX ``ops/tc.py:86-90``).
 
     Returns a scalar for reduce='mean', else the [B] vector. With a
     ``mesh`` (``parallel.DataGroup``) of more than one rank, z/mu/logvar
     are this rank's rows and the estimate is the global batch's.
     """
-    if sampling != "stratified":
-        raise not_ported(f"tc_sampling='{sampling}'", "Queue 1 item 6")
+    if sampling not in SAMPLINGS:
+        raise ValueError(f"tc_sampling={sampling!r}: expected 'stratified' or 'weighted'")
     if impl not in IMPLS:
         raise ValueError(f"tc_impl={impl!r}: expected 'xla', 'blockwise' or 'pallas'")
-    if mesh is not None and mesh.size > 1:
+    sharded = mesh is not None and mesh.size > 1
+    if sampling == "weighted":
+        def weighted(z, mu, logvar):
+            log_qz_prob = gaussian_log_density_nll(z[:, None, :], mu[None, :, :],
+                                                   logvar[:, None, :])
+            pm, qz = minibatch_weighted_sampling(log_qz_prob, z.shape[0], dataset_size)
+            return (qz - pm,)
+
+        tc, = (rows_of_global_batch(weighted, mesh, z, mu, logvar) if sharded
+               else weighted(z, mu, logvar))
+    elif sharded:
         return total_correlation_sharded(z, mu, logvar, dataset_size, mesh,
                                          reduce=reduce, impl=impl)
-    log_qz_product, log_qz = _logsumexps(impl, z, mu, logvar, dataset_size)
-    tc = log_qz - log_qz_product
+    else:
+        log_qz_product, log_qz = _logsumexps(impl, z, mu, logvar, dataset_size)
+        tc = log_qz - log_qz_product
     if reduce == "mean":
         return tc.mean()
     return tc
+
+
+def tc_decomposition(z: torch.Tensor, mu: torch.Tensor, logvar: torch.Tensor,
+                     dataset_size: int, mesh=None):
+    """The full ELBO decomposition, per sample (JAX ``ops/tc.py:283-316``;
+    reference solvers/tc.py:91-144):
+
+        mi = log q(z|x) - log q(z)
+        tc = log q(z) - log prod_l q(z_l)
+        kl = log prod_l q(z_l) - log p(z)
+
+    with the plain (non-floored) Gaussian density, the variance indexed by
+    i, and the stratified weights. Returns the [B] vectors (mi, tc, kl);
+    with a ``mesh`` of several ranks, this rank's rows of the global
+    batch's decomposition."""
+    if mesh is not None and mesh.size > 1:
+        return rows_of_global_batch(
+            lambda *t: tc_decomposition(*t, dataset_size), mesh, z, mu, logvar)
+    logqz_condx = gaussian_log_density(z, mu, logvar).sum(dim=1)
+    zeros = torch.zeros_like(z)
+    logpz = gaussian_log_density(z, zeros, zeros).sum(dim=1)
+    log_qz_prob = gaussian_log_density(z[:, None, :], mu[None, :, :], logvar[None, :, :])
+    logqz_prodmarginals, log_qz = minibatch_stratified_sampling(
+        log_qz_prob, z.shape[0], dataset_size)
+    return (logqz_condx - log_qz, log_qz - logqz_prodmarginals,
+            logqz_prodmarginals - logpz)
+
+
+def rows_of_global_batch(fn, mesh, z, mu, logvar) -> tuple:
+    """``fn(z, mu, logvar)`` (a tuple of [GB] vectors) on the global batch,
+    every rank's rows gathered in one all-gather, and this rank's rows of
+    each result. Each rank's backward then sends every rank the gradient
+    of its own rows' results, and the gather's adjoint sums them."""
+    b = z.shape[0]
+    glob = all_gather_rows(torch.stack([z, mu, logvar], dim=1), mesh)
+    out = fn(*glob.unbind(dim=1))
+    rows = slice(mesh.rank * b, (mesh.rank + 1) * b)
+    return tuple(o[rows] for o in out)
 
 
 def _logsumexps(impl: str, z, mu, logvar, dataset_size: int,

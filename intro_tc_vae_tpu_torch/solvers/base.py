@@ -45,7 +45,7 @@ from typing import Any, Callable, Iterable, Optional, Sequence
 import numpy as np
 import torch
 
-from intro_tc_vae_tpu_torch import not_ported, ops
+from intro_tc_vae_tpu_torch import ops
 from intro_tc_vae_tpu_torch.models.vae import SoftIntroVAE, set_data_group
 from intro_tc_vae_tpu_torch.parallel.collectives import all_reduce_mean_
 from intro_tc_vae_tpu_torch.solvers import optim
@@ -163,19 +163,38 @@ def kl_term(h: SolverHyper, z, mu, logvar, reduce: str = "mean", beta=None):
 
     'gaussian' (vae/intro): beta * KL
     'tc' (tc/intro_tc):     (beta-1)*TC + KL
+    'tc_full':              MI + beta*TC + dimension-wise KL, the full
+        decomposition (``ops.tc_decomposition``; JAX solvers/base.py:106-111)
 
-    Returns (weighted loss, unscaled KL for the 'kl_loss_unscaled' tag).
+    Returns (weighted loss, unscaled value for the 'kl_loss_unscaled' tag).
     """
     if beta is None:
         beta = h.beta_kl
+    if h.kl_kind == "tc_full":
+        parts = ops.tc_decomposition(z, mu, logvar, h.dataset_size, mesh=h.mesh)
+        if reduce == "mean":
+            parts = [p.mean() for p in parts]
+        elif reduce == "sum":
+            parts = [p.sum() for p in parts]
+        mi, tc, kl = parts
+        return mi + beta * tc + kl, mi + tc + kl
     if h.kl_kind not in ("gaussian", "tc"):
-        raise not_ported(f"kl_kind='{h.kl_kind}'", "Queue 1 item 6")
+        raise ValueError(f"kl_kind={h.kl_kind!r}: expected 'gaussian', 'tc' or 'tc_full'")
     kl = ops.kl_divergence(logvar, mu, reduce=reduce)
     if h.kl_kind == "gaussian":
         return beta * kl, kl
     tc = ops.total_correlation(z, mu, logvar, h.dataset_size, reduce=reduce,
                                impl=h.tc_impl, sampling=h.tc_sampling, mesh=h.mesh)
     return (beta - 1.0) * tc + kl, kl
+
+
+def tc_decomp_metrics(h: SolverHyper, z, mu, logvar) -> dict:
+    """The means of the decomposition's three terms for the
+    ``tc_decomp/{mi,tc,kl}`` group (JAX solvers/base.py:123-138), of the
+    real batch's KL site; values only, no gradient."""
+    with torch.no_grad():
+        mi, tc, kl = ops.tc_decomposition(z, mu, logvar, h.dataset_size, mesh=h.mesh)
+    return {"tc_decomp/mi": mi.mean(), "tc_decomp/tc": tc.mean(), "tc_decomp/kl": kl.mean()}
 
 
 def rec_term(h: SolverHyper, x, recon_x, reduction: str = "sum", beta=None):
@@ -296,18 +315,19 @@ def unit_f32_to_u8(img: torch.Tensor) -> torch.Tensor:
 
 
 class MetricRing:
-    """Each step's metrics, queued on the device and read on the host
+    """Each call's metrics, queued on the device and read on the host
     behind it (JAX solvers/base.py:372-373, :446-481).
 
-    ``push`` stacks a step's metrics into one float32 device tensor, starts
+    ``push`` stacks a call's metrics into one float32 device tensor, starts
     its copy into a pinned host buffer without blocking, and records a CUDA
     event after it. ``drain(keep_tail)`` reads every entry but the newest
     ``keep_tail``, oldest first, waiting on each entry's event: the train
     loop drains with ``keep_tail=2`` once ``RING_DEPTH + 2`` entries are
-    queued, so it reads only steps two or more behind the one just queued,
+    queued, so it reads only calls two or more behind the one just queued,
     which have finished by then in the steady state, and never waits on
     the newest. On the CPU the copy is the tensor itself and there is no
-    event."""
+    event. A call of K steps (``scan_steps``) is one entry whose metrics
+    are [K] tensors; ``drain`` fans it out to K steps."""
 
     def __init__(self):
         self._entries: list = []
@@ -316,7 +336,10 @@ class MetricRing:
         return len(self._entries)
 
     def push(self, metrics: dict, step: int) -> None:
-        stacked = torch.stack([v.detach().float() for v in metrics.values()])
+        """``metrics``: 0-d tensors of one step, or [K] tensors of K steps,
+        the first of which is ``step``."""
+        stacked = torch.stack([v.detach().float().reshape(-1) for v in metrics.values()],
+                              dim=1)  # [K, n]
         event = None
         if stacked.is_cuda:
             host = torch.empty(stacked.shape, dtype=stacked.dtype, pin_memory=True)
@@ -328,7 +351,8 @@ class MetricRing:
         self._entries.append((tuple(metrics), host, event, step))
 
     def drain(self, keep_tail: int = 0) -> list:
-        """[(host metrics dict, step), ...] of the drained entries, in step order."""
+        """[(host metrics dict, step), ...] of the drained entries' steps,
+        in step order."""
         n = len(self._entries) - keep_tail
         if n <= 0:
             return []
@@ -337,7 +361,8 @@ class MetricRing:
         for names, host, event, step in drained:
             if event is not None:
                 event.synchronize()
-            out.append((dict(zip(names, host.tolist())), step))
+            out.extend((dict(zip(names, row)), step + j)
+                       for j, row in enumerate(host.tolist()))
         return out
 
 
@@ -351,7 +376,12 @@ class VAESolver:
     the single-phase ELBO step (solvers/vae.py); the intro solvers
     override it. ``mesh`` (``parallel.make_mesh``) makes the step
     data-parallel: every rank passes its rows of the global batch, and
-    the encoder's and decoder's BatchNorms get the data group."""
+    the encoder's and decoder's BatchNorms get the data group.
+    ``scan_steps`` K > 1 takes [K, B, ...] batches and makes K steps a
+    call (JAX ``_scan_steps``; a loop here, there is no program to fuse).
+    ``remat_passes`` recomputes every encode/decode pass of the intro step
+    in its backward (config ``remat: "pass"``); the single-phase step
+    ignores it."""
 
     kl_kind = "gaussian"
     name = "vae"
@@ -378,6 +408,8 @@ class VAESolver:
         mesh=None,
         writer=None,
         test_iter: int = 1000,
+        scan_steps: int = 1,
+        remat_passes: bool = False,
     ):
         self.dataset = dataset
         self.encoder = encoder
@@ -386,6 +418,8 @@ class VAESolver:
         self.optimizer_e = optimizer_e
         self.optimizer_d = optimizer_d
         self.fuse_passes = fuse_passes
+        self.scan_steps = max(1, int(scan_steps))
+        self.remat_passes = remat_passes
         group = mesh if mesh is not None and mesh.size > 1 else None
         set_data_group(encoder, group)
         set_data_group(decoder, group)
@@ -435,23 +469,31 @@ class VAESolver:
             generator=torch.Generator(device=device).manual_seed(seed),
         )
 
-    def train_step(self, state: TrainState, batch: torch.Tensor,
-                   noise: Optional[dict] = None):
-        """One optimization step, in place. Returns (state, metrics), the
-        metrics as 0-d device tensors (their mean over the ranks under a
-        data group), and queues them on the metric ring. ``batch`` is this
-        rank's rows, float32 in [0, 1] or uint8 (normalized here on the
-        device, ``normalize_input``); ``noise``, when given, holds the
-        global batch's draws. With a writer, the image grid and the
-        disentanglement scores run on the new state when the step's global
-        iteration (JAX's ``cur_iter``: the steps before it, ``state.step``
-        on entry, resumed runs included) is a multiple of ``test_iter``."""
+    def train_step(self, state: TrainState, batch: torch.Tensor, noise=None):
+        """One optimization step, or ``scan_steps`` K of them, in place.
+        Returns (state, metrics), the metrics as 0-d device tensors, [K]
+        ones for K steps (their mean over the ranks under a data group),
+        and queues them on the metric ring. ``batch`` is this rank's rows,
+        [B, ...] or [K, B, ...], float32 in [0, 1] or uint8 (normalized
+        here on the device, ``normalize_input``); ``noise``, when given,
+        holds the global batch's draws, a list of K such dicts for K
+        steps. With a writer, the image grid and the disentanglement scores
+        run on the new state and the last batch when the call's first
+        global iteration (JAX's ``cur_iter``: the steps before it,
+        ``state.step`` on entry, resumed runs included) is a multiple of
+        ``test_iter`` (JAX solvers/base.py:425-444)."""
         cur_iter = state.step
         batch = normalize_input(batch)
-        metrics = average_metrics(self._step_fn(state, batch, noise), self.hyper.mesh)
-        self.metric_ring.push(metrics, state.step)
+        k = self.scan_steps
+        batches = batch.unbind(0) if k > 1 else (batch,)
+        noises = noise if k > 1 and noise is not None else [noise] * k
+        steps = [self._step_fn(state, b, n) for b, n in zip(batches, noises)]
+        metrics = steps[0] if k == 1 else {
+            name: torch.stack([m[name] for m in steps]) for name in steps[0]}
+        metrics = average_metrics(metrics, self.hyper.mesh)
+        self.metric_ring.push(metrics, cur_iter + 1)
         if self.writer is not None and cur_iter % self.test_iter == 0:
-            self._write_heavy_metrics(state, batch, cur_iter)
+            self._write_heavy_metrics(state, batches[-1], cur_iter)
         return state, metrics
 
     def drain_metrics(self, keep_tail: int = 0) -> list:
@@ -493,6 +535,10 @@ class VAESolver:
                     "diff_kl", "fc_grad_norm"):
             if tag in metrics:
                 self.writer.add_scalar(tag, float(metrics[tag]), global_step=cur_iter)
+        if "tc_decomp/mi" in metrics:  # kl_kind 'tc_full'
+            self.writer.add_scalars(
+                "tc_decomp", {k: float(metrics[f"tc_decomp/{k}"]) for k in ("mi", "tc", "kl")},
+                global_step=cur_iter)
         if self.hyper.clip and "total_norm" in metrics:
             self.writer.add_scalar("total_norm", float(metrics["total_norm"]),
                                    global_step=cur_iter)

@@ -23,6 +23,12 @@ the JAX step's order:
 one network into one call of twice the batch with per-group BatchNorm
 statistics (GroupedBatchNorm), which gives every sample the statistics
 it would see in the sequential order above.
+
+remat_passes=True (config ``remat: "pass"``; JAX solvers/intro.py:62-78)
+recomputes every encode/decode pass in its phase's backward
+(``models.blocks.remat``): only the passes' inputs and outputs are kept.
+The recompute updates no BatchNorm statistic, draws no noise, and runs
+inside the phase's ``frozen`` block like the forward.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import Optional
 import torch
 
 from intro_tc_vae_tpu_torch import ops
+from intro_tc_vae_tpu_torch.models.blocks import remat
 from intro_tc_vae_tpu_torch.solvers.base import (
     SolverHyper,
     TrainState,
@@ -46,10 +53,12 @@ from intro_tc_vae_tpu_torch.solvers.base import (
     kl_term,
     rec_term,
     step_noise,
+    tc_decomp_metrics,
 )
 
 
-def build_intro_step(h: SolverHyper, encoder, decoder, paired: bool = True):
+def build_intro_step(h: SolverHyper, encoder, decoder, paired: bool = True,
+                     remat_passes: bool = False):
     """Build the two-phase step(state, batch, noise=None) -> metrics.
 
     ``noise`` maps each of ``NOISE_KEYS`` to a [B, z] N(0, I) draw of the
@@ -58,6 +67,13 @@ def build_intro_step(h: SolverHyper, encoder, decoder, paired: bool = True):
     this rank's rows, the step takes its rows of the noise, and each
     phase's gradients are averaged over the ranks before the clip.
     """
+    enc_p, dec_p = encode, decode
+    if remat_passes:
+        def enc_p(encoder, x, groups=1):
+            return remat(encoder, encoder, x, groups)
+
+        def dec_p(decoder, z, groups=1):
+            return remat(decoder, decoder, z, groups)
     enc_params = list(encoder.parameters())
     dec_params = list(decoder.parameters())
     fc_ids = {id(p) for p in encoder.fc.parameters()}
@@ -72,38 +88,38 @@ def build_intro_step(h: SolverHyper, encoder, decoder, paired: bool = True):
         # only the encoder is differentiated: no decoder weight gradient
         with frozen(decoder):
             if paired:
-                mu, logvar = encode(encoder, batch)
+                mu, logvar = enc_p(encoder, batch)
                 z = ops.reparameterize(mu, logvar, noise["real"])
                 # decoder pass-group order (noise, z) == dec(noise) ... dec(z)
-                fake, rec = decode(decoder, torch.cat([prior, z]), groups=2).chunk(2)
+                fake, rec = dec_p(decoder, torch.cat([prior, z]), groups=2).chunk(2)
 
                 loss_rec = rec_term(h, batch, rec, reduction="mean")
                 lossE_real_kl, kl_unscaled = kl_term(h, z, mu, logvar)
 
-                mus, logvars = encode(encoder, torch.cat([rec, fake]).detach(), groups=2)
+                mus, logvars = enc_p(encoder, torch.cat([rec, fake]).detach(), groups=2)
                 rec_mu, fake_mu = mus.chunk(2)
                 rec_logvar, fake_logvar = logvars.chunk(2)
                 z_rec = ops.reparameterize(rec_mu, rec_logvar, noise["rec_e"])
                 z_fake = ops.reparameterize(fake_mu, fake_logvar, noise["fake_e"])
-                rec_rec, rec_fake = decode(decoder, torch.cat([z_rec, z_fake]),
+                rec_rec, rec_fake = dec_p(decoder, torch.cat([z_rec, z_fake]),
                                            groups=2).chunk(2)
             else:
-                fake = decode(decoder, prior)
+                fake = dec_p(decoder, prior)
 
-                mu, logvar = encode(encoder, batch)
+                mu, logvar = enc_p(encoder, batch)
                 z = ops.reparameterize(mu, logvar, noise["real"])
-                rec = decode(decoder, z)
+                rec = dec_p(decoder, z)
 
                 loss_rec = rec_term(h, batch, rec, reduction="mean")
                 lossE_real_kl, kl_unscaled = kl_term(h, z, mu, logvar)
 
-                rec_mu, rec_logvar = encode(encoder, rec.detach())
+                rec_mu, rec_logvar = enc_p(encoder, rec.detach())
                 z_rec = ops.reparameterize(rec_mu, rec_logvar, noise["rec_e"])
-                rec_rec = decode(decoder, z_rec)
+                rec_rec = dec_p(decoder, z_rec)
 
-                fake_mu, fake_logvar = encode(encoder, fake.detach())
+                fake_mu, fake_logvar = enc_p(encoder, fake.detach())
                 z_fake = ops.reparameterize(fake_mu, fake_logvar, noise["fake_e"])
-                rec_fake = decode(decoder, z_fake)
+                rec_fake = dec_p(decoder, z_fake)
 
             kl_rec, _ = kl_term(h, z_rec, rec_mu, rec_logvar, reduce="none", beta=h.beta_neg)
             kl_fake, _ = kl_term(h, z_fake, fake_mu, fake_logvar, reduce="none",
@@ -116,6 +132,8 @@ def build_intro_step(h: SolverHyper, encoder, decoder, paired: bool = True):
             lossE = (h.scale * (loss_rec + lossE_real_kl)
                      + 0.25 * (expelbo_rec + expelbo_fake))
             grads_e = average_grads(torch.autograd.grad(lossE, enc_params), h.mesh)
+        # the real batch's KL site (JAX solvers/intro.py:154-155)
+        decomp = tc_decomp_metrics(h, z, mu, logvar) if h.kl_kind == "tc_full" else {}
         fc_grad_norm = global_norm([g for g, f in zip(grads_e, is_fc) if f])
         total_norm_e = None
         if h.clip:
@@ -127,29 +145,29 @@ def build_intro_step(h: SolverHyper, encoder, decoder, paired: bool = True):
         with frozen(encoder):
             z_detached = z.detach()
             if paired:
-                fake, rec = decode(decoder, torch.cat([prior, z_detached]), groups=2).chunk(2)
+                fake, rec = dec_p(decoder, torch.cat([prior, z_detached]), groups=2).chunk(2)
                 loss_rec_d = rec_term(h, batch, rec, reduction="mean")
 
                 # encoder pass-group order (rec, fake) == enc(rec) ... enc(fake)
-                mus, logvars = encode(encoder, torch.cat([rec, fake]), groups=2)
+                mus, logvars = enc_p(encoder, torch.cat([rec, fake]), groups=2)
                 rec_mu, fake_mu = mus.chunk(2)
                 rec_logvar, fake_logvar = logvars.chunk(2)
                 z_rec = ops.reparameterize(rec_mu, rec_logvar, noise["rec_d"])
                 z_fake = ops.reparameterize(fake_mu, fake_logvar, noise["fake_d"])
-                rec_rec, rec_fake = decode(decoder, torch.cat([z_rec, z_fake]).detach(),
+                rec_rec, rec_fake = dec_p(decoder, torch.cat([z_rec, z_fake]).detach(),
                                            groups=2).chunk(2)
             else:
-                fake = decode(decoder, prior)
-                rec = decode(decoder, z_detached)
+                fake = dec_p(decoder, prior)
+                rec = dec_p(decoder, z_detached)
                 loss_rec_d = rec_term(h, batch, rec, reduction="mean")
 
-                rec_mu, rec_logvar = encode(encoder, rec)
+                rec_mu, rec_logvar = enc_p(encoder, rec)
                 z_rec = ops.reparameterize(rec_mu, rec_logvar, noise["rec_d"])
-                fake_mu, fake_logvar = encode(encoder, fake)
+                fake_mu, fake_logvar = enc_p(encoder, fake)
                 z_fake = ops.reparameterize(fake_mu, fake_logvar, noise["fake_d"])
 
-                rec_rec = decode(decoder, z_rec.detach())
-                rec_fake = decode(decoder, z_fake.detach())
+                rec_rec = dec_p(decoder, z_rec.detach())
+                rec_fake = dec_p(decoder, z_fake.detach())
 
             beta_rr = h.gamma_r * h.beta_rec
             loss_rec_rec = rec_term(h, rec.detach(), rec_rec, reduction="mean", beta=beta_rr)
@@ -183,6 +201,7 @@ def build_intro_step(h: SolverHyper, encoder, decoder, paired: bool = True):
             diff_kl=-lossE_real_kl + lossD_fake_kl,
             fc_grad_norm=fc_grad_norm,
         )
+        metrics.update(decomp)
         if h.clip:
             metrics["total_norm_E"] = total_norm_e
             metrics["total_norm_D"] = total_norm_d
@@ -199,4 +218,4 @@ class IntroSolver(VAESolver):
 
     def build_step(self):
         return build_intro_step(self.hyper, self.encoder, self.decoder,
-                                paired=self.fuse_passes)
+                                paired=self.fuse_passes, remat_passes=self.remat_passes)

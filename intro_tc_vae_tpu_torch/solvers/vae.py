@@ -28,6 +28,7 @@ from intro_tc_vae_tpu_torch.solvers.base import (
     kl_term,
     rec_term,
     step_noise,
+    tc_decomp_metrics,
 )
 
 VAE_NOISE_KEYS = ("real",)
@@ -64,6 +65,8 @@ def build_vae_step(h: SolverHyper, encoder, decoder):
             r_loss_unscaled=loss_rec / max(h.beta_rec, 1e-12),
             fc_grad_norm=fc_grad_norm,
         )
+        if h.kl_kind == "tc_full":
+            metrics.update(tc_decomp_metrics(h, z, mu, logvar))
         if h.clip:
             grads, total_norm = clip_by_global_norm(grads, h.clip)
             metrics["total_norm"] = total_norm

@@ -48,8 +48,20 @@ written, each epoch its img/s (``perf/images_per_sec``), and at the end
 the hparams table with the last epoch's mean losses. A resumed run
 continues the iteration count.
 
-Options this port does not carry yet raise ``NotImplementedError``
-naming their ROADMAP item (``check_ported``).
+Solver options (JAX ``train.py:70-77``, ``:139-214``): ``scan_steps`` K
+makes each loader item K global batches, [K, B, ...], and each
+``train_step`` call K steps; the iteration count goes on by K a call, an
+epoch's img/s counts K·B images a call, and the final sample grid shows
+the last of the K batches. ``remat: true | "block"`` recomputes each
+encoder and decoder block in the backward, ``"pass"`` every encode and
+decode pass of the intro step; with the single-phase ``vae`` and ``tc``
+solvers, which have no passes, ``"pass"`` falls back to ``"block"`` with
+JAX's message.
+
+Options this port does not carry yet, ``model_parallel > 1`` (ROADMAP
+Queue 1 item 8) and ``pack_predict > 1`` / ``tile_rows > 0`` (item 9),
+raise ``NotImplementedError`` naming their item (``check_ported``; the
+models raise for ``tile_rows``).
 """
 
 from __future__ import annotations
@@ -99,17 +111,27 @@ PROFILE_STEPS = 50  # profile: true stops after the step at this iteration
 
 
 def check_ported(config: Config) -> None:
-    """Raise for every option whose behaviour this port does not carry."""
+    """Raise for every option whose behaviour this port does not carry:
+    tensor parallelism (Queue 1 item 8) and the packed predict conv (item
+    9); the models raise for ``tile_rows > 0`` (item 9)."""
     unported = [
         (config.model_parallel > 1, "model_parallel > 1", "Queue 1 item 8"),
-        (config.scan_steps > 1, "scan_steps > 1", "Queue 1 item 6"),
-        (config.remat, f"remat: {config.remat!r}", "Queue 1 item 6"),
         (config.pack_predict > 1, "pack_predict > 1", "Queue 1 item 9"),
-        (config.tc_sampling == "weighted", "tc_sampling: 'weighted'", "Queue 1 item 6"),
     ]
     for bad, what, item in unported:
         if bad:
             raise not_ported(what, item)
+
+
+def resolve_remat(config: Config, say: Callable = print) -> Config:
+    """``remat: "pass"`` has no passes to recompute in the single-phase
+    ``vae`` and ``tc`` steps: per-block recompute instead, said as JAX says
+    it (JAX train.py:70-77)."""
+    if config.remat == "pass" and config.solver in ("vae", "tc"):
+        say(f"remat='pass' has no pass structure in the '{config.solver}' "
+            "solver; falling back to per-block rematerialization")
+        return dataclasses.replace(config, remat="block")
+    return config
 
 
 def data_axis_size(config: Config, world: int) -> int:
@@ -191,6 +213,7 @@ def setup(config: Config, device: Optional[torch.device] = None) -> Run:
     device = rank_device() if device is None else torch.device(device)
     mesh = make_mesh(n_data, device=device)
     say = print if mesh.rank == 0 else _quiet
+    config = resolve_remat(config, say)
 
     # ----- seeding (reference train.py:38-44) -----
     seed = config.seed if config.seed != -1 else int(time.time()) % (2**31)
@@ -214,6 +237,7 @@ def setup(config: Config, device: Optional[torch.device] = None) -> Run:
         compute_dtype=torch.bfloat16 if config.precision == "bf16" else torch.float32,
         conv_impl=resolve_conv_impl(config.conv_impl),
         tile_rows=max(0, config.tile_rows),
+        remat=config.remat in (True, "block"),
     )
     # ----- writer (reference train.py:94-103): rank 0 only -----
     writer = (make_writer(comment=config.run_comment(), log_dir=config.log_dir)
@@ -233,7 +257,8 @@ def setup(config: Config, device: Optional[torch.device] = None) -> Run:
                           prefetch=max(1, config.num_workers),
                           transfer_dtype=config.transfer_dtype,
                           device_cache=config.device_cache,
-                          device_cache_budget_mb=config.device_cache_budget_mb)
+                          device_cache_budget_mb=config.device_cache_budget_mb,
+                          stack_steps=max(1, config.scan_steps))
     solver = build_solver(config, train_set, encoder, decoder, mesh, writer)
     state = replicate_state(solver.init_state(seed), mesh)
     return Run(seed=seed, device=device, mesh=mesh, loader=loader, solver=solver,
@@ -268,6 +293,8 @@ def build_solver(config: Config, dataset, encoder, decoder, mesh,
         # Queue 1 item 1)
         fuse_passes=config.fuse_passes is not False,
         mesh=mesh,
+        scan_steps=max(1, config.scan_steps),
+        remat_passes=config.remat == "pass",
     )
 
 
@@ -297,6 +324,7 @@ def _train(config: Config, device: Optional[torch.device]) -> TrainState:
 
     # ----- epoch loop (JAX train.py:242-348) -----
     state.model.train()
+    scan_steps = max(1, config.scan_steps)
     timer = StepTimer(run.device if config.profile else None)
     trace_dir = f"{config.log_dir or 'runs'}/profile"
     epoch_rates: list = []  # img/s of each epoch, the wait for its last step included
@@ -353,19 +381,22 @@ def _train(config: Config, device: Optional[torch.device]) -> TrainState:
                         state, _ = solver.train_step(state, batch)
                         timer.stop()
                         t_now = time.perf_counter()
-                        step_seconds[state.step], t_prev = t_now - t_prev, t_now
+                        for step in range(state.step - scan_steps + 1, state.step + 1):
+                            step_seconds[step] = (t_now - t_prev) / scan_steps
+                        t_prev = t_now
                         n_steps += 1
                         if len(solver.metric_ring) >= RING_DEPTH + 2:
                             consume(keep_tail=2)
                         if config.profile and cur_iter >= PROFILE_STEPS:
                             break
-                        cur_iter += 1
+                        cur_iter += scan_steps
                         SingletonWriter().cur_iter = cur_iter
                 consume()  # waits for the last step: the epoch's time is completion-bound
                 t_end = time.perf_counter()
                 if n_steps:
                     state.history[-1]["seconds"] += t_end - t_prev
-                    epoch_rates.append(n_steps * config.batch_size / (t_end - epoch_t0))
+                    epoch_rates.append(n_steps * scan_steps * config.batch_size
+                                       / (t_end - epoch_t0))
                     if writer is not None:  # loader + steps + writes, this epoch
                         writer.add_scalar("perf/images_per_sec", epoch_rates[-1], epoch)
 
@@ -374,6 +405,8 @@ def _train(config: Config, device: Optional[torch.device]) -> TrainState:
                     break
 
                 if epoch == config.num_epochs - 1 and batch is not None:
+                    if scan_steps > 1:
+                        batch = batch[-1]  # the last step's batch for the grid
                     # fresh noise, fixed by the seed and the step, as JAX's
                     # fold_in(root_key, cur_iter)
                     gen = torch.Generator(device=run.device).manual_seed(run.seed + cur_iter)

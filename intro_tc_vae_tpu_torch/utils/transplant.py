@@ -20,7 +20,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from intro_tc_vae_tpu_torch import not_ported
+# the JAX inception block's names for the reference's nn.Sequential branch
+BRANCH_1 = {"branch_1_0": "branch_1.0", "branch_1_1": "branch_1.1"}
 
 
 def _nchw_to_nhwc_perm(c: int, h: int, w: int) -> np.ndarray:
@@ -39,10 +40,12 @@ def flax_to_port(
     with ``encoder.*`` / ``decoder.*`` keys (load it into a
     ``models.SoftIntroVAE``). ``batch_stats=None`` leaves out the running
     statistics (for optimizer moments). conv_output_size: the JAX
-    package's NHWC (h, w, c) encoder output shape. The 'res' arch's 1x1
-    ``conv_expand`` is a plain conv leaf."""
-    if arch not in ("conv", "res"):
-        raise not_ported(f"the weight bridge for arch='{arch}'", "Queue 1 item 6")
+    package's NHWC (h, w, c) encoder output shape. The 'res' and
+    'inception' archs' 1x1 ``conv_expand`` is a plain conv leaf; the
+    inception block's ``branch_1_0`` / ``branch_1_1`` are the port's
+    ``branch_1.0`` / ``branch_1.1`` (the reference's nn.Sequential)."""
+    if arch not in ("conv", "res", "inception"):
+        raise ValueError(f"unknown arch '{arch}'")
     sd: Dict[str, np.ndarray] = {}
     h, w, c = conv_output_size
     perm = _nchw_to_nhwc_perm(c, h, w)
@@ -61,10 +64,15 @@ def flax_to_port(
 
     def put_block(key: str, node: dict, stats: Optional[dict]):
         for sub, leaf in node.items():
+            path = f"{key}.{BRANCH_1.get(sub, sub)}"
             if "kernel" in leaf:
-                put_conv(f"{key}.{sub}", leaf)
-            else:
-                put_bn(f"{key}.{sub}", leaf, None if stats is None else stats[sub])
+                put_conv(path, leaf)
+                continue
+            sub_stats = None if stats is None else stats[sub]
+            if "scale" in leaf:
+                put_bn(path, leaf, sub_stats)
+            else:  # an inception branch: {conv, batch_norm}
+                put_block(path, leaf, sub_stats)
 
     def side_stats(side: str) -> Optional[dict]:
         return None if batch_stats is None else batch_stats[side]

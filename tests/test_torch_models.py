@@ -208,7 +208,7 @@ def test_bf16_models_match_jax(jax_model, rng, side, train, groups):
         assert moved <= bound, f"{k}: {moved:.3g} > {bound:.3g}"
 
 
-@pytest.mark.parametrize("kwargs", [dict(tile_rows=16), dict(arch="inception")])
+@pytest.mark.parametrize("kwargs", [dict(tile_rows=16)])
 def test_unported_model_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Encoder(**{**SMALL, **kwargs})
@@ -216,18 +216,24 @@ def test_unported_model_options_raise(kwargs):
 
 @pytest.mark.parametrize("kwargs", [
     dict(conv_impl="pallas"), dict(conv_impl="hybrid"), dict(arch="res"),
+    dict(arch="inception"),
 ])
 def test_model_options_compute_the_stock_function(kwargs):
     """The options that once raised: the same weights give the stock conv
-    arch's output (at SMALL no conv routes) or, for 'res', a model whose
-    state_dict the JAX transplant reads (checked in full below)."""
+    arch's output (at SMALL no conv routes) or, for 'res' and 'inception',
+    a model whose state_dict the JAX transplant reads (checked in full
+    below and in tests/test_torch_solver_surface.py)."""
     torch.manual_seed(0)
     stock = SoftIntroVAE(Encoder(**SMALL), Decoder(**SMALL))
     model = SoftIntroVAE(Encoder(**{**SMALL, **kwargs}), Decoder(**{**SMALL, **kwargs}))
     x = torch.rand(4, 3, 32, 32)
     if "arch" in kwargs:
+        block = model.encoder.main["res_in_16"]
         assert "encoder.main.res_in_16.conv_expand.weight" in model.state_dict()
-        assert model.encoder.main["res_in_16"].bn1.eps == 1e-5
+        if kwargs["arch"] == "res":
+            assert block.bn1.eps == 1e-5
+        else:
+            assert block.branch_1[1].batch_norm.eps == 1e-4
         mu, logvar = model.encoder(x)
         assert torch.isfinite(model.decoder(mu)).all()
         return

@@ -182,10 +182,16 @@ def test_total_correlation_matches_jax_xla(rng, impl, reduce):
 
 
 @pytest.mark.parametrize("kwargs", [dict(sampling="weighted")])
-def test_total_correlation_unported_options_raise(rng, kwargs):
-    z, mu, logvar = (_t(a) for a in _tc_inputs(rng, 8, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.total_correlation(z, mu, logvar, 64, **kwargs)
+def test_total_correlation_options_match_jax(rng, kwargs):
+    """The option that once raised, in float32 at the TC tolerance: the
+    weighted estimate takes the materialized form whatever the impl, as in
+    JAX (float64 at 1e-9 in tests/test_torch_solver_surface.py)."""
+    z, mu, logvar = _tc_inputs(rng, 8, 4)
+    ref = jops.total_correlation(z, mu, logvar, 64, reduce="none", **kwargs)
+    for impl in ("xla", "pallas"):
+        out = tops.total_correlation(_t(z), _t(mu), _t(logvar), 64, reduce="none",
+                                     impl=impl, **kwargs)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TC)
 
 
 @pytest.mark.parametrize("block", [8, 16, 32, 12])

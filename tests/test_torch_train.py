@@ -70,13 +70,8 @@ def _raises(update: dict, item: str):
 
 @pytest.mark.parametrize("update,item", [
     _raises(dict(model_parallel=2), "Queue 1 item 8"),
-    _raises(dict(scan_steps=2), "Queue 1 item 6"),
-    _raises(dict(remat="pass"), "Queue 1 item 6"),
     _raises(dict(pack_predict=2), "Queue 1 item 9"),
-    _raises(dict(tc_sampling="weighted", tc_impl="xla"), "Queue 1 item 6"),
     _raises(dict(tile_rows=16), "Queue 1 item 9"),
-    _raises(dict(arch="inception"), "Queue 1 item 6"),
-    _raises(dict(kl_kind="tc_full"), "Queue 1 item 6"),
 ])
 def test_unported_options_raise(update, item):
     """Each option the port does not carry raises, naming the ROADMAP item
@@ -91,6 +86,8 @@ def test_unported_options_raise(update, item):
     dict(resume="auto"), dict(profile=True), dict(anomaly_detection=True),
     dict(optimizer="sgd"), dict(optimizer="lamb"), dict(async_checkpoint=True),
     dict(save_interval=0), dict(use_tensorboard=True, test_iter=4),
+    dict(scan_steps=2), dict(remat="pass"), dict(tc_sampling="weighted", tc_impl="xla"),
+    dict(arch="inception"), dict(kl_kind="tc_full"),
 ], ids=lambda u: ",".join(f"{k}={v}" for k, v in u.items()))
 def test_options_that_once_raised_train(tmp_path, update):
     """The flagship recipe with each option at the synthetic_small size:
@@ -100,7 +97,9 @@ def test_options_that_once_raised_train(tmp_path, update):
     stops at the epoch's end, before iteration 50, without a final save;
     ``anomaly_detection`` is on at every optimizer call and off after;
     ``use_tensorboard`` writes one run under ``log_dir`` (the tags are
-    tests/test_torch_writer.py's)."""
+    tests/test_torch_writer.py's); ``scan_steps: 2`` makes the 8 steps in
+    4 calls (the options held to the JAX package are
+    tests/test_torch_solver_surface.py's)."""
     from torch.optim.optimizer import register_optimizer_step_pre_hook
 
     config = small_config(tmp_path, **update)
