@@ -11,9 +11,9 @@ result line):
 
 1. Device: the card's name, and its name and power limit from nvidia-smi.
 2. Build: compiles the TC kernels (intro_tc_vae_tpu_torch/csrc/
-   tc_kernels.cu), the general 3x3 conv kernels (csrc/conv_kernels.cu), the
-   wgmma 3x3 conv kernels (csrc/conv_wgmma.cu) and the fp32 3x3 conv
-   kernels (csrc/conv_fp32.cu) from the checkout's sources, one nvcc each,
+   tc_kernels.cu), the conv dW reduce (csrc/conv_kernels.cu), the bf16 3x3
+   conv kernels (csrc/conv_wgmma.cu) and the fp32 3x3 conv kernels
+   (csrc/conv_fp32.cu) from the checkout's sources, one nvcc each,
    and the native data core (runtime/data_core.cpp, g++), all started
    together, and loads them.
 3. Kernels vs plain, TF32 off.
@@ -28,22 +28,25 @@ result line):
    same way, the launch floor; and of the float32 plain version. tc_fwd's
    targets (``TC_FWD_TARGETS``) are printed, not enforced.
    Conv: the wrappers conv3x3_fwd (forward and dx), conv3x3_dw (with
-   conv3x3_dw_reduce) and conv3x3_pack_w at the flagship's shapes, NCHW [128, 64, 64, 64] and
-   [128, 64, 32, 32], at [8, 64, 128, 128] (W = 128), at the ragged
-   [3, 64, 20, 36] and, in fp32, at [64, 64, 64, 64] and [2, 64, 16, 6]
-   (rows that are no multiple of 16 bytes): the wgmma bodies (bf16, W in
-   {32, 64, 128}), the general bf16 bodies (the same shapes forced, the
-   ragged shape) and the fp32 bodies (every shape) each against the plain
-   version in float64 on the same (bf16-rounded) inputs; tolerances in
-   ``conv_bound``; conv3x3_dw twice, bit-equal. Median times, the bodies in
-   turns beside cuDNN's forward, backward-data and backward-weight, in
-   bf16 (the general bodies also at the ragged shape, which they serve)
-   and fp32 (TF32 off), with each fp32 body's time over cuDNN's and
-   its share of the bound beside the targets (at or under cuDNN, at least
-   half the bound; printed, not enforced); the kernels are named as
-   ``conv_cuda.LAUNCHES`` counts them: conv3x3_fwd and conv3x3_dw are the
-   general bodies in bf16 and the fp32 bodies in fp32, conv3x3_fwd_wgmma
-   and conv3x3_dw_wgmma the wgmma ones.
+   conv3x3_dw_reduce) and conv3x3_pack_w at the flagship's shapes, NCHW
+   [128, 64, 64, 64] and [128, 64, 32, 32], at [8, 64, 128, 128] (W = 128),
+   at ``CONV_RAGGED_SHAPES`` in bf16 ([128, 64, 48, 48], [64, 64, 64, 36],
+   [8, 64, 64, 96], [1, 64, 16, 1016], [2, 64, 16, 6], [3, 64, 20, 36]) and,
+   in fp32, at [64, 64, 64, 64], [3, 64, 20, 36] and [2, 64, 16, 6] (rows
+   that are no multiple of 16 bytes): the bf16 kernels' wgmma entry points
+   (W in {32, 64, 128}), their ragged ones (the other bf16 shapes) and the
+   fp32 bodies each against the plain version in float64 on the same
+   (bf16-rounded) inputs; tolerances in ``conv_bound``; conv3x3_dw twice,
+   bit-equal; launches exact. Median times, the kernels in turns beside
+   cuDNN's forward, backward-data and backward-weight, the bounds and the
+   launch floor, in bf16 at every bf16 shape above and fp32 (TF32 off);
+   the fp32 bodies' targets (at or under cuDNN, at least half the bound)
+   and the ragged entry points' aims (at or under cuDNN; at [128, 64, 48,
+   48] at least 0.35 of the bound; at [2, 64, 16, 6] at most 3 launch
+   floors) and zero-fill share are printed, not enforced; the kernels are
+   named as ``conv_cuda.LAUNCHES`` counts them: conv3x3_fwd and
+   conv3x3_dw are the fp32 bodies, conv3x3_fwd_wgmma / conv3x3_dw_wgmma
+   and conv3x3_fwd_ragged / conv3x3_dw_ragged the bf16 entry points.
    TC gathered (``phase_gathered_kernels``): the same three kernels in
    their data-parallel form, each rank's rows against the whole mu bank of
    a global batch of 128 for R in {2, 8}, against the plain gathered
@@ -139,6 +142,21 @@ result line):
    'weighted', one step each with the writer on: finite, the tc_decomp
    group read back through tb_reader.
 
+12. The flagship recipe at 48 px (``phase_48px``): configs/
+   intro_tc_ukiyo64.json's model, solver and optimizers (conv arch,
+   64-128-256-512, z 128, batch 64, bf16, paired, Adam 2e-4, tc 'pallas')
+   on Synthetic(image_size=48), built directly, in two arms, conv_impl
+   'pallas' and 'xla' (cuDNN): 8 steps each from the same weights and
+   batches; res_in_48's two convs route at [128, 64, 48, 48] to the ragged
+   entry points, and the launches of each phase equal
+   ``expected_intro_launches(routed=2, body="ragged")`` (16 forwards, 16
+   packs, 4 dW and 4 reduces a step; tests/test_torch_conv.py derives the
+   same on the CPU); one step of each arm from the same weights, batch and
+   noise: metrics within sqrt(L) 2^-8 (L: the two networks' bf16-rounded
+   layers), updated parameters within 2 lr (and fp32 rounding), BatchNorm's running statistics
+   within sqrt(L) 2^-8 of each buffer's largest entry; device ms/step of
+   both arms.
+
 Each phase prints its seconds. Then one JSON line describing the kernels,
 and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -163,15 +181,18 @@ VAE_SYNTHETIC = os.path.join(HERE, "configs", "vae_synthetic.json")
 TC_DSPRITES = os.path.join(HERE, "configs", "tc_dsprites.json")
 DP_CONFIG = os.path.join(HERE, "configs", "intro_tc_128_dp8.json")
 DP_RANKS, DP_TIMEOUT, DP_DEVICE = 2, 300, "cuda:0"  # the ranks share card 0
-# conv3x3_fwd_wgmma and conv3x3_dw_wgmma: the bodies the flagship's bf16
-# shapes take; conv3x3_fwd and conv3x3_dw: in the kernels line the fp32 bodies
-# (phase 6's launches), whose bf16 namesakes are in csrc/conv_kernels.cu
+# conv3x3_fwd_wgmma and conv3x3_dw_wgmma: the bf16 kernels' entry points the
+# flagship's shapes take; conv3x3_fwd_ragged and conv3x3_dw_ragged: the same
+# kernels' entry points for every other bf16 width (phase 12's launches);
+# conv3x3_fwd and conv3x3_dw: the fp32 bodies (phase 6's launches)
 SOURCE = {
     "tc_fwd": "intro_tc_vae_tpu_torch/csrc/tc_kernels.cu",
     "tc_bwd_dz": "intro_tc_vae_tpu_torch/csrc/tc_kernels.cu",
     "tc_bwd_dmu": "intro_tc_vae_tpu_torch/csrc/tc_kernels.cu",
     "conv3x3_fwd_wgmma": "intro_tc_vae_tpu_torch/csrc/conv_wgmma.cu",
     "conv3x3_dw_wgmma": "intro_tc_vae_tpu_torch/csrc/conv_wgmma.cu",
+    "conv3x3_fwd_ragged": "intro_tc_vae_tpu_torch/csrc/conv_wgmma.cu",
+    "conv3x3_dw_ragged": "intro_tc_vae_tpu_torch/csrc/conv_wgmma.cu",
     "conv3x3_dw_reduce": "intro_tc_vae_tpu_torch/csrc/conv_kernels.cu",
     "conv3x3_pack_w": "intro_tc_vae_tpu_torch/csrc/conv_wgmma.cu",
     "conv3x3_fwd": "intro_tc_vae_tpu_torch/csrc/conv_fp32.cu",
@@ -189,6 +210,8 @@ REPLACES = {
     "conv3x3_pack_w": "intro_tc_vae_tpu/ops/conv_pallas.py:112",
     "conv3x3_fwd_wgmma": "intro_tc_vae_tpu/ops/conv_pallas.py:238",
     "conv3x3_dw_wgmma": "intro_tc_vae_tpu/ops/conv_pallas.py:253",
+    "conv3x3_fwd_ragged": "intro_tc_vae_tpu/ops/conv_pallas.py:238",
+    "conv3x3_dw_ragged": "intro_tc_vae_tpu/ops/conv_pallas.py:253",
 }
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): bound_ms of
 # a kernel is max(bytes / HBM_BYTES_S, operations / peak of their type),
@@ -202,8 +225,14 @@ LR = 2e-4
 # .conv2) and [2B, 64, 32, 32] (res_in_32.conv2)
 CONV_SHAPES = ((2 * MAIN_B, 64, 64, 64), (2 * MAIN_B, 64, 32, 32))
 CONV_WIDE = (8, 64, 128, 128)    # W = 128 (intro_tc_128_dp8's routed width): two boxes a row
-CONV_RAGGED = (3, 64, 20, 36)    # no multiple of any kernel's tile
+CONV_RAGGED = (3, 64, 20, 36)    # no multiple of any kernel's tile; H free
 CONV_NARROW = (2, 64, 16, 6)     # the gate's narrow end: rows of 24 bytes
+CONV_48 = (2 * MAIN_B, 64, 48, 48)  # phase 12's routed convs: one part-filled box
+# the bf16 shapes of the ragged entry points phase 3 checks and times:
+# phase 12's; W % 8 = 4 (rows TMA cannot land); a full and a part-filled
+# box; 16 boxes a row (H * W = 16,256); the narrow end; the ragged shape
+CONV_RAGGED_SHAPES = (CONV_48, (64, 64, 64, 36), (8, 64, 64, 96), (1, 64, 16, 1016),
+                      CONV_NARROW, CONV_RAGGED)
 # the larger routed shape of vae_synthetic and tc_dsprites (fp32, batch 64,
 # one pass): what the fp32 bodies are timed and bounded at
 CONV_FP32_PATH = (MAIN_B, 64, 64, 64)
@@ -334,7 +363,7 @@ def tc_bounds(b: int, bank: int, zdim: int = 128, ops: dict | None = None) -> di
 
 def conv_bounds(shape, kind: str, n_parts: int) -> dict:
     """Bounds of the conv kernels on activations `shape` of `kind` (bf16 or
-    fp32), the same for the wgmma and the general body of a wrapper: forward
+    fp32), the same for every body of a wrapper: forward
     and dW each do 2 x 64 x 576 operations a pixel; the forward reads x and
     w and writes y; dW, the function, reads x and gy and writes the
     [64, 64, 3, 3] weights' gradient. The n_parts fp32 partials between the
@@ -636,16 +665,16 @@ def conv_bound(name: str, dtype, ref, s):
     not widened.
     bf16: one rounding of the fp32 sum, at most 2^-8 |ref| (bf16 keeps 8
     significant bits), plus 1e-5 s for the fp32 sum before it. For y and
-    dx that sum has 576 terms. For dW the general kernel's chain is 2,304
-    (8 tiles x 256 pixels in a block, then 256 partials: worst case
-    1.4e-4 s, random walk 2.9e-6 s). The wgmma
-    kernel's is shorter: a block adds one wgmma (a 16-term tree) per 16
+    dx that sum has 576 terms. For dW the bf16 kernel's chain is short
+    (at every shape phase 3 checks): a block adds one wgmma (a 16-term tree) per 16
     pixels of its rows into the accumulator, 64 rows x 4 = 256 sequential
     additions for the one unit a block walks at [128, 64, 64, 64] (at most
     4 x that where a block walks 4 units), then at most 132 partials in
     order: 388 sequential additions, random walk sqrt(388) * 2^-24 = 1.2e-6
     s, which the same 1e-5 s holds with an 8x margin (worst case 2.3e-5
-    s); it is kept, not widened."""
+    s); it is kept, not widened. The ragged entry points' longest chain is
+    at [128, 64, 48, 48]: 48 rows x 3 k-steps a block, then 128 partials,
+    272 additions."""
     import torch
 
     if dtype == torch.bfloat16:
@@ -655,14 +684,27 @@ def conv_bound(name: str, dtype, ref, s):
     return RTOL * ref.abs() + ATOL
 
 
+def fill_share(w: int) -> tuple:
+    """(forward, dW) share of the bf16 kernels' tensor-core work at width w
+    that multiplies zero-fill: the forward multiplies whole boxes (ceil(W /
+    BW) boxes of BW pixels a row), dW the k-steps of 16 pixels that hold a
+    pixel of the image (csrc/conv_wgmma.cu)."""
+    from intro_tc_vae_tpu_torch.ops import conv
+
+    bw, boxes = conv.box_width(w), conv.box_columns(w)
+    k_steps = sum(-(-min(bw, w - i * bw) // 16) for i in range(boxes))
+    return 1 - w / (boxes * bw), 1 - w / (16 * k_steps)
+
+
 def phase_conv_kernels(card: str) -> dict:
-    """Phase 3, conv: the wgmma, the general and the fp32 bodies of each
+    """Phase 3, conv: the wgmma entry points (bf16, W in {32, 64, 128}),
+    the ragged ones (every other bf16 shape) and the fp32 bodies of each
     kernel against the float64 plain version (TF32 off); returns per-kernel
-    max_abs_err (conv3x3_fwd and conv3x3_dw: the fp32 bodies', which the
-    kernels line describes), the times and the bounds."""
+    max_abs_err (conv3x3_fwd and conv3x3_dw: the fp32 bodies'), the times
+    and the bounds."""
     import torch
 
-    from intro_tc_vae_tpu_torch.ops import conv, conv_cuda
+    from intro_tc_vae_tpu_torch.ops import conv, conv_cuda, tc_cuda
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -682,37 +724,29 @@ def phase_conv_kernels(card: str) -> dict:
                                conv.rot_t(w) if rot else w):
                 die(f"pack_weights({w.dtype}, rot={rot}) is not the weights it stands for")
 
-    # (shape, dtype, force the general body on a wgmma shape?)
-    checks = []
-    for shape in (*CONV_SHAPES, CONV_WIDE):
-        checks += [(shape, bf16, False), (shape, bf16, True)]
-    checks += [(shape, fp32, False) for shape in
+    checks = [(shape, bf16) for shape in (*CONV_SHAPES, CONV_WIDE, *CONV_RAGGED_SHAPES)]
+    checks += [(shape, fp32) for shape in
                (*CONV_SHAPES, CONV_WIDE, CONV_FP32_PATH, CONV_RAGGED, CONV_NARROW)]
-    checks += [(CONV_RAGGED, bf16, False)]
-    for shape, dtype, general in checks:
+    for shape, dtype in checks:
         body = conv.kernel_body(shape, dtype)
-        if body != ("fp32" if dtype == fp32 else "general" if shape == CONV_RAGGED else "wgmma"):
+        if body != ("fp32" if dtype == fp32 else "wgmma" if shape[3] in conv.FAST_WIDTHS
+                    else "ragged"):
             die(f"kernel_body({shape}, {dtype}) is {body}")
-        if general:
-            body = "general"
         x = (torch.randn(shape, device=dev, generator=gen) * 0.5).to(dtype)
         w = (torch.randn((64, 64, 3, 3), device=dev, generator=gen) * 0.05).to(dtype)
         gy = torch.randn(shape, device=dev, generator=gen).to(dtype)
         conv_cuda.reset_launch_counts()
-        got = {"y": conv_cuda.conv3x3_fwd(x, w, general=general),
-               "dx": conv_cuda.conv3x3_fwd(gy, w, rot=True, general=general),
-               "dw": conv_cuda.conv3x3_dw(x, gy, general=general)}
-        again = conv_cuda.conv3x3_dw(x, gy, general=general)
+        got = {"y": conv_cuda.conv3x3_fwd(x, w),
+               "dx": conv_cuda.conv3x3_fwd(gy, w, rot=True),
+               "dw": conv_cuda.conv3x3_dw(x, gy)}
+        again = conv_cuda.conv3x3_dw(x, gy)
         torch.cuda.synchronize()
-        suffix = "_wgmma" if body == "wgmma" else ""
-        want_launches = {**dict.fromkeys(conv_cuda.KERNELS, 0), "conv3x3_fwd" + suffix: 2,
-                         "conv3x3_dw" + suffix: 2, "conv3x3_dw_reduce": 2,
-                         "conv3x3_pack_w": 0 if body == "general" else 2}
+        want_launches = conv_launches(2, 2, body)
         if conv_cuda.LAUNCHES != want_launches:
-            die(f"conv {shape} {dtype} general={general}: launches {conv_cuda.LAUNCHES}, "
-                f"expected {want_launches}")
+            die(f"conv {shape} {dtype}: launches {conv_cuda.LAUNCHES}, expected {want_launches}")
         if not torch.equal(got["dw"], again):
-            die(f"conv3x3_dw {shape} {dtype} general={general}: two runs differ")
+            die(f"conv3x3_dw {shape} {dtype}: two runs differ")
+        suffix = "" if body == "fp32" else f"_{body}"
         owner = {"y": "conv3x3_fwd" + suffix, "dx": "conv3x3_fwd" + suffix,
                  "dw": "conv3x3_dw" + suffix}
         xd, wd, gd = x.double(), w.double(), gy.double()
@@ -737,25 +771,24 @@ def phase_conv_kernels(card: str) -> dict:
             if ratio > 1.0:
                 die(f"{owner[name]} {name} {shape} {dtype}: max |d| {err:.4g} is "
                     f"{ratio:.3g} x the bound")
-            if body != "general":  # the kernels line has no entry for the bf16 general bodies
-                errs[owner[name]] = max(errs[owner[name]], err)
+            errs[owner[name]] = max(errs[owner[name]], err)
             if name == "dw":
                 errs["conv3x3_dw_reduce"] = max(errs["conv3x3_dw_reduce"], err)
         print(f"phase 3: conv {list(shape)} {str(dtype)[6:]} {body} bodies: vs float64 plain "
-              + json.dumps(report) + "; dW bit-equal in two runs")
+              + json.dumps(report) + "; dW bit-equal in two runs; launches exact")
     print("phase 3: conv kernels match the float64 plain version (fp32: rtol 1e-4 / atol "
           "1e-5 for y and dx, 2e-5 S for dW; bf16: 2^-8 |ref| + 1e-5 S); conv3x3_pack_w "
           "equals the plain version")
 
     # times, with the settings the main path runs under (torch's defaults:
-    # no cuDNN autotuning); the bodies and cuDNN in turns, two rounds.
-    # The kernels line takes the wgmma bodies, the reduce and the pack at
-    # the flagship's bf16 [128, 64, 64, 64] and the fp32 bodies at the
-    # shape phase 6 launches them at, each with that shape's bounds. The
-    # bf16 general bodies are timed on the wgmma shapes (forced) and at the
-    # ragged shape, which only they serve
+    # no cuDNN autotuning); the kernels and cuDNN in turns, two rounds.
+    # The kernels line takes the wgmma entry points, the reduce and the pack
+    # at the flagship's bf16 [128, 64, 64, 64], the ragged ones at phase
+    # 12's [128, 64, 48, 48] and the fp32 bodies at the shape phase 6
+    # launches them at, each with that shape's bounds
+    floor = median_ms(lambda: tc_cuda.launch_empty(dev), reps=11)
     times, bounds = {}, {}
-    for shape, dtype in [(sh, bf16) for sh in (*CONV_SHAPES, CONV_WIDE, CONV_RAGGED)] + \
+    for shape, dtype in [(sh, bf16) for sh in (*CONV_SHAPES, CONV_WIDE, *CONV_RAGGED_SHAPES)] + \
                         [(sh, fp32) for sh in (*CONV_SHAPES, CONV_FP32_PATH)]:
         x = torch.randn(shape, device=dev, dtype=dtype)
         w = torch.randn((64, 64, 3, 3), device=dev, dtype=dtype) * 0.05
@@ -768,35 +801,21 @@ def phase_conv_kernels(card: str) -> dict:
         body, n_parts, rc = conv_cuda.dw_parts(shape, dtype, dev)
         part = torch.empty((n_parts, 576, 64), device=dev)
         wp = conv_cuda.conv3x3_pack_w(w)
-        if body == "general":
+        if body in ("wgmma", "ragged"):
+            fwd, dwk = f"conv3x3_fwd_{body}", f"conv3x3_dw_{body}"
             fns = {
-                "conv3x3_fwd": lambda: launch("conv3x3_fwd", x, w, y, n, h, wd, device=dev),
-                "conv3x3_dw": lambda: launch("conv3x3_dw", x, gy, part, n, h, wd, n_parts,
-                                             device=dev),
-                "conv3x3_dw_reduce_general": lambda: launch("conv3x3_dw_reduce", part, dw,
-                                                            n_parts, 1, device=dev),
-            }
-        elif dtype == bf16:
-            _, g_parts, _ = conv_cuda.dw_parts(shape, dtype, dev, general=True)
-            g_part = torch.empty((g_parts, 576, 64), device=dev)
-            fns = {
-                "conv3x3_fwd_wgmma": lambda: launch("conv3x3_fwd_wgmma", x, wp, y, n, h, wd, rc,
-                                                    n_parts, device=dev),
-                "conv3x3_dw_wgmma": lambda: launch("conv3x3_dw_wgmma", x, gy, part, n, h, wd, rc,
-                                                   n_parts, device=dev),
+                fwd: lambda: launch(fwd, x, wp, y, n, h, wd, rc, n_parts, device=dev),
+                dwk: lambda: launch(dwk, x, gy, part, n, h, wd, rc, n_parts, device=dev),
                 "conv3x3_dw_reduce": lambda: launch("conv3x3_dw_reduce", part, dw, n_parts, 1,
                                                     device=dev),
                 "conv3x3_pack_w": lambda: conv_cuda.conv3x3_pack_w(w),
                 "plain_dw_reduce": lambda: part.sum(0).view(9, 64, 64).permute(
                     2, 1, 0).reshape(64, 64, 3, 3).to(dtype),
                 "plain_pack_w": lambda: conv.pack_weights(w, False),
-                "conv3x3_fwd": lambda: launch("conv3x3_fwd", x, w, y, n, h, wd, device=dev),
-                "conv3x3_dw": lambda: launch("conv3x3_dw", x, gy, g_part, n, h, wd, g_parts,
-                                             device=dev),
-                "conv3x3_dw_reduce_general": lambda: launch("conv3x3_dw_reduce", g_part, dw,
-                                                            g_parts, 1, device=dev),
             }
+            pair = (dwk, "conv3x3_dw_reduce")
         else:
+            fwd = "conv3x3_fwd"
             fns = {
                 "conv3x3_fwd": lambda: launch("conv3x3_fwd_fp32", x, wp, y, n, h, wd, n_parts,
                                               device=dev),
@@ -806,6 +825,7 @@ def phase_conv_kernels(card: str) -> dict:
                                                          0, device=dev),
                 "conv3x3_pack_w_fp32": lambda: conv_cuda.conv3x3_pack_w(w),
             }
+            pair = ("conv3x3_dw", "conv3x3_dw_reduce_fp32")
         fns.update({
             "cudnn_fwd": lambda: torch.nn.functional.conv2d(x, w, padding=1),
             "cudnn_dgrad": lambda: torch.nn.grad.conv2d_input(shape, w, gy, padding=1),
@@ -817,11 +837,8 @@ def phase_conv_kernels(card: str) -> dict:
         print(f"phase 3: conv {list(shape)} {kind} median ms per call, mean of two "
               "rounds in turns " + json.dumps({k: round(v, 5) for k, v in t.items()})
               + "; the rounds " + json.dumps({k: [round(r[k], 5) for r in rounds] for k in fns})
-              + f" on {card}")
+              + f"; launch floor {floor:.5f} on {card}")
         b = conv_bounds(shape, kind, n_parts)
-        pair, fwd = {"general": (("conv3x3_dw", "conv3x3_dw_reduce_general"), "conv3x3_fwd"),
-                     "wgmma": (("conv3x3_dw_wgmma", "conv3x3_dw_reduce"), "conv3x3_fwd_wgmma"),
-                     "fp32": (("conv3x3_dw", "conv3x3_dw_reduce_fp32"), "conv3x3_fwd")}[body]
         both = t[pair[0]] + t[pair[1]]
         print(f"phase 3: conv {list(shape)} {kind} bounds (each input read once, each output "
               "written once; the fp32 partials between dW and its reduce count in neither) "
@@ -832,6 +849,7 @@ def phase_conv_kernels(card: str) -> dict:
                             pair[0] + " + reduce":
                                 round(b["conv3x3_dw+reduce"]["bound_ms"] / both, 3)})
               + f"; against cuDNN: {fwd} / cudnn_fwd {t[fwd] / t['cudnn_fwd']:.3f}, "
+              f"{fwd} (dx) / cudnn_dgrad {t[fwd] / t['cudnn_dgrad']:.3f}, "
               f"({pair[0]} + reduce) / cudnn_wgrad {both / t['cudnn_wgrad']:.3f}")
         if dtype == fp32:
             # the targets of the fp32 bodies: printed, not enforced
@@ -846,14 +864,33 @@ def phase_conv_kernels(card: str) -> dict:
                   f"{t[fwd] / t['cudnn_dgrad']:.3f} x cuDNN dgrad; conv3x3_dw + reduce "
                   f"{both:.5f} ms = {both / t['cudnn_wgrad']:.3f} x cuDNN wgrad; half the bound "
                   f"is {half:.5f} ms; met: " + json.dumps(met))
-        if (shape, dtype) == (CONV_SHAPES[0], bf16):
-            for k in ("conv3x3_fwd_wgmma", "conv3x3_dw_wgmma", "conv3x3_dw_reduce",
-                      "conv3x3_pack_w"):
+        if body == "ragged":
+            # the aims of the ragged entry points: printed, not enforced
+            fill = fill_share(wd)
+            met = {"fwd <= cudnn_fwd": t[fwd] <= t["cudnn_fwd"],
+                   "dw + reduce <= cudnn_wgrad": both <= t["cudnn_wgrad"]}
+            if shape == CONV_48:
+                met["fwd >= 0.35 of the bound"] = t[fwd] * 0.35 <= b["conv3x3_fwd"]["bound_ms"]
+                met["dw + reduce >= 0.35 of the bound"] = \
+                    both * 0.35 <= b["conv3x3_dw+reduce"]["bound_ms"]
+            if shape == CONV_NARROW:
+                met["fwd <= 3 launch floors"] = t[fwd] <= 3 * floor
+                met["dw <= 3 launch floors"] = t[pair[0]] <= 3 * floor
+            print(f"phase 3: conv {list(shape)} bf16 ragged aims: fwd {t[fwd]:.5f} ms = "
+                  f"{t[fwd] / t['cudnn_fwd']:.3f} x cuDNN fwd, {t[fwd] / floor:.2f} launch "
+                  f"floors; dw + reduce {both:.5f} ms = {both / t['cudnn_wgrad']:.3f} x cuDNN "
+                  f"wgrad; zero-fill share of the tensor-core work: fwd {fill[0]:.3f}, dw "
+                  f"{fill[1]:.3f}; met: " + json.dumps(met))
+        if (shape, dtype) in ((CONV_SHAPES[0], bf16), (CONV_48, bf16)):
+            for k in (fwd, pair[0]):
                 times[k] = {"ms": t[k]}
-                bounds[k] = b[k.replace("_wgmma", "")]
-            times["conv3x3_fwd_wgmma"].update(plain_ms=t["cudnn_fwd"], library_ms=t["cudnn_fwd"])
-            times["conv3x3_dw_wgmma"].update(plain_ms=t["cudnn_wgrad"],
-                                             library_ms=t["cudnn_wgrad"])
+                bounds[k] = b[k.replace(f"_{body}", "")]
+            times[fwd].update(plain_ms=t["cudnn_fwd"], library_ms=t["cudnn_fwd"])
+            times[pair[0]].update(plain_ms=t["cudnn_wgrad"], library_ms=t["cudnn_wgrad"])
+        if (shape, dtype) == (CONV_SHAPES[0], bf16):
+            for k in ("conv3x3_dw_reduce", "conv3x3_pack_w"):
+                times[k] = {"ms": t[k]}
+                bounds[k] = b[k]
             times["conv3x3_dw_reduce"].update(plain_ms=t["plain_dw_reduce"], library_ms=None)
             times["conv3x3_pack_w"].update(plain_ms=t["plain_pack_w"], library_ms=None)
         if (shape, dtype) == (CONV_FP32_PATH, fp32):
@@ -863,23 +900,23 @@ def phase_conv_kernels(card: str) -> dict:
                                    "library_ms": t["cudnn_wgrad"]}
             bounds["conv3x3_fwd"], bounds["conv3x3_dw"] = b["conv3x3_fwd"], b["conv3x3_dw"]
 
-    # host time of one wrapper call (enqueue only), at the main shape
-    x = torch.randn(CONV_SHAPES[0], device=dev, dtype=bf16)
-    w = torch.randn((64, 64, 3, 3), device=dev, dtype=bf16) * 0.05
+    # host time of one wrapper call (enqueue only), at the flagship's shape
+    # (wgmma) and phase 12's (ragged)
     host = {}
-    for name, fn in (("fwd_wgmma", lambda: conv_cuda.conv3x3_fwd(x, w)),
-                     ("fwd_general", lambda: conv_cuda.conv3x3_fwd(x, w, general=True)),
-                     ("dw_wgmma", lambda: conv_cuda.conv3x3_dw(x, x)),
-                     ("dw_general", lambda: conv_cuda.conv3x3_dw(x, x, general=True))):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(200):
-            fn()
-        host[name] = (time.perf_counter() - t0) / 200 * 1e6
-        torch.cuda.synchronize()
-    print("phase 3: conv wrappers, host microseconds per call (enqueue only; fwd_wgmma is "
-          "the pack and the forward, three tensor maps; dw is the kernel and the reduce) "
-          + json.dumps({k: round(v, 1) for k, v in host.items()}))
+    for label, shape in (("wgmma", CONV_SHAPES[0]), ("ragged", CONV_48)):
+        x = torch.randn(shape, device=dev, dtype=bf16)
+        w = torch.randn((64, 64, 3, 3), device=dev, dtype=bf16) * 0.05
+        for name, fn in ((f"fwd_{label}", lambda: conv_cuda.conv3x3_fwd(x, w)),
+                         (f"dw_{label}", lambda: conv_cuda.conv3x3_dw(x, x))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            host[name] = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+    print("phase 3: conv wrappers, host microseconds per call (enqueue only; fwd is the pack "
+          "and the forward, three tensor maps where TMA lands the rows; dw is the kernel and "
+          "the reduce) " + json.dumps({k: round(v, 1) for k, v in host.items()}))
     return {"errs": errs, "times": times, "bounds": bounds, "host_us": host}
 
 
@@ -896,24 +933,26 @@ def reset_all_launches() -> None:
     conv_cuda.reset_launch_counts()
 
 
-def expected_intro_launches(tc_impl: str, conv_impl: str, remat: bool = False) -> tuple:
+def expected_intro_launches(tc_impl: str, conv_impl: str, remat: bool = False,
+                            routed: int = 3, body: str = "wgmma") -> tuple:
     """Launches in phase E and in phase D of one paired flagship step,
     derived from the pass list of solvers/intro.py.
 
     TC: one call per KL term: real, rec, fake in phase E, rec, fake in
     phase D; each call's loss is differentiated, so each launches tc_fwd,
     tc_bwd_dz and tc_bwd_dmu once: 3 and 2.
-    Conv: the decoder routes 3 convs (res_in_32.conv2, res_in_64.conv1,
-    .conv2); the encoder none. Each phase makes 2 paired decoder calls.
-    Every routed conv calls conv3x3_fwd for its forward ('pallas' only)
-    and for its dx (both: its input depends on the decoder's fc weights or
-    on z). conv3x3_dw with conv3x3_dw_reduce is called once per routed conv
-    of the network the phase updates: 0 in phase E (the decoder is frozen),
-    2 calls x 3 = 6 in phase D. The flagship is bf16 and its routed shapes
-    ([128, 64, 64, 64], [128, 64, 32, 32]) take the wgmma bodies: every
-    call launches conv3x3_fwd_wgmma or conv3x3_dw_wgmma, none the general
-    conv3x3_fwd or conv3x3_dw, and every forward packs its weights first:
-    conv3x3_pack_w as often.
+    Conv: the decoder routes ``routed`` convs (3 at 64 px: res_in_32.conv2,
+    res_in_64.conv1, .conv2; 2 at 48 px: res_in_48.conv1, .conv2); the
+    encoder none. Each phase makes 2 paired decoder calls. Every routed
+    conv calls conv3x3_fwd for its forward ('pallas' only) and for its dx
+    (both: its input depends on the decoder's fc weights or on z).
+    conv3x3_dw with conv3x3_dw_reduce is called once per routed conv of the
+    network the phase updates: 0 in phase E (the decoder is frozen), 2
+    calls x 3 = 6 in phase D at 64 px. The flagship is bf16 and its routed
+    shapes take one bf16 body, ``body``: at 64 px ([128, 64, 64, 64],
+    [128, 64, 32, 32]) the wgmma entry points, at 48 px ([128, 64, 48, 48])
+    the ragged ones; no fp32 body (conv3x3_fwd, conv3x3_dw) launches, and
+    every forward packs its weights first: conv3x3_pack_w as often.
     ``remat`` ("block" or "pass"; the two recompute the same convs): every
     decoder call is differentiated, so its backward recomputes each routed
     conv's forward once more, a kernel launch under 'pallas' (the stock
@@ -922,16 +961,26 @@ def expected_intro_launches(tc_impl: str, conv_impl: str, remat: bool = False) -
     CPU)."""
     tc = 1 if tc_impl == "pallas" else 0
     fwd_per_conv = {"pallas": 2 + bool(remat), "hybrid": 1, "xla": 0}[conv_impl]
-    dw = 6 if conv_impl != "xla" else 0
+    dw = 2 * routed if conv_impl != "xla" else 0
 
     def counts(tc_calls, fwd, dws):
-        return {"tc_fwd": tc_calls * tc, "tc_bwd_dz": tc_calls * tc,
-                "tc_bwd_dmu": tc_calls * tc, "conv3x3_fwd": 0, "conv3x3_dw": 0,
-                "conv3x3_fwd_wgmma": fwd, "conv3x3_dw_wgmma": dws,
-                "conv3x3_dw_reduce": dws, "conv3x3_pack_w": fwd}
+        return {**conv_launches(fwd, dws, body), "tc_fwd": tc_calls * tc,
+                "tc_bwd_dz": tc_calls * tc, "tc_bwd_dmu": tc_calls * tc}
 
-    per_phase = 2 * 3 * fwd_per_conv
+    per_phase = 2 * routed * fwd_per_conv
     return counts(3, per_phase, 0), counts(2, per_phase, dw)
+
+
+def conv_launches(fwd: int, dw: int, body: str) -> dict:
+    """conv_cuda.LAUNCHES after ``fwd`` conv3x3_fwd and ``dw`` conv3x3_dw
+    calls of one body (``conv.kernel_body``): every forward packs its
+    weights first, every dW is reduced; the fp32 bodies count under the
+    wrappers' own names."""
+    from intro_tc_vae_tpu_torch.ops import conv_cuda
+
+    suffix = "" if body == "fp32" else f"_{body}"
+    return {**dict.fromkeys(conv_cuda.KERNELS, 0), f"conv3x3_fwd{suffix}": fwd,
+            "conv3x3_pack_w": fwd, f"conv3x3_dw{suffix}": dw, "conv3x3_dw_reduce": dw}
 
 
 @contextlib.contextmanager
@@ -1053,11 +1102,11 @@ def plain_tc_in_float64():
         tc.tc_logsumexp_reference = plain
 
 
-def fp32_step(dev, cfg, ds, kw: dict, init: dict, batch, noise: dict, impl: str,
+def train_one_step(dev, cfg, ds, kw: dict, init: dict, batch, noise: dict, impl: str,
               conv_impl: str = "xla"):
     """One intro_tc step of the model ``kw`` from the weights ``init`` on
     ``batch`` with ``noise``, tc_impl ``impl``: (metrics, state dict) on the
-    host. Phases 5 and 11 (a)."""
+    host. Phases 5 and 11 (a) in fp32, phase 12 in bf16."""
     import torch
 
     from intro_tc_vae_tpu_torch.models import Decoder, Encoder, SoftIntroVAE
@@ -1123,7 +1172,7 @@ def phase_in_context(dev) -> None:
     noise = {k: torch.randn((MAIN_B, cfg.z_dim), generator=gen, device=dev)
              for k in NOISE_KEYS}
     def one_step(impl: str, conv_impl: str = "xla"):
-        return fp32_step(dev, cfg, ds, kw, init, batch, noise, impl, conv_impl)
+        return train_one_step(dev, cfg, ds, kw, init, batch, noise, impl, conv_impl)
 
     names = ("lossE", "lossD", "loss_kl", "loss_rec", "expelbo_r", "expelbo_f")
     m_k, p_k = one_step("pallas")
@@ -1243,7 +1292,7 @@ def phase_other_paths(card: str) -> dict:
     vae_synthetic run."""
     from intro_tc_vae_tpu_torch.train import images_per_second
 
-    rates, general = {}, {}
+    rates, vae_launches = {}, {}
     for label, config, update, tc in (
             ("vae_synthetic (res, vae)", VAE_SYNTHETIC, {}, 0),
             ("tc_dsprites (conv, tc)", TC_DSPRITES,
@@ -1252,11 +1301,8 @@ def phase_other_paths(card: str) -> dict:
             run = f"{label}, conv {conv_impl}"
             k = 1 if conv_impl == "pallas" else 0
             tail = final_decode_launches(conv_impl, fp32=True)
-            want = {"tc_fwd": 20 * tc, "tc_bwd_dz": 20 * tc, "tc_bwd_dmu": 20 * tc,
-                    "conv3x3_fwd": 20 * 6 * k + tail["conv3x3_fwd"], "conv3x3_dw": 20 * 3 * k,
-                    "conv3x3_dw_reduce": 20 * 3 * k,
-                    "conv3x3_pack_w": 20 * 6 * k + tail["conv3x3_pack_w"],
-                    "conv3x3_fwd_wgmma": 0, "conv3x3_dw_wgmma": 0}
+            want = {**conv_launches(20 * 6 * k + tail["conv3x3_fwd"], 20 * 3 * k, "fp32"),
+                    "tc_fwd": 20 * tc, "tc_bwd_dz": 20 * tc, "tc_bwd_dmu": 20 * tc}
             reset_all_launches()
             with tf32_at_optimizer_calls() as tf32:
                 state = run_cli(config, {**update, "conv_impl": conv_impl, "num_epochs": 1},
@@ -1268,7 +1314,7 @@ def phase_other_paths(card: str) -> dict:
                 die(f"{run}: an fp32 run stepped with (cudnn.allow_tf32, cuda.matmul."
                     f"allow_tf32) = {sorted(tf32)}, expected both off")
             if config == VAE_SYNTHETIC and conv_impl == "pallas":
-                general = counts
+                vae_launches = counts
             rates[run] = images_per_second(state, MAIN_B)
             print(f"phase 6: {run}: 20 steps, finite losses (last loss "
                   f"{state.history[-1]['loss_enc']:.6g}), launches {counts}")
@@ -1276,7 +1322,7 @@ def phase_other_paths(card: str) -> dict:
           f"(cudnn.allow_tf32, cuda.matmul.allow_tf32) = {tf32_flags()}")
     print("phase 6: img/s (steps 4-20, fp32 with TF32 off, batch 64) "
           + json.dumps({k: round(v, 1) for k, v in rates.items()}) + f" on {card}")
-    return general
+    return vae_launches
 
 
 DP_UPDATE = {"dataset": "synthetic128", "data_parallel": DP_RANKS, "tc_impl": "pallas",
@@ -1898,8 +1944,8 @@ def phase_data_paths(card: str, main_path: dict) -> dict:
     (e) configs/intro_tc_ukiyo64.json through the CLI on its own
     ukiyo_e64 layout, the defaults (transfer auto, cache auto: the cache
     engages), tc_impl and conv_impl 'pallas': 20 finite steps, every
-    kernel launched as often as in phase 4's (pallas, pallas) arm, none of
-    the bf16 general bodies.
+    kernel launched as often as in phase 4's (pallas, pallas) arm, no conv
+    body but the wgmma one.
     (f) The timings of (c), (d) and (e)."""
     import copy
     import shutil
@@ -1994,13 +2040,14 @@ def phase_data_paths(card: str, main_path: dict) -> dict:
         if counts != main_path["launches"]:
             die(f"phase 9 (e): launches {counts}, phase 4's (pallas, pallas) "
                 f"{main_path['launches']}")
-        if counts["conv3x3_fwd"] or counts["conv3x3_dw"]:
-            die(f"phase 9 (e): the bf16 general conv bodies launched: {counts}")
+        if any(counts[k] for k in ("conv3x3_fwd", "conv3x3_dw", "conv3x3_fwd_ragged",
+                                   "conv3x3_dw_ragged")):
+            die(f"phase 9 (e): a conv body other than the wgmma one launched: {counts}")
         rate = images_per_second(state, MAIN_B)
         synthetic = main_path["rates"]["tc pallas, conv pallas"]
         print(f"phase 9 (e): the flagship on ukiyo_e64 (auto/auto: the cache engaged), tc and "
               f"conv pallas: 20 finite steps, launches equal to phase 4's (pallas, pallas), "
-              f"0 of the bf16 general bodies; {rate:.1f} img/s (steps 4-20) against phase 4's "
+              f"0 of any conv body but the wgmma one; {rate:.1f} img/s (steps 4-20) against phase 4's "
               f"{synthetic:.1f} on synthetic, on {card}")
         del state
     finally:
@@ -2423,7 +2470,8 @@ def trainer_setup(update: dict, steps: int):
     return run, batches
 
 
-def profiled_run(label: str, solver, state, batches: list, active: int = 3) -> dict:
+def profiled_run(label: str, solver, state, batches: list, active: int = 3,
+                 phase: str = "phase 11") -> dict:
     """``solver``'s steps on ``batches``, the last ``active`` under
     torch.profiler: device ms per step (the kernels' and copies' device
     time), peak device memory over the steps (``max_memory_allocated``),
@@ -2449,10 +2497,10 @@ def profiled_run(label: str, solver, state, batches: list, active: int = 3) -> d
                     if e.device_type == torch.autograd.DeviceType.CUDA
                     and not e.is_user_annotation and not e.key.startswith("ProfilerStep"))
     if device_us <= 0:
-        die(f"phase 11: {label}: the profiler recorded no device time")
+        die(f"{phase}: {label}: the profiler recorded no device time")
     for m in metrics:
         if not all(math.isfinite(v) for v in m.values()):
-            die(f"phase 11: {label}: non-finite metrics {m}")
+            die(f"{phase}: {label}: non-finite metrics {m}")
     return {"device_ms": device_us / active / 1e3,
             "peak_bytes": torch.cuda.max_memory_allocated(),
             "phase_e": dict(phase_e), "phase_d": dict(phase_d), "metrics": metrics,
@@ -2590,9 +2638,9 @@ def solver_surface(card: str, work: str) -> dict:
     noise = {k: torch.randn((MAIN_B, cfg.z_dim), generator=gen, device=dev)
              for k in NOISE_KEYS}
     with fp32_exact():
-        m_k, p_k = fp32_step(dev, cfg, ds, kw, init, batch, noise, "pallas")
+        m_k, p_k = train_one_step(dev, cfg, ds, kw, init, batch, noise, "pallas")
         with plain_tc_in_float64():
-            m_x, p_x = fp32_step(dev, cfg, ds, kw, init, batch, noise, "xla")
+            m_x, p_x = train_one_step(dev, cfg, ds, kw, init, batch, noise, "xla")
     names = ("lossE", "lossD", "loss_kl", "loss_rec", "expelbo_r", "expelbo_f")
     for name in names:
         if not math.isclose(m_k[name], m_x[name], rel_tol=RTOL, abs_tol=1e-30):
@@ -2802,6 +2850,122 @@ def profiled_steps(run) -> dict:
             and not e.is_user_annotation and not e.key.startswith("ProfilerStep")}
 
 
+PHASE12_STEPS = 8
+
+
+def bf16_rounded_layers(net) -> int:
+    """Operations of an Encoder or Decoder whose result is rounded to bf16:
+    every conv and dense layer, every BatchNorm and the leaky ReLU after it,
+    the encoder's average pools (as many as stages) and the leaky ReLU after
+    the decoder's dense layer (the count of tests/_torch_bf16.py)."""
+    from torch import nn
+
+    from intro_tc_vae_tpu_torch.models.blocks import GroupedBatchNorm
+
+    n = sum(1 if isinstance(m, (nn.Conv2d, nn.Linear)) else 2
+            for m in net.modules() if isinstance(m, (nn.Conv2d, nn.Linear, GroupedBatchNorm)))
+    return n + (len(net.stages) if isinstance(net.fc, nn.Linear) else 1)
+
+
+def phase_48px(card: str) -> dict:
+    """Phase 12: the flagship recipe at 48 px, whose res_in_48 convs run
+    the ragged entry points at [128, 64, 48, 48]: launches, a step held to
+    the cuDNN arm, device ms/step of both arms."""
+    import numpy as np
+    import torch
+
+    from intro_tc_vae_tpu_torch.config import load_config
+    from intro_tc_vae_tpu_torch.data import Synthetic, load_dataset
+    from intro_tc_vae_tpu_torch.models import Decoder, Encoder, SoftIntroVAE
+    from intro_tc_vae_tpu_torch.ops import conv
+    from intro_tc_vae_tpu_torch.solvers import NOISE_KEYS
+    from intro_tc_vae_tpu_torch.train import build_solver
+    from intro_tc_vae_tpu_torch.parallel import make_mesh
+
+    dev = torch.device("cuda", 0)
+    size = 48
+    if conv.kernel_body(CONV_48, torch.bfloat16) != "ragged":
+        die(f"phase 12: {CONV_48} does not take the ragged entry points")
+    configs = {impl: load_config(FLAGSHIP, {"dataset": "synthetic", "tc_impl": "pallas",
+                                            "conv_impl": impl, "use_tensorboard": False})
+               for impl in ("pallas", "xla")}
+    cfg = configs["pallas"]
+    _, _, channels, cdim = load_dataset(cfg.dataset)
+    ds = Synthetic(image_size=size, cdim=cdim)
+    kw = dict(arch=cfg.arch, cdim=cdim, zdim=cfg.z_dim, channels=tuple(channels),
+              image_size=size, compute_dtype=torch.bfloat16)
+    torch.manual_seed(0)
+    init = SoftIntroVAE(Encoder(**kw), Decoder(**kw)).state_dict()
+    rng = np.random.RandomState(0)
+    batches = [torch.from_numpy(ds.get_batch(rng.randint(0, len(ds), MAIN_B))
+                                .transpose(0, 3, 1, 2).copy()).to(dev)
+               for _ in range(PHASE12_STEPS)]
+    mesh = make_mesh(1, device=dev)
+
+    runs = {}
+    for impl, config in configs.items():
+        model = SoftIntroVAE(Encoder(**kw, conv_impl=impl), Decoder(**kw, conv_impl=impl))
+        model.load_state_dict(init)
+        model.to(dev).train()
+        solver = build_solver(config, ds, model.encoder, model.decoder, mesh)
+        runs[impl] = profiled_run(f"48 px, conv {impl}", solver, solver.init_state(0),
+                                  batches, phase="phase 12")
+        want_e, want_d = expected_intro_launches("pallas", impl, routed=2, body="ragged")
+        for label, got, want in (("phase E", runs[impl]["phase_e"], want_e),
+                                 ("phase D", runs[impl]["phase_d"], want_d)):
+            want = {k: PHASE12_STEPS * v for k, v in want.items()}
+            if got != want:
+                die(f"phase 12: 48 px, conv {impl}: {label} launches {got}, expected {want}")
+        print(f"phase 12: 48 px, conv {impl}: {PHASE12_STEPS} steps, finite metrics; launches "
+              f"phase E {runs[impl]['phase_e']}, phase D {runs[impl]['phase_d']} (exact); "
+              f"device {runs[impl]['device_ms']:.3f} ms/step on {card}")
+
+    # one step of each arm from the same weights, batch and noise
+    gen = torch.Generator(device=dev).manual_seed(1)
+    noise = {k: torch.randn((MAIN_B, cfg.z_dim), generator=gen, device=dev)
+             for k in NOISE_KEYS}
+    steps = {impl: train_one_step(dev, cfg, ds, kw, init, batches[0], noise, "pallas", impl)
+             for impl in configs}
+    (m_k, p_k), (m_x, p_x) = steps["pallas"], steps["xla"]
+    layers = bf16_rounded_layers(Encoder(**kw)) + bf16_rounded_layers(Decoder(**kw))
+    rel = math.sqrt(layers) * 2.0 ** -8
+    names = ("lossE", "lossD", "loss_kl", "loss_rec", "expelbo_r", "expelbo_f")
+    worst_rel = max(abs(m_k[n] - m_x[n]) / max(abs(m_k[n]), abs(m_x[n]), 1e-30)
+                    for n in names)
+    if not all(math.isclose(m_k[n], m_x[n], rel_tol=rel, abs_tol=1e-30) for n in names):
+        die(f"phase 12: conv pallas vs xla metrics differ by {worst_rel:.3g} relative > "
+            f"{rel:.3g}: " + json.dumps({n: [m_k[n], m_x[n]] for n in names}))
+    # parameters: Adam's first update is at most lr an entry, so two steps
+    # differ by at most 2 lr, plus the fp32 rounding of p - update in each
+    # (half a spacing of the largest |p| each); BatchNorm's running
+    # statistics move with the batch's, which the bf16 convs round apart:
+    # each buffer within sqrt(L) 2^-8 of its largest entry
+    trained = {k for k, _ in SoftIntroVAE(Encoder(**kw), Decoder(**kw)).named_parameters()}
+    worst, _ = params_diff({k: p_k[k] for k in trained}, {k: p_x[k] for k in trained})
+    p_max = max(float(np.abs(p_x[k]).max()) for k in trained)
+    p_bound = 2 * LR + float(np.spacing(np.float32(p_max)))
+    if not worst <= p_bound:
+        die(f"phase 12: conv pallas vs xla: updated params differ by {worst!r} > 2 lr + "
+            f"spacing({p_max:.3g}) = {p_bound!r}")
+    stats_rel = max(float(np.abs(p_k[k] - p_x[k]).max()) / max(float(np.abs(p_x[k]).max()), 1e-30)
+                    for k in p_x if k not in trained and p_x[k].dtype.kind == "f")
+    if not stats_rel <= rel:
+        die(f"phase 12: conv pallas vs xla: BatchNorm statistics differ by {stats_rel:.3g} "
+            f"of their largest entry > {rel:.3g}")
+    ms = {impl: r["device_ms"] for impl, r in runs.items()}
+    print(f"phase 12: one bf16 step at 48 px, conv pallas vs xla: metrics max rel diff "
+          f"{worst_rel:.3g} (<= sqrt({layers}) 2^-8 = {rel:.3g}) "
+          + json.dumps({n: [m_k[n], m_x[n]] for n in names})
+          + f"; updated params max abs diff {worst:.6g} (<= 2 lr + rounding = {p_bound:.6g}); "
+          f"BatchNorm "
+          f"statistics max diff {stats_rel:.3g} of their largest entry (<= {rel:.3g})")
+    print(f"phase 12: device ms/step at 48 px (bf16, batch 64): conv pallas {ms['pallas']:.3f}, "
+          f"conv xla {ms['xla']:.3f} on {card}")
+    return {"launches": {k: runs["pallas"]["phase_e"][k] + runs["pallas"]["phase_d"][k]
+                         for k in runs["pallas"]["phase_e"]},
+            "device_ms": ms}
+
+
 def device_time(card: str) -> None:
     """``--device-time``: device ms per step (``profiled_steps``) of the
     flagship's four arms (bf16) and of configs/vae_synthetic.json (fp32)
@@ -2877,6 +3041,7 @@ def main() -> None:
     data = timed("phase 9", phase_data_paths, card, main_path)
     obs = timed("phase 10", phase_observability, card, main_path)
     timed("phase 11", phase_solver_surface, card)
+    at48 = timed("phase 12", phase_48px, card)
     print(f"phase 8: flagship checkpoint {ckpt['bytes']} bytes; save {ckpt['save_s']:.3f} s, "
           f"background save returns in {ckpt['async_return_s']:.3f} s, load "
           f"{ckpt['load_s']:.3f} s; phase 4 img/s with the metric ring "
@@ -2884,13 +3049,13 @@ def main() -> None:
           + f" on {card}")
 
 
-    # What the wgmma wrappers' extra host time comes to in a flagship step:
-    # their calls per step (conv pallas arm) times the host microseconds a
-    # call takes over the general body's, beside the wall time of a step.
+    # What the wgmma wrappers' host time comes to in a flagship step: their
+    # calls per step (conv pallas arm) times the host microseconds a call
+    # takes, beside the wall time of a step.
     per_step = {k: v / 20 for k, v in main_path["launches"].items()}
     host = conv["host_us"]
-    extra_ms = (per_step["conv3x3_fwd_wgmma"] * (host["fwd_wgmma"] - host["fwd_general"])
-                + per_step["conv3x3_dw_wgmma"] * (host["dw_wgmma"] - host["dw_general"])) / 1e3
+    extra_ms = (per_step["conv3x3_fwd_wgmma"] * host["fwd_wgmma"]
+                + per_step["conv3x3_dw_wgmma"] * host["dw_wgmma"]) / 1e3
     wall_ms = MAIN_B / main_path["rates"]["tc pallas, conv pallas"] * 1e3
     for label, paths in data["loaders"].items():
         print(f"phase 9 (f): {label}, batch 64, host ms per batch "
@@ -2911,23 +3076,26 @@ def main() -> None:
               f"{card}")
     print(f"phase 10 (c): Inception pool3 {obs['c']['inception_img_s']:.1f} img/s; evaluate "
           f"--fid {obs['c']['eval_s']:.1f} s on {card}")
-    print(f"host: the wgmma wrappers' tensor maps and pack launch add {extra_ms:.3f} ms of "
-          f"host time to a flagship step of {wall_ms:.1f} ms on the host clock "
-          f"({100 * extra_ms / wall_ms:.2f} %)")
+    print(f"host: the wgmma wrappers (tensor maps, pack and kernel launches) take "
+          f"{extra_ms:.3f} ms of host time of a flagship step of {wall_ms:.1f} ms on the host "
+          f"clock ({100 * extra_ms / wall_ms:.2f} %)")
 
     # plain_ms: the plain PyTorch version of the same function; library_ms:
     # one PyTorch call that computes it (cuDNN for the convs), where there
     # is one. The TC backward kernels share the plain backward; the conv
     # forward's and dW's plain version is the library call. launches: the
     # flagship's (tc pallas, conv pallas) run of phase 4; the fp32 conv
-    # bodies, which that run does not reach, from phase 6's vae_synthetic.
+    # bodies, which that run does not reach, from phase 6's vae_synthetic;
+    # the ragged entry points from phase 12's conv pallas arm.
     tc_plain = {"tc_fwd": "plain_fwd", "tc_bwd_dz": "plain_bwd", "tc_bwd_dmu": "plain_bwd"}
     times = {**{k: {"ms": kernels["times"][k], "plain_ms": kernels["times"][p],
                     "library_ms": None} for k, p in tc_plain.items()}, **conv["times"]}
     errs = {**kernels["errs"], **conv["errs"]}
     bounds = {**tc_bounds(MAIN_B, MAIN_B), **conv["bounds"]}
     launches = {**main_path["launches"],
-                "conv3x3_fwd": other["conv3x3_fwd"], "conv3x3_dw": other["conv3x3_dw"]}
+                "conv3x3_fwd": other["conv3x3_fwd"], "conv3x3_dw": other["conv3x3_dw"],
+                "conv3x3_fwd_ragged": at48["launches"]["conv3x3_fwd_ragged"],
+                "conv3x3_dw_ragged": at48["launches"]["conv3x3_dw_ragged"]}
     entries = [
         {"name": k, "route": "cuda", "source": SOURCE[k], "replaces": REPLACES[k],
          "launches": launches[k], "max_abs_err": errs[k],

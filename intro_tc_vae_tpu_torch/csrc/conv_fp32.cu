@@ -1,7 +1,7 @@
 // 3x3 convolution, 64 -> 64 channels, stride 1, zero padding 1, in fp32 (true
 // fp32 products and sums, no TF32): the fp32 bodies of conv3x3_fwd and
 // conv3x3_dw for Hopper (sm_90a). They take every [N, 64, H, W] the wrappers
-// accept; bf16 runs conv_wgmma.cu (W in {32, 64, 128}) or conv_kernels.cu.
+// accept; bf16 runs the kernels of conv_wgmma.cu.
 //
 // They replace the TPU Pallas kernels of intro_tc_vae_tpu/ops/conv_pallas.py:
 //   conv3x3_fwd_fp32 <- _fwd_kernel (conv_pallas.py:238): y = conv3x3(x, w),

@@ -15,13 +15,14 @@ translated to the port's layouts (activations NCHW, weights OIHW):
   wrappers take them for CPU tensors.
 * ``kernel_body`` is the one rule that says which body of ``conv3x3_fwd``
   and ``conv3x3_dw`` a shape and dtype run on the card: ``"fp32"``
-  (``csrc/conv_fp32.cu``), ``"wgmma"`` (``csrc/conv_wgmma.cu``) or
-  ``"general"`` (``csrc/conv_kernels.cu``).
-* ``fast_path``, ``tile_schedule``, ``pack_weights`` and
-  ``conv3x3_dw_partials_reference`` are the host side of the wgmma kernels:
-  which shapes they take, which units of the activations each persistent
-  block walks, the weight layout they read, and the split dW sum in the
-  order the card takes it.
+  (``csrc/conv_fp32.cu``), ``"wgmma"`` (``csrc/conv_wgmma.cu``, W in
+  FAST_WIDTHS) or ``"ragged"`` (the same kernels' entry points for every
+  other even W).
+* ``fast_path``, ``box_width``, ``tile_schedule``, ``pack_weights`` and
+  ``conv3x3_dw_partials_reference`` are the host side of the bf16 kernels:
+  which shapes take the wgmma entry points, how wide a box of a row is,
+  which units of the activations each persistent block walks, the weight
+  layout they read, and the split dW sum in the order the card takes it.
 * ``fp32_tile``, ``fp32_launch_plan`` and ``fp32_tile_schedule`` are the
   same for the fp32 kernels, which take every shape; ``pack_weights`` and
   ``conv3x3_dw_partials_reference`` serve them with ``co_inner`` and
@@ -38,7 +39,6 @@ import torch.nn.functional as F
 CHANNELS = 64
 WEIGHT_SHAPE = (CHANNELS, CHANNELS, 3, 3)
 FAST_WIDTHS = (32, 64, 128)  # the widths the wgmma kernels take
-MIN_ROWS = 8                 # fewest rows of a unit, where H allows
 FP32_TILE_PIXELS = 512       # pixels of a unit of the fp32 kernels
 
 
@@ -81,10 +81,11 @@ def conv3x3_dw_reference(x: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
 
 
 def fast_path(shape, dtype) -> bool:
-    """Whether the wgmma kernels take activations of this shape and dtype:
-    bf16 [N, 64, H, W] with W in FAST_WIDTHS (one or two 64-pixel boxes a
-    row, or one 32-pixel box; TMA needs the row stride a multiple of 16
-    bytes). Everything else the wrappers accept runs the general kernels."""
+    """Whether the wgmma entry points take activations of this shape and
+    dtype: bf16 [N, 64, H, W] with W in FAST_WIDTHS (one or two 64-pixel
+    boxes a row, or one 32-pixel box, none cut; TMA lands every row). Every
+    other bf16 shape the wrappers accept runs the ragged entry points of
+    the same kernels."""
     if dtype != torch.bfloat16 or len(shape) != 4:
         return False
     n, c, h, w = shape
@@ -95,28 +96,38 @@ def fast_path(shape, dtype) -> bool:
 def kernel_body(shape, dtype) -> str:
     """The body of conv3x3_fwd and conv3x3_dw that activations of this
     shape and dtype run on the card: all of fp32 the FFMA kernels, bf16
-    the wgmma kernels where ``fast_path`` admits the shape and the general
-    ones elsewhere."""
+    the wgmma entry points where ``fast_path`` admits the shape and the
+    ragged ones elsewhere (which take even W only: the wrappers raise on
+    an odd bf16 width, which the gate never routes)."""
     if dtype == torch.float32:
         return "fp32"
-    return "wgmma" if fast_path(shape, dtype) else "general"
+    return "wgmma" if fast_path(shape, dtype) else "ragged"
 
 
 def box_width(w: int) -> int:
-    """Pixels of a row in one shared-memory slab."""
-    return min(w, 64)
+    """Pixels of a row in one shared-memory slab: 16 where the row has at
+    most 16, 32 where it has at most 32, else 64 (ceil(W / 64) boxes a
+    row). A narrower box costs more shared-memory reads per product, so a
+    row takes the widest box it needs (csrc/conv_wgmma.cu)."""
+    return 16 if w <= 16 else 32 if w <= 32 else 64
+
+
+def box_columns(w: int) -> int:
+    """Boxes a row: the last one is cut at W where the box does not divide it."""
+    return -(-w // box_width(w))
 
 
 @functools.lru_cache(maxsize=None)
 def row_chunk(n: int, h: int, w: int, n_blocks: int) -> int:
-    """Rows per unit: the divisor rc of H (at least MIN_ROWS where H has
-    one) for which the busiest of n_blocks blocks loads the fewest rows,
-    ceil(units / blocks) * (rc + 2) with the one-row halo above and below;
-    the larger rc on a tie."""
-    cols = w // box_width(w)
+    """Rows per unit: the divisor rc of H for which the busiest of n_blocks
+    blocks loads the fewest rows, ceil(units / blocks) * (rc + 2) with the
+    one-row halo above and below; the larger rc on a tie. Small images get
+    short units on many blocks (a row's latency chain is the cost there),
+    large ones one unit a block."""
+    cols = box_columns(w)
     best, best_cost = h, None
     for rc in range(h, 0, -1):
-        if h % rc or (rc < MIN_ROWS and rc != h):
+        if h % rc:
             continue
         units = n * (h // rc) * cols
         blocks = min(n_blocks, units)
@@ -129,19 +140,24 @@ def row_chunk(n: int, h: int, w: int, n_blocks: int) -> int:
 def launch_plan(n: int, h: int, w: int, n_blocks: int) -> tuple:
     """(rows per unit, persistent blocks) the launchers are given."""
     rc = row_chunk(n, h, w, n_blocks)
-    return rc, min(n_blocks, n * (h // rc) * (w // box_width(w)))
+    return rc, min(n_blocks, n * (h // rc) * box_columns(w))
 
 
 def tile_schedule(n: int, h: int, w: int, n_blocks: int) -> list:
     """The units each persistent block walks, in order: block b of P =
     min(n_blocks, units) takes units b, b + P, ...; a unit is (image, first
     row, first column, rows, columns), numbered columns fastest, then row
-    chunks, then images. The kernels' ``unit_of`` is the same arithmetic."""
+    chunks, then images; the last box of a row is cut at W (the kernel
+    lands it zero-filled past W). The kernels' ``unit_of`` is the same
+    arithmetic."""
     (rc, blocks), bw = launch_plan(n, h, w, n_blocks), box_width(w)
-    cols, chunks = w // bw, h // rc
-    units = n * chunks * cols
-    return [[(u // (cols * chunks), (u // cols) % chunks * rc, u % cols * bw, rc, bw)
-             for u in range(b, units, blocks)] for b in range(blocks)]
+    cols, chunks = box_columns(w), h // rc
+
+    def unit(u):
+        w0 = u % cols * bw
+        return (u // (cols * chunks), (u // cols) % chunks * rc, w0, rc, min(bw, w - w0))
+
+    return [[unit(u) for u in range(b, n * chunks * cols, blocks)] for b in range(blocks)]
 
 
 def fp32_tile(w: int) -> tuple:
@@ -193,7 +209,7 @@ def unpack_weights(wp: torch.Tensor, co_inner: bool = False) -> torch.Tensor:
 
 def conv3x3_dw_partials_reference(x: torch.Tensor, gy: torch.Tensor, n_blocks: int,
                                   schedule=tile_schedule):
-    """dW by the split the wgmma kernel (or, with ``schedule=
+    """dW by the split the bf16 kernels (or, with ``schedule=
     fp32_tile_schedule``, the fp32 kernel) takes: block b sums its units of
     the schedule into an fp32 partial [64, 64, 3, 3]; the partials are then
     added in order b = 0..P-1 and rounded once to x's dtype.

@@ -14,13 +14,15 @@ Counterpart of ``intro_tc_vae_tpu/ops/conv_pallas.py::conv3x3_pallas`` and
 ``conv3x3_fwd`` and ``conv3x3_dw`` each have three bodies, chosen by the
 rule ``ops/conv.py::kernel_body`` and by nothing else: all of fp32 runs
 the FFMA kernels of ``csrc/conv_fp32.cu`` (rows kept as they lie, cp.async
-rings, persistent blocks, any shape); bf16 with W in {32, 64, 128} runs
-the wgmma kernels of ``csrc/conv_wgmma.cu`` (TMA-fed rings, persistent
-blocks); every other bf16 shape runs the general kernels of
-``csrc/conv_kernels.cu``. ``LAUNCHES`` counts ``conv3x3_fwd_wgmma`` and
-``conv3x3_dw_wgmma`` under their own names and the other two bodies as
-``conv3x3_fwd`` and ``conv3x3_dw``; a wrapper's calls are the sum of its
-two counts.
+rings, persistent blocks, any shape); bf16 runs the wgmma kernels of
+``csrc/conv_wgmma.cu`` (rings of row slabs, persistent blocks): W in
+{32, 64, 128} through the ``_wgmma`` entry points, every other even W
+through the ``_ragged`` ones (the last box of a row cut at W; TMA where
+the row stride is a multiple of 16 bytes, cp.async elsewhere); an odd bf16
+W raises. ``LAUNCHES`` counts ``conv3x3_fwd_wgmma``, ``conv3x3_dw_wgmma``,
+``conv3x3_fwd_ragged`` and ``conv3x3_dw_ragged`` under their own names and
+the fp32 bodies as ``conv3x3_fwd`` and ``conv3x3_dw``; a wrapper's calls
+are the sum of its three counts.
 
 ``conv3x3_pallas(x, w)`` runs all three; ``conv3x3_hybrid(x, w)`` runs the
 stock forward (cuDNN, as the JAX version runs XLA's conv) and the kernel
@@ -59,20 +61,14 @@ from intro_tc_vae_tpu_torch.ops.conv import (
 from intro_tc_vae_tpu_torch.ops.cuda_build import load_library
 
 KERNELS = ("conv3x3_fwd", "conv3x3_dw", "conv3x3_dw_reduce", "conv3x3_pack_w",
-           "conv3x3_fwd_wgmma", "conv3x3_dw_wgmma")
+           "conv3x3_fwd_wgmma", "conv3x3_dw_wgmma", "conv3x3_fwd_ragged", "conv3x3_dw_ragged")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
-MAX_PARTS = 256          # the general dW's partials: 256 x 147 KB of scratch at most
-TILE_H, TILE_W = 8, 32   # the general kernels' output tile (csrc/conv_kernels.cu)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # library -> entry point -> argument types (device and stream last)
 _ARGTYPES = {
     "conv_kernels": {
-        # x, w, y, N, H, W, device, stream
-        "conv3x3_fwd": [_P, _P, _P, _I, _I, _I, _I, _P],
-        # x, gy, part, N, H, W, n_parts, device, stream
-        "conv3x3_dw": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
         # part, dw, n_parts, dtype, device, stream
         "conv3x3_dw_reduce": [_P, _P, _I, _I, _I, _P],
     },
@@ -81,6 +77,9 @@ _ARGTYPES = {
         "conv3x3_fwd_wgmma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         # x, gy, part, N, H, W, rc, n_blocks, device, stream
         "conv3x3_dw_wgmma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # the same two for every other even W
+        "conv3x3_fwd_ragged": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "conv3x3_dw_ragged": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         # w, out, rot, dtype, device, stream
         "conv3x3_pack_w": [_P, _P, _I, _I, _I, _P],
     },
@@ -168,73 +167,63 @@ def _pack_w(w: torch.Tensor, rot: bool) -> torch.Tensor:
     return out
 
 
-def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor, rot: bool = False,
-                general: bool = False) -> torch.Tensor:
+def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor, rot: bool = False) -> torch.Tensor:
     """y = conv3x3(x, w) in x's dtype (fp32 accumulation): x [N, 64, H, W],
     w [64, 64, 3, 3]. ``rot``: the conv with rot_t(w) instead, which is the
-    input gradient, conv3x3_fwd(gy, w, rot=True); the fp32 and wgmma
-    bodies pack those weights straight from w, the general one forms the
-    tensor. ``general`` runs the general kernel on a bf16 shape the wgmma
-    one takes."""
+    input gradient, conv3x3_fwd(gy, w, rot=True); every body packs those
+    weights straight from w."""
     if x.device.type == "cpu" and w.device.type == "cpu":
         return conv3x3_reference(x, rot_t(w) if rot else w)
     _check(x=x, w=w)
     n, _, h, wd = x.shape
     y = torch.empty_like(x)
-    body = _body(x.shape, x.dtype, general)
+    body = _body(x.shape, x.dtype)
     if body == "fp32":
         blocks = fp32_launch_plan(n, h, wd, sm_count(x.device))
         launch("conv3x3_fwd_fp32", x, _pack_w(w, rot), y, n, h, wd, blocks, device=x.device)
-    elif body == "wgmma":
-        rc, blocks = launch_plan(n, h, wd, sm_count(x.device))
-        launch("conv3x3_fwd_wgmma", x, _pack_w(w, rot), y, n, h, wd, rc, blocks,
-               device=x.device)
     else:
-        launch("conv3x3_fwd", x, rot_t(w).contiguous() if rot else w, y, n, h, wd,
+        rc, blocks = launch_plan(n, h, wd, sm_count(x.device))
+        launch(f"conv3x3_fwd_{body}", x, _pack_w(w, rot), y, n, h, wd, rc, blocks,
                device=x.device)
     return y
 
 
-def _body(shape, dtype, general: bool) -> str:
+def _body(shape, dtype) -> str:
     body = kernel_body(shape, dtype)
-    return "general" if general and body == "wgmma" else body
+    if body == "ragged" and shape[3] % 2:
+        raise ValueError(f"bf16 activations {tuple(shape)}: the bf16 kernels take an even W "
+                         f"(rows of 4-byte pixel pairs)")
+    return body
 
 
-def dw_parts(shape, dtype, device, general: bool = False) -> tuple:
+def dw_parts(shape, dtype, device) -> tuple:
     """(body, n_parts, rows per unit) of conv3x3_dw on this shape: one
-    partial per persistent block of the fp32 and wgmma bodies, one per
-    tile up to MAX_PARTS of the general one; rows per unit is the wgmma
-    launcher's argument, 0 elsewhere."""
+    partial per persistent block; rows per unit is the bf16 launchers'
+    argument, 0 for fp32."""
     n, _, h, wd = shape
-    body = _body(shape, dtype, general)
+    body = _body(shape, dtype)
     if body == "fp32":
         return body, fp32_launch_plan(n, h, wd, sm_count(device)), 0
-    if body == "wgmma":
-        rc, blocks = launch_plan(n, h, wd, sm_count(device))
-        return body, blocks, rc
-    tiles = n * -(-h // TILE_H) * -(-wd // TILE_W)
-    return body, min(tiles, MAX_PARTS), 0
+    rc, blocks = launch_plan(n, h, wd, sm_count(device))
+    return body, blocks, rc
 
 
-def conv3x3_dw(x: torch.Tensor, gy: torch.Tensor, general: bool = False) -> torch.Tensor:
+def conv3x3_dw(x: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
     """dW [64, 64, 3, 3] of y = conv3x3(x, w) for the incoming gy, summed
-    in fp32 and rounded once to x's dtype. ``general`` runs the general
-    kernel on a bf16 shape the wgmma one takes."""
+    in fp32 and rounded once to x's dtype."""
     if x.device.type == "cpu" and gy.device.type == "cpu":
         return conv3x3_dw_reference(x, gy)
     _check(x=x, gy=gy)
     if gy.shape != x.shape:
         raise ValueError(f"gy {tuple(gy.shape)} must have x's shape {tuple(x.shape)}")
     n, _, h, wd = x.shape
-    body, n_parts, rc = dw_parts(x.shape, x.dtype, x.device, general)
+    body, n_parts, rc = dw_parts(x.shape, x.dtype, x.device)
     part = torch.empty((n_parts, 9 * CHANNELS, CHANNELS), device=x.device,
                        dtype=torch.float32)
     if body == "fp32":
         launch("conv3x3_dw_fp32", x, gy, part, n, h, wd, n_parts, device=x.device)
-    elif body == "wgmma":
-        launch("conv3x3_dw_wgmma", x, gy, part, n, h, wd, rc, n_parts, device=x.device)
     else:
-        launch("conv3x3_dw", x, gy, part, n, h, wd, n_parts, device=x.device)
+        launch(f"conv3x3_dw_{body}", x, gy, part, n, h, wd, rc, n_parts, device=x.device)
     dw = torch.empty(WEIGHT_SHAPE, device=x.device, dtype=x.dtype)
     launch("conv3x3_dw_reduce", part, dw, n_parts, _DTYPE_CODE[x.dtype], device=x.device)
     return dw

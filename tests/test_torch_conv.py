@@ -132,16 +132,34 @@ def test_supported_matches_jax_gate(x_shape, w_shape, want):
 FLAGSHIP = dict(cdim=3, zdim=128, channels=(64, 128, 256, 512), image_size=64)
 FLAGSHIP_ROUTED = {"decoder.main.res_in_32.conv2", "decoder.main.res_in_64.conv1",
                    "decoder.main.res_in_64.conv2"}
+# the same recipe at 48 px (48 // 2^4 = 3): res_in_48's two convs route at
+# [2B, 64, 48, 48], the ragged entry points' shape; res_in_24 does not (24 is
+# no multiple of 16)
+FLAGSHIP_ROUTED_48 = {"decoder.main.res_in_48.conv1", "decoder.main.res_in_48.conv2"}
 
 
 @pytest.mark.parametrize("arch", ["conv", "res"])
 def test_flagship_routes_the_convs_the_jax_gate_accepts(arch, monkeypatch):
     """One batch-1 forward of the full-width flagship models with
     conv_impl 'pallas': exactly three decoder convs go to the kernels, and
-    every PallasConv3x3 routes iff the JAX gate accepts its NHWC input."""
+    every PallasConv3x3 routes iff the JAX gate accepts its NHWC input; at
+    48 px the two convs of res_in_48, by the same rule, on the ragged
+    entry points."""
+    for size, want in ((64, FLAGSHIP_ROUTED), (48, FLAGSHIP_ROUTED_48)):
+        shapes = _routed_convs(arch, size, want, monkeypatch)
+        bodies = {conv.kernel_body((2, c, h, w), torch.bfloat16)
+                  for name, ((_, h, w, c), _) in shapes.items() if name in want}
+        assert bodies == ({"wgmma"} if size == 64 else {"ragged"})
+
+
+def _routed_convs(arch, size, want, monkeypatch):
+    """The routed convs of a batch-1 forward at ``size`` are ``want``, and
+    each PallasConv3x3 routes iff the JAX gate accepts it; returns every
+    PallasConv3x3's (NHWC input, HWIO weight) shapes."""
     torch.manual_seed(0)
-    model = SoftIntroVAE(Encoder(arch=arch, conv_impl="pallas", **FLAGSHIP),
-                         Decoder(arch=arch, conv_impl="pallas", **FLAGSHIP)).eval()
+    kw = {**FLAGSHIP, "image_size": size}
+    model = SoftIntroVAE(Encoder(arch=arch, conv_impl="pallas", **kw),
+                         Decoder(arch=arch, conv_impl="pallas", **kw)).eval()
     current, routed, shapes = [], [], {}
     spy_target = blocks.conv3x3_pallas
 
@@ -159,12 +177,14 @@ def test_flagship_routes_the_convs_the_jax_gate_accepts(arch, monkeypatch):
                 shapes[name] = ((n, h, w, c), (kh, kw, i, o))
             mod.register_forward_pre_hook(pre)
     with torch.no_grad():
-        mu, _ = model.encoder(torch.rand(1, 3, 64, 64))
+        mu, _ = model.encoder(torch.rand(1, 3, size, size))
         model.decoder(mu)
-    assert set(routed) == FLAGSHIP_ROUTED and len(routed) == 3
+    assert set(routed) == want and len(routed) == len(want)
     assert len(shapes) == 18  # both 3x3 convs of the 9 blocks ran
     for name, (x_shape, w_shape) in shapes.items():
-        assert jsupported(x_shape, w_shape) == (name in FLAGSHIP_ROUTED), name
+        assert jsupported(x_shape, w_shape) == (name in want), name
+    monkeypatch.undo()
+    return shapes
 
 
 SMALL64 = dict(arch="conv", cdim=3, zdim=8, channels=(64,), image_size=32)
@@ -221,6 +241,33 @@ def test_intro_step_computes_no_weight_gradient_of_the_other_network(kernel_call
     assert at_opt_e == [{"fwd": 24, "dw": 4}]
     assert kernel_calls == {"fwd": 44, "dw": 12}
     assert all(p.requires_grad for p in state.model.parameters())
+
+
+def test_flagship_48px_step_kernel_calls(kernel_calls):
+    """The flagship's widths (64-128-256-512, z 128) at 48 px, conv_impl
+    'pallas', one paired intro_tc step at batch 2: the decoder routes
+    res_in_48's two convs, the encoder none. Each phase makes 2 decoder
+    calls, each call a forward and a dx per routed conv: 2 x 2 x 2 = 8
+    fwd-kernel calls a phase; dW only in phase D (the decoder is frozen in
+    phase E), once per routed conv and call: 4. On the card each fwd call
+    is one conv3x3_fwd_ragged and one conv3x3_pack_w launch, each dW call
+    one conv3x3_dw_ragged and one conv3x3_dw_reduce: 16, 16, 4 and 4 a step
+    (chip_smoke.py phase 12 checks the launches against the same count)."""
+    torch.manual_seed(0)
+    kw = {**FLAGSHIP, "arch": "conv", "image_size": 48}
+    enc, dec = Encoder(conv_impl="pallas", **kw), Decoder(conv_impl="pallas", **kw)
+    solver = make_solver("intro_tc", dataset=Synthetic(image_size=48, cdim=3, sizes=(2, 2, 4, 4)),
+                         encoder=enc, decoder=dec, batch_size=2,
+                         optimizer_e=make_optimizer("adam", 2e-4),
+                         optimizer_d=make_optimizer("adam", 2e-4), tc_impl="pallas")
+    batch = torch.from_numpy(solver.dataset.get_batch(np.arange(2)).transpose(0, 3, 1, 2).copy())
+    state = solver.init_state(0)
+    at_opt_e = []
+    state.opt_e.register_step_pre_hook(lambda *a: at_opt_e.append(dict(kernel_calls)))
+    solver.train_step(state, batch)
+    assert at_opt_e == [{"fwd": 8, "dw": 0}]
+    assert kernel_calls == {"fwd": 16, "dw": 4}
+    assert conv.kernel_body((4, 64, 48, 48), torch.bfloat16) == "ragged"
 
 
 def test_vae_step_kernel_calls(kernel_calls):

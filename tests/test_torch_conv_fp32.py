@@ -16,8 +16,8 @@ surrounds them is plain Python and PyTorch in ``ops/conv.py``:
   fp32 forward reads, stands for ``w`` and ``rot_t(w)`` exactly, also by
   the index formula of the card's ``conv3x3_pack_w``.
 * ``kernel_body`` sends fp32 to the fp32 bodies for every shape the gate
-  accepts (and any other the wrappers take), bf16 to wgmma or general by
-  ``fast_path``.
+  accepts (and any other the wrappers take), bf16 to the wgmma or the
+  ragged entry points by ``fast_path``.
 """
 
 import jax
@@ -138,7 +138,7 @@ def test_fp32_pack_weights_is_tap_ci_co(rot):
     ((3, 64, 20, 36), torch.float32, "fp32"),       # ragged
     ((2, 64, 16, 6), torch.float32, "fp32"),        # rows of 24 bytes
     ((128, 64, 64, 64), torch.bfloat16, "wgmma"),
-    ((3, 64, 20, 36), torch.bfloat16, "general"),
+    ((3, 64, 20, 36), torch.bfloat16, "ragged"),
 ])
 def test_kernel_body_rule(shape, dtype, want):
     assert conv.kernel_body(shape, dtype) == want
@@ -156,7 +156,7 @@ def test_kernel_body_sends_all_of_fp32_to_the_fp32_bodies():
             seen += 1
             assert conv.kernel_body(shape, torch.float32) == "fp32"
             assert conv.kernel_body(shape, torch.bfloat16) == \
-                ("wgmma" if conv.fast_path(shape, torch.bfloat16) else "general")
+                ("wgmma" if conv.fast_path(shape, torch.bfloat16) else "ragged")
             # and the schedule takes it: at least one unit, no empty block
             assert all(conv.fp32_tile_schedule(2, h, w, SMS))
     assert seen > 20

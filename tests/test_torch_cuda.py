@@ -22,10 +22,10 @@ output entry):
   132 partials; the random-walk estimate sqrt(4228) * 2^-24 = 3.9e-6 S,
   with a 5x margin, under the worst case 4228 * 2^-24 = 2.5e-4 S).
 * bf16: one rounding of the fp32 sum, |d| <= 2^-8 |ref| + 1e-5 S. bf16
-  with W in {32, 64, 128} runs the wgmma kernels (csrc/conv_wgmma.cu),
-  whose dW chain is shorter (one addition per 16 pixels of a block's rows,
-  then at most 132 partials), every other bf16 shape the general ones
-  (csrc/conv_kernels.cu, a chain of 2,304): the same bound holds them.
+  runs the wgmma kernels (csrc/conv_wgmma.cu), W in {32, 64, 128} through
+  the wgmma entry points and every other even W through the ragged ones,
+  whose dW chain is short (one addition per 16 pixels of a block's rows,
+  then at most 132 partials): the same bound holds them.
 """
 
 import numpy as np
@@ -314,15 +314,12 @@ def test_wrapper_rejects_what_the_kernels_do_not_take(dev):
 
 def conv_counts(fwd, dw, body):
     """conv_cuda.LAUNCHES after `fwd` conv3x3_fwd and `dw` conv3x3_dw calls,
-    all by one body (``conv.kernel_body``): the wgmma and the fp32 forward
-    pack their weights first, the general one reads them as they are; the
-    fp32 bodies count under the general ones' names."""
+    all by one body (``conv.kernel_body``): every forward packs its weights
+    first; the fp32 bodies count under the wrappers' own names."""
     zero = dict.fromkeys(conv_cuda.KERNELS, 0)
-    if body == "wgmma":
-        return {**zero, "conv3x3_fwd_wgmma": fwd, "conv3x3_pack_w": fwd,
-                "conv3x3_dw_wgmma": dw, "conv3x3_dw_reduce": dw}
-    return {**zero, "conv3x3_fwd": fwd, "conv3x3_dw": dw, "conv3x3_dw_reduce": dw,
-            "conv3x3_pack_w": fwd if body == "fp32" else 0}
+    suffix = "" if body == "fp32" else f"_{body}"
+    return {**zero, f"conv3x3_fwd{suffix}": fwd, "conv3x3_pack_w": fwd,
+            f"conv3x3_dw{suffix}": dw, "conv3x3_dw_reduce": dw}
 
 
 def conv_bound(name, dtype, ref, s):
@@ -484,20 +481,36 @@ def test_conv_wrapper_rejects_what_the_kernels_do_not_take(dev):
     part = torch.empty((3, 576, 64), device=dev)
     with pytest.raises(RuntimeError):
         conv_cuda.launch("conv3x3_dw_fp32", x, x, part, 2, 16, 8, 3, device=dev)
+    # bf16: an odd W raises in the wrapper; the ragged launcher refuses one,
+    # and the wgmma launcher any W outside {32, 64, 128}
+    xb = torch.randn((1, 64, 16, 7), device=dev).bfloat16()
+    with pytest.raises(ValueError):
+        conv_cuda.conv3x3_fwd(xb, w.bfloat16())
+    with pytest.raises(RuntimeError):
+        conv_cuda.launch("conv3x3_dw_ragged", xb, xb, part, 1, 16, 7, 16, 1, device=dev)
+    xb = torch.randn((1, 64, 16, 48), device=dev).bfloat16()
+    with pytest.raises(RuntimeError):
+        conv_cuda.launch("conv3x3_dw_wgmma", xb, xb, part, 1, 16, 48, 16, 1, device=dev)
 
 
 WGMMA_SHAPES = [(4, 64, 16, 32), (3, 64, 24, 64), (2, 64, 16, 128), (128, 64, 32, 32)]
+# the ragged entry points: one part-filled box (TMA), rows TMA cannot land
+# (W % 8 = 4), a full and a part-filled box, 16 boxes a row, the narrow end,
+# 16- and 32-pixel boxes landed by TMA, a free H
+RAGGED_SHAPES = [(8, 64, 48, 48), (4, 64, 32, 36), (2, 64, 16, 96), (1, 64, 16, 1016),
+                 (2, 64, 16, 6), (3, 64, 16, 8), (2, 64, 32, 24), (3, 64, 20, 36)]
 
 
-@pytest.mark.parametrize("shape", WGMMA_SHAPES, ids=lambda s: "x".join(map(str, s)))
-@pytest.mark.parametrize("general", [False, True], ids=["wgmma", "general"])
-def test_wgmma_conv_kernels_match_plain(dev, shape, general):
-    """bf16 at W in {32, 64, 128}: the wgmma bodies, and the general bodies
-    forced on the same inputs, against the float64 plain version; the
-    packed weights equal the plain pack bit for bit; two dW runs are
-    bit-equal (ordered partial sums, no atomics)."""
+@pytest.mark.parametrize("shape", WGMMA_SHAPES + RAGGED_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_wgmma_conv_kernels_match_plain(dev, shape):
+    """bf16: the wgmma entry points at W in {32, 64, 128} and the ragged
+    ones elsewhere, against the float64 plain version; the packed weights
+    equal the plain pack bit for bit; two dW runs are bit-equal (ordered
+    partial sums, no atomics)."""
     dtype = torch.bfloat16
-    assert conv.fast_path(shape, dtype)
+    body = conv.kernel_body(shape, dtype)
+    assert body == ("wgmma" if shape in WGMMA_SHAPES else "ragged")
     g = torch.Generator(device=dev).manual_seed(2)
     x = (torch.randn(shape, device=dev, generator=g) * 0.5).to(dtype)
     w = (torch.randn((64, 64, 3, 3), device=dev, generator=g) * 0.05).to(dtype)
@@ -505,12 +518,12 @@ def test_wgmma_conv_kernels_match_plain(dev, shape, general):
     for rot in (False, True):
         assert torch.equal(conv_cuda.conv3x3_pack_w(w, rot), conv.pack_weights(w, rot))
     conv_cuda.reset_launch_counts()
-    got = {"y": conv_cuda.conv3x3_fwd(x, w, general=general),
-           "dx": conv_cuda.conv3x3_fwd(gy, w, rot=True, general=general),
-           "dw": conv_cuda.conv3x3_dw(x, gy, general=general)}
-    again = conv_cuda.conv3x3_dw(x, gy, general=general)
+    got = {"y": conv_cuda.conv3x3_fwd(x, w),
+           "dx": conv_cuda.conv3x3_fwd(gy, w, rot=True),
+           "dw": conv_cuda.conv3x3_dw(x, gy)}
+    again = conv_cuda.conv3x3_dw(x, gy)
     torch.cuda.synchronize()
-    assert conv_cuda.LAUNCHES == conv_counts(2, 2, "general" if general else "wgmma")
+    assert conv_cuda.LAUNCHES == conv_counts(2, 2, body)
     assert torch.equal(got["dw"], again)
     xd, wd, gd = x.double(), w.double(), gy.double()
     want = {"y": (conv.conv3x3_reference(xd, wd), conv.conv3x3_reference(xd.abs(), wd.abs())),
@@ -525,20 +538,24 @@ def test_wgmma_conv_kernels_match_plain(dev, shape, general):
             f"{name}: max |d| {float(d.max()):.3g}"
 
 
-def test_wgmma_dw_equals_its_partials_reference(dev):
+@pytest.mark.parametrize("shape", [(6, 64, 16, 64), (3, 64, 20, 36), (4, 64, 16, 48),
+                                   (2, 64, 16, 6), (1, 64, 16, 1016)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_wgmma_dw_equals_its_partials_reference(dev, shape):
     """The kernel's per-block fp32 partials against the plain split sum by
-    the same schedule (ops/conv.py::conv3x3_dw_partials_reference): each
-    partial within 1e-5 S of it (the order inside a block differs), and the
-    rounded dW within the bf16 bound."""
-    shape, dtype = (6, 64, 16, 64), torch.bfloat16
+    the same schedule (ops/conv.py::conv3x3_dw_partials_reference, the last
+    box of a row cut at W): each partial within 1e-5 S of it (the order
+    inside a block differs), and the rounded dW within the bf16 bound."""
+    dtype = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(3)
     x = (torch.randn(shape, device=dev, generator=g) * 0.5).to(dtype)
     gy = torch.randn(shape, device=dev, generator=g).to(dtype)
     want_dw, want_parts = conv.conv3x3_dw_partials_reference(x, gy, conv_cuda.sm_count(dev))
     body, n_parts, rc = conv_cuda.dw_parts(shape, dtype, dev)
-    assert body == "wgmma" and n_parts == want_parts.shape[0]
+    assert body == ("wgmma" if shape[3] == 64 else "ragged")
+    assert n_parts == want_parts.shape[0]
     part = torch.empty((n_parts, 576, 64), device=dev)
-    conv_cuda.launch("conv3x3_dw_wgmma", x, gy, part, *(shape[0], *shape[2:]), rc, n_parts,
+    conv_cuda.launch(f"conv3x3_dw_{body}", x, gy, part, *(shape[0], *shape[2:]), rc, n_parts,
                      device=dev)
     torch.cuda.synchronize()
     # part[p][tap * 64 + ci][co] -> [p][co][ci][ky][kx]

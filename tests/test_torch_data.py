@@ -36,10 +36,26 @@ MPI3D_FACTORS = [6, 6, 2, 3, 3, 40, 40]
 
 @pytest.fixture
 def same_path(monkeypatch):
-    """Both packages' data cores on the same path (native or fallback)."""
+    """Both packages' data cores on one path: native where both libraries
+    load in this process, else both on their numpy/PIL fallbacks. Returns
+    the path's name, checked against both packages' ``available()``.
+
+    The two libraries load independently: the JAX package builds its own
+    into one shared temporary file, so test workers that build at once can
+    leave it unloaded in one process while the port's loads; a resize
+    (native float bicubic, or PIL through uint8) then differs between
+    the packages."""
     if not (native.available() and jnative.available()):
         monkeypatch.setattr(native, "_load", lambda: None)
         monkeypatch.setattr(jnative, "_load", lambda: None)
+    path = "native" if native.available() else "fallback"
+    assert_path(path)
+    return path
+
+
+def assert_path(path):
+    """Both packages' data cores are on ``path``."""
+    assert (native.available(), jnative.available()) == (path == "native",) * 2
 
 
 def _dsprites_latents_values() -> np.ndarray:
@@ -97,6 +113,7 @@ def test_array_datasets_equal_jax(name, dsprites_root, mpi3d_root, same_path):
         np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(la, lb)
     assert ours.get_batch_raw(idx) is None and ours.raw_array() is None
+    assert_path(same_path)  # the comparison ran on one resize path
 
 
 def test_small_variants_refuse_a_partial_grid(dsprites_root):

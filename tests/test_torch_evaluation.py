@@ -43,7 +43,8 @@ from intro_tc_vae_tpu_torch.models import Decoder, Encoder, SoftIntroVAE, conv_o
 from intro_tc_vae_tpu_torch.solvers import make_optimizer, make_solver
 from intro_tc_vae_tpu_torch.utils import flax_to_port
 from tests._torch_threads import one_thread  # noqa: F401  (autouse)
-from tests.test_torch_data import dsprites_root, mpi3d_root  # noqa: F401  (fixtures)
+from tests.test_torch_data import assert_path
+from tests.test_torch_data import dsprites_root, mpi3d_root, same_path  # noqa: F401  (fixtures)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCORE_ATOL = 1e-9
@@ -68,10 +69,12 @@ def _pair(name, dsprites_root, mpi3d_root, resize=None):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name", ["dsprites_small", "dsprites", "mpi3d_small", "synthetic"])
-def test_latent_generator_draws_equal_jax(name, dsprites_root, mpi3d_root):
+def test_latent_generator_draws_equal_jax(name, dsprites_root, mpi3d_root, same_path):
     """Seeded generators of both packages: the same factors, the same
     observation batches, batch for batch, through ``sample`` and
-    ``generate`` (a ragged last batch included)."""
+    ``generate`` (a ragged last batch included). The stored dSprites and
+    MPI3D images are resized to 64 on the way: both packages on one resize
+    path (``same_path``)."""
     ours, theirs = _pair(name, dsprites_root, mpi3d_root)
     a, b = LatentGenerator(ours, seed=3), JLatentGenerator(theirs, seed=3)
     assert (a.num_factors, a.num_latents, a.observed_factor_indices) == \
@@ -89,6 +92,7 @@ def test_latent_generator_draws_equal_jax(name, dsprites_root, mpi3d_root):
         np.testing.assert_array_equal(fa, fb)
         np.testing.assert_array_equal(oa, ob)
     np.testing.assert_array_equal(a._sample_factors(1, 5), b._sample_factors(1, 5))
+    assert_path(same_path)
 
 
 def test_observed_factors_are_filled_like_jax():

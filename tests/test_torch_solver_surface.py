@@ -477,9 +477,9 @@ def test_remat_recomputes_each_routed_conv_once(monkeypatch, remat):
     calls = {"fwd": 0, "dx": 0}
     real = conv_cuda.conv3x3_fwd
 
-    def counted(x, w, rot=False, general=False):
+    def counted(x, w, rot=False):
         calls["dx" if rot else "fwd"] += 1
-        return real(x, w, rot, general)
+        return real(x, w, rot)
 
     monkeypatch.setattr(conv_cuda, "conv3x3_fwd", counted)
     enc = Encoder(**ROUTED, conv_impl="pallas", remat=remat == "block")
