@@ -157,6 +157,30 @@ result line):
    within sqrt(L) 2^-8 of each buffer's largest entry; device ms/step of
    both arms.
 
+13. The model options, the reference loader and the doctor
+   (``phase_options``), in a temporary directory, at the flagship's width:
+   (a) ``pack_predict`` 0, 2 and 4 with tc and conv 'pallas' and (b)
+   ``tile_rows`` 0 (conv 'xla'), 16 and 32 (conv 'pallas'), each 10 steps
+   through the CLI on the synthetic set cut to 640 images
+   (``synthetic_steps``): finite losses, the launches of each phase and
+   of the run exactly as derived (``pack_predict`` leaves phase 4's;
+   ``tile_rows`` > 0 routes no conv, so no conv kernel launches, as in
+   JAX), device ms/step of each; cuDNN's plain 5x5 64 -> 3 predict conv
+   against the packed form at b = 2 and 4 ([128, 64, 64, 64] bf16,
+   forward and forward + backward); one fp32 step of ``pack_predict`` 2
+   against 0 and of ``tile_rows`` 16 against 0 (conv 'xla') at phase 5
+   (b)'s gate. (c) ``sample --pack 2`` and ``evaluate --pack 2`` on (a)'s
+   ``pack_predict`` 0 checkpoint: the PNG within 2 levels of ``--pack
+   0``'s, ``--pack 1`` bit-equal, evaluate's fakes within 1e-5. (d) That
+   checkpoint written in the reference's format (``num_batches_tracked``,
+   the dead ``conv_expand``) and loaded by ``load_torch_checkpoint``: an
+   eval decode bit-equal to the source model's; a file without a key
+   raises. (e) The doctor on the card: the flagship config, a dSprites
+   and an ARC Ukiyo-E layout pass; an npz without ``latents_values`` and
+   batch 4096 fail with exit 1; its activation estimate beside
+   ``max_memory_allocated`` over 3 flagship steps at batch 64, remat
+   false and "pass".
+
 Each phase prints its seconds. Then one JSON line describing the kernels,
 and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -1103,16 +1127,21 @@ def plain_tc_in_float64():
 
 
 def train_one_step(dev, cfg, ds, kw: dict, init: dict, batch, noise: dict, impl: str,
-              conv_impl: str = "xla"):
+              conv_impl: str = "xla", options: dict | None = None):
     """One intro_tc step of the model ``kw`` from the weights ``init`` on
-    ``batch`` with ``noise``, tc_impl ``impl``: (metrics, state dict) on the
-    host. Phases 5 and 11 (a) in fp32, phase 12 in bf16."""
+    ``batch`` with ``noise``, tc_impl ``impl``, the model ``options``
+    (``tile_rows`` for both networks, ``pack_predict`` for the decoder):
+    (metrics, state dict) on the host. Phases 5, 11 (a) and 13 in fp32,
+    phase 12 in bf16."""
     import torch
 
     from intro_tc_vae_tpu_torch.models import Decoder, Encoder, SoftIntroVAE
     from intro_tc_vae_tpu_torch.solvers import make_optimizer, make_solver
 
-    model = SoftIntroVAE(Encoder(**kw, conv_impl=conv_impl), Decoder(**kw, conv_impl=conv_impl))
+    options = options or {}
+    enc_options = {k: v for k, v in options.items() if k != "pack_predict"}
+    model = SoftIntroVAE(Encoder(**kw, conv_impl=conv_impl, **enc_options),
+                         Decoder(**kw, conv_impl=conv_impl, **options))
     model.load_state_dict(init)
     model.to(dev)
     solver = make_solver(
@@ -1836,8 +1865,8 @@ def write_dsprites(root: str) -> None:
     np.savez(os.path.join(root, DSPRITES_NPZ), imgs=imgs.astype(np.uint8), latents_values=lv)
 
 
-def write_ukiyo(root: str) -> None:
-    """An ARC Ukiyo-E-layout directory: UKIYO_IMAGES procedural 256x256
+def write_ukiyo(root: str, n_images: int = UKIYO_IMAGES) -> None:
+    """An ARC Ukiyo-E-layout directory: ``n_images`` procedural 256x256
     JPEGs (smooth colour fields, PIL) under arc_extracted_face_images/ and
     the 27-column metadata CSV naming each file and its painter."""
     import csv
@@ -1851,16 +1880,16 @@ def write_ukiyo(root: str) -> None:
     rng = np.random.RandomState(DATA_SEED + 1)
     images = os.path.join(root, "arc_extracted_face_images")
     os.makedirs(images)
-    seeds = rng.randint(0, 256, (UKIYO_IMAGES, 6, 6, 3)).astype(np.uint8)
-    names = [f"{i:08d}.jpg" for i in range(UKIYO_IMAGES)]
+    seeds = rng.randint(0, 256, (n_images, 6, 6, 3)).astype(np.uint8)
+    names = [f"{i:08d}.jpg" for i in range(n_images)]
 
     def one(i):
         img = Image.fromarray(seeds[i]).resize((256, 256), Image.BICUBIC)
         img.save(os.path.join(images, names[i]), quality=90)
 
     with ThreadPoolExecutor(8) as pool:
-        list(pool.map(one, range(UKIYO_IMAGES)))
-    painters = rng.randint(0, len(PAINTERS), UKIYO_IMAGES)
+        list(pool.map(one, range(n_images)))
+    painters = rng.randint(0, len(PAINTERS), n_images)
     with open(os.path.join(root, "arc_extracted_face_metadata.csv"), "w", newline="") as f:
         out = csv.writer(f)
         out.writerow(UkiyoE.COLUMN_NAMES)
@@ -2820,9 +2849,10 @@ def start():
 PROFILED_STEPS = 5
 
 
-def profiled_steps(run) -> dict:
+def profiled_steps(run, wait: int = 13) -> dict:
     """Device microseconds by kernel name over PROFILED_STEPS steady steps
-    (after 14) of ``run()``, a 20-step run through the CLI: torch.profiler,
+    (after ``wait`` + 1) of ``run()``, a run through the CLI of at least
+    ``wait`` + 1 + PROFILED_STEPS steps (20 by default): torch.profiler,
     a step ending at the decoder's optimizer call (both solvers call the
     encoder's optimizer, then the decoder's). Kernels and device copies
     only: a step's annotation spans the step. ``--device-time`` and
@@ -2833,7 +2863,7 @@ def profiled_steps(run) -> dict:
 
     calls = {"n": 0}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=13, warmup=1, active=PROFILED_STEPS)) as prof:
+                 schedule=schedule(wait=wait, warmup=1, active=PROFILED_STEPS)) as prof:
         def hook(optimizer, args, kwargs):
             calls["n"] += 1
             if calls["n"] % 2 == 0:  # encoder's call, then the decoder's: one step
@@ -2966,6 +2996,403 @@ def phase_48px(card: str) -> dict:
             "device_ms": ms}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the model options, the reference-checkpoint loader, the doctor
+# ---------------------------------------------------------------------------
+
+PHASE13_STEPS = 10  # an epoch of the cut synthetic set (640 images), batch 64
+PACKS = (0, 2, 4)
+TILES = (0, 16, 32)
+DOCTOR_OVER_BATCH = 4096  # the flagship's estimate at this batch: ~105 GiB
+
+
+@contextlib.contextmanager
+def synthetic_steps(steps: int):
+    """The trainer's ``synthetic`` dataset cut to ``steps`` flagship batches
+    of 64 (factor grid (steps / 5, 5, 8, 8)), so that one epoch through the
+    CLI is ``steps`` steps; the images keep the recipe's 64x64x3."""
+    from intro_tc_vae_tpu_torch import train
+    from intro_tc_vae_tpu_torch.data import Synthetic
+
+    if steps % 5:
+        die(f"synthetic_steps: {steps} is not a multiple of 5")
+    load = train.load_dataset
+
+    def cut(name, data_root=None):
+        ds, size, channels, cdim = load(name, data_root=data_root)
+        if name == "synthetic":
+            ds = Synthetic(image_size=size, cdim=cdim, sizes=(steps // 5, 5, 8, 8))
+        return ds, size, channels, cdim
+
+    train.load_dataset = cut
+    try:
+        yield
+    finally:
+        train.load_dataset = load
+
+
+def option_run(label: str, update: dict, card: str) -> tuple:
+    """PHASE13_STEPS flagship steps (tc 'pallas') through the CLI with the
+    model options of ``update``: launches of each phase and of the run
+    against ``expected_intro_launches`` (with ``tile_rows`` > 0 no conv
+    routes, so none launches, the final decode's included), device ms per
+    step over the last PROFILED_STEPS (``profiled_steps``). Returns
+    (device ms/step, the final TrainState)."""
+    conv_impl = update["conv_impl"]
+    routed = 0 if update.get("tile_rows", 0) > 0 else 3
+    full = {"dataset": "synthetic", "tc_impl": "pallas", "num_epochs": 1,
+            "use_tensorboard": False, **update}
+    box = []
+    reset_all_launches()
+    with synthetic_steps(PHASE13_STEPS), launches_per_phase() as (phase_e, phase_d):
+        by_name = profiled_steps(
+            lambda: box.append(run_cli(FLAGSHIP, full, label, steps=PHASE13_STEPS)),
+            wait=PHASE13_STEPS - PROFILED_STEPS - 1)
+    counts = all_launches()
+    want_e, want_d = expected_intro_launches("pallas", conv_impl, routed=routed)
+    tail = final_decode_launches(conv_impl) if routed else {}
+    n = PHASE13_STEPS
+    for what, got, want in (("phase E", phase_e, {k: n * v for k, v in want_e.items()}),
+                            ("phase D", phase_d, {k: n * v for k, v in want_d.items()}),
+                            ("total", counts, {k: n * (want_e[k] + want_d[k]) + tail.get(k, 0)
+                                               for k in want_e})):
+        if got != want:
+            die(f"phase 13: {label}: {what} launches {got}, expected {want}")
+    device_ms = sum(by_name.values()) / PROFILED_STEPS / 1e3
+    if device_ms <= 0:
+        die(f"phase 13: {label}: the profiler recorded no device time")
+    conv_launched = sum(v for k, v in counts.items() if k.startswith("conv3x3"))
+    print(f"phase 13: {label}: {n} steps through the CLI, finite losses; launches phase E "
+          f"{phase_e}, phase D {phase_d} (exact; {conv_launched} conv kernel launches in "
+          f"all); device {device_ms:.3f} ms/step on {card}")
+    return device_ms, box[0]
+
+
+def predict_conv_times(dev, card: str) -> dict:
+    """cuDNN's time for the decoder's plain 5x5 64 -> 3 predict conv (with
+    bias) against the packed form (one-hot weight product, pixel_unshuffle,
+    a 3x3 conv, pixel_shuffle) at b = 2 and 4, bf16, at the paired
+    decoder's [128, 64, 64, 64]: the forward, and forward plus the backward
+    to the input, weight and bias. Library times, recorded for the measured
+    ``pack_predict: -1`` (auto) decision (ROADMAP Queue 1 item 1)."""
+    import torch
+
+    from intro_tc_vae_tpu_torch.models.blocks import Conv2d, PackedPredictConv
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn((2 * MAIN_B, 64, 64, 64), generator=gen, device=dev).to(bf16)
+    gy = torch.randn((2 * MAIN_B, 3, 64, 64), generator=gen, device=dev).to(bf16)
+    torch.manual_seed(13)
+    plain = Conv2d(64, 3, 5, bias=True, compute_dtype=bf16).to(dev)
+    forms = {"plain 5x5": plain}
+    for b in (2, 4):
+        forms[f"packed b={b}"] = PackedPredictConv(64, 3, b, compute_dtype=bf16).to(dev)
+        forms[f"packed b={b}"].load_state_dict(plain.state_dict())
+    out, ref = {}, None
+    for name, m in forms.items():
+        with torch.no_grad():
+            y = m(x)
+            fwd = median_ms(lambda: m(x))
+        ref = y if ref is None else ref
+        err = float((y.float() - ref.float()).abs().max())
+        xr = x.detach().requires_grad_()
+        both = median_ms(lambda: torch.autograd.grad(m(xr), (xr, m.weight, m.bias), gy))
+        out[name] = {"fwd_ms": fwd, "fwd_bwd_ms": both, "max_abs_diff_vs_plain": err}
+        if not err <= 0.05 * float(ref.float().abs().max()):
+            die(f"phase 13 (a): {name} differs from the plain predict conv by {err!r}")
+    print("phase 13 (a): predict conv 64 -> 3 at [128, 64, 64, 64] bf16, ms (cuDNN under "
+          "each form) " + json.dumps({k: {n: round(v, 5) for n, v in r.items()}
+                                      for k, r in out.items()}) + f" on {card}")
+    return out
+
+
+def option_steps(dev) -> None:
+    """One fp32 step (TF32 off, deterministic cuDNN) of each option against
+    the plain model from the same weights, batch and noise, at phase 5
+    (b)'s gate (metrics rtol 1e-4, updated params within 2 lr, plus the
+    fp32 rounding of p - update as phase 12 allows it: Adam's first update
+    is about lr sign(g), so an entry whose gradient changes sign moves by
+    2 lr):
+    ``pack_predict`` 2 against 0 (conv 'pallas' in both: the routed convs
+    run the fp32 kernels), ``tile_rows`` 16 (conv 'pallas', which routes
+    nothing) against 0 with conv 'xla'."""
+    import numpy as np
+    import torch
+
+    from intro_tc_vae_tpu_torch.config import load_config
+    from intro_tc_vae_tpu_torch.data import load_dataset
+    from intro_tc_vae_tpu_torch.models import Decoder, Encoder, SoftIntroVAE
+    from intro_tc_vae_tpu_torch.solvers import NOISE_KEYS
+
+    cfg = load_config(FLAGSHIP, {"dataset": "synthetic", "precision": "fp32"})
+    ds, image_size, channels, cdim = load_dataset(cfg.dataset)
+    kw = dict(arch=cfg.arch, cdim=cdim, zdim=cfg.z_dim, channels=channels,
+              image_size=image_size, compute_dtype=torch.float32)
+    torch.manual_seed(0)
+    init = SoftIntroVAE(Encoder(**kw), Decoder(**kw)).state_dict()
+    batch = torch.from_numpy(ds.get_batch(np.arange(MAIN_B)).transpose(0, 3, 1, 2).copy())
+    gen = torch.Generator(device=dev).manual_seed(1)
+    noise = {k: torch.randn((MAIN_B, cfg.z_dim), generator=gen, device=dev)
+             for k in NOISE_KEYS}
+    names = ("lossE", "lossD", "loss_kl", "loss_rec", "expelbo_r", "expelbo_f")
+    with fp32_exact():
+        for label, base, option in (("pack_predict 2 vs 0", "pallas", {"pack_predict": 2}),
+                                    ("tile_rows 16 vs 0 (conv xla)", "xla", {"tile_rows": 16})):
+            m_o, p_o = train_one_step(dev, cfg, ds, kw, init, batch, noise, "pallas", "pallas",
+                                      option)
+            m_b, p_b = train_one_step(dev, cfg, ds, kw, init, batch, noise, "pallas", base)
+            for n in names:
+                if not math.isclose(m_o[n], m_b[n], rel_tol=RTOL, abs_tol=1e-30):
+                    die(f"phase 13: fp32 step {label}: {n} {m_o[n]!r} vs {m_b[n]!r}")
+            worst, n_over = params_diff(p_o, p_b)
+            p_max = max(float(np.abs(v).max()) for v in p_b.values())
+            p_bound = 2 * LR + float(np.spacing(np.float32(p_max)))
+            if not worst <= p_bound:
+                die(f"phase 13: fp32 step {label}: updated params differ by {worst!r} > 2 lr "
+                    f"+ spacing({p_max:.3g}) = {p_bound!r}")
+            rel = max(abs(m_o[n] - m_b[n]) / abs(m_b[n]) for n in names)
+            print(f"phase 13: one fp32 step (TF32 off), {label}: metrics max rel diff "
+                  f"{rel:.3g} (rtol 1e-4); updated params max abs diff {worst:.6g} (<= 2 lr + "
+                  f"rounding = {p_bound:.6g}), {n_over} entries over {ATOL}")
+
+
+def option_clis(path: str, work: str) -> None:
+    """(c) ``sample --pack 2`` and ``evaluate --pack 2`` on the flagship
+    checkpoint ``path``: the PNG within 2 levels of ``--pack 0``'s (fp32
+    decodes, the same products in another order), ``--pack 1`` bit-equal
+    to ``--pack 0``; evaluate's FID fakes within 1e-5 of ``--pack 0``'s
+    (TF32 off). The CLIs build the stock convs: no hand kernel launches."""
+    import numpy as np
+    from PIL import Image
+
+    from intro_tc_vae_tpu_torch import evaluate, sample
+    from intro_tc_vae_tpu_torch.evaluation import fid
+
+    reset_all_launches()
+    argv = ["--checkpoint", path, "--dataset", "synthetic", "--arch", "conv",
+            "--z-dim", str(Z_DIM)]
+    grids = {p: sample.main([*argv, "--num", "16", "--seed", "3", "--pack", str(p),
+                             "--out", os.path.join(work, f"pack{p}.png")]) for p in (0, 1, 2)}
+    png = np.asarray(Image.open(os.path.join(work, "pack2.png")))
+    levels = int(np.abs(png.astype(int) - grids[0]).max())
+    if not (np.array_equal(png, grids[2]) and levels <= 2):
+        die(f"phase 13 (c): sample --pack 2 differs from --pack 0 by {levels} levels")
+    if not np.array_equal(grids[1], grids[0]):
+        die("phase 13 (c): sample --pack 1 differs from --pack 0")
+
+    fakes, encoder_fid = [], fid.encoder_fid
+
+    def spy(solver, state, real, fake, **kw):
+        fakes.append(fake)
+        return encoder_fid(solver, state, real, fake, **kw)
+
+    fid.encoder_fid = spy
+    try:
+        scores = [evaluate.main([*argv, "--batch", str(MAIN_B), "--num-samples", "64", "--fid",
+                                 "--fid-samples", str(2 * MAIN_B), "--pack", str(p)])
+                  for p in (0, 2)]
+    finally:
+        fid.encoder_fid = encoder_fid
+    diff = float(np.abs(fakes[1] - fakes[0]).max())
+    if not (diff <= 1e-5 and set(scores[0]) == set(scores[1])
+            and math.isfinite(scores[1]["fid_encoder_features"])):
+        die(f"phase 13 (c): evaluate --pack 2: fakes differ by {diff!r} from --pack 0's, "
+            f"scores {scores[1]}")
+    launched = {k: v for k, v in all_launches().items() if v}
+    if launched:
+        die(f"phase 13 (c): the CLIs launched {launched}")
+    print(f"phase 13 (c): sample --pack 2 PNG {png.shape} within {levels} level(s) of "
+          f"--pack 0's, --pack 1 bit-equal; evaluate --pack 2 fakes within {diff:.3g} of "
+          f"--pack 0's, encoder FID {scores[1]['fid_encoder_features']} vs "
+          f"{scores[0]['fid_encoder_features']}; no hand kernel launched")
+
+
+def reference_checkpoint(dev, path: str, work: str) -> None:
+    """(d) The flagship checkpoint ``path`` as the reference writes it: its
+    state_dict, a ``num_batches_tracked`` for every BatchNorm and the dead
+    ``conv_expand.weight`` of each conv-arch block whose widths differ,
+    under "model". ``load_torch_checkpoint`` puts it into a fresh model on
+    the card (other initial weights) whose eval-mode decode is bit-equal to
+    the source model's; the file with a key removed raises naming it."""
+    import torch
+
+    from intro_tc_vae_tpu_torch.models import Decoder, Encoder, SoftIntroVAE
+    from intro_tc_vae_tpu_torch.models.blocks import ConvolutionalBlock, GroupedBatchNorm
+    from intro_tc_vae_tpu_torch.utils import load_model, load_torch_checkpoint
+
+    kw = dict(arch="conv", cdim=3, zdim=Z_DIM, channels=(64, 128, 256, 512), image_size=64,
+              compute_dtype=torch.bfloat16)
+    src = load_model(SoftIntroVAE(Encoder(**kw), Decoder(**kw)).to(dev), path).eval()
+    sd = dict(src.state_dict())
+    for name, m in src.named_modules():
+        if isinstance(m, GroupedBatchNorm):
+            sd[f"{name}.num_batches_tracked"] = torch.tensor(20)
+        if isinstance(m, ConvolutionalBlock) and m.conv1.weight.shape[0] != m.conv1.weight.shape[1]:
+            o, i = m.conv1.weight.shape[:2]
+            sd[f"{name}.conv_expand.weight"] = torch.zeros(o, i, 1, 1, device=dev)
+    ref_path = os.path.join(work, "reference.pth")
+    torch.save({"epoch": 0, "model": sd}, ref_path)
+    torch.manual_seed(5)
+    model = load_torch_checkpoint(ref_path, SoftIntroVAE(Encoder(**kw), Decoder(**kw)).to(dev))
+    model.eval()
+    z = torch.randn((2 * MAIN_B, Z_DIM), generator=torch.Generator(device=dev).manual_seed(4),
+                    device=dev)
+    with torch.no_grad(), cudnn_deterministic():
+        want, got = src.decoder(z), model.decoder(z)
+    if not torch.equal(want, got):
+        die(f"phase 13 (d): the loaded model's decode differs by "
+            f"{float((want - got).abs().max())!r}")
+    dropped = sorted(k for k in sd if k.endswith("num_batches_tracked") or ".conv_expand." in k)
+    gone = dict(sd)
+    del gone["decoder.main.res_in_64.bn2.weight"]
+    torch.save({"model": gone}, os.path.join(work, "gone.pth"))
+    try:
+        load_torch_checkpoint(os.path.join(work, "gone.pth"), model)
+    except RuntimeError as e:
+        if "decoder.main.res_in_64.bn2.weight" not in str(e):
+            die(f"phase 13 (d): the missing key's error does not name it: {e}")
+    else:
+        die("phase 13 (d): a file with a key removed loaded")
+    print(f"phase 13 (d): load_torch_checkpoint on a reference-format file ({len(sd)} keys, "
+          f"{len(dropped)} of them num_batches_tracked or the dead conv_expand): eval decode "
+          f"[{2 * MAIN_B}, 3, 64, 64] bit-equal to the source model's; a file without "
+          "decoder.main.res_in_64.bn2.weight raises naming it")
+
+
+def doctor_on_card(work: str, card: str) -> None:
+    """(e) ``python -m intro_tc_vae_tpu_torch.doctor``'s ``main`` on the card:
+    the flagship config (synthetic) passes with the activation-memory line
+    naming the card; phase 9's dSprites-layout npz (tc_dsprites) and an ARC
+    Ukiyo-E layout (64 images) pass; the npz without ``latents_values`` and
+    the flagship at batch DOCTOR_OVER_BATCH fail with exit 1. Then the
+    doctor's estimate beside ``max_memory_allocated`` over 3 flagship steps
+    (tc and conv 'pallas') at batch 64, remat false and "pass", and their
+    ratio: the estimate counts activations only."""
+    import gc
+    import io
+
+    import numpy as np
+    import torch
+
+    from intro_tc_vae_tpu_torch import doctor
+    from intro_tc_vae_tpu_torch.config import load_config
+
+    name = torch.cuda.get_device_name(0)
+    dirs = {"checkpoint_dir": os.path.join(work, "ck"), "log_dir": os.path.join(work, "tb")}
+    dsprites, ukiyo, broken = (os.path.join(work, d) for d in ("dsprites", "ukiyo", "broken"))
+    for d in (dsprites, ukiyo, broken):
+        os.makedirs(d)
+    write_dsprites(dsprites)
+    write_ukiyo(ukiyo, n_images=64)
+    np.savez(os.path.join(broken, DSPRITES_NPZ), imgs=np.zeros((4, 64, 64), np.uint8))
+
+    def run(config: str, update: dict) -> tuple:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = doctor.main(["-f", config, "-u", json.dumps({**dirs, **update})])
+        return rc, out.getvalue()
+
+    cases = (("flagship", FLAGSHIP, {"dataset": "synthetic"}, 0, "PASS  activation memory"),
+             ("dSprites layout", TC_DSPRITES, {"data_root": dsprites}, 0,
+              "PASS  activation memory"),
+             ("Ukiyo-E layout", FLAGSHIP, {"data_root": ukiyo}, 0, "PASS  Ukiyo-E decode probe"),
+             ("npz without latents_values", TC_DSPRITES, {"data_root": broken}, 1,
+              "FAIL  dSprites key 'latents_values'"),
+             (f"flagship at batch {DOCTOR_OVER_BATCH}", FLAGSHIP,
+              {"dataset": "synthetic", "batch_size": DOCTOR_OVER_BATCH}, 1,
+              "FAIL  activation memory"))
+    for label, config, update, want_rc, line in cases:
+        rc, out = run(config, update)
+        memory = [ln for ln in out.splitlines() if "activation memory" in ln]
+        if rc != want_rc or line not in out or len(memory) != 1 or name not in memory[0]:
+            die(f"phase 13 (e): doctor, {label}: exit {rc} (expected {want_rc}), "
+                f"expected '{line}':\n{out}")
+        print(f"phase 13 (e): doctor, {label}: exit {rc}; {memory[0].strip()}")
+
+    for mode in (False, "pass"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_, batches = trainer_setup({"tc_impl": "pallas", "conv_impl": "pallas",
+                                       "remat": mode}, 3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for batch in batches:
+            _, metrics = run_.solver.train_step(run_.state, batch)
+            run_.solver.check_finite(metrics)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        est, _ = doctor.activation_estimate(
+            load_config(FLAGSHIP, {"dataset": "synthetic", "remat": mode}))
+        print(f"phase 13 (e): batch {MAIN_B}, remat {mode!r}: doctor estimate "
+              f"{est / 2**20:,.0f} MiB, max_memory_allocated over 3 steps "
+              f"{peak / 2**20:,.0f} MiB, ratio {est / peak:.3f} on {card}")
+        del run_, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_options(card: str) -> dict:
+    """Phase 13: the model options, the reference loader and the doctor at
+    the flagship's width (``option_run``, ``predict_conv_times``,
+    ``option_steps``, ``option_clis``, ``reference_checkpoint``,
+    ``doctor_on_card``), every file in a temporary directory."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    dev = torch.device("cuda", 0)
+    work = tempfile.mkdtemp(prefix="chip_smoke_phase13_")
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(part: str) -> None:
+        nonlocal t0
+        seconds[part] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
+    try:
+        saves = os.path.join(work, "saves")
+        ms = {}
+        for p in PACKS:
+            update = {"conv_impl": "pallas", "pack_predict": p,
+                      **({"checkpoint_dir": saves} if p == 0 else {})}
+            ms[f"pack_predict {p}"], state = option_run(f"(a) pack_predict {p}", update, card)
+            predict = type(state.model.decoder.main["predict"]).__name__
+            if predict != ("PackedPredictConv" if p else "Conv2d"):
+                die(f"phase 13 (a): pack_predict {p} built a {predict}")
+            del state
+        for t in TILES:
+            update = {"conv_impl": "xla" if t == 0 else "pallas", "tile_rows": t}
+            label = f"(b) tile_rows {t}, conv {update['conv_impl']}"
+            ms[f"tile_rows {t}"], state = option_run(label, update, card)
+            stem = type(state.model.encoder.main["0"]).__name__
+            if stem != ("StripTiledConv" if t else "Conv2d"):
+                die(f"phase 13 (b): tile_rows {t} built a {stem} stem")
+            del state
+        lap("(a), (b) CLI runs")
+        print(f"phase 13: device ms/step (bf16, batch 64, tc pallas; pack_predict with conv "
+              f"pallas, tile_rows 0 with conv xla) "
+              + json.dumps({k: round(v, 3) for k, v in ms.items()}) + f" on {card}")
+        torch.cuda.empty_cache()
+        times = predict_conv_times(dev, card)
+        lap("(a) predict conv times")
+        option_steps(dev)
+        lap("(a), (b) fp32 steps")
+        path, = (os.path.join(saves, f) for f in os.listdir(saves))
+        option_clis(path, work)
+        lap("(c)")
+        reference_checkpoint(dev, path, work)
+        lap("(d)")
+        torch.cuda.empty_cache()
+        doctor_on_card(work, card)
+        lap("(e)")
+    finally:
+        shutil.rmtree(work)
+    print("phase 13: seconds by part " + json.dumps(seconds))
+    return {"device_ms": ms, "predict_conv": times}
+
+
 def device_time(card: str) -> None:
     """``--device-time``: device ms per step (``profiled_steps``) of the
     flagship's four arms (bf16) and of configs/vae_synthetic.json (fp32)
@@ -3042,6 +3469,7 @@ def main() -> None:
     obs = timed("phase 10", phase_observability, card, main_path)
     timed("phase 11", phase_solver_surface, card)
     at48 = timed("phase 12", phase_48px, card)
+    timed("phase 13", phase_options, card)
     print(f"phase 8: flagship checkpoint {ckpt['bytes']} bytes; save {ckpt['save_s']:.3f} s, "
           f"background save returns in {ckpt['async_return_s']:.3f} s, load "
           f"{ckpt['load_s']:.3f} s; phase 4 img/s with the metric ring "

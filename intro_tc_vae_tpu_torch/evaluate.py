@@ -6,12 +6,13 @@
 
 Counterpart of ``intro_tc_vae_tpu/evaluate.py``, with its flags and JSON
 keys: restores a port checkpoint's parameters and BatchNorm statistics
-(``utils.load_model``) into the fp32 model with the stock convolutions,
-runs the four disentanglement metric families through the eval-mode
-encoder on the device (factor datasets only; each family's failure is
-recorded as ``<name>_error``, as where sklearn is absent), and with
-``--fid`` the FID between ``--fid-samples`` real images and as many prior
-samples: InceptionV3-pool3 when a local weights file exists
+(``utils.load_model``) into the fp32 model with the stock convolutions
+(``--pack`` b > 1: the decoder's predict conv output-packed), runs the
+four disentanglement metric families through the eval-mode encoder on the
+device (factor datasets only; each family's failure is recorded as
+``<name>_error``, as where sklearn is absent), and with ``--fid`` the FID
+between ``--fid-samples`` real images and as many prior samples:
+InceptionV3-pool3 when a local weights file exists
 (``ITCVAE_INCEPTION_WEIGHTS``; nothing is downloaded), and encoder-feature
 FID. TF32 is off (``train.true_fp32``). Runs on ``cuda:0`` and raises when
 CUDA is absent, unless ``main`` is given another device.
@@ -24,8 +25,6 @@ import json
 from typing import Optional
 
 import torch
-
-from intro_tc_vae_tpu_torch import not_ported
 
 
 def main(argv=None, device: Optional[torch.device] = None) -> dict:
@@ -52,11 +51,10 @@ def main(argv=None, device: Optional[torch.device] = None) -> dict:
     ap.add_argument("--data-root", default=None)
     ap.add_argument("--pack", type=int, default=0,
                     help="run the predict conv output-packed NxN for sample "
-                         "decoding (PackedPredictConv; not ported yet)")
+                         "decoding (PackedPredictConv; weight-compatible; "
+                         "0 or 1: the plain conv)")
     ap.add_argument("--out", default=None, help="optional JSON output path")
     args = ap.parse_args(argv)
-    if args.pack > 0:
-        raise not_ported("--pack > 0 (PackedPredictConv)", "Queue 1 item 9")
 
     import numpy as np
 
@@ -75,7 +73,7 @@ def main(argv=None, device: Optional[torch.device] = None) -> dict:
     solver = make_solver(
         "vae", dataset=dataset,
         encoder=Encoder(**kwargs).to(device),
-        decoder=Decoder(**kwargs).to(device),
+        decoder=Decoder(**kwargs, pack_predict=args.pack).to(device),
         batch_size=args.batch,
         optimizer_e=make_optimizer("adam", 1e-3),
         optimizer_d=make_optimizer("adam", 1e-3),

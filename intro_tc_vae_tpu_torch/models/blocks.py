@@ -17,12 +17,12 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from intro_tc_vae_tpu_torch import not_ported
 from intro_tc_vae_tpu_torch.ops.conv import supported
 from intro_tc_vae_tpu_torch.ops.conv_cuda import conv3x3_hybrid, conv3x3_pallas
 from intro_tc_vae_tpu_torch.parallel.collectives import all_reduce_sum
@@ -83,13 +83,111 @@ class PallasConv3x3(Conv2d):
 
 
 def conv(inc: int, outc: int, kernel: int, compute_dtype: torch.dtype = torch.float32,
-         impl: str = "xla") -> Conv2d:
-    """A stride-1 'SAME' conv without bias; ``impl`` 'pallas' or 'hybrid'
-    routes 3x3 convs through ``PallasConv3x3`` (JAX ``conv()``,
-    models/blocks.py:38)."""
-    if impl in ("pallas", "hybrid") and kernel == 3:
+         impl: str = "xla", tile_rows: int = 0, bias: bool = False) -> Conv2d:
+    """A stride-1 'SAME' conv (JAX ``conv()``, models/blocks.py:38).
+    ``impl`` 'pallas' or 'hybrid' routes a 3x3 conv without bias through
+    ``PallasConv3x3`` when ``tile_rows`` is 0; ``tile_rows > 0`` makes every
+    conv with kernel > 1 a ``StripTiledConv``, a 1x1 conv stays plain. So
+    with ``tile_rows > 0`` no conv reaches the conv kernels, as in JAX."""
+    if impl in ("pallas", "hybrid") and kernel == 3 and not bias and tile_rows == 0:
         return PallasConv3x3(inc, outc, compute_dtype=compute_dtype, impl=impl)
-    return Conv2d(inc, outc, kernel, compute_dtype=compute_dtype)
+    if tile_rows > 0 and kernel > 1:
+        return StripTiledConv(inc, outc, kernel, tile_rows, bias=bias,
+                              compute_dtype=compute_dtype)
+    return Conv2d(inc, outc, kernel, bias=bias, compute_dtype=compute_dtype)
+
+
+class StripTiledConv(Conv2d):
+    """The same stride-1 'SAME' conv as ``Conv2d``, computed space-to-batch
+    (JAX ``StripTiledConv``, models/blocks.py:74): when the input height H
+    is at least ``2 * tile_rows``, the image is cut into t = H //
+    tile_rows horizontal strips with ``kernel // 2`` halo rows on each
+    side, stacked sample-major on the batch axis and convolved VALID in H,
+    SAME in W. Every output pixel takes exactly the plain conv's taps; only
+    the order of the sums may differ. H < 2 * tile_rows, or H not a
+    multiple of t, runs the plain conv. ``weight`` and ``bias`` are
+    ``Conv2d``'s, so ``state_dict`` keys and checkpoints do not change.
+
+    NCHW reassembly: the strips' outputs [N*t, C, hs, W] are viewed as
+    [N, t, C, hs, W] and their strip axis moved next to the rows before the
+    reshape to [N, C, H, W]; JAX's NHWC needs no move."""
+
+    def __init__(self, inc: int, outc: int, kernel: int, tile_rows: int,
+                 bias: bool = False, compute_dtype: torch.dtype = torch.float32):
+        super().__init__(inc, outc, kernel, bias=bias, compute_dtype=compute_dtype)
+        self.tile_rows = tile_rows
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        x, w = x.to(dt), self.weight.to(dt)
+        bias = None if self.bias is None else self.bias.to(dt)
+        n, c, h, width = x.shape
+        r = self.kernel_size[0] // 2
+        t = h // self.tile_rows if h >= 2 * self.tile_rows else 1
+        if t == 1 or h % t:
+            return F.conv2d(x, w, bias, padding=r)
+        hs = h // t
+        xp = F.pad(x, (0, 0, r, r))
+        strips = torch.stack([xp[:, :, i * hs:i * hs + hs + 2 * r] for i in range(t)], dim=1)
+        y = F.conv2d(strips.reshape(n * t, c, hs + 2 * r, width), w, bias, padding=(0, r))
+        return y.reshape(n, t, -1, hs, width).transpose(1, 2).reshape(n, -1, h, width)
+
+
+def packed_tap_table(block: int, kernel: int = 5) -> np.ndarray:
+    """The one-hot table [9 * block^4, kernel^2] of the packed predict conv
+    (JAX ``PackedPredictConv``, models/blocks.py:449-462): row (di, dj, ai,
+    aj, ao, bo) of the packed 3x3 tap (di, dj) from input offset (ai, aj)
+    in a block to output offset (ao, bo) picks the original tap (ky, kx)
+    with ky = (di - 1) * block + ai + kernel // 2 - ao (kx likewise), or
+    nothing when that lies outside the kernel."""
+    b, k = block, kernel
+    di, ai, ao = np.ogrid[0:3, 0:b, 0:b]
+    ky = (di - 1) * b + ai + k // 2 - ao                       # [3, b, b]
+    ky = np.where((ky >= 0) & (ky < k), ky, -1)
+    rows = ky[:, None, :, None, :, None]
+    cols = ky[None, :, None, :, None, :]
+    sel = np.where((rows < 0) | (cols < 0), -1, rows * k + cols)  # [3, 3, b, b, b, b]
+    onehot = np.zeros(sel.shape + (k * k,), np.float32)
+    np.put_along_axis(onehot, np.maximum(sel, 0)[..., None],
+                      (sel >= 0)[..., None].astype(np.float32), axis=-1)
+    return onehot.reshape(-1, k * k)
+
+
+class PackedPredictConv(Conv2d):
+    """The decoder's 5x5 stride-1 'SAME' conv to ``cdim`` channels (with
+    bias), computed output-packed (JAX ``PackedPredictConv``,
+    models/blocks.py:404): ``pixel_unshuffle`` by ``block`` b, a 3x3 conv
+    from b^2 * in to b^2 * cdim channels at 1/b^2 of the pixels, and
+    ``pixel_shuffle`` back. The same products summed in another order.
+
+    ``weight`` [cdim, in, 5, 5] and ``bias`` [cdim] are the plain conv's,
+    so ``state_dict`` keys and checkpoints do not change. The packed
+    weight is rebuilt from ``weight`` on every call by the one-hot product
+    ``P @ w`` (exact in any dtype: one nonzero a row), so autograd carries
+    its gradient back to ``weight``; the table P is a non-persistent
+    buffer. Channel orders are PyTorch's: ``pixel_unshuffle`` gives input
+    channel c * b^2 + ai * b + aj and ``pixel_shuffle`` reads output
+    channel co * b^2 + ao * b + bo (both channel-major, where JAX's
+    space-to-depth is channel-minor), so the bias is repeated b^2 times
+    per channel, not tiled."""
+
+    def __init__(self, inc: int, cdim: int, block: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(inc, cdim, 5, bias=True, compute_dtype=compute_dtype)
+        self.block = block
+        self.register_buffer("onehot", torch.from_numpy(packed_tap_table(block)),
+                             persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt, b = self.compute_dtype, self.block
+        cdim, cin, k, _ = self.weight.shape
+        w = self.weight.to(dt).permute(2, 3, 1, 0).reshape(k * k, cin * cdim)
+        # [di, dj, ai, aj, ao, bo, cin, cdim] -> [cdim, ao, bo, cin, ai, aj, di, dj]
+        wp = (self.onehot.to(dt) @ w).reshape(3, 3, b, b, b, b, cin, cdim)
+        wp = wp.permute(7, 4, 5, 6, 2, 3, 0, 1).reshape(cdim * b * b, cin * b * b, 3, 3)
+        bias = self.bias.to(dt).repeat_interleave(b * b)
+        yp = F.conv2d(F.pixel_unshuffle(x.to(dt), b), wp, bias, padding=1)
+        return F.pixel_shuffle(yp, b)
 
 
 class Linear(nn.Linear):
@@ -231,12 +329,10 @@ class ConvolutionalBlock(nn.Module):
                  compute_dtype: torch.dtype = torch.float32,
                  conv_impl: str = "xla", tile_rows: int = 0):
         super().__init__()
-        if tile_rows > 0:
-            raise not_ported("tile_rows > 0", "Queue 1 item 9")
         dt = compute_dtype
-        self.conv1 = conv(inc, outc, 3, compute_dtype=dt, impl=conv_impl)
+        self.conv1 = conv(inc, outc, 3, compute_dtype=dt, impl=conv_impl, tile_rows=tile_rows)
         self.bn1 = GroupedBatchNorm(outc, eps=1e-4, compute_dtype=dt)
-        self.conv2 = conv(outc, outc, 3, compute_dtype=dt, impl=conv_impl)
+        self.conv2 = conv(outc, outc, 3, compute_dtype=dt, impl=conv_impl, tile_rows=tile_rows)
         self.bn2 = GroupedBatchNorm(outc, eps=1e-4, compute_dtype=dt)
 
     def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
@@ -257,13 +353,11 @@ class ResidualBlock(nn.Module):
                  compute_dtype: torch.dtype = torch.float32,
                  conv_impl: str = "xla", tile_rows: int = 0):
         super().__init__()
-        if tile_rows > 0:
-            raise not_ported("tile_rows > 0", "Queue 1 item 9")
         dt = compute_dtype
         self.conv_expand = Conv2d(inc, outc, 1, compute_dtype=dt) if inc != outc else None
-        self.conv1 = conv(inc, outc, 3, compute_dtype=dt, impl=conv_impl)
+        self.conv1 = conv(inc, outc, 3, compute_dtype=dt, impl=conv_impl, tile_rows=tile_rows)
         self.bn1 = GroupedBatchNorm(outc, eps=1e-5, compute_dtype=dt)
-        self.conv2 = conv(outc, outc, 3, compute_dtype=dt, impl=conv_impl)
+        self.conv2 = conv(outc, outc, 3, compute_dtype=dt, impl=conv_impl, tile_rows=tile_rows)
         self.bn2 = GroupedBatchNorm(outc, eps=1e-5, compute_dtype=dt)
 
     def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:

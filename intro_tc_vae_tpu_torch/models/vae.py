@@ -21,6 +21,12 @@ reference; the JAX package flattens NHWC, and the weight bridge
 Train/eval follow ``module.train()``/``module.eval()``. mu, logvar and
 the pre-sigmoid output are cast to float32 whatever the conv dtype.
 
+``tile_rows > 0`` makes every conv with kernel > 1, the stem and the
+predict conv included, a ``StripTiledConv``; ``Decoder(pack_predict=b)``
+with b > 1 and an image size that b divides computes the predict conv
+output-packed (``PackedPredictConv``; JAX ``models/vae.py:187-193``). Both
+keep the plain conv's parameters.
+
 ``remat=True`` (config ``remat: true | "block"``; JAX
 ``models/vae.py:104-118``, ``:161-167``) recomputes each encoder and
 decoder block in the backward (``blocks.remat``); the stem, the fc layers
@@ -35,10 +41,11 @@ import torch
 from torch import nn
 
 from intro_tc_vae_tpu_torch.models.blocks import (
-    Conv2d,
     GroupedBatchNorm,
     Linear,
+    PackedPredictConv,
     avg_pool2,
+    conv,
     get_conv_class,
     leaky_relu,
     remat,
@@ -55,6 +62,15 @@ def conv_output_size(image_size: int, channels: Sequence[int]) -> Tuple[int, int
             f"image_size {image_size} too small for {len(channels)} downsamples"
         )
     return (sz, sz, channels[-1])
+
+
+def resolve_tile_rows(tile_rows: int, image_size: int) -> int:
+    """Resolve the config ``tile_rows`` knob (JAX ``models/vae.py:56``):
+    -1 (auto) is off at every image size until a measurement on the card
+    decides otherwise; a value >= 0 passes through."""
+    if tile_rows >= 0:
+        return tile_rows
+    return 0
 
 
 def resolve_conv_impl(conv_impl: str) -> str:
@@ -89,7 +105,7 @@ class Encoder(nn.Module):
         dt = compute_dtype
         cc = channels[0]
         self.main = nn.ModuleDict()
-        self.main["0"] = Conv2d(cdim, cc, 5, compute_dtype=dt)
+        self.main["0"] = conv(cdim, cc, 5, compute_dtype=dt, tile_rows=tile_rows)
         self.main["1"] = GroupedBatchNorm(cc, eps=1e-4, compute_dtype=dt)
         sz = image_size // 2
         self.stages = []
@@ -120,12 +136,14 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
-    """Conv decoder mapping z -> image in [0, 1]. Reference models.py:247-298."""
+    """Conv decoder mapping z -> image in [0, 1]. Reference models.py:247-298.
+    ``pack_predict`` > 1: the predict conv output-packed (0 or 1: plain)."""
 
     def __init__(self, arch: str = "res", cdim: int = 3, zdim: int = 512,
                  channels: Sequence[int] = (64, 128, 256, 512, 512, 512),
                  image_size: int = 256, compute_dtype: torch.dtype = torch.float32,
-                 conv_impl: str = "xla", tile_rows: int = 0, remat: bool = False):
+                 conv_impl: str = "xla", tile_rows: int = 0, remat: bool = False,
+                 pack_predict: int = 0):
         super().__init__()
         block = get_conv_class(arch)
         self.cdim, self.zdim, self.image_size = cdim, zdim, image_size
@@ -149,7 +167,11 @@ class Decoder(nn.Module):
         self.stages.append(f"res_in_{sz}")
         self.main[self.stages[-1]] = block(cc, cc, compute_dtype=dt,
                                            conv_impl=conv_impl, tile_rows=tile_rows)
-        self.main["predict"] = Conv2d(cc, cdim, 5, bias=True, compute_dtype=dt)
+        if pack_predict > 1 and sz % pack_predict == 0:
+            self.main["predict"] = PackedPredictConv(cc, cdim, pack_predict, compute_dtype=dt)
+        else:
+            self.main["predict"] = conv(cc, cdim, 5, compute_dtype=dt, tile_rows=tile_rows,
+                                        bias=True)
 
     def forward(self, z: torch.Tensor, groups: int = 1) -> torch.Tensor:
         h, w, c = self.conv_input_size

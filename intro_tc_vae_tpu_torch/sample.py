@@ -6,7 +6,8 @@ trained checkpoint.
 
 Counterpart of ``intro_tc_vae_tpu/sample.py``, with its flags: builds the
 decoder (and the encoder, for ``--reconstruct``) in fp32 with the stock
-convolutions, restores parameters and BatchNorm statistics
+convolutions (``--pack`` b > 1: the predict conv output-packed, the same
+function on the same weights), restores parameters and BatchNorm statistics
 (``utils.load_model``), draws ``--num`` latents from a generator seeded
 with ``--seed`` on the device, decodes them in eval mode, quantises on
 the device (``unit_f32_to_u8``) and writes one image grid with PIL, as
@@ -22,8 +23,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-
-from intro_tc_vae_tpu_torch import not_ported
 
 
 def sample_grid(images: np.ndarray, cols: int = 8) -> np.ndarray:
@@ -62,10 +61,9 @@ def main(argv=None, device: Optional[torch.device] = None) -> np.ndarray:
     ap.add_argument("--out", default="samples.png")
     ap.add_argument("--pack", type=int, default=0,
                     help="run the predict conv output-packed NxN "
-                         "(PackedPredictConv; not ported yet)")
+                         "(PackedPredictConv; weight-compatible; 0 or 1: "
+                         "the plain conv)")
     args = ap.parse_args(argv)
-    if args.pack > 0:
-        raise not_ported("--pack > 0 (PackedPredictConv)", "Queue 1 item 9")
 
     from PIL import Image
 
@@ -80,7 +78,8 @@ def main(argv=None, device: Optional[torch.device] = None) -> np.ndarray:
     dataset, image_size, channels, cdim = load_dataset(args.dataset, args.data_root)
     kwargs = dict(arch=args.arch, cdim=cdim, zdim=args.z_dim, channels=tuple(channels),
                   image_size=image_size)
-    model = SoftIntroVAE(Encoder(**kwargs), Decoder(**kwargs)).to(device)
+    model = SoftIntroVAE(Encoder(**kwargs),
+                         Decoder(**kwargs, pack_predict=args.pack)).to(device)
     load_model(model, args.checkpoint)
 
     with true_fp32("fp32"):

@@ -58,10 +58,15 @@ decode pass of the intro step; with the single-phase ``vae`` and ``tc``
 solvers, which have no passes, ``"pass"`` falls back to ``"block"`` with
 JAX's message.
 
-Options this port does not carry yet, ``model_parallel > 1`` (ROADMAP
-Queue 1 item 8) and ``pack_predict > 1`` / ``tile_rows > 0`` (item 9),
-raise ``NotImplementedError`` naming their item (``check_ported``; the
-models raise for ``tile_rows``).
+Model options (JAX ``train.py:146-159``): ``tile_rows`` > 0 strip-tiles
+every conv with kernel > 1 (-1, auto, resolves to 0: ``resolve_tile_rows``),
+and takes the 3x3 convs off the conv kernels as in JAX;
+``pack_predict`` > 1 computes the decoder's predict conv output-packed
+(auto, -1, stays off).
+
+The one option this port does not carry yet, ``model_parallel > 1``
+(ROADMAP Queue 1 item 8), raises ``NotImplementedError`` naming its item
+(``check_ported``).
 """
 
 from __future__ import annotations
@@ -78,7 +83,13 @@ import torch
 from intro_tc_vae_tpu_torch import not_ported
 from intro_tc_vae_tpu_torch.config import Config, validate_config
 from intro_tc_vae_tpu_torch.data import DeviceLoader, load_dataset
-from intro_tc_vae_tpu_torch.models import Decoder, Encoder, num_params, resolve_conv_impl
+from intro_tc_vae_tpu_torch.models import (
+    Decoder,
+    Encoder,
+    num_params,
+    resolve_conv_impl,
+    resolve_tile_rows,
+)
 from intro_tc_vae_tpu_torch.models.vae import SoftIntroVAE
 from intro_tc_vae_tpu_torch.parallel import (
     batch_sharding,
@@ -112,11 +123,9 @@ PROFILE_STEPS = 50  # profile: true stops after the step at this iteration
 
 def check_ported(config: Config) -> None:
     """Raise for every option whose behaviour this port does not carry:
-    tensor parallelism (Queue 1 item 8) and the packed predict conv (item
-    9); the models raise for ``tile_rows > 0`` (item 9)."""
+    tensor parallelism (Queue 1 item 8)."""
     unported = [
         (config.model_parallel > 1, "model_parallel > 1", "Queue 1 item 8"),
-        (config.pack_predict > 1, "pack_predict > 1", "Queue 1 item 9"),
     ]
     for bad, what, item in unported:
         if bad:
@@ -236,7 +245,7 @@ def setup(config: Config, device: Optional[torch.device] = None) -> Run:
         image_size=image_size,
         compute_dtype=torch.bfloat16 if config.precision == "bf16" else torch.float32,
         conv_impl=resolve_conv_impl(config.conv_impl),
-        tile_rows=max(0, config.tile_rows),
+        tile_rows=resolve_tile_rows(config.tile_rows, image_size),
         remat=config.remat in (True, "block"),
     )
     # ----- writer (reference train.py:94-103): rank 0 only -----
@@ -247,7 +256,9 @@ def setup(config: Config, device: Optional[torch.device] = None) -> Run:
     SingletonWriter().test_iter = max(1, len(train_set) // config.batch_size)
 
     encoder = Encoder(**model_kwargs).to(device)
-    decoder = Decoder(**model_kwargs).to(device)
+    # pack_predict auto (-1) stays off, as in JAX, until the card has
+    # measured the packed predict conv in context (ROADMAP Queue 1 item 1)
+    decoder = Decoder(**model_kwargs, pack_predict=max(0, config.pack_predict)).to(device)
     say(f"{num_params(SoftIntroVAE(encoder, decoder)):,} Parameters")
 
     # ----- loader (JAX train.py:165-186) -----

@@ -1,6 +1,6 @@
 """Host-side utilities: checkpoints, loss averaging, non-finite checks,
 profiling, the TensorBoard writer (the reader is ``utils.tb_reader``), and
-the weight bridge from the JAX package."""
+the weight bridges from the JAX package and from reference checkpoints."""
 
 from intro_tc_vae_tpu_torch.utils.checkpoint import (
     find_latest_checkpoint,
@@ -13,7 +13,7 @@ from intro_tc_vae_tpu_torch.utils.checkpoint import (
 from intro_tc_vae_tpu_torch.utils.lossdict import LossDict
 from intro_tc_vae_tpu_torch.utils.nan import check_non_finite_gradients, check_non_finite_gradints
 from intro_tc_vae_tpu_torch.utils.profiling import StepTimer, profile_trace
-from intro_tc_vae_tpu_torch.utils.transplant import flax_to_port
+from intro_tc_vae_tpu_torch.utils.transplant import flax_to_port, load_torch_checkpoint
 from intro_tc_vae_tpu_torch.utils.writer import SingletonWriter, make_writer
 
 __all__ = [
@@ -29,6 +29,7 @@ __all__ = [
     "profile_trace",
     "StepTimer",
     "flax_to_port",
+    "load_torch_checkpoint",
     "SingletonWriter",
     "make_writer",
 ]

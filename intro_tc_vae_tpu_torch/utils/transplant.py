@@ -1,4 +1,5 @@
-"""Weight bridge: JAX package params/batch_stats -> this port's state_dict.
+"""Weight bridge: JAX package params/batch_stats -> this port's state_dict,
+and the reference's own PyTorch checkpoints -> this port's model.
 
 The inverse of ``intro_tc_vae_tpu/utils/transplant.py::torch_state_dict_to_flax``
 (which reads this port's ``state_dict()`` as it is):
@@ -11,6 +12,11 @@ The inverse of ``intro_tc_vae_tpu/utils/transplant.py::torch_state_dict_to_flax`
 Takes plain numpy arrays (or anything ``np.asarray`` accepts), so it
 needs no jax. Used by the parity tests to give both packages the same
 weights, and for the Adam moments, which have the params' tree shape.
+
+``load_torch_checkpoint`` reads a checkpoint the reference wrote
+(reference utils.py:26-36, ``{'epoch', 'model'}``): the port keeps the
+reference's module names and NCHW layouts, so its state_dict loads as it
+is once two kinds of key the port has no slot for are dropped.
 """
 
 from __future__ import annotations
@@ -103,3 +109,31 @@ def flax_to_port(
     put_conv("decoder.main.predict", dec["predict"])
 
     return {k: torch.tensor(np.asarray(v)) for k, v in sd.items()}
+
+
+def _dead_keys(model: torch.nn.Module):
+    """What a reference state_dict holds that ``model`` has no slot for:
+    every BatchNorm's ``num_batches_tracked`` (``GroupedBatchNorm`` keeps
+    no count), and the ``conv_expand`` the reference's ConvolutionalBlock
+    allocates and its forward never uses (JAX transplant.py:101-104 skips
+    it too)."""
+    from intro_tc_vae_tpu_torch.models.blocks import ConvolutionalBlock
+
+    conv_blocks = tuple(f"{name}.conv_expand." for name, m in model.named_modules()
+                        if isinstance(m, ConvolutionalBlock))
+    return lambda key: key.endswith(".num_batches_tracked") or key.startswith(conv_blocks)
+
+
+def load_torch_checkpoint(path: str, model: torch.nn.Module) -> torch.nn.Module:
+    """Load a reference ``.pth`` checkpoint (``payload["model"]``, or the
+    payload itself when it has no ``"model"``) into the port's
+    ``SoftIntroVAE`` ``model``, on the model's device; returns ``model``.
+    The counterpart of JAX ``utils/transplant.py::load_torch_checkpoint``.
+    Only the keys ``_dead_keys`` names are dropped; the load is otherwise
+    strict, so a missing key, any other unknown key or a shape that differs
+    raises and names the key."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    sd = payload["model"] if isinstance(payload, dict) and "model" in payload else payload
+    dead = _dead_keys(model)
+    model.load_state_dict({k: v for k, v in sd.items() if not dead(k)}, strict=True)
+    return model

@@ -125,9 +125,17 @@ def test_cli_needs_cuda_unless_given_the_cpu(tmp_path, monkeypatch):
     assert not os.path.exists(tmp_path / "x.png")
 
 
-def test_cli_pack_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 9\)"):
-        sample.main(["--checkpoint", "unused", *ARGV, "--pack", "2"], device=CPU)
+def test_cli_pack_runs_the_packed_predict_conv(tmp_path):
+    """``--pack 2`` decodes with PackedPredictConv, within a level of
+    ``--pack 0``'s grid (the same products in another order, float32);
+    ``--pack 1`` runs the plain conv, bit-equal, as JAX's Decoder packs
+    only when pack_predict > 1 (JAX models/vae.py:187; the packed decode
+    against JAX's is tests/test_torch_options.py's)."""
+    path, _ = _checkpoint(tmp_path)
+    grids = [sample.main(["--checkpoint", path, *ARGV, "--pack", str(p),
+                          "--out", str(tmp_path / f"{p}.png")], device=CPU) for p in (0, 1, 2)]
+    np.testing.assert_array_equal(grids[1], grids[0])
+    assert int(np.abs(grids[2].astype(int) - grids[0]).max()) <= 1
 
 
 def test_decode_u8_grid_matches_jax(tmp_path):

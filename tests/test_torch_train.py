@@ -70,8 +70,6 @@ def _raises(update: dict, item: str):
 
 @pytest.mark.parametrize("update,item", [
     _raises(dict(model_parallel=2), "Queue 1 item 8"),
-    _raises(dict(pack_predict=2), "Queue 1 item 9"),
-    _raises(dict(tile_rows=16), "Queue 1 item 9"),
 ])
 def test_unported_options_raise(update, item):
     """Each option the port does not carry raises, naming the ROADMAP item
@@ -87,7 +85,7 @@ def test_unported_options_raise(update, item):
     dict(optimizer="sgd"), dict(optimizer="lamb"), dict(async_checkpoint=True),
     dict(save_interval=0), dict(use_tensorboard=True, test_iter=4),
     dict(scan_steps=2), dict(remat="pass"), dict(tc_sampling="weighted", tc_impl="xla"),
-    dict(arch="inception"), dict(kl_kind="tc_full"),
+    dict(arch="inception"), dict(kl_kind="tc_full"), dict(pack_predict=2), dict(tile_rows=16),
 ], ids=lambda u: ",".join(f"{k}={v}" for k, v in u.items()))
 def test_options_that_once_raised_train(tmp_path, update):
     """The flagship recipe with each option at the synthetic_small size:
@@ -98,8 +96,9 @@ def test_options_that_once_raised_train(tmp_path, update):
     ``anomaly_detection`` is on at every optimizer call and off after;
     ``use_tensorboard`` writes one run under ``log_dir`` (the tags are
     tests/test_torch_writer.py's); ``scan_steps: 2`` makes the 8 steps in
-    4 calls (the options held to the JAX package are
-    tests/test_torch_solver_surface.py's)."""
+    4 calls; ``pack_predict: 2`` and ``tile_rows: 16`` build their modules
+    (the options held to the JAX package are
+    tests/test_torch_solver_surface.py's and tests/test_torch_options.py's)."""
     from torch.optim.optimizer import register_optimizer_step_pre_hook
 
     config = small_config(tmp_path, **update)
@@ -116,6 +115,9 @@ def test_options_that_once_raised_train(tmp_path, update):
     saves = sorted(os.listdir(tmp_path / "saves")) if (tmp_path / "saves").exists() else []
     assert saves == ([] if config.profile
                      else [f"{config.fingerprint()}model_epoch_0_iter_8"])
+    predict = type(state.model.decoder.main["predict"]).__name__
+    assert predict == {2: "PackedPredictConv"}.get(
+        config.pack_predict, "StripTiledConv" if config.tile_rows > 0 else "Conv2d")
     runs = sorted(os.listdir(tmp_path)) if config.use_tensorboard else []
     assert runs == (["runs" + config.run_comment(), "saves"] if config.use_tensorboard
                     else [])
