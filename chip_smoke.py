@@ -181,6 +181,28 @@ result line):
    ``max_memory_allocated`` over 3 flagship steps at batch 64, remat
    false and "pass".
 
+14. Tensor parallelism (``phase_tensor_parallel``), in temporary
+   directories: the flagship at full width (tc and conv 'pallas', 10
+   steps on the synthetic set cut to 640 images) in this process, then
+   with ``model_parallel`` 2 on (a) 2 ranks (TP2 x DP1) and (b) 4 ranks
+   (TP2 x DP2, ``data_parallel`` 4), processes of this script
+   (``--tp-rank``) sharing the card over gloo, each through the CLI's
+   entry: finite losses equal on all ranks; per rank the launches of each
+   phase exactly phase 4's (the routed 64 -> 64 convs are never cut) and
+   the TC's 5 calls a step on the single-device route (a) or the gathered
+   one (b); replicated leaves bit-equal, the gathered state equal on all
+   ranks; each rank's bytes of the state against the whole's and its peak
+   device memory; device and wall ms/step per rank beside this process's
+   (ranks that share a card: a cost, not a scaling figure). (c) One step
+   of (b)'s ranks against one process on the whole batch, fp32 with the
+   kernels (TF32 off; metrics rtol 1e-4, parameters within 2 lr plus one
+   float32 rounding, as phase 7 (b); the four ranks also as data-parallel
+   ranks without the model axis, for comparison) and float64 (tc and conv 'xla';
+   metrics rtol 1e-6, parameters within 2 lr, BatchNorm statistics within
+   rtol/atol 1e-6: forward statistics, which no lr bounds). (d) (b)'s one
+   checkpoint holds the gathered state and decodes bit-equal in this
+   process.
+
 Each phase prints its seconds. Then one JSON line describing the kernels,
 and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -1358,59 +1380,76 @@ DP_UPDATE = {"dataset": "synthetic128", "data_parallel": DP_RANKS, "tc_impl": "p
              "num_epochs": 1, "use_tensorboard": False, "resume": None}
 
 
-def dp_step_setup(dev):
-    """Phase 7 (b)'s inputs, made alike in every process: the dp8
-    config's models in fp32 from torch.manual_seed(0), the first global
-    batch of synthetic128 and the step's noise at the global batch (CPU
-    generator, seed 1). Returns (config, dataset, models, batch, noise)."""
+def dp_step_setup(dev, config: str = DP_CONFIG, update: dict = DP_UPDATE, f64: bool = False):
+    """The inputs of phase 7 (b)'s and phase 14 (c)'s gate step, made alike
+    in every process: ``config``'s models (with ``update``) in fp32 (with
+    ``f64``: in float64 and conv_impl 'xla', the kernels taking fp32 and
+    bf16 only) from torch.manual_seed(0), the first global batch of its
+    dataset and the step's noise at the global batch (CPU generator, seed
+    1). Returns (config, dataset, models, batch, noise)."""
     import numpy as np
     import torch
 
     from intro_tc_vae_tpu_torch.config import load_config
     from intro_tc_vae_tpu_torch.data import load_dataset
-    from intro_tc_vae_tpu_torch.models import Decoder, Encoder, SoftIntroVAE
+    from intro_tc_vae_tpu_torch.models import (
+        Decoder,
+        Encoder,
+        SoftIntroVAE,
+        resolve_conv_impl,
+    )
     from intro_tc_vae_tpu_torch.solvers import NOISE_KEYS
 
-    cfg = load_config(DP_CONFIG, {**DP_UPDATE, "precision": "fp32"})
+    cfg = load_config(config, {**update, "precision": "fp32"})
     ds, image_size, channels, cdim = load_dataset(cfg.dataset)
+    dtype = torch.float64 if f64 else torch.float32
     kw = dict(arch=cfg.arch, cdim=cdim, zdim=cfg.z_dim, channels=channels,
-              image_size=image_size, compute_dtype=torch.float32)
+              image_size=image_size, compute_dtype=dtype,
+              conv_impl="xla" if f64 else resolve_conv_impl(cfg.conv_impl))
     torch.manual_seed(0)
-    model = SoftIntroVAE(Encoder(**kw), Decoder(**kw)).to(dev)
+    model = SoftIntroVAE(Encoder(**kw), Decoder(**kw)).to(dev, dtype)
     batch = torch.from_numpy(ds.get_batch(np.arange(cfg.batch_size))
-                             .transpose(0, 3, 1, 2).copy())
+                             .transpose(0, 3, 1, 2).copy()).to(dtype)
     gen = torch.Generator().manual_seed(1)
-    noise = {k: torch.randn((cfg.batch_size, cfg.z_dim), generator=gen).to(dev)
+    noise = {k: torch.randn((cfg.batch_size, cfg.z_dim), generator=gen).to(dev, dtype)
              for k in NOISE_KEYS}
     return cfg, ds, model, batch, noise
 
 
-def dp_step(dev, mesh=None):
-    """One fp32 intro_tc step (TF32 off, tc_impl 'pallas') of the dp8
-    config from dp_step_setup's inputs; ``mesh``: this rank's data group,
-    which steps on its rows of the batch. Returns (metrics, state dict on
-    the host)."""
+def dp_step(dev, mesh=None, config: str = DP_CONFIG, update: dict = DP_UPDATE,
+            f64: bool = False):
+    """One fp32 intro_tc step (TF32 off, tc_impl 'pallas'; with ``f64`` a
+    float64 step, tc_impl 'xla') of ``config`` from dp_step_setup's
+    inputs; ``mesh``: this rank's place in the mesh, which steps on its
+    data index's rows of the batch, with its slices of the state under a
+    model axis. Returns (metrics, the whole state dict on the host)."""
     import torch
 
-    from intro_tc_vae_tpu_torch.parallel import batch_sharding, replicate_state
+    from intro_tc_vae_tpu_torch.parallel import (
+        batch_sharding,
+        gather_state,
+        replicate_state,
+        shard_state,
+    )
     from intro_tc_vae_tpu_torch.solvers import make_optimizer, make_solver
 
-    cfg, ds, model, batch, noise = dp_step_setup(dev)
+    cfg, ds, model, batch, noise = dp_step_setup(dev, config, update, f64)
     rows = slice(None) if mesh is None else batch_sharding(mesh, cfg.batch_size)
     solver = make_solver(
         "intro_tc", dataset=ds, encoder=model.encoder, decoder=model.decoder,
         batch_size=cfg.batch_size, optimizer_e=make_optimizer("adam", cfg.lr),
         optimizer_d=make_optimizer("adam", cfg.lr), recon_loss_type=cfg.recon_loss_type,
         beta_kl=cfg.beta_kl, beta_rec=cfg.beta_rec, beta_neg=cfg.beta_neg,
-        gamma_r=cfg.gamma_r, tc_impl="pallas", fuse_passes=True, mesh=mesh)
+        gamma_r=cfg.gamma_r, tc_impl="xla" if f64 else "pallas", fuse_passes=True,
+        mesh=mesh)
     state = solver.init_state(0)
     if mesh is not None:
-        state = replicate_state(state, mesh)
+        state = shard_state(replicate_state(state, mesh), mesh)
     with fp32_exact():
         state, metrics = solver.train_step(state, batch[rows].to(dev), noise=noise)
         torch.cuda.synchronize()
     return ({k: float(v) for k, v in metrics.items()},
-            {k: v.detach().cpu() for k, v in model.state_dict().items()})
+            {k: v.detach().cpu() for k, v in gather_state(model).items()})
 
 
 def dp_rank(out_path: str) -> None:
@@ -1447,6 +1486,107 @@ def dp_rank(out_path: str) -> None:
     torch.save(dict(train=train, metrics=metrics, params=params), out_path)
 
 
+def start_ranks(phase: str, n: int, args: list, work: str) -> tuple:
+    """``n`` processes of this script (``args``: its rank flag and any
+    more arguments, then each rank's result path), started as a user
+    starts ranks (RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE and the
+    coordinator's address; all on this card), under one DP_TIMEOUT; a
+    rank that fails fails the phase, with its log's end on stderr, and
+    the others are killed. Returns (each rank's result, rank 0's log)."""
+    import socket
+
+    import torch
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs, logs = [], []
+    for r in range(n):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(n), LOCAL_RANK=str(r),
+                   LOCAL_WORLD_SIZE=str(n), ITCVAE_COORDINATOR_ADDRESS=f"127.0.0.1:{port}")
+        logs.append(open(os.path.join(work, f"rank{r}.log"), "w+"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), *args,
+             os.path.join(work, f"rank{r}.pt")],
+            cwd=HERE, env=env, stdout=logs[r], stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + DP_TIMEOUT
+    while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+        if any(p.poll() not in (None, 0) for p in procs):
+            break
+        time.sleep(0.2)
+    failed = [r for r, p in enumerate(procs) if p.poll() != 0]
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    if failed:
+        for r in failed:
+            logs[r].seek(0)
+            tail = logs[r].read()[-4000:]
+            print(f"{phase}: rank {r} log (end):\n{tail}", file=sys.stderr)
+        die(f"{phase}: ranks {failed} failed or outlived the {DP_TIMEOUT} s timeout")
+    logs[0].seek(0)
+    rank0_log = logs[0].read()
+    for f in logs:
+        f.close()
+    return ([torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+             for r in range(n)], rank0_log)
+
+
+def gate_step(phase: str, what: str, ranks: list, one: tuple, rtol: float = RTOL,
+              stats=None) -> None:
+    """The gate of phases 7 (b) and 14 (c): every rank's metrics and whole
+    state (``ranks``: (metrics, state) each) equal; the metrics within
+    ``rtol`` of the one-process step's (``one``); the updated parameters
+    within 2 lr (Adam's first update is about lr sign(g)) plus one float32
+    rounding of the largest. The BatchNorm running statistics are forward
+    statistics, which no lr bounds: ``stats`` None holds them to the same
+    bound (phase 7), "print" prints their distance, a dict (rtol, atol)
+    holds them to it."""
+    import torch
+
+    (m_dp, p_dp), (m_one, p_one) = ranks[0], one
+    for k in p_dp:
+        for r, (_, p_r) in enumerate(ranks[1:], 1):
+            if not torch.equal(p_dp[k], p_r[k]):
+                die(f"{phase}: {k} differs between ranks 0 and {r}")
+    names = ("lossE", "lossD", "loss_kl", "loss_rec", "expelbo_r", "expelbo_f")
+    for name in names:
+        if not math.isclose(m_dp[name], m_one[name], rel_tol=rtol, abs_tol=1e-30) or \
+                any(m_r[name] != m_dp[name] for m_r, _ in ranks[1:]):
+            die(f"{phase}: {name} ranks {[m_r[name] for m_r, _ in ranks]!r} vs one "
+                f"process {m_one[name]!r}")
+    diffs = {k: (p_dp[k].double() - p_one[k].double()).abs() for k in p_one}
+    is_stat = {k: k.endswith(("running_mean", "running_var")) for k in diffs}
+    bounded = {k: d for k, d in diffs.items() if stats is None or not is_stat[k]}
+    worst_key = max(bounded, key=lambda k: float(bounded[k].max()))
+    worst = float(bounded[worst_key].max())
+    n_over = sum(int((d > ATOL).sum()) for d in diffs.values())
+    n_params = sum(d.numel() for d in diffs.values())
+    bn_key = max((k for k in diffs if is_stat[k]), key=lambda k: float(diffs[k].max()))
+    bn_worst = float(diffs[bn_key].max())
+    # an update of +lr against one of -lr, plus one float32 rounding of the
+    # largest parameter
+    bound = 2 * LR + float(torch.finfo(torch.float32).eps) * max(
+        float(v.abs().max()) for v in p_one.values() if v.is_floating_point())
+    checked = "params and BN stats" if stats is None else "params"
+    if not worst <= bound:
+        die(f"{phase}: updated {checked} differ by {worst!r} ({worst_key}) > 2 lr + 1 ulp "
+            f"= {bound!r}")
+    if isinstance(stats, dict):
+        for k in (k for k in diffs if is_stat[k]):
+            if not torch.allclose(p_dp[k].double(), p_one[k].double(), **stats):
+                die(f"{phase}: {k} differs by {float(diffs[k].max())!r} beyond {stats}")
+    dtype = "float64" if p_one[worst_key].dtype == torch.float64 else "fp32 (TF32 off)"
+    print(f"{phase}: one {dtype} step, {what} vs one process: metrics within rtol {rtol} "
+          + json.dumps({n: [m_dp[n], m_one[n]] for n in names})
+          + f"; updated {checked} max abs diff {worst!r} ({worst_key}; <= 2 lr + 1 ulp = "
+          f"{bound!r}), {n_over} of {n_params} entries over {ATOL}; BN running stats max "
+          f"abs diff {bn_worst:.3g} ({bn_key}"
+          + ("" if not isinstance(stats, dict) else f"; within {stats}")
+          + "); all ranks bit-equal")
+
+
 def phase_data_parallel(card: str) -> dict:
     """Phase 7: the data-parallel path, configs/intro_tc_128_dp8.json at
     full width (conv arch, 128x128x3, channels 64-512, z 128, global batch
@@ -1464,48 +1604,13 @@ def phase_data_parallel(card: str) -> dict:
     within rtol 1e-4; updated parameters within 2 lr (Adam's first update
     is about lr sign(g)) plus one float32 rounding; the ranks' parameters
     and BatchNorm statistics equal."""
-    import socket
     import shutil
     import tempfile
 
     import torch
 
     work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    procs, logs = [], []
-    for r in range(DP_RANKS):
-        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(DP_RANKS), LOCAL_RANK=str(r),
-                   LOCAL_WORLD_SIZE=str(DP_RANKS),
-                   ITCVAE_COORDINATOR_ADDRESS=f"127.0.0.1:{port}")
-        logs.append(open(os.path.join(work, f"rank{r}.log"), "w+"))
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--dp-rank",
-             os.path.join(work, f"rank{r}.pt")],
-            cwd=HERE, env=env, stdout=logs[r], stderr=subprocess.STDOUT))
-    deadline = time.monotonic() + DP_TIMEOUT
-    while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
-        if any(p.poll() not in (None, 0) for p in procs):
-            break
-        time.sleep(0.2)
-    failed = [r for r, p in enumerate(procs) if p.poll() != 0]
-    for p in procs:
-        if p.poll() is None:
-            p.kill()
-        p.wait()
-    if failed:
-        for r in failed:
-            logs[r].seek(0)
-            tail = logs[r].read()[-4000:]
-            print(f"phase 7: rank {r} log (end):\n{tail}", file=sys.stderr)
-        die(f"phase 7: ranks {failed} failed or outlived the {DP_TIMEOUT} s timeout")
-    logs[0].seek(0)
-    rank0_log = logs[0].read()
-    for f in logs:
-        f.close()
-    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
-             for r in range(DP_RANKS)]
+    ranks, rank0_log = start_ranks("phase 7", DP_RANKS, ["--dp-rank"], work)
     saves = sorted(os.listdir(os.path.join(work, "saves")))
     dp_digest = dp_checkpoint_digest(os.path.join(work, "saves", saves[-1])) if saves else None
     shutil.rmtree(work)
@@ -1562,35 +1667,9 @@ def phase_data_parallel(card: str) -> dict:
 
     # (b)
     torch.cuda.empty_cache()
-    m_one, p_one = dp_step(torch.device(DP_DEVICE))
-    m_dp, p_dp = ranks[0]["metrics"], ranks[0]["params"]
-    for k in p_dp:
-        if not torch.equal(p_dp[k], ranks[1]["params"][k]):
-            die(f"phase 7 (b): {k} differs between the ranks")
-    names = ("lossE", "lossD", "loss_kl", "loss_rec", "expelbo_r", "expelbo_f")
-    for name in names:
-        if not math.isclose(m_dp[name], m_one[name], rel_tol=RTOL, abs_tol=1e-30) or \
-                m_dp[name] != ranks[1]["metrics"][name]:
-            die(f"phase 7 (b): {name} {DP_RANKS} ranks {m_dp[name]!r} "
-                f"({ranks[1]['metrics'][name]!r}) vs one process {m_one[name]!r}")
-    diffs = {k: (p_dp[k].double() - p_one[k].double()).abs() for k in p_one}
-    worst = max(float(d.max()) for d in diffs.values())
-    n_over = sum(int((d > ATOL).sum()) for d in diffs.values())
-    n_params = sum(d.numel() for d in diffs.values())
-    bn_worst = max(float(d.max()) for k, d in diffs.items() if k.endswith(("running_mean",
-                                                                         "running_var")))
-    # an update of +lr against one of -lr, plus one float32 rounding of the
-    # largest parameter
-    bound = 2 * LR + float(torch.finfo(torch.float32).eps) * max(
-        float(v.abs().max()) for v in p_one.values() if v.is_floating_point())
-    if not worst <= bound:
-        die(f"phase 7 (b): updated parameters differ by {worst!r} > 2 lr + 1 ulp = {bound!r}")
-    print(f"phase 7 (b): one fp32 step (TF32 off), {DP_RANKS} ranks vs one process: metrics "
-          "within rtol 1e-4 " + json.dumps({n: [m_dp[n], m_one[n]] for n in names})
-          + f"; updated params and BN stats max abs diff {worst!r} (<= 2 lr + 1 ulp = "
-          f"{bound!r}), "
-          f"{n_over} of {n_params} entries over {ATOL}; BN running stats max abs diff "
-          f"{bn_worst:.3g}; both ranks bit-equal")
+    gate_step("phase 7 (b)", f"{DP_RANKS} ranks",
+              [(out["metrics"], out["params"]) for out in ranks],
+              dp_step(torch.device(DP_DEVICE)))
     calls = sum(out["train"]["counts"]["calls.tc_logsumexp_gathered"] for out in ranks)
 
     # (g), phase 8's part here: the ranks' one final checkpoint, written by
@@ -3393,6 +3472,270 @@ def phase_options(card: str) -> dict:
     return {"device_ms": ms, "predict_conv": times}
 
 
+TP_UPDATE = {"dataset": "synthetic", "tc_impl": "pallas", "conv_impl": "pallas",
+             "num_epochs": 1, "use_tensorboard": False, "resume": None}
+TP_GRIDS = {"a": 2, "b": 4}   # ranks of (a) TP2 x DP1 and (b) TP2 x DP2
+TP_MODEL = 2
+TP_STEPS = 10  # an epoch of the cut synthetic set (640 images), batch 64
+
+
+def state_bytes(state) -> tuple:
+    """(bytes this process holds, bytes of the whole state): parameters,
+    BatchNorm statistics and both optimizers' state, counted exactly; a
+    leaf sharded over the model axis counts whole as its slice times the
+    model axis."""
+    import torch
+
+    from intro_tc_vae_tpu_torch.parallel.mesh import sharded_keys
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    cut = {k: m.model_group.size for k, (m, _, _) in sharded_keys(state.model).items()}
+    sd = state.model.state_dict()
+    local = sum(nbytes(t) for t in sd.values())
+    whole = sum(nbytes(t) * cut.get(k, 1) for k, t in sd.items())
+    for opt in (state.opt_e, state.opt_d):
+        for p, entry in opt.state.items():
+            shard = getattr(p, "tp", None)
+            for v in entry.values():
+                if isinstance(v, torch.Tensor):
+                    local += nbytes(v)
+                    whole += nbytes(v) * (shard.group.size if shard is not None
+                                          and v.shape == p.shape else 1)
+    return local, whole
+
+
+def tp_train(update: dict) -> dict:
+    """TP_STEPS flagship steps through the CLI's entry with ``update``,
+    every count set to 0 just before and read per phase, the peak device
+    memory from the start, device ms/step over the last PROFILED_STEPS
+    (``profiled_steps``) and wall ms/step (``images_per_second``), the
+    state's bytes, the digest of its replicated leaves and its whole
+    (gathered) parameters and statistics on the host."""
+    import torch
+
+    from intro_tc_vae_tpu_torch import main as cli_main
+    from intro_tc_vae_tpu_torch.ops import tc_cuda
+    from intro_tc_vae_tpu_torch.parallel import gather_state, state_digest
+    from intro_tc_vae_tpu_torch.parallel.mesh import sharded_keys
+    from intro_tc_vae_tpu_torch.train import images_per_second
+
+    def counts():
+        return {**all_launches(), **{f"calls.{k}": v for k, v in tc_cuda.CALLS.items()}}
+
+    torch.cuda.reset_peak_memory_stats()
+    box = []
+    reset_all_launches()
+    with synthetic_steps(TP_STEPS), launches_per_phase(counts) as (phase_e, phase_d):
+        by_name = profiled_steps(
+            lambda: box.append(cli_main.cli(["-f", FLAGSHIP, "-u", json.dumps(update)])),
+            wait=TP_STEPS - PROFILED_STEPS - 1)
+    state = box[0]
+    local, whole = state_bytes(state)
+    return dict(history=state.history, counts=counts(), phase_e=phase_e, phase_d=phase_d,
+                device_ms=sum(by_name.values()) / PROFILED_STEPS / 1e3,
+                wall_ms=MAIN_B / images_per_second(state, MAIN_B) * 1e3,
+                peak=torch.cuda.max_memory_allocated(), local_bytes=local, whole_bytes=whole,
+                sharded=len(sharded_keys(state.model)),
+                replicated=state_digest(state.model, replicated_only=True),
+                whole={k: v.detach().cpu() for k, v in gather_state(state.model).items()},
+                samples=state.samples.cpu(), device=str(next(state.model.parameters()).device))
+
+
+def tp_rank(grid: str, out_path: str) -> None:
+    """One rank of phase 14 (``--tp-rank``), started by start_ranks:
+    ``tp_train`` on grid ``grid`` of TP_GRIDS (data_parallel the total,
+    model_parallel TP_MODEL), its final checkpoint beside the results; on
+    grid (b) then one fp32 gate step on its rows and slices (``dp_step``).
+    Writes its results to ``out_path``."""
+    import torch
+    import torch.distributed as dist
+
+    from intro_tc_vae_tpu_torch.parallel import make_mesh
+
+    update = {**TP_UPDATE, "data_parallel": TP_GRIDS[grid], "model_parallel": TP_MODEL,
+              "checkpoint_dir": os.path.join(os.path.dirname(out_path), "saves")}
+    out = {"train": tp_train(update), "backend": dist.get_backend()}
+    torch.cuda.empty_cache()
+    if grid == "b":
+        mesh = make_mesh(model_parallel=TP_MODEL)
+        out["gate"] = dp_step(mesh.device, mesh, FLAGSHIP, update)
+        out["gate64"] = dp_step(mesh.device, mesh, FLAGSHIP, update, f64=True)
+        data_only = make_mesh()
+        out["gate_dp"] = dp_step(data_only.device, data_only, FLAGSHIP,
+                                 {**update, "model_parallel": 1})
+    torch.save(out, out_path)
+
+
+def phase_tensor_parallel(card: str) -> dict:
+    """Phase 14: tensor parallelism (``model_parallel`` 2) at the flagship's
+    full width: configs/intro_tc_ukiyo64.json (conv 64-128-256-512, z 128,
+    batch 64, bf16, paired) on synthetic cut to 640 images, tc and conv
+    'pallas', TP_STEPS steps through the CLI's entry on ranks of this
+    script sharing the one card over gloo (``start_ranks``).
+
+    (a) TP2 x DP1 (2 ranks) and (b) TP2 x DP2 (4 ranks, data_parallel 4):
+    every loss finite and equal on all ranks; per rank the launches of
+    each phase equal ``expected_intro_launches("pallas", "pallas")`` (the
+    routed 64 -> 64 convs are never cut at min_dim 256: each rank runs
+    them whole), the TC's 5 calls a step take the single-device route on
+    (a) and the gathered one on (b); replicated leaves bit-equal and the
+    gathered state equal on all ranks; each rank's bytes of parameters,
+    statistics and optimizer state against the whole state's; peak device
+    memory per rank. (c) One step of (b)'s four ranks against the same
+    step in this process on the whole batch (``gate_step``): fp32 with the
+    kernels, TF32 off, at phase 7 (b)'s gate on the parameters (and the
+    same step on the four ranks as data-parallel ones, no model axis,
+    for comparison: in fp32 the encoder's updated weights, within 2 lr,
+    move phase D's statistics by ~1e-3 with or without the model axis),
+    and float64 (tc and conv 'xla'), which also holds the BatchNorm
+    running statistics (rtol/atol 1e-6). (d) (b)'s one final checkpoint (rank 0
+    wrote it) holds the gathered state bit for bit, and loaded in this
+    process it decodes a fixed noise batch bit-equal to a model holding
+    the gathered parameters. (e) Device ms/step and wall ms/step per
+    rank of (a) and (b) beside one process's (the same run in this
+    process): ranks that share one card and a host's gloo are a cost,
+    not a scaling figure."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    one_dir = tempfile.mkdtemp(prefix="chip_smoke_tp1_")
+    one = tp_train({**TP_UPDATE, "checkpoint_dir": one_dir})
+    shutil.rmtree(one_dir)
+    seconds = {"one process": time.perf_counter() - t0}
+    want_e, want_d = expected_intro_launches("pallas", "pallas")
+    tail = final_decode_launches("pallas")
+    results = {}
+    for grid, n in TP_GRIDS.items():
+        t0 = time.perf_counter()
+        work = tempfile.mkdtemp(prefix=f"chip_smoke_tp_{grid}_")
+        ranks, rank0_log = start_ranks(f"phase 14 ({grid})", n, ["--tp-rank", grid], work)
+        seconds[f"({grid}) ranks"] = time.perf_counter() - t0
+        saves = [os.path.join(work, "saves", f)
+                 for f in sorted(os.listdir(os.path.join(work, "saves")))]
+        results[grid] = ranks
+        route = "tc_logsumexp_gathered" if grid == "b" else "tc_logsumexp"
+        other = "tc_logsumexp" if grid == "b" else "tc_logsumexp_gathered"
+        calls_e = {f"calls.{route}": 3, f"calls.{other}": 0}
+        calls_d = {f"calls.{route}": 2, f"calls.{other}": 0}
+        for r, out in enumerate(ranks):
+            a = out["train"]
+            if len(a["history"]) != TP_STEPS:
+                die(f"phase 14 ({grid}): rank {r}: {len(a['history'])} steps, "
+                    f"expected {TP_STEPS}")
+            for rec in a["history"]:
+                for k, v in rec.items():
+                    if isinstance(v, float) and not math.isfinite(v):
+                        die(f"phase 14 ({grid}): rank {r}: non-finite {k} at step {rec['step']}")
+            e = {k: TP_STEPS * v for k, v in {**want_e, **calls_e}.items()}
+            d = {k: TP_STEPS * v for k, v in {**want_d, **calls_d}.items()}
+            total = {k: e[k] + d[k] + tail.get(k, 0) for k in e}
+            for label, got, want in (("phase E", a["phase_e"], e), ("phase D", a["phase_d"], d),
+                                     ("total", a["counts"], total)):
+                if got != want:
+                    die(f"phase 14 ({grid}): rank {r}: {label} counts {got}, expected {want}")
+            if out["backend"] != "gloo" or a["device"] != DP_DEVICE or not a["sharded"]:
+                die(f"phase 14 ({grid}): rank {r}: backend {out['backend']}, device "
+                    f"{a['device']}, {a['sharded']} sharded leaves")
+            strip = [{k: v for k, v in h.items() if k != "seconds"} for h in a["history"]]
+            if strip != [{k: v for k, v in h.items() if k != "seconds"}
+                         for h in ranks[0]["train"]["history"]]:
+                die(f"phase 14 ({grid}): rank {r}'s metrics differ from rank 0's")
+            if a["replicated"] != ranks[0]["train"]["replicated"]:
+                die(f"phase 14 ({grid}): rank {r}'s replicated leaves differ from rank 0's")
+            if not same(a["whole"], ranks[0]["train"]["whole"]) or \
+                    not same(a["samples"], ranks[0]["train"]["samples"]):
+                die(f"phase 14 ({grid}): rank {r}'s gathered state or samples differ")
+        a0 = ranks[0]["train"]
+        last = a0["history"][-1]
+        print(f"phase 14 ({grid}): {n} ranks (gloo, one card; {n // TP_MODEL} data x "
+              f"{TP_MODEL} model), {TP_STEPS} steps of global batch {MAIN_B}, finite losses "
+              f"(last lossE {last['lossE']:.6g} lossD {last['lossD']:.6g}) equal on all ranks; "
+              f"per rank phase E {a0['phase_e']}, phase D {a0['phase_d']} (exact); "
+              f"{a0['sharded']} leaves cut; replicated leaves bit-equal")
+        for line in rank0_log.splitlines():
+            if line.startswith(("distributed:", "training throughput")):
+                print(f"phase 14 ({grid}): rank 0 says: {line}")
+        if grid == "b":
+            torch.cuda.empty_cache()
+            update = {**TP_UPDATE, "data_parallel": n, "model_parallel": TP_MODEL}
+            dev = torch.device(DP_DEVICE)
+            one_step = dp_step(dev, None, FLAGSHIP, update)
+            gate_step("phase 14 (c)", f"{n} ranks (TP2 x DP2)", [out["gate"] for out in ranks],
+                      one_step, stats="print")
+            gate_step("phase 14 (c)", f"{n} data-parallel ranks, no model axis",
+                      [out["gate_dp"] for out in ranks], one_step, stats="print")
+            gate_step("phase 14 (c)", f"{n} ranks (TP2 x DP2)",
+                      [out["gate64"] for out in ranks],
+                      dp_step(dev, None, FLAGSHIP, update, f64=True), rtol=1e-6,
+                      stats=dict(rtol=1e-6, atol=1e-6))
+            tp_checkpoint(saves, ranks[0]["train"]["whole"])
+        shutil.rmtree(work)
+        seconds[f"({grid}) all"] = time.perf_counter() - t0
+
+    # (e) and the state's bytes
+    print("phase 14: seconds " + json.dumps({k: round(v, 1) for k, v in seconds.items()}))
+    print(f"phase 14 (e): one process: device {one['device_ms']:.3f} ms/step, wall "
+          f"{one['wall_ms']:.1f} ms/step, peak {one['peak'] / 2**20:.0f} MiB, state "
+          f"{one['whole_bytes']} B on {card}")
+    for grid, ranks in results.items():
+        for r, out in enumerate(ranks):
+            a = out["train"]
+            print(f"phase 14 (e): ({grid}) rank {r}: device {a['device_ms']:.3f} ms/step, wall "
+                  f"{a['wall_ms']:.1f} ms/step, peak {a['peak'] / 2**20:.0f} MiB; state "
+                  f"{a['local_bytes']} of {a['whole_bytes']} B = "
+                  f"{a['local_bytes'] / a['whole_bytes']:.4f} of the whole (predicted 0.52) "
+                  f"on {card}; ranks share one card over gloo: a cost, not a scaling figure")
+        if ranks[0]["train"]["whole_bytes"] != one["whole_bytes"]:
+            die(f"phase 14 ({grid}): the whole state counts {ranks[0]['train']['whole_bytes']} "
+                f"B, one process {one['whole_bytes']} B")
+    return {"one": {k: one[k] for k in ("device_ms", "wall_ms", "peak", "whole_bytes")},
+            "ranks": {g: [{k: out["train"][k] for k in ("device_ms", "wall_ms", "peak",
+                                                         "local_bytes")} for out in ranks]
+                      for g, ranks in results.items()}}
+
+
+def tp_checkpoint(paths: list, whole: dict) -> None:
+    """Phase 14 (d): the ranks' one final checkpoint holds ``whole`` (the
+    gathered state) bit for bit; loaded in this process, its eval decode of
+    a fixed noise batch equals, bit for bit, that of a model given the
+    gathered parameters."""
+    import torch
+
+    from intro_tc_vae_tpu_torch.config import load_config
+    from intro_tc_vae_tpu_torch.data import load_dataset
+    from intro_tc_vae_tpu_torch.models import Decoder, Encoder, SoftIntroVAE
+    from intro_tc_vae_tpu_torch.solvers.base import decode
+    from intro_tc_vae_tpu_torch.utils import load_model
+
+    cfg = load_config(FLAGSHIP, TP_UPDATE)
+    if len(paths) != 1 or not paths[0].endswith(f"model_epoch_0_iter_{TP_STEPS}"):
+        die(f"phase 14 (d): the ranks left {paths}, expected one final checkpoint")
+    payload = torch.load(paths[0], map_location="cpu", weights_only=True)
+    saved = {**{f"encoder.{k}": v for k, v in payload["encoder"].items()},
+             **{f"decoder.{k}": v for k, v in payload["decoder"].items()}}
+    if not same(saved, whole):
+        die("phase 14 (d): the checkpoint differs from the ranks' gathered state")
+    _, size, channels, cdim = load_dataset(cfg.dataset)
+    kw = dict(arch=cfg.arch, cdim=cdim, zdim=cfg.z_dim, channels=tuple(channels),
+              image_size=size, compute_dtype=torch.bfloat16, conv_impl="pallas")
+    dev = torch.device(DP_DEVICE)
+    loaded = load_model(SoftIntroVAE(Encoder(**kw), Decoder(**kw)).to(dev), paths[0])
+    given = SoftIntroVAE(Encoder(**kw), Decoder(**kw)).to(dev)
+    given.load_state_dict(whole)
+    noise = torch.randn((MAIN_B, cfg.z_dim), generator=torch.Generator().manual_seed(7)).to(dev)
+    a, b = decode(loaded.decoder, noise, train=False), decode(given.decoder, noise, train=False)
+    if not torch.equal(a, b):
+        die("phase 14 (d): the checkpoint's decode differs from the gathered parameters'")
+    print(f"phase 14 (d): one checkpoint {os.path.basename(paths[0])} (rank 0 wrote it) holds "
+          f"the gathered state bit for bit ({len(saved)} tensors); loaded in one process its "
+          f"decode of {MAIN_B} noise vectors is bit-equal to the gathered parameters'")
+
+
 def device_time(card: str) -> None:
     """``--device-time``: device ms per step (``profiled_steps``) of the
     flagship's four arms (bf16) and of configs/vae_synthetic.json (fp32)
@@ -3470,6 +3813,7 @@ def main() -> None:
     timed("phase 11", phase_solver_surface, card)
     at48 = timed("phase 12", phase_48px, card)
     timed("phase 13", phase_options, card)
+    timed("phase 14", phase_tensor_parallel, card)
     print(f"phase 8: flagship checkpoint {ckpt['bytes']} bytes; save {ckpt['save_s']:.3f} s, "
           f"background save returns in {ckpt['async_return_s']:.3f} s, load "
           f"{ckpt['load_s']:.3f} s; phase 4 img/s with the metric ring "
@@ -3554,6 +3898,9 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:  # one rank of phase 7, started by the script
         dp_rank(sys.argv[2])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--tp-rank"]:  # one rank of phase 14, started by the script
+        tp_rank(sys.argv[2], sys.argv[3])
         sys.exit(0)
     t0 = time.perf_counter()
     if sys.argv[1:2] == ["--device-time"]:  # a profile, not the smoke test

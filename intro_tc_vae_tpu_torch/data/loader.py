@@ -37,7 +37,9 @@ cache gather into the train step's one program, and eager PyTorch has no
 such program, so the loader yields the gathered uint8 batch.
 
 Data parallel (``rows``): every rank draws the same seeded global order
-and gathers only its own rows of each global batch of ``batch_size``.
+and gathers only its own rows of each global batch of ``batch_size``;
+the rows are its data index's (``parallel.batch_sharding``), so the ranks
+of one model group get the same rows on every path.
 
 ``stack_steps`` K > 1 (the trainer's ``scan_steps``; JAX
 ``stack_steps``): each item holds K consecutive global batches as one

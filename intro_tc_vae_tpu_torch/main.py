@@ -9,7 +9,10 @@ CUDA is absent. Data parallel: start R processes, e.g.
 
 (or set ITCVAE_COORDINATOR_ADDRESS, RANK, WORLD_SIZE and LOCAL_RANK for
 each process); each rank then trains on its own card, or ranks share one
-(``parallel/distributed.py``).
+(``parallel/distributed.py``). Tensor parallel: the same start with
+``"model_parallel": M`` and ``"data_parallel"`` the total number of ranks,
+e.g. ``torchrun --nproc_per_node 4 ... -u '{"data_parallel": 4,
+"model_parallel": 2, ...}'`` (a grid of 2 data by 2 model ranks).
 """
 
 from __future__ import annotations

@@ -16,7 +16,7 @@ from intro_tc_vae_tpu_torch.models.vae import (
     num_params,
     resolve_conv_impl,
     resolve_tile_rows,
-    set_data_group,
+    set_mesh,
 )
 
 __all__ = [
@@ -33,5 +33,5 @@ __all__ = [
     "num_params",
     "resolve_conv_impl",
     "resolve_tile_rows",
-    "set_data_group",
+    "set_mesh",
 ]

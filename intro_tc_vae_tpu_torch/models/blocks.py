@@ -11,6 +11,36 @@ Init: PyTorch's default ``Conv2d``/``Linear`` init (kaiming-uniform with
 a=sqrt(5) for weights, fan-in uniform for biases) is U(±1/sqrt(fan_in)),
 the same distribution the JAX package draws (models/init.py), so no
 custom initializer is needed.
+
+Tensor parallelism (``parallel.shard_state``): a module whose leaves are
+sharded over the model axis records them in ``tp_dims``, and every module
+of a sharded model knows its ``model_group``. An activation then holds
+either all its channels (the same on every rank of the model group) or
+this rank's contiguous slice of them, and each module reads which from
+the channel count it is handed:
+
+* a conv whose weight is sharded computes its output-channel slice from
+  its whole input (gathered first, ``gather_channels``, if it came
+  sharded), through ``copy_to_model``, whose backward sums the ranks'
+  partial input gradients; its bias slice is its own;
+* a conv whose weight is whole takes a whole input and gives a whole
+  output;
+* a sharded ``GroupedBatchNorm`` and the leaky ReLU after it run on the
+  slice; its statistics still sum over the data group only;
+* a dense layer sharded along its input features (row-parallel) takes its
+  slice of the features and sums the ranks' partial products
+  (``reduce_from_model``); one sharded along its outputs (column-parallel)
+  gives this rank's slice of them;
+* where the next op needs every channel (a whole conv, the inception
+  block's concat, a residual add of another layout), the slice is
+  gathered, and where a sharded op is handed a whole tensor it takes its
+  slice (``copy_to_model``, then the slice).
+
+A conv the kernel gate routes (``ops/conv.py::supported``: 64 -> 64) is
+never sharded at the default ``min_dim`` 256. Where a lower ``min_dim``
+shards one, ``PallasConv3x3`` gathers its weight and runs it whole on the
+whole input, as GSPMD runs a custom call whose operands it cannot
+partition, and the BatchNorm after it takes its slice.
 """
 
 from __future__ import annotations
@@ -25,7 +55,12 @@ from torch.utils.checkpoint import checkpoint
 
 from intro_tc_vae_tpu_torch.ops.conv import supported
 from intro_tc_vae_tpu_torch.ops.conv_cuda import conv3x3_hybrid, conv3x3_pallas
-from intro_tc_vae_tpu_torch.parallel.collectives import all_reduce_sum
+from intro_tc_vae_tpu_torch.parallel.collectives import (
+    all_reduce_sum,
+    copy_to_model,
+    gather_channels,
+    reduce_from_model,
+)
 
 LEAKY_SLOPE = 0.2
 
@@ -44,6 +79,44 @@ def upsample_nearest2(x: torch.Tensor) -> torch.Tensor:
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
+def tp_dim(module: nn.Module, name: str = "weight"):
+    """The dim along which ``module``'s leaf ``name`` is sharded, or None."""
+    return getattr(module, "tp_dims", {}).get(name)
+
+
+def whole(x: torch.Tensor, channels: int, group, dim: int = 1) -> torch.Tensor:
+    """x with all of its ``channels`` along ``dim``: gathered from the
+    model group when x holds this rank's slice."""
+    if group is None or x.shape[dim] == channels:
+        return x
+    return gather_channels(x, group, dim)
+
+
+def local(x: torch.Tensor, channels: int, group, dim: int = 1) -> torch.Tensor:
+    """This rank's slice of x's ``channels`` along ``dim``; a whole x goes
+    through ``copy_to_model`` first, so its gradient is summed."""
+    if x.shape[dim] != channels:
+        return x
+    width = channels // group.size
+    return copy_to_model(x, group).narrow(dim, group.rank * width, width)
+
+
+def like(x: torch.Tensor, ref: torch.Tensor, channels: int, group) -> torch.Tensor:
+    """x, of ``channels`` channels, in the layout of ``ref`` (whole or
+    this rank's slice), for a residual add."""
+    if x.shape[1] == ref.shape[1]:
+        return x
+    return whole(x, channels, group) if ref.shape[1] == channels else local(x, channels, group)
+
+
+def whole_leaf(module: nn.Module, name: str) -> torch.Tensor:
+    """A parameter of ``module`` whole: gathered when it is sharded (the
+    backward keeps this rank's slice of its gradient)."""
+    t = getattr(module, name)
+    d = tp_dim(module, name)
+    return t if d is None else gather_channels(t, module.model_group, d)
+
+
 class Conv2d(nn.Conv2d):
     """Stride-1 'SAME' conv computed in ``compute_dtype``."""
 
@@ -52,7 +125,15 @@ class Conv2d(nn.Conv2d):
         super().__init__(inc, outc, kernel, padding=kernel // 2, bias=bias)
         self.compute_dtype = compute_dtype
 
+    def tp_input(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole input; through ``copy_to_model`` when the weight is
+        sharded (this rank then computes its output-channel slice)."""
+        group = getattr(self, "model_group", None)
+        x = whole(x, self.in_channels, group)
+        return x if tp_dim(self) is None else copy_to_model(x, group)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.tp_input(x)
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return F.conv2d(x.to(dt), self.weight.to(dt), bias, padding=self.padding)
@@ -75,7 +156,14 @@ class PallasConv3x3(Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        x, w = x.to(dt), self.weight.to(dt)
+        group = getattr(self, "model_group", None)
+        x, w = whole(x, self.in_channels, group), self.weight
+        if tp_dim(self) is not None:
+            if supported(x.shape, (self.out_channels, *w.shape[1:])):
+                w = whole_leaf(self, "weight")  # a routed conv runs whole
+            else:
+                x = copy_to_model(x, group)
+        x, w = x.to(dt), w.to(dt)
         if supported(x.shape, w.shape):
             fn = conv3x3_hybrid if self.impl == "hybrid" else conv3x3_pallas
             return fn(x, w)
@@ -119,7 +207,7 @@ class StripTiledConv(Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        x, w = x.to(dt), self.weight.to(dt)
+        x, w = self.tp_input(x).to(dt), self.weight.to(dt)
         bias = None if self.bias is None else self.bias.to(dt)
         n, c, h, width = x.shape
         r = self.kernel_size[0] // 2
@@ -186,12 +274,19 @@ class PackedPredictConv(Conv2d):
         wp = (self.onehot.to(dt) @ w).reshape(3, 3, b, b, b, b, cin, cdim)
         wp = wp.permute(7, 4, 5, 6, 2, 3, 0, 1).reshape(cdim * b * b, cin * b * b, 3, 3)
         bias = self.bias.to(dt).repeat_interleave(b * b)
-        yp = F.conv2d(F.pixel_unshuffle(x.to(dt), b), wp, bias, padding=1)
+        yp = F.conv2d(F.pixel_unshuffle(self.tp_input(x).to(dt), b), wp, bias, padding=1)
         return F.pixel_shuffle(yp, b)
 
 
 class Linear(nn.Linear):
-    """Dense layer computed in ``compute_dtype``."""
+    """Dense layer computed in ``compute_dtype``.
+
+    Under tensor parallelism its weight [out, in] is sharded along dim 0
+    (column-parallel: the output is this rank's slice of the features,
+    the bias slice its own) or dim 1 (row-parallel: this rank's slice of
+    the input features times its slice of the weight, summed over the
+    model group in at least float32, then the whole bias). A sharded bias
+    of a layer whose weight is not column-parallel is gathered."""
 
     def __init__(self, in_features: int, out_features: int,
                  compute_dtype: torch.dtype = torch.float32):
@@ -200,7 +295,18 @@ class Linear(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        group = getattr(self, "model_group", None)
+        d = tp_dim(self)
+        bias = self.bias if d == 0 else whole_leaf(self, "bias")
+        if d == 1:
+            x = local(x, self.in_features, group)
+            acc = torch.promote_types(dt, torch.float32)
+            y = reduce_from_model(F.linear(x.to(dt), self.weight.to(dt)).to(acc), group)
+            return (y + bias.to(acc)).to(dt)
+        x = whole(x, self.in_features, group)
+        if d == 0:
+            x = copy_to_model(x, group)
+        return F.linear(x.to(dt), self.weight.to(dt), bias.to(dt))
 
 
 class GroupedBatchNorm(nn.Module):
@@ -234,6 +340,7 @@ class GroupedBatchNorm(nn.Module):
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.num_features = num_features
         self.eps = eps
         self.momentum = momentum
         self.compute_dtype = compute_dtype
@@ -244,6 +351,11 @@ class GroupedBatchNorm(nn.Module):
         self.update_stats = True
 
     def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
+        group = getattr(self, "model_group", None)
+        if tp_dim(self) is not None:
+            x = local(x, self.num_features, group)
+        else:
+            x = whole(x, self.num_features, group)
         c = x.shape[1]
         bshape = (c,) + (1,) * (x.dim() - 2)  # broadcast over [C, H, W]
         if not self.training:
@@ -363,7 +475,9 @@ class ResidualBlock(nn.Module):
     def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
         identity = x if self.conv_expand is None else self.conv_expand(x)
         y = leaky_relu(self.bn1(self.conv1(x), groups))
-        return leaky_relu(self.bn2(self.conv2(y), groups) + identity)
+        y = self.bn2(self.conv2(y), groups)
+        group = getattr(self, "model_group", None)
+        return leaky_relu(y + like(identity, y, self.bn2.num_features, group))
 
 
 class Conv2dBatchNorm(nn.Module):
@@ -387,6 +501,8 @@ class InceptionResnetBlock(nn.Module):
     concat -> 1x1 ``conv`` (with bias) -> + identity (a 1x1 ``conv_expand``
     when inc != outc) -> LReLU. Every conv is 1x1, so ``conv_impl`` and
     ``tile_rows`` route nothing (accepted as the other blocks accept them).
+    Under tensor parallelism each branch is gathered before the concat:
+    two channel slices side by side are not a slice of the concat.
     """
 
     def __init__(self, inc: int, outc: int, scale: float = 1.0,
@@ -407,8 +523,10 @@ class InceptionResnetBlock(nn.Module):
         identity = x if self.conv_expand is None else self.conv_expand(x)
         x0 = self.branch_0(x, groups)
         x1 = self.branch_1[1](self.branch_1[0](x, groups), groups)
-        y = self.conv(torch.cat([x0, x1], dim=1))
-        return leaky_relu(y + identity)
+        group = getattr(self, "model_group", None)
+        half = self.conv.in_channels // 2
+        y = self.conv(torch.cat([whole(x0, half, group), whole(x1, half, group)], dim=1))
+        return leaky_relu(y + like(identity, y, self.conv.out_channels, group))
 
 
 _BLOCKS = {"conv": ConvolutionalBlock, "res": ResidualBlock,

@@ -30,7 +30,21 @@ keep the plain conv's parameters.
 ``remat=True`` (config ``remat: true | "block"``; JAX
 ``models/vae.py:104-118``, ``:161-167``) recomputes each encoder and
 decoder block in the backward (``blocks.remat``); the stem, the fc layers
-and the predict conv stay outside, as in JAX.
+and the predict conv stay outside, as in JAX. The recompute runs the
+tensor-parallel collectives of its region again, in the same order on
+every rank (every rank recomputes the same regions of the same graph).
+
+Tensor parallelism (``parallel.shard_state``; the layouts are
+``models/blocks.py``'s): at the flagship width the encoder fc [2z, h w c]
+is row-parallel. Its input features in NCHW flatten order are
+channel-major, so the last block's channel slice, flattened, is this
+rank's contiguous slice of them and feeds it directly, and
+``reduce_from_model`` sums the partial products. JAX's NHWC flatten puts
+the same cut elsewhere in the feature axis (a slice of rows of the
+image, not of channels); both compute the same function, each the sum of
+its partial products. The decoder fc [h w c, z] is column-parallel: its
+output slice is, in NCHW order, the channel slice [B, c/M, h, w] the
+first block takes. mu, logvar and the image are whole on every rank.
 """
 
 from __future__ import annotations
@@ -43,6 +57,7 @@ from torch import nn
 from intro_tc_vae_tpu_torch.models.blocks import (
     GroupedBatchNorm,
     Linear,
+    whole,
     PackedPredictConv,
     avg_pool2,
     conv,
@@ -129,7 +144,7 @@ class Encoder(nn.Module):
         for name in self.stages[:-1]:
             y = avg_pool2(run_block(self.main[name], y, groups, self.remat))
         y = run_block(self.main[self.stages[-1]], y, groups, self.remat)
-        y = self.fc(y.flatten(1))
+        y = whole(self.fc(y.flatten(1)), 2 * self.zdim, getattr(self.fc, "model_group", None))
         # loss math runs in fp32 regardless of the conv compute dtype
         mu, logvar = y.float().chunk(2, dim=1)
         return mu, logvar
@@ -175,12 +190,15 @@ class Decoder(nn.Module):
 
     def forward(self, z: torch.Tensor, groups: int = 1) -> torch.Tensor:
         h, w, c = self.conv_input_size
+        group = getattr(self.fc[0], "model_group", None)
         y = self.fc(z.reshape(z.shape[0], -1))  # LReLU limits the pre-conv range
-        y = y.reshape(z.shape[0], c, h, w)
+        if y.shape[1] % (h * w):  # a feature slice that is no channel slice
+            y = whole(y, h * w * c, group)
+        y = y.reshape(z.shape[0], -1, h, w)
         for name in self.stages[:-1]:
             y = upsample_nearest2(run_block(self.main[name], y, groups, self.remat))
         y = run_block(self.main[self.stages[-1]], y, groups, self.remat)
-        y = self.main["predict"](y)
+        y = whole(self.main["predict"](y), self.cdim, group)
         # sigmoid + reconstruction losses in fp32
         return torch.sigmoid(y.float())
 
@@ -195,13 +213,18 @@ class SoftIntroVAE(nn.Module):
         self.decoder = decoder
 
 
-def set_data_group(module: nn.Module, mesh) -> None:
-    """Hand a data group (``parallel.DataGroup`` of several ranks, or
-    None) to every ``GroupedBatchNorm`` in ``module``: their train-mode
-    statistics become the global batch's."""
+def set_mesh(module: nn.Module, mesh) -> None:
+    """Hand a mesh (``parallel.make_mesh``, or None) to ``module``: its
+    data group, when it has several ranks, to every ``GroupedBatchNorm``,
+    whose train-mode statistics become the global batch's; its model
+    group (None without a model axis) to every module, which gathers or
+    slices by it (``models/blocks.py``)."""
+    data = mesh if mesh is not None and mesh.size > 1 else None
+    model = None if mesh is None else mesh.model
     for m in module.modules():
+        m.model_group = model
         if isinstance(m, GroupedBatchNorm):
-            m.data_group = mesh
+            m.data_group = data
 
 
 def num_params(module: nn.Module) -> int:

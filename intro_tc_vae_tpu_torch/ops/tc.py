@@ -226,7 +226,9 @@ def total_correlation_sharded(
     global (row, col); the gather's adjoint sums dmu over the ranks
     (``intro_tc_vae_tpu/ops/tc.py:221-280``). 'mean' is the mean over
     the global batch (an all-reduce of the rank sums), the same scalar on
-    every rank; 'none' is this rank's [B_local] vector.
+    every rank; 'none' is this rank's [B_local] vector. ``mesh`` is the
+    data group: under a model axis the ranks of a model group hold the
+    same (replicated) mu and logvar rows and compute the same estimate.
     """
     mu_bank = all_gather_rows(mu, mesh)
     gb = mu_bank.shape[0]

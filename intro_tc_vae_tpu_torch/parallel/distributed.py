@@ -1,4 +1,4 @@
-"""Process-group start-up for data-parallel training.
+"""Process-group start-up for data- and tensor-parallel training.
 
 Counterpart of ``intro_tc_vae_tpu/parallel/distributed.py``. Each rank is
 one process; a user starts R of them, either with ``torchrun

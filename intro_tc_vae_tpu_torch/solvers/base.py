@@ -25,6 +25,11 @@ follow from PyTorch rather than from the model:
   ``DistributedDataParallel``: the intro step differentiates one network
   with ``torch.autograd.grad`` while the other is ``frozen``, which DDP's
   ``.backward()`` hooks do not follow.
+* Tensor parallel (a mesh with a model axis, ``parallel.shard_state``):
+  the ranks of a model group step on the same rows, each with its slices
+  of the sharded leaves; a sharded gradient is averaged over the data
+  group, a replicated one over every rank (``average_grads``), and the
+  norms count each sharded gradient's slices once (``global_norm``).
 * Observability (JAX solvers/base.py:491-665): with a ``writer`` (rank 0
   only under data parallel), each drain of the metric ring writes every
   step's scalars at its own global step and flushes once; every
@@ -44,10 +49,12 @@ from typing import Any, Callable, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from intro_tc_vae_tpu_torch import ops
-from intro_tc_vae_tpu_torch.models.vae import SoftIntroVAE, set_data_group
+from intro_tc_vae_tpu_torch.models.vae import SoftIntroVAE, set_mesh
 from intro_tc_vae_tpu_torch.parallel.collectives import all_reduce_mean_
+from intro_tc_vae_tpu_torch.parallel.mesh import whole_copy
 from intro_tc_vae_tpu_torch.solvers import optim
 
 # the 7-way key split of the JAX step (solvers/intro.py:81-83) minus the
@@ -86,7 +93,7 @@ class SolverHyper:
     tc_sampling: str = "stratified"
     clip: Optional[float] = None
     zdim: int = 32
-    # the data group of a data-parallel run (several ranks), else None
+    # the mesh of a run of several ranks (parallel.make_mesh), else None
     mesh: Any = dataclasses.field(default=None, compare=False)
 
 
@@ -137,18 +144,52 @@ def step_noise(h: "SolverHyper", generator: torch.Generator, noise: Optional[dic
     return {k: noise[k][rows] for k in keys}
 
 
-def average_grads(grads: Sequence[torch.Tensor], mesh) -> list:
-    """The mean over the ranks of ``mesh`` of each gradient, through one
-    all-reduce of a flattened buffer (gradients unchanged without one)."""
+def shards(params: Sequence[torch.Tensor]) -> list:
+    """Each parameter's ``parallel.mesh.Shard``, None where it is whole."""
+    return [getattr(p, "tp", None) for p in params]
+
+
+def _mean_over(grads: list, picked: list, group, size: int) -> None:
+    """In place in ``grads``: the picked gradients' mean over ``group`` of
+    ``size`` ranks (None: every rank), through one flat all-reduce."""
+    if size == 1 or not picked:
+        return
+    flat = torch.cat([grads[i].reshape(-1) for i in picked])
+    dist.all_reduce(flat, group=group)
+    flat.div_(size)
+    for i, f in zip(picked, flat.split([grads[i].numel() for i in picked])):
+        grads[i] = f.view_as(grads[i])
+
+
+def average_grads(grads: Sequence[torch.Tensor], mesh,
+                  shard: Optional[Sequence] = None) -> list:
+    """The mean over the data group of each gradient, through one
+    all-reduce of a flattened buffer (gradients unchanged in one process).
+
+    With a model axis (``shard``: each parameter's ``Shard`` or None), a
+    sharded leaf's gradient is this rank's slice, averaged over the data
+    group. A replicated leaf's gradient is computed alike on every rank
+    of the model group, but the stock backward (cuDNN's) may sum it in
+    another order on each; it is averaged over every rank of the job, the
+    data group's mean of M copies, so that replicated leaves stay
+    bit-equal across the model axis too."""
+    grads = list(grads)
     if mesh is None:
-        return list(grads)
-    flat = all_reduce_mean_(torch.cat([g.reshape(-1) for g in grads]), mesh)
-    return [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
+        return grads
+    if mesh.model is None:
+        _mean_over(grads, list(range(len(grads))), mesh.group, mesh.size)
+        return grads
+    shard = shard or [None] * len(grads)
+    _mean_over(grads, [i for i, s in enumerate(shard) if s is not None], mesh.group, mesh.size)
+    _mean_over(grads, [i for i, s in enumerate(shard) if s is None], None,
+               mesh.size * mesh.model.size)
+    return grads
 
 
 def average_metrics(metrics: dict, mesh) -> dict:
-    """Every metric's mean over the ranks, one all-reduce for all."""
-    if mesh is None:
+    """Every metric's mean over the data group, one all-reduce for all
+    (the ranks of a model group compute the same values)."""
+    if mesh is None or mesh.size == 1:
         return metrics
     flat = all_reduce_mean_(torch.stack([v.double() for v in metrics.values()]), mesh)
     return {k: f.to(v.dtype) for (k, v), f in zip(metrics.items(), flat)}
@@ -204,14 +245,28 @@ def rec_term(h: SolverHyper, x, recon_x, reduction: str = "sum", beta=None):
     return beta * ops.reconstruction_loss(x, recon_x, h.recon_loss_type, reduction)
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
+def global_norm(tensors: Sequence[torch.Tensor],
+                shard: Optional[Sequence] = None) -> torch.Tensor:
+    """The L2 norm of all ``tensors`` together. Sharded ones (``shard``)
+    are this rank's slices: their squares are summed over the model group
+    and counted once, as the norm of the whole tensors is."""
+    shard = shard or [None] * len(tensors)
+    whole = [t for t, s in zip(tensors, shard) if s is None]
+    sq = sum((torch.sum(t * t) for t in whole), torch.zeros((), dtype=tensors[0].dtype,
+                                                            device=tensors[0].device))
+    sliced = [(t, s) for t, s in zip(tensors, shard) if s is not None]
+    if sliced:
+        part = sum(torch.sum(t * t) for t, _ in sliced)
+        dist.all_reduce(part, group=sliced[0][1].group.group)
+        sq = sq + part
+    return torch.sqrt(sq)
 
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float):
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
+                        shard: Optional[Sequence] = None):
     """torch.nn.utils.clip_grad_norm_ semantics (+1e-6); returns
     (clipped grads, pre-clip norm)."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, shard)
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     return [g * scale for g in grads], norm
 
@@ -420,9 +475,9 @@ class VAESolver:
         self.fuse_passes = fuse_passes
         self.scan_steps = max(1, int(scan_steps))
         self.remat_passes = remat_passes
-        group = mesh if mesh is not None and mesh.size > 1 else None
-        set_data_group(encoder, group)
-        set_data_group(decoder, group)
+        group = mesh if mesh is not None and (mesh.size > 1 or mesh.model is not None) else None
+        set_mesh(encoder, group)
+        set_mesh(decoder, group)
         self.hyper = SolverHyper(
             recon_loss_type=recon_loss_type,
             beta_kl=beta_kl,
@@ -440,6 +495,14 @@ class VAESolver:
         )
         self.writer = writer
         self.test_iter = test_iter
+        # whether this rank's model group holds the writer: under tensor
+        # parallelism every rank of that group gathers the whole model for
+        # the writer's eval passes (``eval_state``)
+        self.heavy_writes = writer is not None
+        if group is not None and group.model is not None:
+            flags = [None] * group.model.size
+            dist.all_gather_object(flags, self.heavy_writes, group=group.model.group)
+            self.heavy_writes = any(flags)
         self.latent_generator = None
         try:
             if dataset is not None and dataset.latent_indices is not None:
@@ -492,9 +555,17 @@ class VAESolver:
             name: torch.stack([m[name] for m in steps]) for name in steps[0]}
         metrics = average_metrics(metrics, self.hyper.mesh)
         self.metric_ring.push(metrics, cur_iter + 1)
-        if self.writer is not None and cur_iter % self.test_iter == 0:
+        if self.heavy_writes and cur_iter % self.test_iter == 0:
             self._write_heavy_metrics(state, batches[-1], cur_iter)
         return state, metrics
+
+    def eval_state(self, state: TrainState) -> TrainState:
+        """``state`` with a model the writer's eval passes can run alone:
+        under tensor parallelism a whole copy, which every rank of the
+        model group gathers (``parallel.mesh.whole_copy``); else
+        ``state`` itself."""
+        model = whole_copy(state.model)
+        return state if model is state.model else dataclasses.replace(state, model=model)
 
     def drain_metrics(self, keep_tail: int = 0) -> list:
         """The ring's entries but the newest ``keep_tail`` on the host:
@@ -545,6 +616,9 @@ class VAESolver:
 
     def _write_heavy_metrics(self, state: TrainState, batch: torch.Tensor,
                              cur_iter: int) -> None:
+        state = self.eval_state(state)
+        if self.writer is None:
+            return
         self._write_images_helper(state, batch, cur_iter)
         self.write_disentanglemnt_scores(state, cur_iter)
 
@@ -572,8 +646,11 @@ class VAESolver:
                      fake_batch: torch.Tensor, cur_iter: int) -> None:
         """Real / deterministic-reconstruction / sampled grids, 16 each, as
         one NCHW grid tagged "reconstructions" (reference
-        solvers/vae.py:147-163)."""
-        if self.writer is None or cur_iter % self.test_iter != 0:
+        solvers/vae.py:147-163). Every rank calls it (``eval_state``)."""
+        if not self.heavy_writes or cur_iter % self.test_iter != 0:
+            return
+        state = self.eval_state(state)
+        if self.writer is None:
             return
         batch = normalize_input(batch)  # the uint8 paths: normalize here
         mu, _ = encode(state.model.encoder, batch, train=False)

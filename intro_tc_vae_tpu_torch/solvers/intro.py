@@ -52,6 +52,7 @@ from intro_tc_vae_tpu_torch.solvers.base import (
     global_norm,
     kl_term,
     rec_term,
+    shards,
     step_noise,
     tc_decomp_metrics,
 )
@@ -65,7 +66,9 @@ def build_intro_step(h: SolverHyper, encoder, decoder, paired: bool = True,
     global batch; when it is None the step draws them from
     ``state.generator``. Under a data group (``h.mesh``) the batch is
     this rank's rows, the step takes its rows of the noise, and each
-    phase's gradients are averaged over the ranks before the clip.
+    phase's gradients are averaged over the ranks before the clip. Under
+    a model axis the sharded parameters' gradients are this rank's slices
+    (``average_grads``, ``global_norm`` count them once).
     """
     enc_p, dec_p = encode, decode
     if remat_passes:
@@ -131,13 +134,15 @@ def build_intro_step(h: SolverHyper, encoder, decoder, paired: bool = True,
 
             lossE = (h.scale * (loss_rec + lossE_real_kl)
                      + 0.25 * (expelbo_rec + expelbo_fake))
-            grads_e = average_grads(torch.autograd.grad(lossE, enc_params), h.mesh)
+            shard_e = shards(enc_params)
+            grads_e = average_grads(torch.autograd.grad(lossE, enc_params), h.mesh, shard_e)
         # the real batch's KL site (JAX solvers/intro.py:154-155)
         decomp = tc_decomp_metrics(h, z, mu, logvar) if h.kl_kind == "tc_full" else {}
-        fc_grad_norm = global_norm([g for g, f in zip(grads_e, is_fc) if f])
+        fc_grad_norm = global_norm([g for g, f in zip(grads_e, is_fc) if f],
+                                   [s for s, f in zip(shard_e, is_fc) if f])
         total_norm_e = None
         if h.clip:
-            grads_e, total_norm_e = clip_by_global_norm(grads_e, h.clip)
+            grads_e, total_norm_e = clip_by_global_norm(grads_e, h.clip, shard_e)
         apply_grads(state.opt_e, enc_params, grads_e)
 
         # ================= Phase D: update decoder =======================
@@ -180,10 +185,11 @@ def build_intro_step(h: SolverHyper, encoder, decoder, paired: bool = True,
                 + 0.5 * (lossD_rec_kl + lossD_fake_kl)
                 + 0.5 * (loss_rec_rec + loss_fake_rec)
             )
-            grads_d = average_grads(torch.autograd.grad(lossD, dec_params), h.mesh)
+            shard_d = shards(dec_params)
+            grads_d = average_grads(torch.autograd.grad(lossD, dec_params), h.mesh, shard_d)
         total_norm_d = None
         if h.clip:
-            grads_d, total_norm_d = clip_by_global_norm(grads_d, h.clip)
+            grads_d, total_norm_d = clip_by_global_norm(grads_d, h.clip, shard_d)
         apply_grads(state.opt_d, dec_params, grads_d)
         state.step += 1
 

@@ -15,7 +15,9 @@ from torch's in their arithmetic or do not exist there:
   adds eps outside.
 * ``Lamb`` (``optax.lamb``): Adam's update (eps 1e-6; optax's weight
   decay is 0, so none is added), scaled per parameter tensor by the trust
-  ratio ||p|| / ||u|| (1 where either norm is 0).
+  ratio ||p|| / ||u|| (1 where either norm is 0); the norms of a
+  parameter sharded over the model axis are the whole tensor's, its
+  slices' squares summed over the model group.
 * ``Lion`` (``optax.lion``): sign((1 - b1) g + b1 m) plus decayed weights
   (1e-3), then m = (1 - b2) g + b2 m, b2 0.99.
 
@@ -30,6 +32,7 @@ hyperparameters, which are the constants below.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 ADAGRAD_INIT, ADAGRAD_EPS = 0.1, 1e-7
 RMSPROP_DECAY, RMSPROP_EPS = 0.9, 1e-8
@@ -101,7 +104,13 @@ class Lamb(_Optax):
         mu_hat = mu / (1.0 - LAMB_B1 ** t)
         nu_hat = nu / (1.0 - LAMB_B2 ** t)
         u = mu_hat / (torch.sqrt(nu_hat) + LAMB_EPS)
-        p_norm, u_norm = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+        shard = getattr(p, "tp", None)
+        if shard is None:
+            p_norm, u_norm = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+        else:
+            sq = torch.stack([torch.sum(p * p), torch.sum(u * u)])
+            dist.all_reduce(sq, group=shard.group.group)
+            p_norm, u_norm = torch.sqrt(sq).unbind()
         ratio = torch.where((p_norm == 0) | (u_norm == 0), 1.0, p_norm / u_norm)
         return u * ratio
 

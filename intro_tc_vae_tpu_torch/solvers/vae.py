@@ -6,7 +6,8 @@ both networks, an optional global-norm clip over both, two Adam updates.
 The one reparameterization draw is the noise entry ``"real"``, drawn
 from ``state.generator`` unless it is passed in (the parity tests hand
 the JAX step's draw to the port). Under a data group the gradients and
-metrics are averaged over the ranks (``solvers/base.py``).
+metrics are averaged over the ranks, and under a model axis the norms
+count the sharded gradients' slices once (``solvers/base.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from intro_tc_vae_tpu_torch.solvers.base import (
     global_norm,
     kl_term,
     rec_term,
+    shards,
     step_noise,
     tc_decomp_metrics,
 )
@@ -53,9 +55,11 @@ def build_vae_step(h: SolverHyper, encoder, decoder):
         loss = h.scale * (loss_rec + loss_kl)
 
         # one all-reduce for both networks' gradients under a data group
-        grads = average_grads(torch.autograd.grad(loss, enc_params + dec_params), h.mesh)
-        fc_grad_norm = global_norm([g for g, p in zip(grads, enc_params)
-                                    if id(p) in fc_ids])
+        shard = shards(enc_params + dec_params)
+        grads = average_grads(torch.autograd.grad(loss, enc_params + dec_params), h.mesh,
+                              shard)
+        fc_grad_norm = global_norm([g for g, p in zip(grads, enc_params) if id(p) in fc_ids],
+                                   [s for s, p in zip(shard, enc_params) if id(p) in fc_ids])
         metrics = dict(
             loss_enc=loss,
             loss_dec=loss,
@@ -68,7 +72,7 @@ def build_vae_step(h: SolverHyper, encoder, decoder):
         if h.kl_kind == "tc_full":
             metrics.update(tc_decomp_metrics(h, z, mu, logvar))
         if h.clip:
-            grads, total_norm = clip_by_global_norm(grads, h.clip)
+            grads, total_norm = clip_by_global_norm(grads, h.clip, shard)
             metrics["total_norm"] = total_norm
             metrics["L2"] = total_norm
         apply_grads(state.opt_e, enc_params, grads[:n_enc])

@@ -23,9 +23,19 @@ processes (``parallel/distributed.py`` says how), each rank trains on
 its card, ``cuda:(LOCAL_RANK % device_count)``, with its rows of every
 global batch of ``batch_size``; rank 0's weights are broadcast to all,
 only rank 0 prints and writes checkpoints, and every rank loads them.
-``data_parallel`` must be 0 or the number of processes: a process cannot
-be left out of the mesh, so where JAX shrinks the mesh to a size that
-divides the batch, the port raises.
+``data_parallel`` is the *total* number of ranks, as in JAX, and must be
+0 or the number of processes: a process cannot be left out of the mesh,
+so where JAX shrinks the mesh to a size that divides the batch, the port
+raises.
+
+Tensor parallel (``model_parallel`` M > 1; JAX ``train.py:115-138``,
+``:219``): the ranks form a ('data', 'model') grid of R / M data indices
+by M model indices (``parallel.make_mesh``); R must divide by M and the
+batch by R / M, with JAX's messages. The ranks of one data index train on
+the same rows, and the wide conv kernels, their BatchNorm parameters and
+statistics, the two fc heads and their optimizer moments are cut over
+them (``parallel.shard_state`` on the replicated state, JAX's
+``param_spec`` rules); checkpoints hold whole tensors either way.
 
 Data (JAX ``train.py:165-186``): the loader stages ``num_workers``
 batches ahead on a thread, transfers them as uint8 where the dataset
@@ -63,10 +73,6 @@ every conv with kernel > 1 (-1, auto, resolves to 0: ``resolve_tile_rows``),
 and takes the 3x3 convs off the conv kernels as in JAX;
 ``pack_predict`` > 1 computes the decoder's predict conv output-packed
 (auto, -1, stays off).
-
-The one option this port does not carry yet, ``model_parallel > 1``
-(ROADMAP Queue 1 item 8), raises ``NotImplementedError`` naming its item
-(``check_ported``).
 """
 
 from __future__ import annotations
@@ -96,8 +102,13 @@ from intro_tc_vae_tpu_torch.parallel import (
     initialize_distributed,
     make_mesh,
     replicate_state,
+    shard_state,
 )
-from intro_tc_vae_tpu_torch.parallel.distributed import process_count, rank_device
+from intro_tc_vae_tpu_torch.parallel.distributed import (
+    process_count,
+    process_index,
+    rank_device,
+)
 from intro_tc_vae_tpu_torch.solvers import TrainState, make_optimizer, make_solver
 from intro_tc_vae_tpu_torch.solvers.base import (
     RING_DEPTH,
@@ -122,11 +133,11 @@ PROFILE_STEPS = 50  # profile: true stops after the step at this iteration
 
 
 def check_ported(config: Config) -> None:
-    """Raise for every option whose behaviour this port does not carry:
-    tensor parallelism (Queue 1 item 8)."""
-    unported = [
-        (config.model_parallel > 1, "model_parallel > 1", "Queue 1 item 8"),
-    ]
+    """Raise for every option whose behaviour this port does not carry,
+    naming the ROADMAP item that ports it (``not_ported``). Every option
+    of the config is carried; a later option that is not goes in the
+    list."""
+    unported: list = []
     for bad, what, item in unported:
         if bad:
             raise not_ported(what, item)
@@ -144,9 +155,14 @@ def resolve_remat(config: Config, say: Callable = print) -> Config:
 
 
 def data_axis_size(config: Config, world: int) -> int:
-    """The number of ranks the batch splits over (JAX train.py:116-138):
-    ``data_parallel``, or every process for 0."""
+    """The number of ranks the batch splits over (JAX train.py:115-138):
+    ``data_parallel`` (or every process, for 0) is the total number of
+    ranks, which must divide by ``model_parallel``; the batch splits over
+    the data axis, total / model_parallel."""
+    mp = max(1, config.model_parallel)
     n = config.data_parallel or world
+    if n % mp != 0:
+        raise ValueError(f"{n} devices not divisible by model_parallel={mp}")
     if n != world:
         raise ValueError(
             f"data_parallel={config.data_parallel} but {world} process(es) run: "
@@ -154,13 +170,13 @@ def data_axis_size(config: Config, world: int) -> int:
             f"LOCAL_RANK with ITCVAE_COORDINATOR_ADDRESS), or set data_parallel "
             f"to 0 or {world}"
         )
-    if config.batch_size % n != 0:
+    if config.batch_size % (n // mp) != 0:
         raise ValueError(
             f"batch_size {config.batch_size} not divisible by the data-axis "
-            f"size {n} (data_parallel={config.data_parallel} total devices / "
-            f"model_parallel=1)"
+            f"size {n // mp} (data_parallel={config.data_parallel} "
+            f"total devices / model_parallel={mp})"
         )
-    return n
+    return n // mp
 
 
 def _quiet(*args, **kwargs) -> None:
@@ -208,8 +224,8 @@ class Run:
 
     @property
     def group(self):
-        """The data group for the checkpoints (None in one process)."""
-        return self.mesh if self.mesh.size > 1 else None
+        """The mesh for the checkpoints (None in one process)."""
+        return self.mesh if self.mesh.size > 1 or self.mesh.model is not None else None
 
 
 def setup(config: Config, device: Optional[torch.device] = None) -> Run:
@@ -219,9 +235,11 @@ def setup(config: Config, device: Optional[torch.device] = None) -> Run:
     check_ported(config)
     distributed = initialize_distributed()
     n_data = data_axis_size(config, process_count())
+    mp = max(1, config.model_parallel)
     device = rank_device() if device is None else torch.device(device)
-    mesh = make_mesh(n_data, device=device)
-    say = print if mesh.rank == 0 else _quiet
+    mesh = make_mesh(n_data * mp, model_parallel=mp, device=device)
+    rank0 = process_index() == 0
+    say = print if rank0 else _quiet
     config = resolve_remat(config, say)
 
     # ----- seeding (reference train.py:38-44) -----
@@ -250,7 +268,7 @@ def setup(config: Config, device: Optional[torch.device] = None) -> Run:
     )
     # ----- writer (reference train.py:94-103): rank 0 only -----
     writer = (make_writer(comment=config.run_comment(), log_dir=config.log_dir)
-              if config.use_tensorboard and mesh.rank == 0 else None)
+              if config.use_tensorboard and rank0 else None)
     SingletonWriter().writer = writer
     SingletonWriter().cur_iter = 0
     SingletonWriter().test_iter = max(1, len(train_set) // config.batch_size)
@@ -271,7 +289,8 @@ def setup(config: Config, device: Optional[torch.device] = None) -> Run:
                           device_cache_budget_mb=config.device_cache_budget_mb,
                           stack_steps=max(1, config.scan_steps))
     solver = build_solver(config, train_set, encoder, decoder, mesh, writer)
-    state = replicate_state(solver.init_state(seed), mesh)
+    # every rank the same weights, then each model rank its slices
+    state = shard_state(replicate_state(solver.init_state(seed), mesh), mesh)
     return Run(seed=seed, device=device, mesh=mesh, loader=loader, solver=solver,
                state=state, say=say, writer=writer)
 
@@ -444,7 +463,10 @@ def _train(config: Config, device: Optional[torch.device]) -> TrainState:
             f"(median of epochs after the first; {len(epoch_rates)} epochs)")
     rate = images_per_second(state, config.batch_size)  # the global batch
     if rate is not None:
-        say(f"training throughput: {rate:,.1f} img/s on {run.mesh.size} x "
+        mesh = run.mesh
+        grid = (f"{mesh.size}" if mesh.model is None
+                else f"({mesh.size} data x {mesh.model.size} model)")
+        say(f"training throughput: {rate:,.1f} img/s on {grid} x "
             f"{device_name(run.device)} (steps after the first {WARMUP_STEPS}; "
             f"{len(state.history)} steps)")
 

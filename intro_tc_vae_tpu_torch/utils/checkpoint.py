@@ -25,6 +25,16 @@ Data parallel (``group``, a ``parallel.DataGroup`` of several ranks):
 rank 0 writes; after a synchronous save every rank passes a barrier, so
 the file exists on return. ``load_checkpoint`` first lets rank 0 finish
 any save in flight, then a barrier, then every rank loads.
+
+Tensor parallel (``group.model`` set): the ranks of rank 0's model group
+gather the sharded parameters, BatchNorm statistics and optimizer
+moments (``parallel.gather_state``, ``gather_optimizer_state``; a
+collective among them, synchronous also for a background save), and
+rank 0 writes the same one-file format with whole tensors, so the file
+loads in one process (``sample.py``, ``evaluate.py``) and a one-process
+file loads on tensor-parallel ranks. On load every rank cuts its slices
+from the whole tensors (``shard_state_dict``,
+``shard_optimizer_state_dict``), as JAX restores into a sharded target.
 """
 
 from __future__ import annotations
@@ -37,6 +47,13 @@ from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
+
+from intro_tc_vae_tpu_torch.parallel.mesh import (
+    gather_optimizer_state,
+    gather_state,
+    shard_optimizer_state_dict,
+    shard_state_dict,
+)
 
 _in_flight: Optional[threading.Thread] = None
 _failure: list = []  # the exception of a background write, raised on the next wait
@@ -68,16 +85,20 @@ def _host_copy(obj: Any, pinned: bool) -> Any:
     return obj
 
 
-def _payload(state: Any, epoch: int, pinned: bool) -> dict:
+def _parts(state: Any, group) -> dict:
+    """The state's four dicts with whole tensors: gathered from the model
+    group under tensor parallelism (every rank of the group calls it)."""
     model = _model(state)
-    return _host_copy({
-        "epoch": int(epoch),
-        "step": int(state.step),
-        "encoder": model.encoder.state_dict(),
-        "decoder": model.decoder.state_dict(),
-        "opt_e": state.opt_e.state_dict(),
-        "opt_d": state.opt_d.state_dict(),
-    }, pinned)
+    if group is None or group.model is None:
+        return {"encoder": model.encoder.state_dict(), "decoder": model.decoder.state_dict(),
+                "opt_e": state.opt_e.state_dict(), "opt_d": state.opt_d.state_dict()}
+    return {"encoder": gather_state(model.encoder), "decoder": gather_state(model.decoder),
+            "opt_e": gather_optimizer_state(state.opt_e),
+            "opt_d": gather_optimizer_state(state.opt_d)}
+
+
+def _payload(parts: dict, state: Any, epoch: int, pinned: bool) -> dict:
+    return _host_copy({"epoch": int(epoch), "step": int(state.step), **parts}, pinned)
 
 
 def _write(payload: dict, path: str) -> None:
@@ -96,12 +117,19 @@ def _write_after(event, payload: dict, path: str) -> None:
 
 
 def _is_writer(group) -> bool:
-    return group is None or group.size == 1 or group.rank == 0
+    """Rank 0 of the job."""
+    return group is None or (group.rank == 0 and (group.model is None or group.model.rank == 0))
+
+
+def _gathers(group) -> bool:
+    """Whether this rank takes part in gathering the state for a save:
+    the writer, and under tensor parallelism the rest of its model group."""
+    return _is_writer(group) or (group.model is not None and group.rank == 0)
 
 
 def _barrier(group) -> None:
-    if group is not None and group.size > 1:
-        dist.barrier(group=group.group)
+    if group is not None and dist.get_world_size() > 1:
+        dist.barrier()
 
 
 def finalize_checkpoints() -> None:
@@ -128,11 +156,12 @@ def save_checkpoint(
     optimizer states, step and epoch. Returns the checkpoint's path."""
     global _in_flight
     path = _ckpt_path(checkpoint_dir, prefix, epoch, iteration)
+    parts = _parts(state, group) if _gathers(group) else None
     if _is_writer(group):
         finalize_checkpoints()  # one save in flight at a time
         os.makedirs(checkpoint_dir, exist_ok=True)
         if async_save:
-            payload = _payload(state, epoch, pinned=True)
+            payload = _payload(parts, state, epoch, pinned=True)
             event = None
             if torch.cuda.is_available() and any(
                     p.is_cuda for p in _model(state).parameters()):
@@ -143,7 +172,7 @@ def save_checkpoint(
             _in_flight.start()
             print(f"model checkpoint saving (async) @ {path}")
         else:
-            _write(_payload(state, epoch, pinned=False), path)
+            _write(_payload(parts, state, epoch, pinned=False), path)
             print(f"model checkpoint saved @ {path}")
     if not async_save:
         _barrier(group)
@@ -166,15 +195,14 @@ def load_checkpoint(path: str, target_state: Optional[Any] = None, group=None):
     the saved one was: same modules and optimizers), in place, onto the
     device of its parameters. Returns (state, epoch); the step is
     restored, the noise generator is not. Without a target, returns the
-    raw payload dict (on the CPU)."""
+    raw payload dict (on the CPU). A sharded target takes its slices."""
     payload = _read(path, group)
     if target_state is None:
         return payload
-    model = _model(target_state)
-    model.encoder.load_state_dict(payload["encoder"])
-    model.decoder.load_state_dict(payload["decoder"])
-    target_state.opt_e.load_state_dict(payload["opt_e"])
-    target_state.opt_d.load_state_dict(payload["opt_d"])
+    _load_model(_model(target_state), payload)
+    for key in ("opt_e", "opt_d"):
+        opt = getattr(target_state, key)
+        opt.load_state_dict(shard_optimizer_state_dict(opt, payload[key]))
     target_state.step = int(payload["step"])
     return target_state, int(payload["epoch"])
 
@@ -198,11 +226,14 @@ def find_latest_checkpoint(checkpoint_dir: str, prefix: str = "") -> Optional[st
 def load_model(state: Any, path: str, group=None):
     """Parameters and BatchNorm statistics only, into a TrainState or a
     ``SoftIntroVAE`` (the reference's ``load_model``); returns ``state``."""
-    model = _model(state)
-    payload = _read(path, group)
-    model.encoder.load_state_dict(payload["encoder"])
-    model.decoder.load_state_dict(payload["decoder"])
+    _load_model(_model(state), _read(path, group))
     return state
+
+
+def _load_model(model, payload: dict) -> None:
+    for key in ("encoder", "decoder"):
+        net = getattr(model, key)
+        net.load_state_dict(shard_state_dict(net, payload[key]))
 
 
 def save_losses(fig_dir: str, kls_real, kls_fake, kls_rec, rec_errs):

@@ -12,6 +12,10 @@ The inverse of ``intro_tc_vae_tpu/utils/transplant.py::torch_state_dict_to_flax`
 Takes plain numpy arrays (or anything ``np.asarray`` accepts), so it
 needs no jax. Used by the parity tests to give both packages the same
 weights, and for the Adam moments, which have the params' tree shape.
+Both directions carry whole tensors: a tensor-parallel model takes
+``flax_to_port``'s dict through ``parallel.shard_state_dict`` (or is
+loaded whole and then cut by ``parallel.shard_state``), and gives
+``torch_state_dict_to_flax`` its ``parallel.gather_state``.
 
 ``load_torch_checkpoint`` reads a checkpoint the reference wrote
 (reference utils.py:26-36, ``{'epoch', 'model'}``): the port keeps the

@@ -312,7 +312,7 @@ def test_dp_step_tc_calls_take_the_gathered_route(step_runs, label, calls):
 SMALL_RUN = dict(dataset="synthetic_small", tc_impl="pallas", num_epochs=1,
                  use_tensorboard=False, z_dim=8)
 BAD_UPDATES = [{"data_parallel": 4}, {"batch_size": 9},
-               {"model_parallel": 2}]
+               {"model_parallel": 2, "data_parallel": 3}]
 
 
 @pytest.fixture(scope="module")
@@ -363,7 +363,7 @@ def _checkpoint_digest(path: str) -> str:
 @pytest.mark.parametrize("k,error,match", [
     (0, ValueError, "data_parallel=4 but 2 process"),
     (1, ValueError, "batch_size 9 not divisible by the data-axis size 2"),
-    (2, NotImplementedError, "ROADMAP"),
+    (2, ValueError, "3 devices not divisible by model_parallel=2"),
 ], ids=["data_parallel_4_of_2", "batch_not_divisible", "model_parallel_2"])
 def test_train_mesh_checks_raise_on_every_rank(train_ranks, k, error, match):
     for out in train_ranks[0]:
@@ -374,7 +374,7 @@ def test_train_mesh_checks_raise_on_every_rank(train_ranks, k, error, match):
 
 @pytest.mark.parametrize("update,error,match", [
     (dict(data_parallel=2), ValueError, "data_parallel=2 but 1 process"),
-    (dict(model_parallel=2), NotImplementedError, "ROADMAP"),
+    (dict(model_parallel=2), ValueError, "1 devices not divisible by model_parallel=2"),
 ], ids=["data_parallel_2_in_one_process", "model_parallel_2"])
 def test_mesh_size_checks_raise_in_one_process(update, error, match):
     config = load_config(FLAGSHIP, {**SMALL_RUN, "batch_size": 8, **update})
@@ -387,8 +387,8 @@ def test_make_mesh_checks():
     assert (mesh.size, mesh.rank, mesh.device) == (1, 0, CPU)
     with pytest.raises(ValueError, match="only 1 available"):
         make_mesh(2, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_mesh(2, model_parallel=2, device=CPU)
+    with pytest.raises(ValueError, match="not divisible by model_parallel=2"):
+        make_mesh(model_parallel=2, device=CPU)
 
 
 def test_local_batch_slice_and_row_blocks():

@@ -64,19 +64,31 @@ def test_cli_requires_cuda(monkeypatch):
                   '"num_epochs": 1, "use_tensorboard": false}'])
 
 
-def _raises(update: dict, item: str):
-    return pytest.param(update, item, id=",".join(f"{k}={v}" for k, v in update.items()))
+def test_train_model_parallel_on_two_cpu_ranks(tmp_path):
+    """``model_parallel: 2`` (the one option that once raised) on two gloo
+    ranks of one data index, with the writer on (test_iter 4: the image
+    grids and scores of steps 0 and 4 run on a whole copy the two ranks
+    gather) and ``min_dim`` lowered to 8, so the small model is cut: 8
+    finite steps equal on both ranks, the single-device TC route (5 calls a
+    step), replicated leaves and the gathered state bit-equal, one final
+    checkpoint and one TensorBoard run, both from rank 0."""
+    from tests import _torch_dp_workers, _torch_tp_workers
 
-
-@pytest.mark.parametrize("update,item", [
-    _raises(dict(model_parallel=2), "Queue 1 item 8"),
-])
-def test_unported_options_raise(update, item):
-    """Each option the port does not carry raises, naming the ROADMAP item
-    that ports it."""
-    config = load_config(FLAGSHIP, {**SMALL_RUN, **update})
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}\\)"):
-        train_soft_intro_vae(config, device=CPU)
+    update = {**SMALL_RUN, "model_parallel": 2, "use_tensorboard": True, "test_iter": 4,
+              "checkpoint_dir": str(tmp_path / "saves"), "log_dir": str(tmp_path / "runs")}
+    a, b = _torch_dp_workers.run_ranks(_torch_tp_workers.train_tp, 2, (FLAGSHIP, update),
+                                       tmp_path / "ranks")
+    for out in (a, b):
+        assert [r["step"] for r in out["history"]] == list(range(1, 9))
+        assert all(math.isfinite(r[k]) for r in out["history"] for k in ("lossE", "lossD"))
+        assert out["routes"] == {"gathered": 0, "single": 40}
+        assert out["sharded"]
+    assert [{k: v for k, v in r.items() if k != "seconds"} for r in a["history"]] == \
+        [{k: v for k, v in r.items() if k != "seconds"} for r in b["history"]]
+    assert a["replicated"] == b["replicated"] and a["whole"] == b["whole"]
+    config = load_config(FLAGSHIP, update)
+    assert os.listdir(tmp_path / "saves") == [f"{config.fingerprint()}model_epoch_0_iter_8"]
+    assert len(glob.glob(str(tmp_path / "runs*"))) == 1  # log_dir + run_comment()
 
 
 @pytest.mark.parametrize("update", [
