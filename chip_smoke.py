@@ -62,8 +62,14 @@ result line):
    counts derived in ``expected_intro_launches``, and the run's total by
    those and the eval-mode decode after the last epoch
    (``final_decode_launches``). The rates in img/s, steps after the first
-   3, each bound by the completion of the epoch's last step (the metrics
-   are read on the host two steps behind the card). Every run of phases
+   4 (a graphed step's 3 eager steps and its capture), each bound by the
+   completion of the epoch's last step (the metrics are read on the host
+   two steps behind the card). The step runs as one captured CUDA graph
+   here and wherever the trainer graphs it (one process on the card:
+   phases 4, 6, 8-13 and 15); every launch count of this script holds
+   under replay, where each replay adds the graph's tally
+   (``ops/launch_counts.py``) and the phase marks run between its
+   segments. Every run of phases
    4-8 saves its checkpoints in a temporary directory, deleted
    afterwards.
 5. In context, fp32, TF32 off. (a) One step with tc_impl 'pallas' and one
@@ -203,6 +209,19 @@ result line):
    checkpoint holds the gathered state and decodes bit-equal in this
    process.
 
+15. The graphed step (``phase_graphed_step``): the flagship (tc and conv
+   'pallas', bf16, batch 64) through the trainer's setup, graphed against
+   eager, cuDNN deterministic: (a) 20 steps, parameters, BatchNorm
+   statistics, Adam states and every metric bit-equal; (b) both arms'
+   launches per phase exact; (c) host img/s and device ms/step of both
+   arms through ``train_soft_intro_vae``, in turns, twice; (d)
+   ``intro_tc_vae_tpu_torch.analysis.profile_step`` on both arms (launches
+   per step, host ms/step, idle share, device time by category) and the
+   metric ring's pinned pool (drained metrics equal the steps' own); (e)
+   ``scan_steps`` 4 graphed against 8 graphed steps, and a resume into the
+   same graphed run (it captures again) against the uninterrupted run,
+   both bit-equal.
+
 Each phase prints its seconds. Then one JSON line describing the kernels,
 and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -298,12 +317,13 @@ def tf32_flags() -> tuple:
 
 @contextlib.contextmanager
 def tf32_at_optimizer_calls():
-    """Collects ``tf32_flags()`` at every optimizer call of the runs made
-    inside the block: the switches as the steps ran under them."""
-    from torch.optim.optimizer import register_optimizer_step_pre_hook
+    """Collects ``tf32_flags()`` at every optimizer update of the runs made
+    inside the block (``launch_counts.on_mark``: eager steps and graph
+    replays alike): the switches as the steps ran under them."""
+    from intro_tc_vae_tpu_torch.ops import launch_counts
 
     seen = set()
-    handle = register_optimizer_step_pre_hook(lambda *args: seen.add(tf32_flags()))
+    handle = launch_counts.on_mark(lambda: seen.add(tf32_flags()))
     try:
         yield seen
     finally:
@@ -1032,22 +1052,23 @@ def conv_launches(fwd: int, dw: int, body: str) -> dict:
 @contextlib.contextmanager
 def launches_per_phase(read=all_launches):
     """Sums the launches (or what ``read`` counts) of phase E and of phase
-    D over the steps of an intro run: each step calls the encoder's
-    optimizer at the end of phase E and the decoder's at the end of phase
-    D; a global optimizer pre-hook reads the counters at each call."""
-    from torch.optim.optimizer import register_optimizer_step_pre_hook
+    D over the steps of an intro run: each step updates the encoder at the
+    end of phase E and the decoder at the end of phase D; a hook at each
+    update (``launch_counts.on_mark``, which a graph's replay runs between
+    its tally's segments as an eager step runs it) reads the counters."""
+    from intro_tc_vae_tpu_torch.ops import launch_counts
 
     sums = [dict.fromkeys(read(), 0), dict.fromkeys(read(), 0)]
     state = {"last": read(), "calls": 0}
 
-    def hook(optimizer, args, kwargs):
+    def hook():
         now = read()
         phase = sums[state["calls"] % 2]
         for k in now:
             phase[k] += now[k] - state["last"][k]
         state["last"], state["calls"] = now, state["calls"] + 1
 
-    handle = register_optimizer_step_pre_hook(hook)
+    handle = launch_counts.on_mark(hook)
     try:
         yield sums
     finally:
@@ -1122,7 +1143,7 @@ def phase_main_path(card: str) -> dict:
         last = state.history[-1]
         print(f"phase 4: {arm}: 20 steps, finite losses (last lossE {last['lossE']:.6g} "
               f"lossD {last['lossD']:.6g}); launches phase E {phase_e}, phase D {phase_d}")
-    print("phase 4: img/s (steps 4-20, bf16, batch 64) "
+    print("phase 4: img/s (steps 5-20, bf16, batch 64) "
           + json.dumps({k: round(v, 1) for k, v in rates.items()}) + f" on {card}")
     return {"rates": rates, "launches": launches["tc pallas, conv pallas"]}
 
@@ -1371,7 +1392,7 @@ def phase_other_paths(card: str) -> dict:
                   f"{state.history[-1]['loss_enc']:.6g}), launches {counts}")
     print(f"phase 6: TF32 off at every optimizer call of the four runs; outside them "
           f"(cudnn.allow_tf32, cuda.matmul.allow_tf32) = {tf32_flags()}")
-    print("phase 6: img/s (steps 4-20, fp32 with TF32 off, batch 64) "
+    print("phase 6: img/s (steps 5-20, fp32 with TF32 off, batch 64) "
           + json.dumps({k: round(v, 1) for k, v in rates.items()}) + f" on {card}")
     return vae_launches
 
@@ -1658,7 +1679,7 @@ def phase_data_parallel(card: str) -> dict:
           f"{cfg.batch_size}, finite losses (last lossE {last['lossE']:.6g} lossD "
           f"{last['lossD']:.6g}), equal on both ranks; per rank phase E {a0['phase_e']}, "
           f"phase D {a0['phase_d']}; parameters bit-equal")
-    print(f"phase 7 (a): {rate} img/s (global batch, steps 4-{steps}, bf16) on {card}: "
+    print(f"phase 7 (a): {rate} img/s (global batch, steps 5-{steps}, bf16) on {card}: "
           f"two ranks share one card and every collective goes through the host (gloo), "
           f"so this is not a scaling figure")
     for line in rank0_log.splitlines():
@@ -1746,7 +1767,6 @@ def phase_checkpoints(card: str) -> dict:
     import numpy as np
     import torch
     from PIL import Image
-    from torch.optim.optimizer import register_optimizer_step_pre_hook
 
     from intro_tc_vae_tpu_torch import sample
     from intro_tc_vae_tpu_torch.config import load_config
@@ -1771,9 +1791,10 @@ def phase_checkpoints(card: str) -> dict:
         dev = torch.device("cuda", 0)
 
         # (a)
+        from intro_tc_vae_tpu_torch.ops import launch_counts
+
         marks = {}
-        handle = register_optimizer_step_pre_hook(
-            lambda *a: marks.update(last=all_launches()))
+        handle = launch_counts.on_mark(lambda: marks.update(last=all_launches()))
         reset_all_launches()
         try:
             state_a = run_cli(FLAGSHIP, update, "phase 8 (a)")
@@ -2133,7 +2154,7 @@ def phase_data_paths(card: str, main_path: dict) -> dict:
                             f"{b[k]!r}")
         print(f"phase 9 (d): tc_dsprites in three data arms: 20 finite steps each, the cache "
               f"engaged in the cache arm only, losses agree (largest relative difference "
-              f"{worst:.3g}); img/s (steps 4-20, fp32 TF32 off, batch 64) "
+              f"{worst:.3g}); img/s (steps 5-20, fp32 TF32 off, batch 64) "
               + json.dumps({k: round(v, 1) for k, v in rates.items()}) + f" on {card}")
         del runs
 
@@ -2155,7 +2176,7 @@ def phase_data_paths(card: str, main_path: dict) -> dict:
         synthetic = main_path["rates"]["tc pallas, conv pallas"]
         print(f"phase 9 (e): the flagship on ukiyo_e64 (auto/auto: the cache engaged), tc and "
               f"conv pallas: 20 finite steps, launches equal to phase 4's (pallas, pallas), "
-              f"0 of any conv body but the wgmma one; {rate:.1f} img/s (steps 4-20) against phase 4's "
+              f"0 of any conv body but the wgmma one; {rate:.1f} img/s (steps 5-20) against phase 4's "
               f"{synthetic:.1f} on synthetic, on {card}")
         del state
     finally:
@@ -2405,7 +2426,7 @@ def observe(card: str, main_path: dict, work: str) -> dict:
           f"ukiyo_e64: 20 finite steps; launches = phase 4's (pallas, pallas) + 5 eval decodes; "
           f"tb_reader read 9 scalar tags x 20 steps, img/s, the grid at 0, 10, 20 "
           f"({grid.size[0]}x{grid.size[1]} px) and the hparams; "
-          f"{images_per_second(state, MAIN_B):.1f} img/s (steps 4-20) on {card}")
+          f"{images_per_second(state, MAIN_B):.1f} img/s (steps 5-20) on {card}")
     del state
 
     # (b)
@@ -2451,7 +2472,7 @@ def observe(card: str, main_path: dict, work: str) -> dict:
           f"TC kernel; MIG and modularity at {heavy}; sklearn-backed scores "
           + ("failed with ModuleNotFoundError for sklearn: " + ", ".join(sklearn_missing)
              if sklearn_missing else "written") + "; every eval-mode encode on the card; "
-          f"{images_per_second(state, MAIN_B):.1f} img/s (steps 4-112) on {card}")
+          f"{images_per_second(state, MAIN_B):.1f} img/s (steps 5-112) on {card}")
     del state
 
     # (c)
@@ -2523,7 +2544,9 @@ def observe(card: str, main_path: dict, work: str) -> dict:
 
 REMAT_MODES = (False, "block", "pass")
 REMAT_BATCHES = (MAIN_B, 256)
-SURFACE_STEPS = 5  # steps a remat run: one epoch of synthetic at batch 256
+# steps a remat run: a graphed step's 3 eager steps and its capture, then
+# 3 profiled replays (at batch 256 the loader's epochs run on: 5 steps each)
+SURFACE_STEPS = 7
 
 
 @contextlib.contextmanager
@@ -2565,7 +2588,7 @@ def seeded_flips(seed: int):
 def trainer_setup(update: dict, steps: int):
     """The flagship through the trainer's own ``setup`` (seed, model,
     optimizers, loader, solver) and the first ``steps`` batches of its
-    loader, on the card."""
+    loader (epoch after epoch), on the card."""
     from intro_tc_vae_tpu_torch.config import load_config
     from intro_tc_vae_tpu_torch.solvers.base import normalize_input
     from intro_tc_vae_tpu_torch.train import setup
@@ -2573,34 +2596,45 @@ def trainer_setup(update: dict, steps: int):
     run = setup(load_config(FLAGSHIP, {"dataset": "synthetic", "use_tensorboard": False,
                                        **update}))
     run.state.model.train()
-    with contextlib.closing(iter(run.loader)) as batches:
-        batches = [normalize_input(next(batches)) for _ in range(steps)]
-    return run, batches
+    batches = []
+    while len(batches) < steps:
+        with contextlib.closing(iter(run.loader)) as epoch:
+            batches.extend(normalize_input(b) for b in epoch)
+    return run, batches[:steps]
 
 
 def profiled_run(label: str, solver, state, batches: list, active: int = 3,
                  phase: str = "phase 11") -> dict:
     """``solver``'s steps on ``batches``, the last ``active`` under
-    torch.profiler: device ms per step (the kernels' and copies' device
-    time), peak device memory over the steps (``max_memory_allocated``),
-    the launches of phase E and phase D, every step's metrics and the
-    final state dict on the host."""
+    torch.profiler (the steps before them unprofiled: a graphed step warms
+    up and captures there, never in the window): device ms per step (the
+    kernels' and copies' device time), peak device memory over the steps
+    (``max_memory_allocated``), the launches of phase E and phase D, every
+    step's metrics and the final state dict on the host."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
+    from torch.profiler import ProfilerActivity, profile
 
+    graphed = solver.graphed
+    if graphed is not None and len(batches) - active <= graphed.warmup:
+        die(f"{phase}: {label}: {len(batches)} steps leave the capture in the profiled window")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_all_launches()
     metrics = []
-    with (launches_per_phase() as (phase_e, phase_d),
-          profile(activities=[ProfilerActivity.CUDA],
-                  schedule=schedule(wait=len(batches) - active - 1, warmup=1,
-                                    active=active)) as prof):
-        for batch in batches:
-            _, m = solver.train_step(state, batch)
-            metrics.append({k: float(v) for k, v in m.items()})
-            torch.cuda.synchronize()
-            prof.step()
+
+    def step(batch):
+        _, m = solver.train_step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+
+    with launches_per_phase() as (phase_e, phase_d):
+        for batch in batches[:-active]:
+            step(batch)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for batch in batches[-active:]:
+                step(batch)
+    if graphed is not None and graphed.captures != 1:
+        die(f"{phase}: {label}: {graphed.captures} captures, expected 1")
     device_us = sum(e.self_device_time_total for e in prof.key_averages()
                     if e.device_type == torch.autograd.DeviceType.CUDA
                     and not e.is_user_annotation and not e.key.startswith("ProfilerStep"))
@@ -2761,7 +2795,7 @@ def solver_surface(card: str, work: str) -> dict:
           f"{dict((k, v // 20) for k, v in phase_d.items() if v)}, no conv kernel; one fp32 "
           f"step with the TC kernels vs the float64 plain TC: metrics within rtol 1e-4, "
           f"updated params max abs diff {worst:.3g} (atol 1e-5); {rate:.1f} img/s (steps "
-          f"4-20, host clock), {profiled['device_ms']:.2f} device ms/step (bf16, batch 64) "
+          f"5-20, host clock), {profiled['device_ms']:.2f} device ms/step (bf16, batch 64) "
           f"on {card}")
 
     out["seconds"] = {"a": time.perf_counter() - t0}
@@ -2928,32 +2962,48 @@ def start():
 PROFILED_STEPS = 5
 
 
+@contextlib.contextmanager
+def after_each_train_step(fn):
+    """Calls ``fn()`` after every ``train_step`` call of the port's solvers
+    in the block, an eager step or a graph's replay alike (the package's
+    ``VAESolver.train_step`` wrapped; also the package of another
+    checkout, as ``loop_times.py --root`` imports it)."""
+    from intro_tc_vae_tpu_torch.solvers import base
+
+    original = base.VAESolver.train_step
+
+    def wrapped(self, *args, **kwargs):
+        out = original(self, *args, **kwargs)
+        fn()
+        return out
+
+    base.VAESolver.train_step = wrapped
+    try:
+        yield
+    finally:
+        base.VAESolver.train_step = original
+
+
 def profiled_steps(run, wait: int = 13) -> dict:
     """Device microseconds by kernel name over PROFILED_STEPS steady steps
     (after ``wait`` + 1) of ``run()``, a run through the CLI of at least
     ``wait`` + 1 + PROFILED_STEPS steps (20 by default): torch.profiler,
-    a step ending at the decoder's optimizer call (both solvers call the
-    encoder's optimizer, then the decoder's). Kernels and device copies
-    only: a step's annotation spans the step. ``--device-time`` and
-    loop_times.py measure a step's device time with this."""
+    a step ending where its ``train_step`` call returns (after a sync), so
+    a graphed step's capture (its 4th call) falls in the unprofiled
+    ``wait``. Kernels and device copies only: a step's annotation spans
+    the step. ``--device-time`` and loop_times.py measure a step's device
+    time with this."""
     import torch
-    from torch.optim.optimizer import register_optimizer_step_pre_hook
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    calls = {"n": 0}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=wait, warmup=1, active=PROFILED_STEPS)) as prof:
-        def hook(optimizer, args, kwargs):
-            calls["n"] += 1
-            if calls["n"] % 2 == 0:  # encoder's call, then the decoder's: one step
-                torch.cuda.synchronize()
-                prof.step()
+        def step():
+            torch.cuda.synchronize()
+            prof.step()
 
-        handle = register_optimizer_step_pre_hook(hook)
-        try:
+        with after_each_train_step(step):
             run()
-        finally:
-            handle.remove()
     return {e.key: e.self_device_time_total for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and not e.is_user_annotation and not e.key.startswith("ProfilerStep")}
@@ -3736,6 +3786,231 @@ def tp_checkpoint(paths: list, whole: dict) -> None:
           f"decode of {MAIN_B} noise vectors is bit-equal to the gathered parameters'")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the graphed step
+# ---------------------------------------------------------------------------
+
+GRAPH_STEPS = 20  # phase 15 (a): an epoch of synthetic; the ring drains and reuses buffers
+GRAPH_UPDATE = {"dataset": "synthetic", "tc_impl": "pallas", "conv_impl": "pallas",
+                "use_tensorboard": False}
+
+
+def host_parts(state) -> dict:
+    """The train state's tensors on the host, for comparisons after the
+    run's state is gone."""
+    import torch
+
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu().clone()
+        if isinstance(x, dict):
+            return {k: host(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(host(v) for v in x)
+        return x
+
+    return host(train_state_parts(state))
+
+
+def graph_arm(graph: bool, update: dict | None = None, steps: int = GRAPH_STEPS,
+              resume_at: int | None = None, work: str | None = None) -> dict:
+    """``steps`` flagship steps through the trainer's ``setup`` with the
+    step graphed or eager, the metric ring drained as the train loop
+    drains it, every count set to 0 just before and read per phase; with
+    ``resume_at``, the state is saved there (in ``work``), the parameters
+    perturbed and the checkpoint loaded back into the same run, whose
+    graph then captures again. Returns the state on the host (also after
+    8 steps), every step's metrics as returned and as drained, the counts
+    and the captures."""
+    import torch
+
+    from intro_tc_vae_tpu_torch.config import load_config
+    from intro_tc_vae_tpu_torch.solvers.base import RING_DEPTH
+    from intro_tc_vae_tpu_torch.train import setup
+    from intro_tc_vae_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    run = setup(load_config(FLAGSHIP, {**GRAPH_UPDATE, **(update or {})}), graph=graph)
+    run.state.model.train()
+    solver, state = run.solver, run.state
+    k = solver.scan_steps
+    calls = []
+    while len(calls) < steps // k:
+        with contextlib.closing(iter(run.loader)) as epoch:
+            calls.extend(epoch)
+    calls = calls[:steps // k]
+    returned, drained, at8 = [], [], None
+    reset_all_launches()
+    with launches_per_phase() as (phase_e, phase_d):
+        for i, batch in enumerate(calls):
+            if resume_at is not None and i == resume_at:
+                path = save_checkpoint(state, 0, state.step, "graph_", work)
+                with torch.no_grad():
+                    for p in state.model.parameters():
+                        p.add_(1.0)
+                load_checkpoint(path, state)
+            _, m = solver.train_step(state, batch)
+            returned.append(m)
+            if len(solver.metric_ring) >= RING_DEPTH + 2:
+                drained.extend(solver.drain_metrics(keep_tail=2))
+            if state.step == 8:
+                at8 = host_parts(state)
+        torch.cuda.synchronize()
+    drained.extend(solver.flush_writes())
+    per_step = []
+    for m in returned:  # a call of K steps returns [K] metrics
+        rows = {name: v.reshape(-1).tolist() for name, v in m.items()}
+        per_step.extend({name: rows[name][j] for name in rows} for j in range(k))
+    pool = sum(len(v) for v in solver.metric_ring._free.values())
+    return {"state": host_parts(state), "at8": at8, "metrics": per_step,
+            "drained": [m for m, _ in drained], "steps": [s for _, s in drained],
+            "counts": all_launches(), "phase_e": dict(phase_e), "phase_d": dict(phase_d),
+            "captures": solver.graphed.captures if solver.graphed is not None else 0,
+            "pool": pool}
+
+
+def train_arm(update: dict, graph: bool, steps: int = 20):
+    """``steps`` flagship steps through ``train_soft_intro_vae`` (the
+    CLI's entry, whose ``graph`` the CLI leaves to the rule), checkpoints
+    in a temporary directory; the final TrainState."""
+    import shutil
+    import tempfile
+
+    from intro_tc_vae_tpu_torch.config import load_config
+    from intro_tc_vae_tpu_torch.train import train_soft_intro_vae
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_saves_")
+    try:
+        state = train_soft_intro_vae(load_config(FLAGSHIP, {**update, "checkpoint_dir": work}),
+                                     graph=graph)
+    finally:
+        shutil.rmtree(work)
+    if len(state.history) != steps:
+        die(f"phase 15: {len(state.history)} steps, expected {steps}")
+    return state
+
+
+def phase_graphed_step(card: str) -> dict:
+    """Phase 15: the flagship's step as one captured CUDA graph against
+    the eager step (``solvers/graph.py``), cuDNN deterministic.
+    (a) GRAPH_STEPS steps of each arm from one seed through ``setup``:
+    parameters, BatchNorm statistics, optimizer states and every metric
+    bit-equal. (b) The launches of each phase of both arms exactly
+    ``expected_intro_launches`` (a replay adds the graph's tally). (c)
+    Host img/s (``images_per_second``) and device ms/step
+    (``profiled_steps``) of both arms through ``train_soft_intro_vae``,
+    in turns, twice. (d) ``analysis/profile_step.py`` on both arms: launches
+    per step, host ms/step, idle share; the metric ring's pinned buffers
+    (one a slot, reused) leave every drained metric equal to the step's
+    own. (e) scan_steps 4, graphed: two calls (8 steps) bit-equal to (a)'s
+    graphed run after 8 steps; one resume in the middle of a graphed run
+    (save, perturb, load into the same run: its graph captures again)
+    bit-equal to (a)'s uninterrupted graphed run."""
+    import shutil
+    import tempfile
+
+    from intro_tc_vae_tpu_torch.analysis import profile_step as ps
+    from intro_tc_vae_tpu_torch.train import images_per_second
+
+    out = {}
+    want_e, want_d = expected_intro_launches("pallas", "pallas")
+    with cudnn_deterministic():
+        arms = {graph: graph_arm(graph) for graph in (False, True)}
+    eager, graphed = arms[False], arms[True]
+    # (a)
+    if graphed["captures"] != 1 or eager["captures"] != 0:
+        die(f"phase 15 (a): captures eager {eager['captures']}, graphed {graphed['captures']}")
+    for part in ("model", "opt_e", "opt_d", "step"):
+        if not same(eager["state"][part], graphed["state"][part]):
+            die(f"phase 15 (a): the graphed run's {part} differs from the eager run's")
+    if eager["metrics"] != graphed["metrics"]:
+        die("phase 15 (a): the graphed run's metrics differ from the eager run's")
+    print(f"phase 15 (a): {GRAPH_STEPS} flagship steps (bf16, batch 64, tc and conv pallas, "
+          f"cuDNN deterministic), graphed (1 capture after 3 eager steps) against eager: "
+          f"parameters, BatchNorm statistics, Adam states and all "
+          f"{len(eager['metrics'][0])} metrics of every step bit-equal")
+    # (b)
+    for label, arm in (("eager", eager), ("graphed", graphed)):
+        for what, got, want in (
+                ("phase E", arm["phase_e"], {k: GRAPH_STEPS * v for k, v in want_e.items()}),
+                ("phase D", arm["phase_d"], {k: GRAPH_STEPS * v for k, v in want_d.items()}),
+                ("total", arm["counts"],
+                 {k: GRAPH_STEPS * (want_e[k] + want_d[k]) for k in want_e})):
+            if got != want:
+                die(f"phase 15 (b): {label}: {what} launches {got}, expected {want}")
+    print(f"phase 15 (b): launches of both arms exactly as derived, {GRAPH_STEPS} steps: "
+          f"phase E {graphed['phase_e']}, phase D {graphed['phase_d']}")
+    # (d), the ring
+    for label, arm in (("eager", eager), ("graphed", graphed)):
+        if arm["drained"] != arm["metrics"] or arm["steps"] != list(range(1, GRAPH_STEPS + 1)):
+            die(f"phase 15 (d): {label}: the ring's drained metrics differ from the steps'")
+        if not 0 < arm["pool"] <= 10:  # RING_DEPTH + 2 slots
+            die(f"phase 15 (d): {label}: {arm['pool']} pinned buffers in the ring's pool")
+    print(f"phase 15 (d): the metric ring: {graphed['pool']} pinned buffers for "
+          f"{GRAPH_STEPS} steps in each arm, reused; every drained metric equal to the "
+          "step's own")
+    # (e)
+    work = tempfile.mkdtemp(prefix="chip_smoke_phase15_")
+    try:
+        with cudnn_deterministic():
+            scan = graph_arm(True, {"scan_steps": 4}, steps=8)
+            resumed = graph_arm(True, resume_at=GRAPH_STEPS // 2, work=work)
+    finally:
+        shutil.rmtree(work)
+    for part in ("model", "opt_e", "opt_d", "step"):
+        if not same(scan["state"][part], graphed["at8"][part]):
+            die(f"phase 15 (e): scan_steps 4 graphed: {part} differs from 8 graphed steps")
+    if scan["metrics"] != graphed["metrics"][:8] or scan["captures"] != 1:
+        die(f"phase 15 (e): scan_steps 4 graphed: metrics differ or {scan['captures']} "
+            "captures")
+    for part in ("model", "opt_e", "opt_d", "step"):
+        if not same(resumed["state"][part], graphed["state"][part]):
+            die(f"phase 15 (e): the resumed graphed run's {part} differs from the "
+                "uninterrupted one's")
+    if resumed["metrics"] != graphed["metrics"] or resumed["captures"] != 2:
+        die(f"phase 15 (e): resumed: metrics differ or {resumed['captures']} captures, "
+            "expected 2")
+    print("phase 15 (e): scan_steps 4 graphed (4 replays a call, 1 capture), 8 steps "
+          "bit-equal to 8 graphed steps of scan_steps 1; a resume at step 10 into the same "
+          "graphed run (captured again) bit-equal to the uninterrupted graphed run")
+    del arms, eager, graphed, scan, resumed
+    # (c)
+    update = {**GRAPH_UPDATE, "num_epochs": 1}
+    rates, device = {}, {}
+    for _ in range(2):
+        for label, graph in (("eager", False), ("graphed", True)):
+            rates.setdefault(label, []).append(
+                images_per_second(train_arm(update, graph), MAIN_B))
+            by_name = profiled_steps(lambda: train_arm(update, graph))
+            device.setdefault(label, []).append(sum(by_name.values()) / PROFILED_STEPS / 1e3)
+    out["img_s"], out["device_ms"] = rates, device
+    print("phase 15 (c): flagship (tc and conv pallas, bf16, batch 64), in turns, twice: "
+          "host img/s (steps 5-20) " + json.dumps({k: [round(v, 1) for v in r]
+                                                   for k, r in rates.items()})
+          + ", device ms/step " + json.dumps({k: [round(v, 3) for v in r]
+                                             for k, r in device.items()}) + f" on {card}")
+    # (d), profile_step
+    out["profile"] = {}
+    for label, graph in (("eager", False), ("graphed", True)):
+        r = ps.profile_step(steps=5, wall_iters=20, graph=graph)
+        out["profile"][label] = r
+        if graph and r["unattributed_per_step"] > 0.05 * r["work_items_per_step"]:
+            die(f"phase 15 (d): profile_step left {r['unattributed_per_step']} of "
+                f"{r['work_items_per_step']} kernels a step unattributed")
+        launches = {k: v for k, v in r["launches_per_step"].items() if v}
+        print(f"phase 15 (d): profile_step {label}: launches/step {json.dumps(launches)}, "
+              f"host ms/step {r['host_ms_step_untraced']:.3f} (untraced; traced "
+              f"{r['host_ms_step']:.3f}), wall ms/step {r['wall_ms_step']:.3f}, device busy "
+              f"{r['busy_ms_step']:.3f} ms/step, idle share {r['idle_share']:.4f}; "
+              f"categories " + json.dumps({k: round(v, 3) for k, v in r["categories"].items()})
+              + f"; host ms/step in ops " + json.dumps(
+                  {k: round(v, 3) for k, v in r["host_op_ms_step"].items()})
+              + f"; unattributed kernels a step {r['unattributed_per_step']}"
+              + f"; wrappers' host ms/step "
+              + json.dumps({k: round(v, 4) for k, v in r["wrapper_host_ms_step"].items()})
+              + f" on {card}")
+    return out
+
+
 def device_time(card: str) -> None:
     """``--device-time``: device ms per step (``profiled_steps``) of the
     flagship's four arms (bf16) and of configs/vae_synthetic.json (fp32)
@@ -3814,6 +4089,7 @@ def main() -> None:
     at48 = timed("phase 12", phase_48px, card)
     timed("phase 13", phase_options, card)
     timed("phase 14", phase_tensor_parallel, card)
+    timed("phase 15", phase_graphed_step, card)
     print(f"phase 8: flagship checkpoint {ckpt['bytes']} bytes; save {ckpt['save_s']:.3f} s, "
           f"background save returns in {ckpt['async_return_s']:.3f} s, load "
           f"{ckpt['load_s']:.3f} s; phase 4 img/s with the metric ring "

@@ -36,7 +36,8 @@ grad (the intro step does this for the network a phase does not update).
 
 The wrappers take the plain versions (``ops/conv.py``) only for tensors
 on the CPU; for CUDA tensors they launch the kernels or raise.
-``LAUNCHES`` counts kernel launches per kernel.
+``LAUNCHES`` counts kernel launches per kernel; it is registered with
+``launch_counts``, which keeps it counting under CUDA graph replay.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from intro_tc_vae_tpu_torch.ops import launch_counts
 from intro_tc_vae_tpu_torch.ops.conv import (
     CHANNELS,
     WEIGHT_SHAPE,
@@ -62,7 +64,7 @@ from intro_tc_vae_tpu_torch.ops.cuda_build import load_library
 
 KERNELS = ("conv3x3_fwd", "conv3x3_dw", "conv3x3_dw_reduce", "conv3x3_pack_w",
            "conv3x3_fwd_wgmma", "conv3x3_dw_wgmma", "conv3x3_fwd_ragged", "conv3x3_dw_ragged")
-LAUNCHES = dict.fromkeys(KERNELS, 0)
+LAUNCHES = launch_counts.register(dict.fromkeys(KERNELS, 0))
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -116,11 +118,13 @@ def launch(entry: str, *args, device: torch.device) -> None:
     as their data pointers, then the device and the stream are appended."""
     fn = getattr(_library(_LIBRARY_OF[entry]), f"{entry}_launch")
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
-             device.index, stream)
+    counted = _COUNTED_AS.get(entry, entry)
+    with launch_counts.host_range(f"itcvae::launch:{counted}"):
+        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
+                 device.index, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {entry} failed to launch: cudaError {err}")
-    LAUNCHES[_COUNTED_AS.get(entry, entry)] += 1
+    LAUNCHES[counted] += 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -174,6 +178,11 @@ def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor, rot: bool = False) -> torch.Te
     weights straight from w."""
     if x.device.type == "cpu" and w.device.type == "cpu":
         return conv3x3_reference(x, rot_t(w) if rot else w)
+    with launch_counts.host_range("itcvae::conv3x3_fwd"):
+        return _conv3x3_fwd(x, w, rot)
+
+
+def _conv3x3_fwd(x: torch.Tensor, w: torch.Tensor, rot: bool) -> torch.Tensor:
     _check(x=x, w=w)
     n, _, h, wd = x.shape
     y = torch.empty_like(x)
@@ -213,6 +222,11 @@ def conv3x3_dw(x: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
     in fp32 and rounded once to x's dtype."""
     if x.device.type == "cpu" and gy.device.type == "cpu":
         return conv3x3_dw_reference(x, gy)
+    with launch_counts.host_range("itcvae::conv3x3_dw"):
+        return _conv3x3_dw(x, gy)
+
+
+def _conv3x3_dw(x: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
     _check(x=x, gy=gy)
     if gy.shape != x.shape:
         raise ValueError(f"gy {tuple(gy.shape)} must have x's shape {tuple(x.shape)}")

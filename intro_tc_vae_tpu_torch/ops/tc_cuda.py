@@ -41,7 +41,8 @@ autograd for the gradient). A wrapper takes its plain version only for
 tensors on the CPU; for CUDA tensors it launches the kernels or raises.
 ``LAUNCHES`` counts kernel launches per kernel and ``CALLS`` the calls
 of each wrapper that went to the kernels, so a run can show that its TC
-calls went through the kernels, and by which route.
+calls went through the kernels, and by which route; both are registered
+with ``launch_counts``, which keeps them counting under CUDA graph replay.
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from intro_tc_vae_tpu_torch.ops import launch_counts
 from intro_tc_vae_tpu_torch.ops.cuda_build import load_library
 from intro_tc_vae_tpu_torch.ops.density import (
     LOG_2PI,
@@ -65,8 +67,8 @@ from intro_tc_vae_tpu_torch.ops.density import (
 )
 
 KERNELS = ("tc_fwd", "tc_bwd_dz", "tc_bwd_dmu")
-LAUNCHES = dict.fromkeys(KERNELS, 0)
-CALLS = dict.fromkeys(("tc_logsumexp", "tc_logsumexp_gathered"), 0)
+LAUNCHES = launch_counts.register(dict.fromkeys(KERNELS, 0))
+CALLS = launch_counts.register(dict.fromkeys(("tc_logsumexp", "tc_logsumexp_gathered"), 0))
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # pointers, then B_j, B_i, Z, dataset_size, row_off, global_batch, the
@@ -168,8 +170,9 @@ def launch(name: str, tensors, b_j: int, b_i: int, zdim: int,
                 else backward_plan(name, b_j, b_i, zdim))
     if name == "tc_fwd":
         plan = plan[:2]  # the cut
-    err = fn(*(t.data_ptr() for t in tensors), b_j, b_i, zdim, int(dataset_size),
-             int(row_off), b_i, *plan, device.index, stream)
+    with launch_counts.host_range(f"itcvae::launch:{name}"):
+        err = fn(*(t.data_ptr() for t in tensors), b_j, b_i, zdim, int(dataset_size),
+                 int(row_off), b_i, *plan, device.index, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
     LAUNCHES[name] += 1
@@ -247,6 +250,11 @@ class _TCLogsumexp(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_pm, g_qz):
+        with launch_counts.host_range("itcvae::tc_logsumexp_backward"):
+            return _TCLogsumexp._backward(ctx, g_pm, g_qz)
+
+    @staticmethod
+    def _backward(ctx, g_pm, g_qz):
         mu, logvar, terms, psum, lj = ctx.saved_tensors
         b, zdim = logvar.shape
         gb = mu.shape[0]
@@ -409,9 +417,10 @@ def tc_logsumexp_cuda(z: torch.Tensor, mu: torch.Tensor, logvar: torch.Tensor,
     """
     if all(t.device.type == "cpu" for t in (z, mu, logvar)):
         return tc_logsumexp_reference(z, mu, logvar, dataset_size)
-    _check(z, mu, logvar, 0, dataset_size, z.shape[0])
-    CALLS["tc_logsumexp"] += 1
-    return _TCLogsumexp.apply(z, mu, logvar, 0, int(dataset_size))
+    with launch_counts.host_range("itcvae::tc_logsumexp"):
+        _check(z, mu, logvar, 0, dataset_size, z.shape[0])
+        CALLS["tc_logsumexp"] += 1
+        return _TCLogsumexp.apply(z, mu, logvar, 0, int(dataset_size))
 
 
 def tc_logsumexp_cuda_gathered(z: torch.Tensor, mu_bank: torch.Tensor,
@@ -428,6 +437,7 @@ def tc_logsumexp_cuda_gathered(z: torch.Tensor, mu_bank: torch.Tensor,
     if all(t.device.type == "cpu" for t in (z, mu_bank, logvar)):
         return tc_logsumexp_reference_gathered(z, mu_bank, logvar, row_off,
                                                dataset_size, global_batch)
-    _check(z, mu_bank, logvar, int(row_off), dataset_size, global_batch)
-    CALLS["tc_logsumexp_gathered"] += 1
-    return _TCLogsumexp.apply(z, mu_bank, logvar, int(row_off), int(dataset_size))
+    with launch_counts.host_range("itcvae::tc_logsumexp_gathered"):
+        _check(z, mu_bank, logvar, int(row_off), dataset_size, global_batch)
+        CALLS["tc_logsumexp_gathered"] += 1
+        return _TCLogsumexp.apply(z, mu_bank, logvar, int(row_off), int(dataset_size))

@@ -15,6 +15,9 @@ follow from PyTorch rather than from the model:
   ``drain_metrics`` does.
 * Noise comes from an explicit ``torch.Generator`` on the device, or is
   passed in (parity tests hand both packages the same draws).
+* ``graph=True`` (one process on CUDA; ``train.py::graph_step`` says
+  when) runs the step as one captured CUDA graph (``solvers/graph.py``),
+  the counterpart of the JAX step's ``jax.jit``; otherwise it runs eager.
 * Data parallel (``mesh``, a ``parallel.DataGroup`` of several ranks):
   each rank steps on its rows of the global batch. The counterparts of
   the psums GSPMD inserts are explicit: the TC and BatchNorm reduce over
@@ -53,13 +56,17 @@ import torch.distributed as dist
 
 from intro_tc_vae_tpu_torch import ops
 from intro_tc_vae_tpu_torch.models.vae import SoftIntroVAE, set_mesh
+from intro_tc_vae_tpu_torch.ops import launch_counts
 from intro_tc_vae_tpu_torch.parallel.collectives import all_reduce_mean_
 from intro_tc_vae_tpu_torch.parallel.mesh import whole_copy
 from intro_tc_vae_tpu_torch.solvers import optim
+from intro_tc_vae_tpu_torch.solvers.graph import GraphedStep
 
 # the 7-way key split of the JAX step (solvers/intro.py:81-83) minus the
 # carried key: the step's six N(0, I) [B, z] draws, in this order
 NOISE_KEYS = ("prior", "real", "rec_e", "fake_e", "rec_d", "fake_d")
+# the single-phase step's one draw (JAX solvers/vae.py)
+VAE_NOISE_KEYS = ("real",)
 # steps queued on the metric ring before the loop reads it (JAX ring_depth)
 RING_DEPTH = 8
 
@@ -118,11 +125,16 @@ def make_optimizer(name: str, lr: float) -> Callable[[Iterable], torch.optim.Opt
     """Optimizer factory by name (case-insensitive): optax's transform of
     that name with optax's defaults (JAX solvers/base.py:68-86), as a
     ``torch.optim`` class where one computes the same update, else a class
-    of ``solvers/optim.py``."""
+    of ``solvers/optim.py``. Step counts stay on the parameters' device
+    (``optim.place_steps``: torch's classes capturable on CUDA)."""
     key = name.lower()
     if key not in _OPTIMIZERS:
         raise ValueError(f"unknown optimizer '{name}' (known: {sorted(_OPTIMIZERS)})")
-    return functools.partial(_OPTIMIZERS[key], lr=lr)
+
+    def make(params: Iterable) -> torch.optim.Optimizer:
+        return optim.place_steps(_OPTIMIZERS[key](params, lr=lr))
+
+    return make
 
 
 def draw_noise(generator: torch.Generator, batch: int, zdim: int,
@@ -272,9 +284,11 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
 
 
 def apply_grads(optimizer: torch.optim.Optimizer, params, grads) -> None:
-    """One optimizer step on ``params`` with the given gradients."""
+    """One optimizer step on ``params`` with the given gradients; a phase
+    of the step ends here (``launch_counts.mark``)."""
     for p, g in zip(params, grads):
         p.grad = g
+    launch_counts.mark()
     optimizer.step()
     for p in params:
         p.grad = None
@@ -373,19 +387,24 @@ class MetricRing:
     """Each call's metrics, queued on the device and read on the host
     behind it (JAX solvers/base.py:372-373, :446-481).
 
-    ``push`` stacks a call's metrics into one float32 device tensor, starts
+    ``push`` stacks a call's metrics into one float32 [K, n] device tensor
+    (``push_stacked`` takes one stacked already: the graphed step's), starts
     its copy into a pinned host buffer without blocking, and records a CUDA
     event after it. ``drain(keep_tail)`` reads every entry but the newest
     ``keep_tail``, oldest first, waiting on each entry's event: the train
     loop drains with ``keep_tail=2`` once ``RING_DEPTH + 2`` entries are
     queued, so it reads only calls two or more behind the one just queued,
     which have finished by then in the steady state, and never waits on
-    the newest. On the CPU the copy is the tensor itself and there is no
-    event. A call of K steps (``scan_steps``) is one entry whose metrics
-    are [K] tensors; ``drain`` fans it out to K steps."""
+    the newest. A drained entry's host buffer goes back to a pool, one
+    buffer a ring slot, so a step allocates no pinned memory once the ring
+    has filled; no two queued entries share one. On the CPU the copy is the
+    tensor itself and there is no event. A call of K steps
+    (``scan_steps``) is one entry whose metrics are [K] tensors; ``drain``
+    fans it out to K steps."""
 
     def __init__(self):
         self._entries: list = []
+        self._free: dict = {}  # shape -> pinned host buffers not in the ring
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -395,15 +414,21 @@ class MetricRing:
         the first of which is ``step``."""
         stacked = torch.stack([v.detach().float().reshape(-1) for v in metrics.values()],
                               dim=1)  # [K, n]
+        self.push_stacked(tuple(metrics), stacked, step)
+
+    def push_stacked(self, names: tuple, stacked: torch.Tensor, step: int) -> None:
+        """``stacked``: float32 [K, n], column i the metric ``names[i]``."""
         event = None
         if stacked.is_cuda:
-            host = torch.empty(stacked.shape, dtype=stacked.dtype, pin_memory=True)
+            free = self._free.get(tuple(stacked.shape))
+            host = (free.pop() if free else
+                    torch.empty(stacked.shape, dtype=stacked.dtype, pin_memory=True))
             host.copy_(stacked, non_blocking=True)
             event = torch.cuda.Event()
             event.record()
         else:
             host = stacked
-        self._entries.append((tuple(metrics), host, event, step))
+        self._entries.append((names, host, event, step))
 
     def drain(self, keep_tail: int = 0) -> list:
         """[(host metrics dict, step), ...] of the drained entries' steps,
@@ -418,6 +443,8 @@ class MetricRing:
                 event.synchronize()
             out.extend((dict(zip(names, row)), step + j)
                        for j, row in enumerate(host.tolist()))
+            if event is not None:
+                self._free.setdefault(tuple(host.shape), []).append(host)
         return out
 
 
@@ -436,10 +463,13 @@ class VAESolver:
     call (JAX ``_scan_steps``; a loop here, there is no program to fuse).
     ``remat_passes`` recomputes every encode/decode pass of the intro step
     in its backward (config ``remat: "pass"``); the single-phase step
-    ignores it."""
+    ignores it. ``graph`` runs each step as one captured CUDA graph
+    (``solvers/graph.py``; one process on CUDA only, ``train.py::
+    graph_step``)."""
 
     kl_kind = "gaussian"
     name = "vae"
+    noise_keys = VAE_NOISE_KEYS  # the step's draws, in their order
 
     def __init__(
         self,
@@ -465,6 +495,7 @@ class VAESolver:
         test_iter: int = 1000,
         scan_steps: int = 1,
         remat_passes: bool = False,
+        graph: bool = False,
     ):
         self.dataset = dataset
         self.encoder = encoder
@@ -512,6 +543,8 @@ class VAESolver:
         except (NotImplementedError, AttributeError):
             pass  # plain (non-factor) dataset: no disentanglement metrics
         self._step_fn = self.build_step()
+        self.graphed = (GraphedStep(self._step_fn, self.noise_keys, encoder.zdim)
+                        if graph else None)
         # every step's metrics, read on the host behind the device
         self.metric_ring = MetricRing()
 
@@ -544,17 +577,32 @@ class VAESolver:
         run on the new state and the last batch when the call's first
         global iteration (JAX's ``cur_iter``: the steps before it,
         ``state.step`` on entry, resumed runs included) is a multiple of
-        ``test_iter`` (JAX solvers/base.py:425-444)."""
+        ``test_iter`` (JAX solvers/base.py:425-444); they run eagerly on the
+        live modules, between replays when the step is graphed, where a
+        call of K steps is K replays."""
         cur_iter = state.step
-        batch = normalize_input(batch)
         k = self.scan_steps
         batches = batch.unbind(0) if k > 1 else (batch,)
         noises = noise if k > 1 and noise is not None else [noise] * k
-        steps = [self._step_fn(state, b, n) for b, n in zip(batches, noises)]
-        metrics = steps[0] if k == 1 else {
-            name: torch.stack([m[name] for m in steps]) for name in steps[0]}
-        metrics = average_metrics(metrics, self.hyper.mesh)
-        self.metric_ring.push(metrics, cur_iter + 1)
+        if self.graphed is not None:
+            # K replays; each row copied out before the next overwrites it
+            stacked = None
+            for j, (b, n) in enumerate(zip(batches, noises)):
+                names, row = self.graphed(state, b, n)
+                if stacked is None:
+                    stacked = torch.empty((k, row.numel()), dtype=row.dtype,
+                                          device=row.device)
+                stacked[j].copy_(row)
+            self.metric_ring.push_stacked(names, stacked, cur_iter + 1)
+            metrics = {name: stacked[:, i] if k > 1 else stacked[0, i]
+                       for i, name in enumerate(names)}
+        else:
+            steps = [self._step_fn(state, normalize_input(b), n)
+                     for b, n in zip(batches, noises)]
+            metrics = steps[0] if k == 1 else {
+                name: torch.stack([m[name] for m in steps]) for name in steps[0]}
+            metrics = average_metrics(metrics, self.hyper.mesh)
+            self.metric_ring.push(metrics, cur_iter + 1)
         if self.heavy_writes and cur_iter % self.test_iter == 0:
             self._write_heavy_metrics(state, batches[-1], cur_iter)
         return state, metrics

@@ -40,6 +40,7 @@ import torch
 from intro_tc_vae_tpu_torch import ops
 from intro_tc_vae_tpu_torch.models.blocks import remat
 from intro_tc_vae_tpu_torch.solvers.base import (
+    NOISE_KEYS,
     SolverHyper,
     TrainState,
     VAESolver,
@@ -221,6 +222,7 @@ class IntroSolver(VAESolver):
     """Soft-Intro VAE solver (reference solvers/intro.py:17-196)."""
 
     kl_kind = "gaussian"
+    noise_keys = NOISE_KEYS
 
     def build_step(self):
         return build_intro_step(self.hyper, self.encoder, self.decoder,

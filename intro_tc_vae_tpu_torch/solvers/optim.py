@@ -23,10 +23,19 @@ from torch's in their arithmetic or do not exist there:
 
 Every update is p + (-lr) u, optax's ``scale_by_learning_rate`` and
 ``apply_updates``, with the terms in optax's order. The state is plain
-tensors per parameter (and an int step), so ``state_dict`` and
-``load_state_dict`` carry it through a checkpoint as they do torch's.
-The learning rate is the only argument: nothing sets another of optax's
-hyperparameters, which are the constants below.
+tensors per parameter, so ``state_dict`` and ``load_state_dict`` carry it
+through a checkpoint as they do torch's. The learning rate is the only
+argument: nothing sets another of optax's hyperparameters, which are the
+constants below.
+
+Step counts live on the parameters' device (``place_steps``): a float32
+0-d tensor that the update adds to there, and Lamb's bias corrections
+computed from it there in the parameters' dtype, as optax computes them
+from its int32 count on the device. So an update reads no number of the
+host's, and a captured CUDA graph of it (``solvers/graph.py``) counts on
+when it is replayed. On CUDA torch's Adam, AdamW and Adadelta run with
+``capturable=True`` for the same reason; an eager CUDA run does so too, so
+eager and graphed runs compute the same bits.
 """
 
 from __future__ import annotations
@@ -38,6 +47,50 @@ ADAGRAD_INIT, ADAGRAD_EPS = 0.1, 1e-7
 RMSPROP_DECAY, RMSPROP_EPS = 0.9, 1e-8
 LAMB_B1, LAMB_B2, LAMB_EPS = 0.9, 0.999, 1e-6
 LION_B1, LION_B2, LION_WEIGHT_DECAY = 0.9, 0.99, 1e-3
+# torch's classes that keep a step (Adam's and AdamW's bias corrections
+# read it; Adadelta counts it): capturable on CUDA
+CAPTURABLE = (torch.optim.Adam, torch.optim.AdamW, torch.optim.Adadelta)
+
+
+def _device_step(step, device: torch.device) -> torch.Tensor:
+    """A step count (a tensor, or an int of an older checkpoint) as a
+    float32 0-d tensor on ``device``."""
+    if not torch.is_tensor(step):
+        step = torch.tensor(float(step))
+    return step.to(dtype=torch.float32, device=device)
+
+
+def place_steps(optimizer: torch.optim.Optimizer,
+                capturable: bool | None = None) -> torch.optim.Optimizer:
+    """Put ``optimizer``'s step counts where its updates read them, in
+    place; returns it. torch's ``CAPTURABLE`` classes: ``capturable`` (by
+    default whether the parameters are on CUDA) is set on every group and
+    the steps follow it, float32 on the parameters' device or kept on the
+    host; the port's classes: float32 on the parameters' device. Called
+    on a new optimizer, and after ``load_state_dict``, which would take
+    the saved groups' flags and places (``load_state_dict`` below)."""
+    groups = optimizer.param_groups
+    if isinstance(optimizer, CAPTURABLE):
+        if capturable is None:
+            capturable = any(p.is_cuda for g in groups for p in g["params"])
+        for g in groups:
+            g["capturable"] = capturable
+    for g in groups:
+        for p in g["params"]:
+            state = optimizer.state.get(p)
+            if state and "step" in state:  # the port's classes: no flag, on the device
+                state["step"] = (_device_step(state["step"], p.device)
+                                 if g.get("capturable", True) else state["step"].cpu())
+    return optimizer
+
+
+def load_state_dict(optimizer: torch.optim.Optimizer, state_dict: dict) -> None:
+    """``optimizer.load_state_dict`` keeping the optimizer's own step
+    placement: a checkpoint written by a capturable CUDA run loads into a
+    CPU run, and an older one (host steps) into a capturable run."""
+    capturable = optimizer.param_groups[0].get("capturable")
+    optimizer.load_state_dict(state_dict)
+    place_steps(optimizer, capturable)
 
 
 class _Optax(torch.optim.Optimizer):
@@ -93,16 +146,15 @@ class RMSprop(_Optax):
 class Lamb(_Optax):
     def _init(self, p):
         zeros = torch.zeros_like(p, memory_format=torch.preserve_format)
-        return {"step": 0, "mu": zeros, "nu": zeros.clone()}
+        return {"step": _device_step(0, p.device), "mu": zeros, "nu": zeros.clone()}
 
     def _update(self, p, g, state):
         mu, nu = state["mu"], state["nu"]
         mu.copy_((1.0 - LAMB_B1) * g + LAMB_B1 * mu)
         nu.copy_((1.0 - LAMB_B2) * (g * g) + LAMB_B2 * nu)
-        state["step"] += 1
-        t = state["step"]
-        mu_hat = mu / (1.0 - LAMB_B1 ** t)
-        nu_hat = nu / (1.0 - LAMB_B2 ** t)
+        t = state["step"].add_(1.0).to(mu.dtype)
+        mu_hat = mu / (1.0 - torch.pow(LAMB_B1, t))
+        nu_hat = nu / (1.0 - torch.pow(LAMB_B2, t))
         u = mu_hat / (torch.sqrt(nu_hat) + LAMB_EPS)
         shard = getattr(p, "tp", None)
         if shard is None:
@@ -117,11 +169,12 @@ class Lamb(_Optax):
 
 class Lion(_Optax):
     def _init(self, p):
-        return {"step": 0, "mu": torch.zeros_like(p, memory_format=torch.preserve_format)}
+        return {"step": _device_step(0, p.device),
+                "mu": torch.zeros_like(p, memory_format=torch.preserve_format)}
 
     def _update(self, p, g, state):
         mu = state["mu"]
         u = torch.sign((1.0 - LION_B1) * g + LION_B1 * mu)
         mu.copy_((1.0 - LION_B2) * g + LION_B2 * mu)
-        state["step"] += 1
+        state["step"].add_(1.0)
         return u + LION_WEIGHT_DECAY * p

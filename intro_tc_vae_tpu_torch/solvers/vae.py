@@ -18,6 +18,7 @@ import torch
 
 from intro_tc_vae_tpu_torch import ops
 from intro_tc_vae_tpu_torch.solvers.base import (
+    VAE_NOISE_KEYS,
     SolverHyper,
     TrainState,
     apply_grads,
@@ -32,8 +33,6 @@ from intro_tc_vae_tpu_torch.solvers.base import (
     step_noise,
     tc_decomp_metrics,
 )
-
-VAE_NOISE_KEYS = ("real",)
 
 
 def build_vae_step(h: SolverHyper, encoder, decoder):

@@ -68,6 +68,17 @@ decode pass of the intro step; with the single-phase ``vae`` and ``tc``
 solvers, which have no passes, ``"pass"`` falls back to ``"block"`` with
 JAX's message.
 
+The step (JAX ``train.py:219``, ``jax.jit``): where the run is one process
+on CUDA, each step runs as one captured CUDA graph
+(``solvers/graph.py``), the counterpart of the JAX step's one compiled
+program. ``graph_step`` decides from the configuration alone: data or
+tensor parallel runs (their gloo collectives cannot be captured),
+``anomaly_detection`` (its checks wait on the host), ``profile`` (its
+trace attributes the step's work by operation, which a replay hides) and
+the CPU run eager. ``graph`` (an argument of ``setup``, ``build_solver``
+and ``train_soft_intro_vae``, not a config key) forces eager with False;
+True where the rule says eager raises.
+
 Model options (JAX ``train.py:146-159``): ``tile_rows`` > 0 strip-tiles
 every conv with kernel > 1 (-1, auto, resolves to 0: ``resolve_tile_rows``),
 and takes the 3x3 convs off the conv kernels as in JAX;
@@ -128,7 +139,9 @@ from intro_tc_vae_tpu_torch.utils.profiling import StepTimer, profile_trace
 from intro_tc_vae_tpu_torch.utils.writer import SingletonWriter, make_writer
 
 PRINT_EVERY = 5     # steps between progress lines
-WARMUP_STEPS = 3    # steps left out of the final img/s figure
+# steps left out of the final img/s figure: a graphed step's eager warm-up
+# (solvers/graph.py) and the step that captures it
+WARMUP_STEPS = 4
 PROFILE_STEPS = 50  # profile: true stops after the step at this iteration
 
 
@@ -200,13 +213,32 @@ def true_fp32(precision: str):
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-def train_soft_intro_vae(config: Config,
-                         device: Optional[torch.device] = None) -> TrainState:
+def graph_step(config: Config, device: torch.device, mesh,
+               graph: Optional[bool] = None) -> bool:
+    """Whether a run's step is one captured CUDA graph: on CUDA, in one
+    process (no data or model axis), without ``anomaly_detection`` or
+    ``profile``. ``graph`` None follows that rule, False forces eager, and
+    True raises where the rule says eager."""
+    reasons = [why for bad, why in (
+        (device.type != "cuda", f"the run is on {device}"),
+        (mesh is not None and (mesh.size > 1 or mesh.model is not None),
+         "the run is data or tensor parallel (gloo collectives cannot be captured)"),
+        (config.anomaly_detection, "anomaly_detection checks on the host"),
+        (config.profile, "profile traces the eager step's operations"),
+    ) if bad]
+    if graph and reasons:
+        raise ValueError(f"graph=True, but the step runs eager: {'; '.join(reasons)}")
+    return not reasons if graph is None else bool(graph)
+
+
+def train_soft_intro_vae(config: Config, device: Optional[torch.device] = None,
+                         graph: Optional[bool] = None) -> TrainState:
     """Run one training job from a Config; returns the final TrainState,
     whose ``history`` holds one record per step (losses, epoch, step and
-    seconds) and ``samples`` the decode after the last epoch."""
+    seconds) and ``samples`` the decode after the last epoch. ``graph``:
+    ``graph_step``'s."""
     with true_fp32(config.precision):
-        return _train(config, device)
+        return _train(config, device, graph)
 
 
 @dataclasses.dataclass
@@ -228,9 +260,11 @@ class Run:
         return self.mesh if self.mesh.size > 1 or self.mesh.model is not None else None
 
 
-def setup(config: Config, device: Optional[torch.device] = None) -> Run:
+def setup(config: Config, device: Optional[torch.device] = None,
+          graph: Optional[bool] = None) -> Run:
     """Seeding, dataset, model, optimizers, loader, solver and a fresh
-    state, as a run starts (reference train.py:38-192)."""
+    state, as a run starts (reference train.py:38-192). ``graph``:
+    ``graph_step``'s."""
     validate_config(config)
     check_ported(config)
     distributed = initialize_distributed()
@@ -288,7 +322,7 @@ def setup(config: Config, device: Optional[torch.device] = None) -> Run:
                           device_cache=config.device_cache,
                           device_cache_budget_mb=config.device_cache_budget_mb,
                           stack_steps=max(1, config.scan_steps))
-    solver = build_solver(config, train_set, encoder, decoder, mesh, writer)
+    solver = build_solver(config, train_set, encoder, decoder, mesh, writer, graph)
     # every rank the same weights, then each model rank its slices
     state = shard_state(replicate_state(solver.init_state(seed), mesh), mesh)
     return Run(seed=seed, device=device, mesh=mesh, loader=loader, solver=solver,
@@ -296,9 +330,11 @@ def setup(config: Config, device: Optional[torch.device] = None) -> Run:
 
 
 def build_solver(config: Config, dataset, encoder, decoder, mesh,
-                 writer=None) -> VAESolver:
+                 writer=None, graph: Optional[bool] = None) -> VAESolver:
     """The config's solver over these modules, with fresh optimizer
-    factories (reference train.py:140-192)."""
+    factories (reference train.py:140-192); its step graphed as
+    ``graph_step`` decides, on the modules' device."""
+    device = next(encoder.parameters()).device
     return make_solver(
         config.solver,
         dataset=dataset,
@@ -325,11 +361,13 @@ def build_solver(config: Config, dataset, encoder, decoder, mesh,
         mesh=mesh,
         scan_steps=max(1, config.scan_steps),
         remat_passes=config.remat == "pass",
+        graph=graph_step(config, device, mesh, graph),
     )
 
 
-def _train(config: Config, device: Optional[torch.device]) -> TrainState:
-    run = setup(config, device)
+def _train(config: Config, device: Optional[torch.device],
+           graph: Optional[bool]) -> TrainState:
+    run = setup(config, device, graph)
     solver, loader, group, say, writer = (run.solver, run.loader, run.group, run.say,
                                           run.writer)
     state = run.state
@@ -404,9 +442,8 @@ def _train(config: Config, device: Optional[torch.device]) -> TrainState:
                 with (profile_trace(trace_dir, enabled=config.profile),
                       contextlib.closing(iter(loader)) as batches):
                     for batch in batches:
-                        batch = normalize_input(batch)  # uint8 paths: on the device
-                        if config.anomaly_detection:
-                            check_unit_range(batch)
+                        if config.anomaly_detection:  # uint8 paths: normalized here
+                            check_unit_range(normalize_input(batch))
                         timer.start()
                         state, _ = solver.train_step(state, batch)
                         timer.stop()

@@ -54,6 +54,7 @@ from intro_tc_vae_tpu_torch.parallel.mesh import (
     shard_optimizer_state_dict,
     shard_state_dict,
 )
+from intro_tc_vae_tpu_torch.solvers.optim import load_state_dict
 
 _in_flight: Optional[threading.Thread] = None
 _failure: list = []  # the exception of a background write, raised on the next wait
@@ -181,9 +182,8 @@ def save_checkpoint(
 
 def _read(path: str, group) -> dict:
     """The payload, on the host: ``load_state_dict`` then copies each
-    tensor onto its parameter's device, except the step counts of
-    ``torch.optim``'s optimizers, which it keeps on the host, where those
-    optimizers read them."""
+    tensor onto its parameter's device, and each step count where the
+    target optimizer reads it (``solvers/optim.py::load_state_dict``)."""
     if _is_writer(group):
         finalize_checkpoints()  # never read while a save is in flight
     _barrier(group)
@@ -202,7 +202,7 @@ def load_checkpoint(path: str, target_state: Optional[Any] = None, group=None):
     _load_model(_model(target_state), payload)
     for key in ("opt_e", "opt_d"):
         opt = getattr(target_state, key)
-        opt.load_state_dict(shard_optimizer_state_dict(opt, payload[key]))
+        load_state_dict(opt, shard_optimizer_state_dict(opt, payload[key]))
     target_state.step = int(payload["step"])
     return target_state, int(payload["epoch"])
 

@@ -397,7 +397,7 @@ def port_arms(dsprites_root, tmp_path_factory):
     """The port's trainer in the float32 and uint8 arms: the batches each
     step saw and the history."""
     from intro_tc_vae_tpu_torch import train
-    from intro_tc_vae_tpu_torch.solvers.base import VAESolver
+    from intro_tc_vae_tpu_torch.solvers.base import VAESolver, normalize_input
 
     runs = {}
     mp = pytest.MonkeyPatch()
@@ -408,7 +408,8 @@ def port_arms(dsprites_root, tmp_path_factory):
             seen = []
 
             def spy(self, state, batch, noise=None, seen=seen):
-                seen.append(batch.clone())
+                # as the step sees it: train_step normalizes a uint8 batch
+                seen.append(normalize_input(batch).clone())
                 return step(self, state, batch, noise)
 
             mp.setattr(VAESolver, "train_step", spy)

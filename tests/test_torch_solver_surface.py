@@ -560,7 +560,7 @@ def scan_runs(request, dsprites_root, tmp_path_factory):
     from intro_tc_vae_tpu.data.loader import CachedBatch, gather_cached
     from intro_tc_vae_tpu_torch import train
     from intro_tc_vae_tpu_torch.data import datasets
-    from intro_tc_vae_tpu_torch.solvers.base import VAESolver
+    from intro_tc_vae_tpu_torch.solvers.base import VAESolver, normalize_input
     from intro_tc_vae_tpu_torch.utils.writer import SingletonWriter
 
     k, arm = SCAN_ARMS[request.param]
@@ -580,7 +580,8 @@ def scan_runs(request, dsprites_root, tmp_path_factory):
 
     try:
         port = _trainer_run(datasets, train, VAESolver, dsprites_root, port_config,
-                            tmp / "port", lambda b: b.float().permute(0, 1, 3, 4, 2))
+                            tmp / "port",
+                            lambda b: normalize_input(b).float().permute(0, 1, 3, 4, 2))
         jax_ = _trainer_run(jdatasets, T, jbase.VAESolver, dsprites_root, jax_config,
                             tmp / "jax", lambda b: jbase.u8_to_unit_f32(jgather(b))
                             if jgather(b).dtype == jnp.uint8 else jgather(b))

@@ -175,13 +175,15 @@ def test_options_that_once_raised_train_on_the_ukiyo_fixture(tmp_path, monkeypat
 
 
 def _capture_steps(monkeypatch) -> list:
-    """Every batch the solvers step on from now on."""
-    from intro_tc_vae_tpu_torch.solvers.base import VAESolver
+    """Every batch the solvers step on from now on, as the step sees it:
+    ``train_step`` takes the batch as it crossed (uint8 on the uint8 and
+    cache paths) and normalizes it on the device, as the JAX step does."""
+    from intro_tc_vae_tpu_torch.solvers.base import VAESolver, normalize_input
 
     stepped, step = [], VAESolver.train_step
 
     def spy(self, state, batch, noise=None):
-        stepped.append(batch)
+        stepped.append(normalize_input(batch))
         return step(self, state, batch, noise)
 
     monkeypatch.setattr(VAESolver, "train_step", spy)
