@@ -138,11 +138,15 @@ result line):
    kernels 3 + 2 calls x 3 kernels a step and no conv kernel, host img/s
    and device ms/step, and one fp32 step with the TC kernels against the
    float64 plain TC at phase 5's gate; (b) remat false, "block" and "pass"
-   on the flagship (tc and conv 'pallas') through the trainer's setup, 5
-   steps at batch 64 and at 256, cuDNN deterministic: the launches of each
-   phase equal ``expected_intro_launches`` (recompute launches each routed
-   conv's forward once more), "block" and "pass" bit-equal to false, peak
-   device memory and device ms/step of each; (c) scan_steps 4 against 1 on
+   on the flagship (tc and conv 'pallas') through the trainer's setup, 7
+   steps at batch 64 and at 256, cuDNN deterministic, each eager and then
+   graphed: the launches of each phase equal ``expected_intro_launches``
+   (recompute launches each routed conv's forward once more), "block" and
+   "pass" bit-equal to false, graphed metrics bit-equal to eager, peak
+   device memory and device ms/step of each, and the graphed peak within
+   ``memory_gate``'s bound of the eager one (the graph's static buffers
+   plus the allocator's fragmentation), nothing left allocated by a
+   graphed run; (c) scan_steps 4 against 1 on
    an ARC Ukiyo-E layout with the device cache, 20 steps through the CLI:
    bit-equal, img/s of each; (d) kl_kind 'tc_full' and tc_sampling
    'weighted', one step each with the writer on: finite, the tc_decomp
@@ -185,7 +189,7 @@ result line):
    and an ARC Ukiyo-E layout pass; an npz without ``latents_values`` and
    batch 4096 fail with exit 1; its activation estimate beside
    ``max_memory_allocated`` over 3 flagship steps at batch 64, remat
-   false and "pass".
+   false and "pass", eager and graphed, held to ``memory_gate``.
 
 14. Tensor parallelism (``phase_tensor_parallel``), in temporary
    directories: the flagship at full width (tc and conv 'pallas', 10
@@ -222,8 +226,33 @@ result line):
    same graphed run (it captures again) against the uninterrupted run,
    both bit-equal.
 
+16. The harnesses (``phase_harnesses``), in a temporary directory: every
+   module of ``intro_tc_vae_tpu_torch.analysis`` ported with this phase
+   through its entry point on the card. (a) ``bench_conv_kernel`` at
+   [64, 64, 64, 64] bf16: its equality check (relative 3e-2 against cuDNN)
+   and its launch check passed, the hand kernels launched in the pallas
+   and hybrid arms and none in cuDNN's. (b) ``ceiling``: the flagship's
+   operations a step equal to the closed form of its products and its TC
+   calls, the sustained bf16 rate, and ``--measure`` (the kernels
+   launched). (c) ``doctor_rehearsal``: exit codes 0, 0, 0, 1, 1, 1. (d)
+   ``stability_report`` and ``run_vis`` on a 10-step flagship run with
+   the writer on: every curve finite at every step. (e) ``model_vis``: its
+   entry point, then encodes and traversal decodes on the card against the
+   CPU (fp32, ``MODEL_VIS_RTOL``). (f) ``eval_config5_trend`` on
+   synthetic128, 4 steps, 2 eval points: points at 0, 2, 4, finite, no
+   .partial.json left. (g) ``scaling_comms`` on 2 ranks at the flagship's
+   widths: bytes at the closed-form sites equal. A figure or projection
+   that needs matplotlib or sklearn, where they do not import, is named
+   as not drawn.
+
 Each phase prints its seconds. Then one JSON line describing the kernels,
 and as the last line ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --memory`` instead builds the kernels and runs
+MEMORY_RUNS: the flagship's peak device memory eager (Adam capturable and
+not) and graphed (warm-up only; through a capture and 5 replays), each
+run's blocks live at its peak by site against the eager run's, and what
+each run leaves allocated once it is gone.
 
 ``python3 chip_smoke.py --device-time`` instead builds the kernels and
 profiles the flagship's four arms, and then configs/vae_synthetic.json
@@ -351,27 +380,13 @@ def fp32_exact():
 
 def median_ms(fn, reps: int = 21, inner: int = 10) -> float:
     """Median over `reps` of the CUDA-event time of `inner` back-to-back
-    calls, per call, after a warm-up. The calls are enqueued behind a few
-    milliseconds of device sleep, so that the events bracket device time
-    and not the host's enqueue (a wrapper takes 20-90 us of host time, more
-    than some of the kernels)."""
-    import torch
+    calls, per call, after a warm-up, behind a device sleep
+    (``intro_tc_vae_tpu_torch/analysis/_timing.py``, which the harnesses
+    share): the events bracket device time and not the host's enqueue (a
+    wrapper takes 20-90 us of host time, more than some of the kernels)."""
+    from intro_tc_vae_tpu_torch.analysis._timing import median_ms as timed
 
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(8_000_000)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return sorted(times)[len(times) // 2]
+    return timed(fn, "cuda", reps=reps, inner=inner)
 
 
 def bound(bytes_moved: float, ops: float, kind: str) -> dict:
@@ -2585,22 +2600,135 @@ def seeded_flips(seed: int):
         datasets.UkiyoE.__init__ = init
 
 
-def trainer_setup(update: dict, steps: int):
+def trainer_setup(update: dict, steps: int, graph=None):
     """The flagship through the trainer's own ``setup`` (seed, model,
-    optimizers, loader, solver) and the first ``steps`` batches of its
+    optimizers, loader, solver; the step graphed or not as ``graph`` says,
+    by the trainer's rule when None) and the first ``steps`` batches of its
     loader (epoch after epoch), on the card."""
     from intro_tc_vae_tpu_torch.config import load_config
     from intro_tc_vae_tpu_torch.solvers.base import normalize_input
     from intro_tc_vae_tpu_torch.train import setup
 
     run = setup(load_config(FLAGSHIP, {"dataset": "synthetic", "use_tensorboard": False,
-                                       **update}))
+                                       **update}), graph=graph)
     run.state.model.train()
     batches = []
     while len(batches) < steps:
         with contextlib.closing(iter(run.loader)) as epoch:
             batches.extend(normalize_input(b) for b in epoch)
     return run, batches[:steps]
+
+
+# Bytes a block of the caching allocator's large pool (requests over 1
+# MiB) may hold beyond its rounded request: a cached block is handed out
+# whole unless what would remain is more than 1 MiB (kSmallSize). Small
+# blocks are split down to their 512-byte rounding.
+LARGE_BLOCK_SLACK = 2 ** 20
+
+
+def graph_static_bytes(graphed) -> int:
+    """What a graphed step holds beyond an eager one: its static batch,
+    noise and metrics row, each rounded to the allocator's 512 bytes."""
+    tensors = [graphed._batch, *graphed._noise.values(), graphed._out]
+    return sum(-(-t.numel() * t.element_size() // 512) * 512
+               for t in tensors if t is not None)
+
+
+def warm_workspaces() -> int:
+    """Matrix products (cuBLAS's and cuBLASLt's, bf16 and fp32), forward
+    and backward, on the current stream and on the stream every
+    ``torch.cuda.graph`` captures on by default, then one throwaway
+    capture. PyTorch gives each (thread, stream) that first runs a product
+    its own cuBLAS and cuBLASLt workspaces and keeps them for the process's
+    life, and a backward runs on autograd's own thread; without this, the
+    first run in a process to reach a stream would leave them behind.
+    Returns what it left allocated: the workspaces the first time in a
+    process, 0 after."""
+    import gc
+
+    import torch
+
+    x = [torch.ones(64, 64, device="cuda", dtype=dt, requires_grad=True)
+         for dt in (torch.bfloat16, torch.float32)]
+    graph = torch.cuda.CUDAGraph()
+    capture = torch.cuda.graph(graph)
+
+    def products(backward: bool):
+        for t in x:
+            y = torch.mm(t, t) + torch.addmm(t[0], t, t)
+            if backward:
+                y.sum().backward()
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    products(True)
+    capture.capture_stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(capture.capture_stream):
+        products(True)
+    torch.cuda.synchronize()
+    with torch.no_grad(), capture:
+        products(False)
+    del graph, capture, x
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated() - before
+
+
+def memory_of(fn) -> dict:
+    """``fn()``'s dict (it builds its run, steps it and lets it go) with the
+    run's device memory: ``peak_bytes`` (max_memory_allocated since the
+    last reset, which ``fn`` makes after its set-up), ``large_blocks_peak``
+    (the most large-pool blocks live at once) and ``left_bytes`` (what is
+    still allocated once the run is gone, against before it). The
+    streams' matrix-product workspaces are allocated first
+    (``warm_workspaces``), so what a run leaves does not depend on whether
+    an earlier phase has run a product or captured."""
+    import gc
+
+    import torch
+
+    warm_workspaces()
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    gc.collect()
+    torch.cuda.synchronize()
+    stats = torch.cuda.memory_stats()
+    out.update(peak_bytes=stats["allocated_bytes.all.peak"],
+               large_blocks_peak=stats["allocation.large_pool.peak"],
+               left_bytes=torch.cuda.memory_allocated() - before)
+    return out
+
+
+def memory_gate(phase: str, label: str, eager: dict, graphed: dict, card: str) -> None:
+    """Fail the phase when the graphed run's peak exceeds the eager run's
+    (same configuration, same batches, run just before it) by more than
+    what a graph must hold: its static buffers (``graph_static_bytes``)
+    plus the allocator's fragmentation, at most LARGE_BLOCK_SLACK for each
+    large-pool block live at the graphed peak (the graph's private pool
+    hands out and splits blocks by the same rules as the default pool, so
+    one run may round a large block up by as much as the other rounds it
+    down); or when the graphed run leaves more than its static buffers
+    allocated once it is gone (no per-stream workspace, no pool: the
+    workspaces of the current and the capture stream were allocated
+    before either run, by ``memory_of``)."""
+    mib = 2 ** 20
+    over = graphed["peak_bytes"] - eager["peak_bytes"]
+    frag = LARGE_BLOCK_SLACK * graphed["large_blocks_peak"]
+    bound = graphed["static_bytes"] + frag
+    print(f"{phase}: {label}: peak device memory eager {eager['peak_bytes'] / mib:,.1f} MiB, "
+          f"graphed {graphed['peak_bytes'] / mib:,.1f} MiB ({over / mib:+,.1f}; bound "
+          f"{bound / mib:,.1f} = static buffers {graphed['static_bytes'] / mib:,.2f} + "
+          f"{graphed['large_blocks_peak']} large blocks x 1 MiB); left allocated after the "
+          f"run: eager {eager['left_bytes'] / mib:,.2f}, graphed "
+          f"{graphed['left_bytes'] / mib:,.2f} MiB on {card}")
+    if over > bound:
+        die(f"{phase}: {label}: the graphed peak exceeds the eager peak by "
+            f"{over / mib:,.1f} MiB, over the bound of {bound / mib:,.1f} MiB")
+    if graphed["left_bytes"] > graphed["static_bytes"]:
+        die(f"{phase}: {label}: the graphed run left {graphed['left_bytes'] / mib:,.2f} MiB "
+            f"allocated once it was gone")
 
 
 def profiled_run(label: str, solver, state, batches: list, active: int = 3,
@@ -2645,17 +2773,20 @@ def profiled_run(label: str, solver, state, batches: list, active: int = 3,
             die(f"{phase}: {label}: non-finite metrics {m}")
     return {"device_ms": device_us / active / 1e3,
             "peak_bytes": torch.cuda.max_memory_allocated(),
+            "static_bytes": graph_static_bytes(graphed) if graphed is not None else 0,
             "phase_e": dict(phase_e), "phase_d": dict(phase_d), "metrics": metrics,
             "state": {k: v.detach().cpu() for k, v in state.model.state_dict().items()}}
 
 
 def remat_runs(steps: int) -> dict:
     """Phase 11 (b): the flagship (tc and conv 'pallas') in every remat
-    mode at every batch of REMAT_BATCHES, each from the same weights, the
-    same generator seed and the same batches (one trainer set-up at the
-    largest batch; a smaller batch is the first rows of each): the models'
-    ``remat`` for "block", the solver's ``remat_passes`` for "pass", fresh
-    optimizers for every run (``build_solver``, as ``setup`` builds it)."""
+    mode at every batch of REMAT_BATCHES, eager and then graphed, each from
+    the same weights, the same generator seed and the same batches (one
+    trainer set-up at the largest batch; a smaller batch is the first rows
+    of each): the models' ``remat`` for "block", the solver's
+    ``remat_passes`` for "pass", fresh optimizers for every run
+    (``build_solver``, as ``setup`` builds it); {(batch, mode, graphed):
+    ``profiled_run``'s dict with ``memory_of``'s figures}."""
     from intro_tc_vae_tpu_torch.config import load_config
     from intro_tc_vae_tpu_torch.train import build_solver
 
@@ -2667,21 +2798,23 @@ def remat_runs(steps: int) -> dict:
     init = {k: v.clone() for k, v in model.state_dict().items()}
     del run.state, run.solver  # their optimizers hold no state yet
 
-    def one(b: int, mode) -> dict:
+    def one(b: int, mode, graph: bool) -> dict:
         model.load_state_dict(init)
         model.encoder.remat = model.decoder.remat = mode in (True, "block")
         config = load_config(FLAGSHIP, {"dataset": "synthetic", **base, "batch_size": b,
                                         "remat": mode})
         solver = build_solver(config, run.loader.dataset, model.encoder, model.decoder,
-                              run.mesh)
+                              run.mesh, graph=graph)
         return profiled_run(f"batch {b} remat {mode!r}", solver, solver.init_state(run.seed),
                             [x[:b] for x in batches])
 
     out = {}
     for b in REMAT_BATCHES:
         for mode in REMAT_MODES:
-            gc.collect()  # the last run's optimizer states, before the peak is reset
-            out[(b, mode)] = one(b, mode)
+            for graph in (False, True):
+                # the last run's optimizer states go before the peak is reset
+                gc.collect()
+                out[(b, mode, graph)] = memory_of(lambda: one(b, mode, graph))
     return out
 
 
@@ -2695,11 +2828,13 @@ def phase_solver_surface(card: str) -> dict:
     one fp32 step with the TC kernels against the plain TC in float64 at
     phase 5's gate (metrics rtol 1e-4, updated params atol 1e-5).
     (b) remat false, "block" and "pass" on the flagship (tc and conv
-    'pallas') from one trainer set-up (``remat_runs``), 5 steps each at
-    batch 64 and 256, cuDNN deterministic: the launches of each phase equal to
-    ``expected_intro_launches``; metrics, parameters and BatchNorm
-    statistics of "block" and "pass" bit-equal to remat false's; peak
-    device memory and device ms per step of each.
+    'pallas') from one trainer set-up (``remat_runs``), SURFACE_STEPS steps
+    each at batch 64 and 256, eager and then graphed, cuDNN deterministic:
+    the launches of each phase equal to ``expected_intro_launches``;
+    metrics, parameters and BatchNorm statistics of "block" and "pass"
+    bit-equal to remat false's, graphed metrics to eager's; peak device
+    memory and device ms per step of each, the graphed peak held to the
+    eager one by ``memory_gate``.
     (c) scan_steps 4 against 1 on the flagship config on an ARC Ukiyo-E
     layout (``write_ukiyo``) with the device cache engaged, through the
     CLI, cuDNN deterministic, the flips seeded (``seeded_flips``): the 20
@@ -2802,7 +2937,11 @@ def solver_surface(card: str, work: str) -> dict:
     # (b) remat
     with cudnn_deterministic():
         remat = remat_runs(SURFACE_STEPS)
-    for (b, mode), r in remat.items():
+    for (b, mode, graph), r in remat.items():
+        if not graph:
+            continue
+        memory_gate("phase 11 (b)", f"batch {b}, remat {mode!r}", remat[(b, mode, False)], r,
+                    card)
         if b == MAIN_B:
             want_e, want_d = expected_intro_launches("pallas", "pallas", bool(mode))
             for label, got, want in (("phase E", r["phase_e"], want_e),
@@ -2811,14 +2950,19 @@ def solver_surface(card: str, work: str) -> dict:
                 if got != want:
                     die(f"phase 11 (b): remat {mode!r}: {label} launches {got}, "
                         f"expected {want}")
-        base = remat[(b, False)]
+        if r["metrics"] != remat[(b, mode, False)]["metrics"]:
+            die(f"phase 11 (b): batch {b}: remat {mode!r}: graphed metrics differ from eager")
+        base = remat[(b, False, True)]
         if r["metrics"] != base["metrics"] or any(
                 not torch.equal(v, base["state"][k]) for k, v in r["state"].items()):
             die(f"phase 11 (b): batch {b}: remat {mode!r} differs from remat false "
                 "(metrics, parameters or BatchNorm statistics)")
-    table = {f"batch {b}": {str(mode): {"peak_MiB": remat[(b, mode)]["peak_bytes"] / 2**20,
-                                        "device_ms": remat[(b, mode)]["device_ms"]}
-                            for mode in REMAT_MODES} for b in REMAT_BATCHES}
+    table = {f"batch {b}": {str(mode): {
+        "peak_MiB": remat[(b, mode, True)]["peak_bytes"] / 2**20,
+        "eager_peak_MiB": remat[(b, mode, False)]["peak_bytes"] / 2**20,
+        "device_ms": remat[(b, mode, True)]["device_ms"],
+        "eager_device_ms": remat[(b, mode, False)]["device_ms"]}
+        for mode in REMAT_MODES} for b in REMAT_BATCHES}
     out["remat"] = table
     print(f"phase 11 (b): remat false / block / pass, flagship, tc and conv pallas, "
           f"{SURFACE_STEPS} steps each, cuDNN deterministic: launches per phase equal the "
@@ -3439,24 +3583,30 @@ def doctor_on_card(work: str, card: str) -> None:
                 f"expected '{line}':\n{out}")
         print(f"phase 13 (e): doctor, {label}: exit {rc}; {memory[0].strip()}")
 
-    for mode in (False, "pass"):
-        gc.collect()
-        torch.cuda.empty_cache()
+    def three_steps(mode, graph: bool) -> dict:
         run_, batches = trainer_setup({"tc_impl": "pallas", "conv_impl": "pallas",
-                                       "remat": mode}, 3)
+                                       "remat": mode}, 3, graph=graph)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for batch in batches:
             _, metrics = run_.solver.train_step(run_.state, batch)
             run_.solver.check_finite(metrics)
         torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated()
+        graphed = run_.solver.graphed
+        return {"static_bytes": graph_static_bytes(graphed) if graphed is not None else 0}
+
+    for mode in (False, "pass"):
+        torch.cuda.empty_cache()
+        eager, graphed = (memory_of(lambda: three_steps(mode, g)) for g in (False, True))
+        memory_gate("phase 13 (e)", f"3 steps at batch {MAIN_B}, remat {mode!r}", eager,
+                    graphed, card)
         est, _ = doctor.activation_estimate(
             load_config(FLAGSHIP, {"dataset": "synthetic", "remat": mode}))
-        print(f"phase 13 (e): batch {MAIN_B}, remat {mode!r}: doctor estimate "
-              f"{est / 2**20:,.0f} MiB, max_memory_allocated over 3 steps "
-              f"{peak / 2**20:,.0f} MiB, ratio {est / peak:.3f} on {card}")
-        del run_, batches
+        for label, r in (("eager", eager), ("graphed", graphed)):
+            peak = r["peak_bytes"]
+            print(f"phase 13 (e): batch {MAIN_B}, remat {mode!r}, {label}: doctor estimate "
+                  f"{est / 2**20:,.0f} MiB, max_memory_allocated over 3 steps "
+                  f"{peak / 2**20:,.0f} MiB, ratio {est / peak:.3f} on {card}")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4011,6 +4161,237 @@ def phase_graphed_step(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the harnesses
+# ---------------------------------------------------------------------------
+
+HARNESS_STEPS = 10        # (d): the flagship with the writer on, synthetic cut to 10 steps
+MODEL_VIS_SAMPLES = 256   # (e): images encoded on the card and on the CPU
+# (e): fp32 with TF32 off on both sides: cuDNN's and the CPU's convolutions
+# sum in other orders, a few float32 ulps of a reduction over up to 4,608
+# products (3 x 3 x 512) a layer through 4 stages; the bound is on the
+# largest difference over the largest magnitude
+MODEL_VIS_RTOL = 1e-4
+
+
+def relative_err(a, b) -> float:
+    import numpy as np
+
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def harness_model_vis(card: str, work: str) -> None:
+    """(e) ``model_vis``: its entry point on the card (fresh flagship-width
+    weights, ``synthetic``), then the encodes of MODEL_VIS_SAMPLES images
+    and the traversal decodes of the first image's code on the card
+    against the same weights on the CPU."""
+    import copy
+
+    import torch
+
+    from intro_tc_vae_tpu_torch.analysis import model_vis
+    from intro_tc_vae_tpu_torch.train import true_fp32
+
+    r = model_vis.main(["--dataset", "synthetic", "--arch", "conv", "--z-dim", "128",
+                        "--out", os.path.join(work, "modelvis")])
+    torch.manual_seed(0)
+    solver, state, ds = model_vis.build_model("conv", 128, "synthetic", device="cuda")
+    if r["encoded"] != min(2000, len(ds)):
+        die(f"phase 16 (e): model_vis encoded {r['encoded']} of {len(ds)} images")
+    cpu_solver, cpu_state, _ = model_vis.build_model("conv", 128, "synthetic", device="cpu")
+    cpu_state.model.load_state_dict(copy.deepcopy(state.model.state_dict()))
+    with true_fp32("fp32"):
+        z, labels = model_vis.encode_dataset(solver, state, ds, MODEL_VIS_SAMPLES)
+        z_cpu, labels_cpu = model_vis.encode_dataset(cpu_solver, cpu_state, ds,
+                                                     MODEL_VIS_SAMPLES)
+        rows = model_vis.traversals(state, z_cpu[0])
+        rows_cpu = model_vis.traversals(cpu_state, z_cpu[0])
+    enc_err = relative_err(z, z_cpu)
+    dec_err = max(relative_err(a, b) for a, b in zip(rows, rows_cpu))
+    if (labels != labels_cpu).any() or enc_err > MODEL_VIS_RTOL or dec_err > MODEL_VIS_RTOL:
+        die(f"phase 16 (e): model_vis on the card vs the CPU: encodes {enc_err:.3g}, "
+            f"traversal decodes {dec_err:.3g} (bound {MODEL_VIS_RTOL})")
+    print(f"phase 16 (e): model_vis: {r['encoded']} images encoded on the card; drawn "
+          f"{r['drawn']}, not drawn {r['not_drawn']} (projections: "
+          + json.dumps(r["projections"]) + f"); {MODEL_VIS_SAMPLES} encodes and "
+          f"{len(rows)} x {len(rows[0])} traversal decodes on the card vs the CPU, fp32: "
+          f"largest difference over the largest magnitude {enc_err:.3g} / {dec_err:.3g} "
+          f"(bound {MODEL_VIS_RTOL}) on {card}")
+
+
+def harness_trend(card: str, work: str) -> None:
+    """(f) ``eval_config5_trend`` on synthetic128, --steps 4 --eval-points
+    2: points at steps 0, 2 and 4, every value finite, no .partial.json
+    left; the TC and conv kernels ran."""
+    import math
+
+    from intro_tc_vae_tpu_torch.analysis import eval_config5_trend
+
+    out = os.path.join(work, "trend")
+    reset_all_launches()
+    r = eval_config5_trend.main(["--steps", "4", "--eval-points", "2", "--out", out])
+    launched = all_launches()
+    points = r["points"]
+    values = {k: v for p in points for k, v in p.items() if isinstance(v, float)}
+    if [p["step"] for p in points] != [0, 2, 4] or not all(map(math.isfinite, values.values())):
+        die(f"phase 16 (f): eval_config5_trend points {points}")
+    if os.path.exists(out + ".partial.json") or not os.path.exists(out + ".json"):
+        die("phase 16 (f): eval_config5_trend left its .partial.json or wrote no .json")
+    if not launched["tc_fwd"] or not launched["conv3x3_fwd_wgmma"]:
+        die(f"phase 16 (f): the 128 px steps launched {launched}")
+    errors = sorted(k for p in points for k in p if k.endswith("_error"))
+    print(f"phase 16 (f): eval_config5_trend, synthetic128, 4 steps: points at 0, 2, 4, finite "
+          f"(" + ", ".join(f"step {p['step']}: fid_final_encoder {p['fid_final_encoder']}, "
+                           f"mig {p.get('mig_score')}" for p in points)
+          + f"); families failed for want of a package: {sorted(set(errors))}; figure "
+          + ("drawn" if os.path.exists(out + ".png") else f"{os.path.basename(out)}.png not drawn "
+             "(matplotlib does not import)")
+          + f"; no .partial.json left; {r['total_seconds']} s on {card}")
+
+
+def harness_comms(card: str) -> None:
+    """(g) ``scaling_comms`` on 2 ranks at the flagship's widths: every
+    phase's bytes at the gradient average, the metric average and the TC's
+    bank gather equal to their closed forms, on both ranks."""
+    from intro_tc_vae_tpu_torch.analysis import scaling_comms
+
+    ranks = scaling_comms.run_ranks(2, tiny=False, device="cuda")
+    bad = [f"rank {r}: {m}" for r, res in enumerate(ranks)
+           for m in scaling_comms.mismatches(res)]
+    if bad:
+        die("phase 16 (g): scaling_comms: " + "; ".join(bad))
+    scaling_comms.print_table(ranks[0])
+    print("phase 16 (g): scaling_comms, 2 ranks sharing the card over gloo, flagship widths: "
+          "bytes a step at the closed-form sites equal on both ranks "
+          + json.dumps({p: r["expected"] for p, r in ranks[0].items() if p != "meta"})
+          + f" on {card}")
+
+
+def phase_harnesses(card: str) -> dict:
+    """Phase 16: every ported harness of ``intro_tc_vae_tpu_torch.analysis``
+    through its entry point on the card, the outputs in a temporary
+    directory. (a) ``bench_conv_kernel`` at batch 64, 64 x 64: its
+    on-card equality check and its launch check passed, the hand kernels
+    launched in the pallas and hybrid arms and none in cuDNN's. (b)
+    ``ceiling``: the flagship's count of one step equal to the closed form
+    of its products (``ceiling.products_from_shapes``) plus 5 TC calls'
+    operations,
+    the sustained bf16 rate, and ``--measure`` for the flagship (the TC and
+    conv kernels launched). (c) ``doctor_rehearsal``: exit codes 0, 0, 0,
+    1, 1, 1. (d) ``stability_report`` and ``run_vis`` on the flagship's
+    TensorBoard run written here (HARNESS_STEPS steps, writer on): every
+    curve finite at every step. (e) ``model_vis`` (``harness_model_vis``).
+    (f) ``eval_config5_trend`` (``harness_trend``). (g) ``scaling_comms``
+    (``harness_comms``). Where matplotlib or sklearn does not import, the
+    harnesses name the figures and projections they did not draw."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from intro_tc_vae_tpu_torch.analysis import (
+        bench_conv_kernel,
+        ceiling,
+        doctor_rehearsal,
+        run_vis,
+        stability_report,
+    )
+    from intro_tc_vae_tpu_torch.config import load_config
+    from intro_tc_vae_tpu_torch.train import train_soft_intro_vae
+
+    dev = torch.device("cuda", 0)
+    work = tempfile.mkdtemp(prefix="chip_smoke_phase16_")
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(part: str) -> None:
+        nonlocal t0
+        seconds[part] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
+    out = {}
+    try:
+        # (a)
+        r = bench_conv_kernel.main(["--batch", "64", "--size", "64"])
+        ran = {name: arm["launches"] for name, arm in r["arms"].items()}
+        if (not r["equal"] or not r["launches_ok"] or ran["fwd xla"] or ran["fwd+bwd xla"]
+                or not all(ran[n] for n in ("fwd pallas", "fwd+bwd pallas", "fwd+bwd hybrid"))):
+            die(f"phase 16 (a): bench_conv_kernel: equal {r['equal']}, launches {ran}")
+        out["bench_conv_kernel"] = {k: round(a["us"], 1) for k, a in r["arms"].items()}
+        print(f"phase 16 (a): bench_conv_kernel [64, 64, 64, 64] bf16: equal to cuDNN (rel "
+              + json.dumps({k: round(e["rel"], 5) for k, e in r["check"].items()})
+              + f" < {bench_conv_kernel.REL_TOL}); one call's launches " + json.dumps(ran)
+              + "; us " + json.dumps(out["bench_conv_kernel"]) + "; TFLOP/s "
+              + json.dumps({k: round(a["tflops"], 1) for k, a in r["arms"].items()})
+              + f" on {card}")
+        lap("(a)")
+        # (b)
+        reset_all_launches()
+        c = ceiling.main(["--measure", "--only", f"intro_tc:64:{MAIN_B}"])
+        launched = all_launches()
+        row, = c["rows"]
+        solver, state, x = ceiling.build("intro_tc", 64, MAIN_B, dev)
+        want = ceiling.products_from_shapes(solver, state, x)
+        tc_want = 5 * ceiling.tc_call_ops(MAIN_B, Z_DIM, True)
+        del solver, state, x
+        count = row["step_flops"]
+        if count["products"] != want or count["tc"] != tc_want:
+            die(f"phase 16 (b): ceiling counted {count}, closed form products {want}, "
+                f"TC {tc_want}")
+        if not launched["tc_fwd"] or not launched["conv3x3_fwd_wgmma"]:
+            die(f"phase 16 (b): ceiling --measure launched {launched}")
+        out["ceiling"] = c
+        print(f"phase 16 (b): ceiling, flagship: {count['total']:,} operations a step "
+              f"(products {count['products']:,} = the closed form; TC {count['tc']:,}), "
+              f"{row['gflop_per_image']} GFLOP/image; sustained bf16 "
+              f"{c['sustained_tflops']:.1f} TFLOP/s (nominal {ceiling.NOMINAL_TFLOPS}); ceiling "
+              f"{row['ceiling_img_s']} img/s; measured {row['measured_img_s']} img/s graphed, "
+              f"{row['pct_of_ceiling']} % of the ceiling on {card}")
+        lap("(b)")
+        # (c)
+        r = doctor_rehearsal.main(["--out", os.path.join(work, "doctor_rehearsal.txt")])
+        exits = [case["exit"] for case in r["cases"]]
+        if exits != [0, 0, 0, 1, 1, 1]:
+            die(f"phase 16 (c): doctor_rehearsal exit codes {exits}, expected 0 0 0 1 1 1")
+        print(f"phase 16 (c): doctor_rehearsal: exit codes {exits}; "
+              + "; ".join(f"{case['title']}: " + ", ".join(
+                  f"{st} {check}" for st, check in case["lines"] if st in ("FAIL", "WARN"))
+                  for case in r["cases"]))
+        lap("(c)")
+        # (d)
+        log = os.path.join(work, "runs")  # the writer's run: log_dir + the run's comment
+        with synthetic_steps(HARNESS_STEPS):
+            train_soft_intro_vae(load_config(FLAGSHIP, {
+                "dataset": "synthetic", "tc_impl": "pallas", "conv_impl": "pallas",
+                "num_epochs": 1, "use_tensorboard": True, "log_dir": os.path.join(log, "tb"),
+                "test_iter": 10**6, "checkpoint_dir": os.path.join(work, "ck")}))
+        run, = os.listdir(log)
+        s = stability_report.main(["--run-dir", log, "--run-pattern", "intro_tc",
+                                   "--out", os.path.join(work, "stability")])
+        v = run_vis.main(["--run-dir", log, "--out", os.path.join(work, "runvis")])
+        curves = v["runs"][run]
+        if (not all(c["finite"] and c["steps"] == HARNESS_STEPS for c in s["curves"].values())
+                or any(curves[k]["steps"] != HARNESS_STEPS for k in
+                       ("r_loss_scaled", "kl_loss_scaled", "loss_e", "loss_d", "diff_kl"))
+                or not v["reconstructions"]):
+            die(f"phase 16 (d): stability_report {s['curves']}, run_vis {v}")
+        print(f"phase 16 (d): stability_report: 6 curves x {HARNESS_STEPS} steps, all finite; "
+              f"figure " + ("drawn" if s["figure"] else "stability.png not drawn (matplotlib "
+                            "does not import)")
+              + f"; run_vis: {len(curves)} curves read, figures drawn {len(v['figures'])}, not "
+              f"drawn {v['not_drawn']}, {len(v['reconstructions'])} reconstruction written")
+        lap("(d)")
+        harness_model_vis(card, work)
+        lap("(e)")
+        harness_trend(card, work)
+        lap("(f)")
+        harness_comms(card)
+        lap("(g)")
+    finally:
+        shutil.rmtree(work)
+    print("phase 16: seconds by part " + json.dumps(seconds))
+    return out
+
+
 def device_time(card: str) -> None:
     """``--device-time``: device ms per step (``profiled_steps``) of the
     flagship's four arms (bf16) and of configs/vae_synthetic.json (fp32)
@@ -4049,6 +4430,123 @@ def device_time(card: str) -> None:
     print("device time: ms/step (1st, 2nd run) "
           + json.dumps({arm: [round(r["device_ms_per_step"], 2) for r in runs]
                         for arm, runs in results.items()}) + f" on {card}")
+
+
+MEMORY_RUNS = (  # label, graph, Adam capturable, steps
+    ("eager, capturable Adam", False, True, 5),
+    ("eager, capturable=False", False, False, 5),
+    ("graphed, warm-up only", True, True, 3),
+    ("graphed, capture and 5 replays", True, True, 8),
+)
+
+
+def memory_run(graph: bool, capturable: bool, steps: int) -> dict:
+    """One run of MEMORY_RUNS, for ``memory_of``: the flagship (tc and conv
+    'pallas', batch 64) through the trainer's setup, ``steps`` steps."""
+    import torch
+
+    from intro_tc_vae_tpu_torch.solvers import optim
+
+    run, batches = trainer_setup({"tc_impl": "pallas", "conv_impl": "pallas"}, steps,
+                                 graph=graph)
+    for opt in (run.state.opt_e, run.state.opt_d):
+        optim.place_steps(opt, capturable)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for batch in batches:
+        run.solver.train_step(run.state, batch)
+    torch.cuda.synchronize()
+    return {"base_bytes": base}
+
+
+def block_site(e: dict) -> str:
+    """A memory-history entry's site: its innermost frame of this
+    repository (``intro_tc_vae_tpu_torch`` or this script) beside its
+    innermost frame ('?' where it has none: an allocation on autograd's
+    thread)."""
+    frames = e.get("frames") or []
+    own = [f for f in frames if "intro_tc_vae_tpu_torch" in f["filename"]
+           or f["filename"].endswith("chip_smoke.py")]
+
+    def where(f):
+        return f"{os.path.basename(f['filename'])}:{f['line']} {f['name']}"
+
+    return f"{where(own[0]) if own else '?'} | {where(frames[0]) if frames else '?'}"
+
+
+def replay_trace(trace: list, base: int, windows: list) -> tuple:
+    """Replay a memory-history trace (``_snapshot()['device_traces'][0]``)
+    from ``base`` bytes allocated when it began: for each (start, end)
+    window of entries, {site: bytes live at the window's peak}; and the
+    blocks live at the end, {(window, site and stream): bytes} by the
+    window that allocated them."""
+    live, now = {}, base
+    peaks = [(-1, {}) for _ in windows]
+    for i, e in enumerate(trace):
+        if e["action"] == "alloc":
+            live[e["addr"]] = (i, e)
+            now += e["size"]
+        elif e["action"] == "free_requested" and e["addr"] in live:
+            del live[e["addr"]]
+            now -= e["size"]
+        else:
+            continue
+        for w, (start, end) in enumerate(windows):
+            if start <= i < end and now > peaks[w][0]:
+                peaks[w] = (now, dict(live))
+    sites = []
+    for _, at_peak in peaks:
+        sites.append({})
+        for _, e in at_peak.values():
+            sites[-1][block_site(e)] = sites[-1].get(block_site(e), 0) + e["size"]
+    left: dict = {}
+    for i, e in live.values():
+        w = next((w for w, (start, end) in enumerate(windows) if start <= i < end), -1)
+        key = (w, f"{block_site(e)} | stream {e.get('stream', 0)}")
+        left[key] = left.get(key, 0) + e["size"]
+    return sites, left
+
+
+def memory(card: str) -> None:
+    """``--memory``: where the flagship's peak device memory goes, eager
+    and graphed (MEMORY_RUNS, one after another in this process under the
+    allocator's memory history): each run's peak over its set-up, the
+    blocks live at each later run's peak by site against the first (eager)
+    run's, and what each run leaves allocated once it is gone, by site."""
+    import torch
+
+    mib = 2 ** 20
+    kept = warm_workspaces()
+    print(f"memory: the process's first matrix products, forward and backward, on the current "
+          f"and the capture stream kept {kept / mib:,.2f} MiB allocated (cuBLAS and cuBLASLt "
+          f"workspaces) on {card}")
+    torch.cuda.synchronize()
+    base0 = torch.cuda.memory_allocated()
+    torch.cuda.memory._record_memory_history(max_entries=4_000_000, stacks="python")
+    runs, bounds = [], [0]
+    try:
+        for label, *args in MEMORY_RUNS:
+            runs.append({"label": label, **memory_of(lambda: memory_run(*args))})
+            bounds.append(len(torch.cuda.memory._snapshot()["device_traces"][0]))
+        trace = torch.cuda.memory._snapshot()["device_traces"][0]
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    sites, left = replay_trace(trace, base0, list(zip(bounds, bounds[1:])))
+    for w, r in enumerate(runs):
+        print(f"memory: {r['label']}: max_memory_allocated {r['peak_bytes'] / mib:,.1f} MiB, "
+              f"{(r['peak_bytes'] - r['base_bytes']) / mib:,.1f} over the set-up; "
+              f"{r['large_blocks_peak']} large blocks at the peak; left allocated once the run "
+              f"is gone {r['left_bytes'] / mib:,.2f} MiB on {card}")
+        for site, b in sorted(((s, b) for (ww, s), b in left.items() if ww == w),
+                              key=lambda kv: -kv[1])[:8]:
+            print(f"memory:   left allocated {b / mib:9.2f} MiB  {site}")
+        if w:
+            more = sorted(((k, sites[w].get(k, 0) - sites[0].get(k, 0))
+                           for k in set(sites[w]) | set(sites[0])), key=lambda kv: -abs(kv[1]))
+            for site, b in more[:8]:
+                if abs(b) >= mib:
+                    print(f"memory:   at the peak vs eager {b / mib:+9.2f} MiB  {site}")
 
 
 def main() -> None:
@@ -4090,6 +4588,7 @@ def main() -> None:
     timed("phase 13", phase_options, card)
     timed("phase 14", phase_tensor_parallel, card)
     timed("phase 15", phase_graphed_step, card)
+    timed("phase 16", phase_harnesses, card)
     print(f"phase 8: flagship checkpoint {ckpt['bytes']} bytes; save {ckpt['save_s']:.3f} s, "
           f"background save returns in {ckpt['async_return_s']:.3f} s, load "
           f"{ckpt['load_s']:.3f} s; phase 4 img/s with the metric ring "
@@ -4181,6 +4680,9 @@ if __name__ == "__main__":
     t0 = time.perf_counter()
     if sys.argv[1:2] == ["--device-time"]:  # a profile, not the smoke test
         device_time(start()[1])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--memory"]:  # an attribution, not the smoke test
+        memory(start()[1])
         sys.exit(0)
     main()
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)

@@ -36,8 +36,9 @@ last, one JSON line:
 With ``--graph 1`` the step is one CUDA graph (``solvers/graph.py``): its
 replays' kernels correlate with ``cudaGraphLaunch`` alone, so they take
 the categories of an eager run of the same body (the graph's third
-warm-up step, profiled apart), matched kernel by kernel in launch order
-(``difflib``; an unmatched kernel counts as ``unattributed``). Warm-up
+warm-up step, profiled apart), matched kernel by kernel in launch order,
+one replay (``cudaGraphLaunch``) at a time (``difflib``; an unmatched
+kernel counts as ``unattributed``). Warm-up
 and capture run outside the profiled window. Runs on the card unless
 ``--device cpu`` (a CPU trace has no kernels: its leaf operations stand in
 for them, and it counts no launches).
@@ -182,6 +183,7 @@ def work_items(events: list) -> list:
         items.append({"name": e["name"], "us": float(e["dur"]), "ts": float(e["ts"]),
                       "stream": e.get("args", {}).get("stream"),
                       "graph": bool(call) and call["name"] == "cudaGraphLaunch",
+                      "launch": e.get("args", {}).get("correlation"),
                       "category": category(ops, e["name"]), "op": _innermost_op(ops)})
     if not items:  # a CPU trace: its leaf operations did the work
         leaves = spans.leaves()
@@ -189,14 +191,16 @@ def work_items(events: list) -> list:
                                   for j, (pid, tid, ts, dur, _) in enumerate(leaves)])
         for j, (_, _, ts, dur, name) in enumerate(leaves):
             items.append({"name": name, "us": float(dur), "ts": float(ts), "stream": None,
-                          "graph": False, "category": category(stacks[j]), "op": name})
+                          "graph": False, "launch": None, "category": category(stacks[j]),
+                          "op": name})
     return sorted(items, key=lambda it: it["ts"])
 
 
 def reference_kernels(events: list) -> list:
     """An eager run of a graph's body (``GraphedStep``'s third warm-up
-    step, on its side stream): [(kernel name, category, op)] of the stream
-    that ran the most kernels, in launch order."""
+    step): [(kernel name, category, op)] of the stream that ran the most
+    kernels, in launch order (the metric ring's copies after the body
+    match no replayed kernel and stay unused)."""
     items = [it for it in work_items(events) if it["stream"] is not None]
     if not items:
         return []
@@ -206,13 +210,16 @@ def reference_kernels(events: list) -> list:
 
 def attribute_graph(items: list, reference: list) -> int:
     """Give each replayed kernel (``graph``) the category and op of the
-    reference kernel it matches in launch order, replay by replay; returns
-    how many stayed unattributed."""
-    replayed = [it for it in items if it["graph"]]
+    reference kernel it matches in launch order, replay by replay (the
+    kernels of one ``cudaGraphLaunch``); returns how many stayed
+    unattributed."""
+    replays: dict = {}
+    for it in items:
+        if it["graph"]:
+            replays.setdefault(it["launch"], []).append(it)
     names = [r[0] for r in reference]
     unmatched = 0
-    for start in range(0, len(replayed), max(1, len(reference))):
-        chunk = replayed[start:start + len(reference)]
+    for chunk in replays.values():
         matcher = difflib.SequenceMatcher(None, names, [it["name"] for it in chunk],
                                           autojunk=False)
         matched = set()

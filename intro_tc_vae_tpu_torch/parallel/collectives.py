@@ -39,15 +39,19 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from intro_tc_vae_tpu_torch.parallel import comm_counts
+
 
 _HALF = (torch.bfloat16, torch.float16)
 
 
-def _all_reduce_copy(x: torch.Tensor, mesh) -> torch.Tensor:
+def _all_reduce_copy(x: torch.Tensor, mesh, site: str) -> torch.Tensor:
     """The sum over the group's ranks of x, in a new tensor; a half-width
-    x is summed in float32 and rounded back once."""
+    x is summed in float32 and rounded back once. ``site``: its name in
+    ``comm_counts``."""
     y = x.contiguous().to(torch.float32 if x.dtype in _HALF else x.dtype, copy=True)
     dist.all_reduce(y, group=mesh.group)
+    comm_counts.count("all-reduce", site, y)
     return y.to(x.dtype)
 
 
@@ -57,6 +61,7 @@ class _AllGatherRows(torch.autograd.Function):
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(mesh.size)]
         dist.all_gather(parts, x, group=mesh.group)
+        comm_counts.count("all-gather", "all_gather_rows", *parts)
         ctx.mesh = mesh
         return torch.cat(parts)
 
@@ -65,6 +70,7 @@ class _AllGatherRows(torch.autograd.Function):
         parts = list(g.contiguous().chunk(ctx.mesh.size))
         out = torch.empty_like(parts[0])
         dist.reduce_scatter(out, parts, group=ctx.mesh.group)
+        comm_counts.count("reduce-scatter", "all_gather_rows backward", out)
         return out, None
 
 
@@ -72,11 +78,11 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
         ctx.mesh = mesh
-        return _all_reduce_copy(x, mesh)
+        return _all_reduce_copy(x, mesh, "all_reduce_sum")
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce_copy(g, ctx.mesh), None
+        return _all_reduce_copy(g, ctx.mesh, "all_reduce_sum backward"), None
 
 
 def all_gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -92,6 +98,7 @@ def all_reduce_sum(x: torch.Tensor, mesh) -> torch.Tensor:
 def all_reduce_mean_(x: torch.Tensor, mesh) -> torch.Tensor:
     """In place, outside autograd: x becomes the mean over ranks of x."""
     dist.all_reduce(x, group=mesh.group)
+    comm_counts.count("all-reduce", "all_reduce_mean_", x)
     return x.div_(mesh.size)
 
 
@@ -114,13 +121,13 @@ class _CopyToModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce_copy(g, ctx.group), None
+        return _all_reduce_copy(g, ctx.group, "copy_to_model backward"), None
 
 
 class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        return _all_reduce_copy(x, group)
+        return _all_reduce_copy(x, group, "reduce_from_model")
 
     @staticmethod
     def backward(ctx, g):
@@ -135,6 +142,7 @@ def all_gather_cat(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     wire = x.view(torch.uint8) if x.dtype in _HALF else x
     parts = [torch.empty_like(wire) for _ in range(group.size)]
     dist.all_gather(parts, wire, group=group.group)
+    comm_counts.count("all-gather", "all_gather_cat", *parts)
     return torch.cat(parts, dim=dim).view(x.dtype)
 
 

@@ -57,6 +57,7 @@ import torch.distributed as dist
 from intro_tc_vae_tpu_torch import ops
 from intro_tc_vae_tpu_torch.models.vae import SoftIntroVAE, set_mesh
 from intro_tc_vae_tpu_torch.ops import launch_counts
+from intro_tc_vae_tpu_torch.parallel import comm_counts
 from intro_tc_vae_tpu_torch.parallel.collectives import all_reduce_mean_
 from intro_tc_vae_tpu_torch.parallel.mesh import whole_copy
 from intro_tc_vae_tpu_torch.solvers import optim
@@ -168,6 +169,7 @@ def _mean_over(grads: list, picked: list, group, size: int) -> None:
         return
     flat = torch.cat([grads[i].reshape(-1) for i in picked])
     dist.all_reduce(flat, group=group)
+    comm_counts.count("all-reduce", "average_grads", flat)
     flat.div_(size)
     for i, f in zip(picked, flat.split([grads[i].numel() for i in picked])):
         grads[i] = f.view_as(grads[i])
@@ -270,6 +272,7 @@ def global_norm(tensors: Sequence[torch.Tensor],
     if sliced:
         part = sum(torch.sum(t * t) for t, _ in sliced)
         dist.all_reduce(part, group=sliced[0][1].group.group)
+        comm_counts.count("all-reduce", "global_norm", part)
         sq = sq + part
     return torch.sqrt(sq)
 

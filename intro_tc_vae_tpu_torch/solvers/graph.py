@@ -17,12 +17,16 @@ and runs it as one ``torch.cuda.CUDAGraph``:
 * The body is the step on those buffers, its metrics stacked into one
   float32 [n] tensor, the metric ring's row (``MetricRing.push_stacked``
   copies it to the host after the replay).
-* Warm-up: the first ``WARMUP_STEPS`` calls run the body eagerly on a side
-  stream. They are real steps, and they fill every lazy state outside the
-  capture: the optimizers' moments, the kernels' attributes, the cached
-  tables. The next call captures the body and replays it: a capture
-  records work and runs none, so the first replay is that call's step.
-  Every later call is one replay.
+* Warm-up: the first ``WARMUP_STEPS`` calls run the body eagerly on the
+  current stream. They are real steps, and they fill every lazy state
+  outside the capture: the optimizers' moments, the kernels' attributes,
+  the cached tables. The next call captures the body and replays it: a
+  capture records work and runs none, so the first replay is that call's
+  step. Every later call is one replay. The warm-up takes no stream of its
+  own: PyTorch keeps a cuBLAS workspace for every stream a matrix product
+  ran on for the life of the process (65 MiB on an H100, allocated through
+  the caching allocator), so a side stream per graphed step would hold
+  that much device memory after its run is gone.
 * ``state.step`` and the Python bookkeeping stay outside the graph: the
   capture's increment is undone, and each replay adds one.
 * A capture holds the addresses it recorded. A call that finds a
@@ -86,7 +90,6 @@ class GraphedStep:
         self._noise: dict = {}
         self._out: Optional[torch.Tensor] = None
         self._signature = None
-        self._side = None
 
     # -- buffers ----------------------------------------------------------
 
@@ -154,20 +157,6 @@ class GraphedStep:
                    or all(p in opt.state for g in opt.param_groups for p in g["params"])
                    for opt in (state.opt_e, state.opt_d))
 
-    def _eager(self, state) -> torch.Tensor:
-        """The body as an eager step, on a side stream on CUDA."""
-        if not self._batch.is_cuda:
-            return self.body(state)
-        current = torch.cuda.current_stream(self._batch.device)
-        if self._side is None:
-            self._side = torch.cuda.Stream(self._batch.device)
-        self._side.wait_stream(current)
-        with torch.cuda.stream(self._side):
-            out = self.body(state)
-        current.wait_stream(self._side)
-        out.record_stream(current)
-        return out
-
     def _capture(self, state) -> None:
         graph = self.graph_factory()
         step = state.step
@@ -185,7 +174,7 @@ class GraphedStep:
         if self.graph is None:
             if self.warm < self.warmup or not self._initialized(state):
                 self.warm += 1
-                out = self._eager(state)
+                out = self.body(state)  # sets self.names
                 return self.names, out
             self._capture(state)
         self.graph.replay()

@@ -43,6 +43,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from intro_tc_vae_tpu_torch.parallel import comm_counts
+
 ADAGRAD_INIT, ADAGRAD_EPS = 0.1, 1e-7
 RMSPROP_DECAY, RMSPROP_EPS = 0.9, 1e-8
 LAMB_B1, LAMB_B2, LAMB_EPS = 0.9, 0.999, 1e-6
@@ -162,6 +164,7 @@ class Lamb(_Optax):
         else:
             sq = torch.stack([torch.sum(p * p), torch.sum(u * u)])
             dist.all_reduce(sq, group=shard.group.group)
+            comm_counts.count("all-reduce", "lamb trust ratio", sq)
             p_norm, u_norm = torch.sqrt(sq).unbind()
         ratio = torch.where((p_norm == 0) | (u_norm == 0), 1.0, p_norm / u_norm)
         return u * ratio

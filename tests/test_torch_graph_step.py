@@ -22,7 +22,9 @@ the CPU can hold:
   draws, in the same order, as ``step_noise``; a uint8 batch stays uint8
   in the static buffer and is normalized inside the body; steps through
   the body bit-equal to the eager solver's (parameters, statistics,
-  optimizer states, metrics, the ring's drained values).
+  optimizer states, metrics, the ring's drained values); a warm-up step
+  (through a stub graph factory) leaves no tensor it made alive but the
+  static buffers, its output and the optimizer states.
 """
 
 import copy
@@ -439,3 +441,48 @@ def test_a_replaced_optimizer_state_drops_the_graph():
     assert graphed.signature(state) == before
     optim.load_state_dict(state.opt_e, copy.deepcopy(state.opt_e.state_dict()))
     assert graphed.signature(state) != before
+
+
+def test_a_warm_up_step_leaves_only_the_buffers_output_and_optimizer_state():
+    """A warm-up step runs the body eagerly on the current stream and keeps
+    nothing it made but the static batch and noise, its output and the
+    optimizer states: every tensor an operation of the call returned is
+    gone once the call is, or shares storage with one of those (or is a
+    parameter or buffer updated in place). The second warm-up call is the
+    one checked: the first fills the caches a shape keys."""
+    import gc
+    import weakref
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    class Made(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.refs = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            self.refs.extend(weakref.ref(t) for t in tree_flatten(out)[0]
+                             if isinstance(t, torch.Tensor))
+            return out
+
+    solver, state = _solver(False)
+    graphed = GraphedStep(solver._step_fn, solver.noise_keys, SMALL["zdim"],
+                          graph_factory=StubGraph, warmup=3)
+    x = _u8_batches(1)[0]
+    graphed(state, x)
+    made = Made()
+    with made:
+        names, out = graphed(state, x)
+    assert graphed.warm == 2 and graphed.captures == 0 and len(names) == out.numel()
+    gc.collect()
+    alive = [t for t in (r() for r in made.refs) if t is not None]
+    kept = [graphed._batch, *graphed._noise.values(), out, *state.model.parameters(),
+            *state.model.buffers()]
+    for opt in (state.opt_e, state.opt_d):
+        kept.extend(v for s in opt.state.values() for v in s.values() if torch.is_tensor(v))
+    allowed = {t.untyped_storage().data_ptr() for t in kept}
+    left = [tuple(t.shape) for t in alive if t.untyped_storage().data_ptr() not in allowed]
+    assert not left, f"{len(left)} tensors of the warm-up step outlive it: {left[:10]}"
+    assert any(t is out for t in alive)

@@ -8,7 +8,8 @@
   (a convolution's backward split into dgrad and wgrad, the hand kernels
   by their ``itcvae::launch:`` ranges, the optimizer's update), launches
   per step, the wrappers' host time, the idle share, and a graph's
-  replayed kernels attributed from an eager reference in launch order.
+  replayed kernels attributed from an eager reference in launch order,
+  one graph launch at a time.
 * ``bench_system``, ``bench_loader`` and ``profile_step`` as commands in a
   subprocess at tiny sizes on the CPU: exit code 0, the JSON line's keys,
   and no ``jax`` in ``sys.modules``.
@@ -121,6 +122,23 @@ def test_analyzer_attributes_a_graphs_replays_from_the_eager_reference():
     assert r["categories"]["hand: conv3x3_fwd_wgmma"] == pytest.approx(0.004)
     assert r["categories"]["cuDNN conv wgrad"] == pytest.approx(0.004)
     assert r["categories"]["unattributed"] == pytest.approx(0.002)
+
+
+def test_graph_replays_are_matched_one_graph_launch_at_a_time():
+    """The eager reference also holds the kernels after the body (the
+    metric ring's copies, on the same stream since the warm-up runs on the
+    current one): each replay, the kernels of one ``cudaGraphLaunch``, is
+    matched on its own, so the reference's extra kernels shift nothing."""
+    body = ["k%d" % i for i in range(7)]
+    reference = [(name, f"cat {name}", "aten::op") for name in body + ["copy_", "Memcpy DtoH"]]
+    events = [_span(ps.STEP_RANGE, 0, 40, cat="user_annotation")]
+    for step, corr in enumerate((100, 200, 300)):
+        events.append(_launch(corr, 1 + 10 * step, "cudaGraphLaunch"))
+        for i, name in enumerate(body):
+            events.append(_kernel(name, corr, 1000 * (step + 1) + 10 * i, 2))
+    r = ps.analyze(events, 3, reference)
+    assert r["unattributed_per_step"] == 0
+    assert r["categories"] == pytest.approx({f"cat {name}": 0.002 for name in body})
 
 
 NO_JAX = ("import runpy, sys; sys.argv = ['m'] + sys.argv[1:]; "
