@@ -245,6 +245,27 @@ result line):
    that needs matplotlib or sklearn, where they do not import, is named
    as not drawn.
 
+17. The benchmark program (``phase_bench``), ``intro_tc_vae_tpu_torch.bench``
+   through its functions: (a) ``main`` on the flagship (batch 64, bf16,
+   paired) in the arms (tc, conv) = (xla, xla) and (pallas, pallas), each
+   graphed and eager, 3 warm-up calls (and the graph's 3 eager steps and
+   its capture) and 30 timed steps: every step's losses finite, the
+   launches of each phase exactly phase 4's arm's scaled to the steps
+   run, img/s and ms/step on the card's clock (CUDA events) printed. (b)
+   ``infer`` at batch 256 with ``--pack`` 0 and 4, graphed and eager,
+   img/s; each surface (decode, encode, decode_u8) graphed bit-equal to
+   its eager pass on two inputs, before and after BatchNorm's running
+   statistics move in place; a graphed run leaves 0 MiB allocated once it
+   is gone (``memory_of``). (c) ``headline()``, its fast path once (and the full
+   sweep, should its two configurations land within 2 %): every arm
+   finite, its JSON line printed. (d) The solver's eval encoder on the
+   flagship: captured at batch 64 and a remainder of 17, then 20 graphed
+   train steps, then its replays bit-equal to the eager encoder; the eval
+   graphs' memory (allocated, reserved by their pools, the capture's peak)
+   and two encodes' peak beside the graphed step's; one test_iter's MIG and
+   modularity seconds, eager and graphed (the sklearn-backed
+   explicitness fails on a host without sklearn, as in phase 10).
+
 Each phase prints its seconds. Then one JSON line describing the kernels,
 and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -4392,6 +4413,318 @@ def phase_harnesses(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the benchmark program
+# ---------------------------------------------------------------------------
+
+BENCH_ARMS = (("xla", "xla"), ("pallas", "pallas"))  # (tc_impl, conv_impl)
+INFER_PACKS = (0, 4)
+EVAL_REMAINDER = 17  # (d): a remainder batch of the metric families' encodes
+# (e): a test_iter of heavy metrics at steps 0 and 4, the graphed step captured between
+HEAVY_STEPS, HEAVY_TEST_ITER = 5, 4
+
+
+def bench_main_arms(card: str) -> dict:
+    """(a): ``bench.main`` on the flagship in BENCH_ARMS, graphed and eager,
+    its lines printed; every step's losses finite (``main`` checks each
+    drained step); the launches of each phase exactly phase 4's arm's,
+    scaled to the steps run (warm-up and capture included)."""
+    from intro_tc_vae_tpu_torch import bench
+
+    out = {}
+    for tc_impl, conv_impl in BENCH_ARMS:
+        want_e, want_d = expected_intro_launches(tc_impl, conv_impl)
+        for graph in (True, False):
+            arm = f"tc {tc_impl}, conv {conv_impl}, {'graphed' if graph else 'eager'}"
+            reset_all_launches()
+            with launches_per_phase() as (phase_e, phase_d):
+                r = bench.main(tc_impl=tc_impl, conv_impl=conv_impl, graph=graph)
+            n = r["steps"]
+            for label, got, want in (
+                    ("phase E", phase_e, {k: n * v for k, v in want_e.items()}),
+                    ("phase D", phase_d, {k: n * v for k, v in want_d.items()}),
+                    ("total", all_launches(), {k: n * (want_e[k] + want_d[k]) for k in want_e})):
+                if got != want:
+                    die(f"phase 17 (a): {arm}: {label} launches {got}, expected {want}")
+            out[arm] = r
+            print(f"phase 17 (a): bench.main {arm}: {r['img_s']:.1f} img/s, "
+                  f"{r['device_ms_per_step']:.3f} ms/step on the card's clock, {n} steps with "
+                  f"exact launches (phase 4's arm x {n}), last loss_enc "
+                  f"{r['last_loss_enc']:.6g} on {card}")
+    return out
+
+
+def bench_infer(card: str) -> dict:
+    """(b): ``bench.infer`` at batch 256 with pack 0 and 4, graphed and
+    eager, each under ``memory_of`` (a graphed run leaves nothing
+    allocated once it is gone). The graphs that ``infer`` timed (the
+    ``GraphedEval`` of each surface whose img/s it printed) are held
+    bit-equal to their eager passes, on the bench's inputs and on another
+    draw, before and after BatchNorm's running statistics move in place."""
+    import torch
+
+    from intro_tc_vae_tpu_torch import bench
+
+    mib = 2 ** 20
+
+    def checked(pack: int) -> dict:
+        r = bench.infer(pack=pack)
+        state, inputs = r["state"], r["inputs"]
+        for when in ("", " after a train-mode pass"):
+            if when:
+                state.model.train()
+                with torch.no_grad():
+                    state.model.decoder(torch.randn_like(inputs["decode"]))
+                    state.model.encoder(inputs["encode"])
+            for name, run in r["runs"].items():
+                inp = inputs[name]
+                other = torch.rand_like(inp) if inp.dim() == 4 else torch.randn_like(inp)
+                for x in (inp, other):
+                    if not torch.equal(run(x).clone(), run.fn(x)):
+                        die(f"phase 17 (b): pack {pack}: the timed graph of {name} differs "
+                            f"from the eager pass{when}")
+                if run.captures != 1:
+                    die(f"phase 17 (b): pack {pack}: {name}: {run.captures} captures, "
+                        "expected 1")
+        return {"rows": r["rows"]}
+
+    out = {}
+    for pack in INFER_PACKS:
+        graphed = memory_of(lambda: checked(pack))
+        eager = memory_of(lambda: {"rows": bench.infer(pack=pack, graph=False)["rows"]})
+        if graphed["left_bytes"] != 0:
+            die(f"phase 17 (b): a graphed infer run (pack {pack}) left "
+                f"{graphed['left_bytes'] / mib:.2f} MiB allocated once it was gone")
+        out[pack] = {"graphed": graphed["rows"], "eager": eager["rows"]}
+        print(f"phase 17 (b): bench.infer batch {bench.INFER_BATCH}, pack {pack}: img/s graphed "
+              + json.dumps(graphed["rows"]) + ", eager " + json.dumps(eager["rows"])
+              + "; the timed graphs of decode, encode and decode_u8 bit-equal to eager (two "
+              "inputs, before and after BatchNorm's statistics moved); left allocated after "
+              "the run: "
+              f"graphed {graphed['left_bytes'] / mib:.2f}, eager {eager['left_bytes'] / mib:.2f}"
+              f" MiB on {card}")
+    return out
+
+
+class ScalarSink:
+    """A writer that keeps the scalars a score family writes."""
+
+    def __init__(self):
+        self.scalars = {}
+
+    def add_scalar(self, tag, value, global_step=None):
+        self.scalars[tag] = value
+
+    def add_scalars(self, main, values, global_step=None):
+        self.scalars.update({f"{main}/{k}": v for k, v in values.items()})
+
+
+def graph_pool_bytes() -> int:
+    """Bytes the caching allocator holds in graphs' private pools: its
+    segments outside the default pool (id (0, 0)). A capture empties the
+    allocator's cache first, so ``memory_reserved`` cannot show them."""
+    import torch
+
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) != (0, 0))
+
+
+def eval_encoder_after_steps(card: str) -> dict:
+    """(d): the flagship through the trainer's setup (graphed step): the
+    solver's eval encoder captured at batch 64 and at a remainder batch,
+    then GRAPH_STEPS graphed train steps, then its replays bit-equal to
+    the eager encoder (BatchNorm's statistics moved in place under the
+    graphs); the eval graphs' memory beside the graphed train step's, their
+    one shared pool against a pool for each graph (which must not be
+    smaller); one test_iter's MIG and modularity, eager and graphed, in
+    seconds."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from intro_tc_vae_tpu_torch.evaluation import metrics as em
+    from intro_tc_vae_tpu_torch.solvers.graph import CudaGraph, GraphedEval
+
+    class OwnPool(CudaGraph):
+        """A graph in a pool of its own, whatever pool it is offered."""
+
+        def __init__(self, pool=None):
+            super().__init__()
+
+    mib = 2 ** 20
+    run, batches = trainer_setup(GRAPH_UPDATE, GRAPH_STEPS)
+    solver, state = run.solver, run.state
+    ds = solver.dataset
+    images = ds.get_batch(np.arange(3 * MAIN_B + EVAL_REMAINDER) * 7 % len(ds))
+    full, rem = images[:MAIN_B], images[MAIN_B:MAIN_B + EVAL_REMAINDER]
+    graphed, eager = solver.make_eval_encoder(state), solver.make_eval_encoder(state, eager=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()  # no segment of an earlier graph's pool is left
+    base_pools = graph_pool_bytes()
+    pools = -base_pools
+    for _ in range(2):  # eager warm-up, then the capture, of each shape
+        graphed(full)
+        graphed(rem)
+    torch.cuda.synchronize()
+    capture_peak = torch.cuda.max_memory_allocated() - base
+    held = torch.cuda.memory_allocated() - base
+    pools += graph_pool_bytes()
+    for batch in batches:
+        solver.train_step(state, batch)
+    torch.cuda.synchronize()
+    solver.flush_writes()
+    if solver.graphed is None or solver.graphed.captures != 1:
+        die("phase 17 (d): the train step was not graphed")
+    step_pool = graph_pool_bytes() - pools - base_pools
+    peaks = {}
+    for label, fn in (("eager", eager), ("graphed", graphed)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        fn(full)
+        fn(rem)
+        torch.cuda.synchronize()
+        peaks[label] = torch.cuda.max_memory_allocated() - before
+    for what, batch in (("batch 64", images[2 * MAIN_B:3 * MAIN_B]), ("a remainder", rem)):
+        for got, want in zip(graphed(batch), eager(batch)):
+            if not np.array_equal(got, want):
+                die(f"phase 17 (d): the graphed eval encoder differs from the eager one at "
+                    f"{what} after {GRAPH_STEPS} graphed steps")
+    if solver._eval_encode.captures != 2:
+        die(f"phase 17 (d): {solver._eval_encode.captures} eval captures, expected 2")
+    # the same two captures, each graph in a pool of its own
+    separate = GraphedEval(solver._eval_encode.fn, (state.model.encoder,), graph_factory=OwnPool)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = graph_pool_bytes()
+    for batch in (full, rem):
+        x = torch.from_numpy(np.ascontiguousarray(batch.transpose(0, 3, 1, 2))).cuda()
+        separate(x)
+        separate(x)
+    torch.cuda.synchronize()
+    separate_pools = graph_pool_bytes() - before
+    if separate.captures != 2:
+        die(f"phase 17 (d): {separate.captures} captures with a pool each, expected 2")
+    del separate, x
+    if pools > separate_pools:
+        die(f"phase 17 (d): the eval graphs' shared pool holds {pools / mib:.2f} MiB, over "
+            f"the {separate_pools / mib:.2f} MiB of a pool for each graph")
+    seconds = {}
+    kwargs = dict(latent_generator=solver.latent_generator, num_samples=len(ds) // 2,
+                  batch_size=solver.batch_size)
+    for label, fn in (("eager", eager), ("graphed", graphed)):
+        for write in (em.write_mig_score, em.write_mod_expl_score):
+            sink = ScalarSink()
+            t0 = time.perf_counter()
+            try:
+                write(sink, 0, encode_fn=fn, **kwargs)
+            except ImportError as e:  # explicitness needs sklearn, which the card host lacks
+                print(f"phase 17 (d): {write.__name__} ({label}): {e!r} after "
+                      + json.dumps(sink.scalars))
+            seconds[f"{write.__name__} {label}"] = time.perf_counter() - t0
+            if not sink.scalars or not all(math.isfinite(v) for v in sink.scalars.values()):
+                die(f"phase 17 (d): {write.__name__} ({label}) wrote {sink.scalars}")
+    print(f"phase 17 (d): the eval encoder captured at batch 64 and {EVAL_REMAINDER}, then "
+          f"{GRAPH_STEPS} graphed flagship steps: its replays bit-equal to the eager encoder; "
+          f"eval graphs hold {held / mib:.2f} MiB allocated and {pools / mib:.2f} MiB in "
+          f"their shared private pool ({separate_pools / mib:.2f} MiB with a pool for each "
+          f"graph; capture peak {capture_peak / mib:.2f}; the graphed step's pool "
+          f"{step_pool / mib:.2f}); "
+          f"peak over the trained state of two encodes eager {peaks['eager'] / mib:.2f}, "
+          f"graphed {peaks['graphed'] / mib:.2f} MiB; one test_iter's seconds "
+          + json.dumps({k: round(v, 3) for k, v in seconds.items()}) + f" on {card}")
+    return {"seconds": seconds, "held_mib": held / mib, "capture_peak_mib": capture_peak / mib,
+            "pools_mib": pools / mib, "separate_pools_mib": separate_pools / mib,
+            "step_pool_mib": step_pool / mib,
+            "peaks_mib": {k: v / mib for k, v in peaks.items()}}
+
+
+def eval_static_bytes(graphed_eval) -> int:
+    """What a ``GraphedEval`` holds allocated: its static inputs and
+    outputs, each rounded to the allocator's 512 bytes."""
+    tensors = [t for _, _, static, out in graphed_eval._graphs.values()
+               for t in (static, *(out if isinstance(out, tuple) else (out,)))]
+    return sum(-(-t.numel() * t.element_size() // 512) * 512 for t in tensors)
+
+
+def heavy_metrics_run(graph: bool) -> dict:
+    """(e): HEAVY_STEPS flagship steps through the trainer's setup with a
+    live writer and test_iter HEAVY_TEST_ITER: the image grid and the
+    metric families run at steps 0 and 4, where the step is graphed
+    through the eval encoder's graphs (captured at step 0, replayed at
+    step 4, the train step captured between). For ``memory_of``: what the
+    graphs must hold (``static_bytes``) and the eval graphs' captures."""
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tb_") as log:
+        run, batches = trainer_setup({**GRAPH_UPDATE, "use_tensorboard": True, "log_dir": log,
+                                      "test_iter": HEAVY_TEST_ITER}, HEAVY_STEPS, graph=graph)
+        solver, state = run.solver, run.state
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for batch in batches:
+            _, metrics = solver.train_step(state, batch)
+            solver.check_finite(metrics)
+        solver.flush_writes()
+        torch.cuda.synchronize()
+        run.writer.close()
+    step, enc = solver.graphed, solver._eval_encode
+    if graph != (step is not None) or graph != (enc is not None):
+        die(f"phase 17 (e): graph {graph}, but the step is {'graphed' if step else 'eager'} "
+            f"and the eval encoder {'graphed' if enc else 'eager'}")
+    if graph and (step.captures != 1 or enc.captures < 1):
+        die(f"phase 17 (e): {step.captures} step captures, {enc.captures} eval captures")
+    return {"static_bytes": (graph_static_bytes(step) + eval_static_bytes(enc)) if graph else 0,
+            "eval_captures": enc.captures if graph else 0}
+
+
+def phase_bench(card: str) -> dict:
+    """Phase 17: ``python -m intro_tc_vae_tpu_torch.bench``'s three modes
+    through its functions on the card. (a) ``bench_main_arms``. (b)
+    ``bench_infer``. (c) ``headline()``, its fast path once: its JSON line
+    printed, every arm's and repeat's img/s finite and positive. (d)
+    ``eval_encoder_after_steps``. (e) ``memory_gate`` on
+    ``heavy_metrics_run``, eager and graphed."""
+    from intro_tc_vae_tpu_torch import bench
+
+    seconds = {}
+    t0 = time.perf_counter()
+
+    def lap(part):
+        nonlocal t0
+        seconds[part] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
+    out = {"main": bench_main_arms(card)}
+    lap("(a)")
+    out["infer"] = bench_infer(card)
+    lap("(b)")
+    line = bench.headline()
+    rates = [v for k, v in line.items() if k.startswith("b") and k[1:2].isdigit()]
+    if not all(math.isfinite(v) and v > 0 for v in rates + line["repeats"]):
+        die(f"phase 17 (c): headline {line}")
+    print(f"phase 17 (c): headline: {len(rates)} configurations, {line['value']:.1f} img/s at "
+          f"batch {line['batch']} ({'paired' if line['fuse_passes'] else 'unpaired'}) on "
+          f"{line['card']}")
+    out["headline"] = line
+    lap("(c)")
+    out["eval_encoder"] = eval_encoder_after_steps(card)
+    lap("(d)")
+    eager, graphed = (memory_of(lambda: heavy_metrics_run(g)) for g in (False, True))
+    memory_gate("phase 17 (e)", f"{HEAVY_STEPS} steps, heavy metrics at steps 0 and "
+                f"{HEAVY_TEST_ITER} ({graphed['eval_captures']} eval captures)", eager, graphed,
+                card)
+    lap("(e)")
+    print("phase 17: seconds by part " + json.dumps(seconds))
+    return out
+
+
 def device_time(card: str) -> None:
     """``--device-time``: device ms per step (``profiled_steps``) of the
     flagship's four arms (bf16) and of configs/vae_synthetic.json (fp32)
@@ -4589,6 +4922,7 @@ def main() -> None:
     timed("phase 14", phase_tensor_parallel, card)
     timed("phase 15", phase_graphed_step, card)
     timed("phase 16", phase_harnesses, card)
+    timed("phase 17", phase_bench, card)
     print(f"phase 8: flagship checkpoint {ckpt['bytes']} bytes; save {ckpt['save_s']:.3f} s, "
           f"background save returns in {ckpt['async_return_s']:.3f} s, load "
           f"{ckpt['load_s']:.3f} s; phase 4 img/s with the metric ring "

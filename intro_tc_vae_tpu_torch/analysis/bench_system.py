@@ -66,7 +66,7 @@ def epoch_rates(history: list, batch: int) -> list:
 def run_arm(arm: str, graph: bool, dataset, image_size: int, batch: int, epochs: int,
             out_root: str, device, tensorboard: bool, tc_impl: str, conv_impl: str) -> dict:
     from intro_tc_vae_tpu_torch import train
-    from intro_tc_vae_tpu_torch.analysis.profile_step import CHANNELS
+    from intro_tc_vae_tpu_torch.bench import BETAS, CHANNELS, LR, ZDIM
     from intro_tc_vae_tpu_torch.config import load_config
 
     kind, _, scan = arm.partition(":")
@@ -78,9 +78,9 @@ def run_arm(arm: str, graph: bool, dataset, image_size: int, batch: int, epochs:
     name = f"{arm.replace(':', '_')}_{'graphed' if graph else 'eager'}"
     config = load_config(update_dict=dict(
         solver="intro_tc", dataset="synthetic", num_epochs=epochs, batch_size=batch,
-        z_dim=128, arch="conv", lr=2e-4, beta_kl=0.5, beta_rec=0.75, beta_neg=512.0,
-        gamma_r=1e-8, precision="bf16", tc_impl=tc_impl, conv_impl=conv_impl,
-        use_tensorboard=tensorboard, transfer_dtype=dtype, scan_steps=scan,
+        z_dim=ZDIM, arch="conv", lr=LR, **BETAS, precision="bf16", tc_impl=tc_impl,
+        conv_impl=conv_impl, use_tensorboard=tensorboard, transfer_dtype=dtype,
+        scan_steps=scan,
         device_cache=cache, seed=99, log_dir=os.path.join(out_root, name, "tb"),
         checkpoint_dir=os.path.join(out_root, name, "ckpt"),
         test_iter=10**6, save_interval=10**6))

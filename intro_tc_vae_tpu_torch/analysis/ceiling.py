@@ -43,10 +43,12 @@ import json
 import os
 import tempfile
 
+from intro_tc_vae_tpu_torch.bench import BETAS, CHANNELS, LR, SIZES
+from intro_tc_vae_tpu_torch.bench import ZDIM as Z_DIM
+
 NOMINAL_TFLOPS = 989.0  # H100 SXM, dense bf16 (the data sheet)
 MEASURE_STEPS = 20      # --measure: one epoch of 20 steps, the first 4 left out
 MATMUL_SIZE, MATMUL_CHAIN = 8192, 20  # the sustained rate's chain of [size, size] products
-Z_DIM = 128
 
 CONFIGS = [
     ("intro_tc", 64, 64),    # flagship
@@ -56,9 +58,6 @@ CONFIGS = [
     ("vae", 64, 64),         # the single-phase solvers
     ("tc", 64, 64),
 ]
-
-CHANNELS = {64: (64, 128, 256, 512), 128: (64, 128, 256, 512, 512),
-            256: (64, 128, 256, 512, 512, 512)}
 
 # The TC kernels' operations (a copy of chip_smoke.py's TC_OPS: a fused
 # multiply-add is two, a float64 exp 29): per (row, bank row, latent) and
@@ -99,31 +98,13 @@ def tc_calls():
 
 def build(solver_name: str, image_size: int, batch: int, device, channels=None,
           zdim: int = Z_DIM):
-    """(solver, state, batch) of the recipe on ``device``, eager, the stock
-    arm (``tc_impl`` and ``conv_impl`` "xla"): bf16 convs on the card,
-    float32 on the CPU."""
-    import numpy as np
-    import torch
+    """(solver, state, batch) of the recipe (``bench.build_solver``) on
+    ``device``, eager, the stock arm (``tc_impl`` and ``conv_impl`` "xla"):
+    bf16 convs on the card, float32 on the CPU."""
+    from intro_tc_vae_tpu_torch.bench import build_solver
 
-    from intro_tc_vae_tpu_torch.data import Synthetic
-    from intro_tc_vae_tpu_torch.models import Decoder, Encoder
-    from intro_tc_vae_tpu_torch.solvers import make_optimizer, make_solver
-
-    torch.manual_seed(0)
-    channels = tuple(channels or CHANNELS[image_size])
-    ds = Synthetic(image_size=image_size, cdim=3, sizes=(4, 5, 8, 8))
-    dtype = torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
-    kw = dict(arch="conv", cdim=3, zdim=zdim, channels=channels, image_size=image_size,
-              conv_impl="xla", compute_dtype=dtype)
-    solver = make_solver(
-        solver_name, dataset=ds, encoder=Encoder(**kw).to(device),
-        decoder=Decoder(**kw).to(device), batch_size=batch,
-        optimizer_e=make_optimizer("adam", 2e-4), optimizer_d=make_optimizer("adam", 2e-4),
-        beta_kl=0.5, beta_rec=0.75, beta_neg=512.0, tc_impl="xla")
-    state = solver.init_state(0)
-    state.model.train()
-    x = ds.get_batch(np.arange(batch) % len(ds)).transpose(0, 3, 1, 2)
-    return solver, state, torch.from_numpy(x.copy()).to(device)
+    return build_solver(solver_name, batch, image_size, device, channels=channels, zdim=zdim,
+                        **BETAS, tc_impl="xla")
 
 
 def step_flops(solver_name: str, image_size: int, batch: int, device="cuda",
@@ -214,8 +195,7 @@ def measure_img_s(solver_name: str, image_size: int, batch: int, device, steps: 
     with tempfile.TemporaryDirectory(prefix="itcvae-ceiling-") as tmp:
         config = load_config(update_dict=dict(
             solver=solver_name, dataset="synthetic", num_epochs=1, batch_size=batch,
-            z_dim=Z_DIM, arch="conv", lr=2e-4, beta_kl=0.5, beta_rec=0.75, beta_neg=512.0,
-            gamma_r=1e-8, precision="bf16" if cuda else "fp32",
+            z_dim=Z_DIM, arch="conv", lr=LR, **BETAS, precision="bf16" if cuda else "fp32",
             tc_impl="pallas" if cuda else "xla", conv_impl="pallas" if cuda else "xla",
             use_tensorboard=False, seed=0, log_dir=os.path.join(tmp, "tb"),
             checkpoint_dir=os.path.join(tmp, "ckpt"), test_iter=10**6,
@@ -225,7 +205,7 @@ def measure_img_s(solver_name: str, image_size: int, batch: int, device, steps: 
             def __len__(self):
                 return steps * batch
 
-        data = Cut(image_size=image_size, cdim=3, sizes=(4, 5, 8, 8))
+        data = Cut(image_size=image_size, cdim=3, sizes=SIZES)
         original = train.load_dataset
         train.load_dataset = lambda name, data_root=None: (data, image_size, channels, 3)
         try:

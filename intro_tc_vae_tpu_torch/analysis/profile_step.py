@@ -335,34 +335,18 @@ def trace_of(prof) -> list:
 # the run
 # ---------------------------------------------------------------------------
 
-CHANNELS = {64: (64, 128, 256, 512), 128: (64, 128, 256, 512, 512),
-            256: (64, 128, 256, 512, 512, 512), 32: (16, 32), 16: (8, 16)}
-
-
 def build(solver_name: str, batch: int, image_size: int, arch: str, zdim: int,
           precision: str, tc_impl: str, conv_impl: str, graph: bool, device):
-    """(solver, state, batch) of the JAX script's set-up on ``device``."""
-    import numpy as np
+    """(solver, state, batch) of the JAX script's set-up on ``device``: the
+    bench's recipe (``bench.build_solver``) in ``precision``."""
     import torch
 
-    from intro_tc_vae_tpu_torch.data import Synthetic
-    from intro_tc_vae_tpu_torch.models import Decoder, Encoder
-    from intro_tc_vae_tpu_torch.solvers import make_optimizer, make_solver
+    from intro_tc_vae_tpu_torch import bench
 
-    torch.manual_seed(0)
-    ds = Synthetic(image_size=image_size, cdim=3, sizes=(4, 5, 8, 8))
-    kw = dict(arch=arch, cdim=3, zdim=zdim, channels=CHANNELS[image_size],
-              image_size=image_size, conv_impl=conv_impl,
-              compute_dtype=torch.bfloat16 if precision == "bf16" else torch.float32)
-    encoder, decoder = Encoder(**kw).to(device), Decoder(**kw).to(device)
-    solver = make_solver(
-        solver_name, dataset=ds, encoder=encoder, decoder=decoder, batch_size=batch,
-        optimizer_e=make_optimizer("adam", 2e-4), optimizer_d=make_optimizer("adam", 2e-4),
-        beta_kl=0.5, beta_rec=0.75, beta_neg=512.0, tc_impl=tc_impl, graph=graph)
-    state = solver.init_state(0)
-    state.model.train()
-    x = torch.from_numpy(ds.get_batch(np.arange(batch) % len(ds)).transpose(0, 3, 1, 2).copy())
-    return solver, state, x.to(device)
+    return bench.build_solver(
+        solver_name, batch, image_size, device, arch=arch, zdim=zdim,
+        dtype=torch.bfloat16 if precision == "bf16" else torch.float32,
+        conv_impl=conv_impl, **bench.BETAS, tc_impl=tc_impl, graph=graph)
 
 
 def profile_step(solver_name: str = "intro_tc", batch: int = 64, image_size: int = 64,

@@ -38,8 +38,9 @@ follow from PyTorch rather than from the model:
   step's scalars at its own global step and flushes once; every
   ``test_iter`` steps the image grid and, for factor datasets, the four
   disentanglement metric families run on the step's new state, through
-  the eval-mode encoder on the device. sklearn, matplotlib and the
-  TensorBoard packages are imported where they are used.
+  the eval-mode encoder on the device (a captured graph a batch shape
+  where the step is graphed, ``make_eval_encoder``). sklearn, matplotlib
+  and the TensorBoard packages are imported where they are used.
 """
 
 from __future__ import annotations
@@ -61,7 +62,7 @@ from intro_tc_vae_tpu_torch.parallel import comm_counts
 from intro_tc_vae_tpu_torch.parallel.collectives import all_reduce_mean_
 from intro_tc_vae_tpu_torch.parallel.mesh import whole_copy
 from intro_tc_vae_tpu_torch.solvers import optim
-from intro_tc_vae_tpu_torch.solvers.graph import GraphedStep
+from intro_tc_vae_tpu_torch.solvers.graph import GraphedEval, GraphedStep
 
 # the 7-way key split of the JAX step (solvers/intro.py:81-83) minus the
 # carried key: the step's six N(0, I) [B, z] draws, in this order
@@ -550,6 +551,8 @@ class VAESolver:
                         if graph else None)
         # every step's metrics, read on the host behind the device
         self.metric_ring = MetricRing()
+        # the eval-mode encoder's graphs (``make_eval_encoder``), where the step is graphed
+        self._eval_encode: Optional[GraphedEval] = None
 
     def build_step(self) -> Callable:
         from intro_tc_vae_tpu_torch.solvers.vae import build_vae_step
@@ -741,15 +744,31 @@ class VAESolver:
             except Exception as e:
                 print(f"disentanglement metric {write.__name__} failed: {e!r}")
 
-    def make_eval_encoder(self, state: TrainState) -> Callable:
+    def make_eval_encoder(self, state: TrainState, eager: bool = False) -> Callable:
         """Eval-mode encode on the encoder's device: NHWC numpy images ->
-        (mu, logvar) numpy (JAX solvers/base.py:593-612)."""
+        (mu, logvar) numpy (JAX solvers/base.py:593-612). Where the step is
+        graphed (``self.graphed``, as ``train.py::graph_step`` decides), the
+        pass runs through the solver's ``GraphedEval`` of this encoder, a
+        graph for each batch shape from the step's graph factory (the
+        counterpart of the JAX encoder's ``jax.jit``), kept across calls
+        as JAX keeps its jitted encoder; otherwise, or with ``eager``, it
+        runs eager."""
         encoder = state.model.encoder
         device = next(encoder.parameters()).device
 
+        def eval_pass(x):
+            return encode(encoder, normalize_input(x), train=False)
+
+        run = eval_pass
+        if self.graphed is not None and not eager:
+            if self._eval_encode is None or self._eval_encode.modules[0] is not encoder:
+                self._eval_encode = GraphedEval(eval_pass, (encoder,),
+                                                graph_factory=self.graphed.graph_factory)
+            run = self._eval_encode
+
         def encode_fn(x):
             x = torch.from_numpy(np.ascontiguousarray(np.asarray(x).transpose(0, 3, 1, 2)))
-            mu, logvar = encode(encoder, normalize_input(x.to(device)), train=False)
+            mu, logvar = run(x.to(device))
             return mu.cpu().numpy(), logvar.cpu().numpy()
 
         return encode_fn

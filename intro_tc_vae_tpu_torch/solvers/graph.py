@@ -41,6 +41,13 @@ and runs it as one ``torch.cuda.CUDAGraph``:
 * The launch counters keep counting: the capture's launches are the
   graph's tally (``ops/launch_counts.py``), added on every replay.
 * A failed capture raises. Nothing falls back to eager.
+
+``GraphedEval`` does the same for an eval-mode pass, fn(inp) -> a tensor
+or a tuple of tensors (the metric pipeline's encoder, the serving path's
+decode and encode): the counterpart of the ``jax.jit`` of such a pass (JAX
+solvers/base.py:593-612, bench.py:151-170). It keeps one graph for each
+input shape and dtype, as ``jit`` compiles one program for each, and at
+most ``MAX_EVAL_GRAPHS`` of them, all in one private memory pool.
 """
 
 from __future__ import annotations
@@ -52,20 +59,30 @@ import torch
 from intro_tc_vae_tpu_torch.ops import launch_counts
 
 WARMUP_STEPS = 3  # eager steps before the capture
+EVAL_WARMUP_CALLS = 1  # eager calls of an eval pass, per input shape, before its capture
+# graphs a GraphedEval keeps: the metric families encode in batch_size
+# chunks and one remainder, the serving path at one batch
+MAX_EVAL_GRAPHS = 2
 
 
 class CudaGraph:
     """``torch.cuda.CUDAGraph`` with its capture context, the interface
-    ``GraphedStep`` takes (a test passes another)."""
+    ``GraphedStep`` and ``GraphedEval`` take (a test passes another).
+    ``pool``: another graph's ``pool()``, whose private memory pool the
+    capture shares; None gives the graph a pool of its own."""
 
-    def __init__(self):
+    def __init__(self, pool=None):
         self.graph = torch.cuda.CUDAGraph()
+        self._pool = pool
 
     def capture(self):
-        return torch.cuda.graph(self.graph)
+        return torch.cuda.graph(self.graph, pool=self._pool)
 
     def replay(self) -> None:
         self.graph.replay()
+
+    def pool(self):
+        return self.graph.pool()
 
 
 class GraphedStep:
@@ -182,3 +199,85 @@ class GraphedStep:
         state.step += 1
         return self.names, self._out
 
+
+class GraphedEval:
+    """``fn(inp)`` -> a tensor or a tuple of tensors, an eval-mode pass
+    that reads ``modules``' parameters and buffers, as a captured graph for
+    each input shape and dtype.
+
+    * The first ``EVAL_WARMUP_CALLS`` calls for a shape run ``fn`` eagerly
+      on the current stream (no side stream: see ``GraphedStep``); they
+      fill the lazy caches, such as ``normalize_input``'s table, that a
+      capture cannot. The next call captures ``fn`` on a static copy of the
+      input and replays it; every later call copies its input into that
+      buffer and replays.
+    * The graphs share one private memory pool: a capture may reuse what
+      another graph's pass frees, so a replay may overwrite the outputs of
+      any earlier call. A call returns the graph's static outputs, and the
+      caller copies them before its next call.
+    * ``fn`` holds the parameters and buffers by address, so a replay reads
+      their values as they are then: copies in place (a model's
+      ``load_state_dict``, the optimizers' updates, BatchNorm's running
+      statistics) keep the graphs; a replaced parameter or buffer (by data
+      pointer) drops them all, and the next call of a shape runs eager
+      again before it captures.
+    * At most ``MAX_EVAL_GRAPHS`` graphs: a new shape beyond them drops the
+      graph used longest ago.
+    * The launch counters keep counting: a capture's launches are its
+      graph's tally, added on every replay (``ops/launch_counts.py``).
+    * A failed capture raises and keeps no graph. Nothing falls back to
+      eager."""
+
+    def __init__(self, fn: Callable, modules: Sequence[torch.nn.Module],
+                 graph_factory: Callable = CudaGraph):
+        self.fn = fn
+        self.modules = tuple(modules)
+        self.graph_factory = graph_factory
+        self.captures = 0
+        self._warm: dict = {}    # input key -> eager calls made
+        # input key -> (graph, tally, static input, outputs), least recently used first
+        self._graphs: dict = {}
+        self._signature = None
+
+    def signature(self) -> tuple:
+        """Every parameter's and buffer's address."""
+        return tuple(t.data_ptr() for m in self.modules
+                     for t in (*m.parameters(), *m.buffers()))
+
+    def drop(self) -> None:
+        """Forget every graph (and with the last one their pool); each
+        shape warms up again."""
+        self._graphs.clear()
+        self._warm.clear()
+
+    def _capture(self, inp: torch.Tensor) -> tuple:
+        if len(self._graphs) >= MAX_EVAL_GRAPHS:
+            del self._graphs[next(iter(self._graphs))]
+        static = torch.empty_like(inp, memory_format=torch.contiguous_format)
+        static.copy_(inp)
+        kept = next(iter(self._graphs.values()), None)
+        graph = self.graph_factory(pool=kept[0].pool() if kept is not None else None)
+        with launch_counts.recording() as tally, graph.capture():
+            out = self.fn(static)
+        self.captures += 1
+        return graph, tally, static, out
+
+    def __call__(self, inp: torch.Tensor):
+        signature = self.signature()
+        if signature != self._signature:
+            self.drop()
+            self._signature = signature
+        key = (tuple(inp.shape), inp.dtype, inp.device)
+        entry = self._graphs.pop(key, None)
+        if entry is None:
+            if self._warm.get(key, 0) < EVAL_WARMUP_CALLS:
+                self._warm[key] = self._warm.get(key, 0) + 1
+                return self.fn(inp)
+            entry = self._capture(inp)
+        else:
+            entry[2].copy_(inp)
+        self._graphs[key] = entry  # the most recently used last
+        graph, tally, _, out = entry
+        graph.replay()
+        tally.add()
+        return out
