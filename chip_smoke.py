@@ -2039,23 +2039,27 @@ def loader_epochs(make_dataset, label: str, card: str) -> dict:
     """(c) for one dataset: an epoch of batch 64 on each path on the card
     (prefetch 2), each batch normalized as the train step normalizes it,
     bit-equal across the paths and to the host's float path (a loader on
-    the CPU); host ms per batch and H2D bytes per step from the loader's
-    stats. ``make_dataset()`` gives a fresh dataset with the injected flip
-    stream, so every path draws the same flips."""
+    the CPU); host ms per batch from the recorder's loader spans and H2D
+    bytes per step from the loader's stats. ``make_dataset()`` gives a
+    fresh dataset with the injected flip stream, so every path draws the
+    same flips."""
     import torch
 
     from intro_tc_vae_tpu_torch.data import DeviceLoader
     from intro_tc_vae_tpu_torch.solvers.base import normalize_input
+    from intro_tc_vae_tpu_torch.utils import tracing
 
     dev = torch.device("cuda", 0)
     host = list(DeviceLoader(make_dataset(), MAIN_B, torch.device("cpu"), seed=DATA_SEED))
     out = {}
     for path, kw in DATA_ARMS.items():
         loader = DeviceLoader(make_dataset(), MAIN_B, dev, seed=DATA_SEED, **kw)
-        t0 = time.perf_counter()
+        t0, t0_ns = time.perf_counter(), time.perf_counter_ns()
         batches = [normalize_input(b) for b in loader]
         torch.cuda.synchronize()
         epoch_s = time.perf_counter() - t0
+        host_ns, _ = tracing.RECORDER.span_ns(("loader.batch", "loader.make"), t0_ns,
+                                              time.perf_counter_ns())
         if (loader.cache is not None) != (path == "cache"):
             die(f"phase 9 (c): {label} {path}: cache {loader.cache is not None}")
         if len(batches) != len(host) or len(host) != 20:
@@ -2064,7 +2068,7 @@ def loader_epochs(make_dataset, label: str, card: str) -> dict:
             if b.dtype != torch.float32 or not torch.equal(b, h.to(dev)):
                 die(f"phase 9 (c): {label} {path}: batch {k} differs from the host float path")
         st = loader.stats
-        out[path] = {"host_ms_per_batch": 1e3 * st.host_s / st.batches,
+        out[path] = {"host_ms_per_batch": 1e-6 * host_ns / st.batches,
                      "h2d_bytes_per_step": st.h2d_bytes / st.batches,
                      "epoch_ms": 1e3 * epoch_s}
     print(f"phase 9 (c): {label}: float32, uint8 and cache paths, one epoch of 20 batches "

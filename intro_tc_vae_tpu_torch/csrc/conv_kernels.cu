@@ -14,6 +14,12 @@
 // What bounds it: n_parts x 147 KB of fp32 partials read once (18.9 MB at
 // 128 partials, 0.0056 ms at 3.35 TB/s); 2,304 threads in 9 blocks of 256,
 // each a chain of n_parts dependent loads and adds.
+//
+// Also here, so that it costs no nvcc run of its own: phase_stamp, the train
+// step's device clock stamp (utils/tracing.py). One thread stores %globaltimer
+// (ns) into slot i of a static int64 buffer; launched in stream order, it runs
+// once the kernels queued before it have finished. The step's last stamp also
+// writes each segment's length, seg[k] = slots[k + 1] - slots[k], in ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,6 +52,14 @@ __global__ void conv3x3_dw_reduce(const float* __restrict__ part, T* __restrict_
   dw[(co * C + ci) * TAPS + tap] = from_float<T>(s);
 }
 
+__global__ void phase_stamp(long long* slots, int i, float* seg) {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  slots[i] = (long long)t;
+  if (seg != nullptr)
+    for (int k = 0; k < i; ++k) seg[k] = (float)(slots[k + 1] - slots[k]) * 1e-6f;
+}
+
 }  // namespace
 
 // C interface, loaded with ctypes. The launcher enqueues one kernel on
@@ -69,6 +83,16 @@ int conv3x3_dw_reduce_launch(const float* part, void* dw, int n_parts, int dtype
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// slots: int64 [> i]; seg: float32 [>= i], or NULL for a stamp that is not
+// the step's last.
+int phase_stamp_launch(long long* slots, int i, float* seg, int device, void* stream) {
+  if (i < 0) return (int)cudaErrorInvalidValue;
+  int err = (int)cudaSetDevice(device);
+  if (err) return err;
+  phase_stamp<<<1, 1, 0, (cudaStream_t)stream>>>(slots, i, seg);
   return (int)cudaGetLastError();
 }
 

@@ -53,23 +53,24 @@ from __future__ import annotations
 import dataclasses
 import queue
 import threading
-import time
 from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
 
 from intro_tc_vae_tpu_torch.parallel.distributed import process_count
+from intro_tc_vae_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass
 class TransferStats:
-    """What the host did for the batches so far: how many it made, the
-    seconds it spent making them (gather, layout, pinning, queueing the
-    copy), and the bytes it copied to the device."""
+    """What the host did for the batches so far: how many it made and the
+    bytes it copied to the device. The host's time making them is the
+    recorder's spans (``utils/tracing.py``): ``loader.batch`` on the cache
+    path, ``loader.make`` (the producer thread) and ``loader.wait`` (the
+    consumer) on the streamed ones."""
 
     batches: int = 0
-    host_s: float = 0.0
     h2d_bytes: int = 0
 
 
@@ -139,6 +140,10 @@ class DeviceLoader:
         self._cache_ready = False
         self._rng = np.random.RandomState(seed)
         self.stats = TransferStats()
+        tracing.watch(self)
+
+    def counters(self) -> dict:
+        return dataclasses.asdict(self.stats)
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -192,7 +197,6 @@ class DeviceLoader:
         """Gather, lay out as NCHW (into pinned memory for a card) and queue
         the copy on ``stream``. Returns (tensor, event after its copy or
         None, labels or None)."""
-        t0 = time.perf_counter()
         nhwc = torch.from_numpy(np.ascontiguousarray(self._gather(idx)))
         nchw = nhwc.permute(0, 3, 1, 2)
         event = None
@@ -207,7 +211,6 @@ class DeviceLoader:
             self.stats.h2d_bytes += host.nbytes
         labels = self._labels_for(idx) if self.include_labels else None
         self.stats.batches += 1
-        self.stats.host_s += time.perf_counter() - t0
         return x, event, labels
 
     def _produce(self, q: queue.Queue, stop: threading.Event) -> None:
@@ -224,7 +227,11 @@ class DeviceLoader:
             stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
                       else None)
             for idx in self._index_batches():
-                if stop.is_set() or not put(("batch", self._make_batch(idx, stream))):
+                if stop.is_set():
+                    return
+                with tracing.span("loader.make"):
+                    item = self._make_batch(idx, stream)
+                if not put(("batch", item)):
                     return
         except Exception as e:  # raised on the consumer's side
             put(("error", e))
@@ -239,7 +246,8 @@ class DeviceLoader:
         producer.start()
         try:
             while True:
-                kind, item = q.get()
+                with tracing.span("loader.wait"):
+                    kind, item = q.get()
                 if kind == "end":
                     return
                 if kind == "error":
@@ -309,15 +317,14 @@ class DeviceLoader:
     def _cached_batch(self, idx: np.ndarray):
         """Row gather and conditional width flip on the device: the same
         permutation the host path applies to the uint8 rows."""
-        t0 = time.perf_counter()
-        flags = getattr(self.dataset, "flip_flags", lambda n: None)(len(idx))
-        x = self.cache.index_select(0, self._to_device(np.asarray(idx, np.int64)))
-        if flags is not None:
-            f = self._to_device(np.asarray(flags, np.uint8))
-            x = torch.where(f.view(-1, 1, 1, 1) != 0, x.flip(3), x)
-        x = self._stacked(x)
+        with tracing.span("loader.batch"):
+            flags = getattr(self.dataset, "flip_flags", lambda n: None)(len(idx))
+            x = self.cache.index_select(0, self._to_device(np.asarray(idx, np.int64)))
+            if flags is not None:
+                f = self._to_device(np.asarray(flags, np.uint8))
+                x = torch.where(f.view(-1, 1, 1, 1) != 0, x.flip(3), x)
+            x = self._stacked(x)
         self.stats.batches += 1
-        self.stats.host_s += time.perf_counter() - t0
         return (x, self._labels_for(idx)) if self.include_labels else x
 
     def _labels_for(self, idx: np.ndarray) -> np.ndarray:

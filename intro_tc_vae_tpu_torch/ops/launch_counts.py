@@ -124,14 +124,22 @@ def recording() -> Iterator[Tally]:
                 counts[k] = before.get(k, 0)
 
 
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` records: the rule ``host_range`` and
+    the flight recorder's spans (``utils/tracing.py``) open ranges by."""
+    import torch
+
+    return torch._C._autograd._profiler_enabled()
+
+
 def host_range(name: str):
     """A ``torch.profiler`` range named ``name`` while a profiler records,
     else nothing (a range costs the host an order of magnitude more than
     the check, profiler or not). The wrappers of the hand kernels open
     ``itcvae::<wrapper>`` around a call and ``itcvae::launch:<counted
     name>`` around each launch; ``analysis/profile_step.py`` reads both."""
-    import torch
+    if profiling():
+        import torch
 
-    if torch._C._autograd._profiler_enabled():
         return torch.profiler.record_function(name)
     return contextlib.nullcontext()

@@ -49,6 +49,7 @@ import contextlib
 import dataclasses
 import functools
 import math
+import time
 from typing import Any, Callable, Iterable, Optional, Sequence
 
 import numpy as np
@@ -63,6 +64,7 @@ from intro_tc_vae_tpu_torch.parallel.collectives import all_reduce_mean_
 from intro_tc_vae_tpu_torch.parallel.mesh import whole_copy
 from intro_tc_vae_tpu_torch.solvers import optim
 from intro_tc_vae_tpu_torch.solvers.graph import GraphedEval, GraphedStep
+from intro_tc_vae_tpu_torch.utils import tracing
 
 # the 7-way key split of the JAX step (solvers/intro.py:81-83) minus the
 # carried key: the step's six N(0, I) [B, z] draws, in this order
@@ -289,10 +291,12 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
 
 def apply_grads(optimizer: torch.optim.Optimizer, params, grads) -> None:
     """One optimizer step on ``params`` with the given gradients; a phase
-    of the step ends here (``launch_counts.mark``)."""
+    of the step ends here (``launch_counts.mark``), and its device phase
+    ``opt`` starts (``tracing.stamp``)."""
     for p, g in zip(params, grads):
         p.grad = g
     launch_counts.mark()
+    tracing.stamp("opt", grads[0])
     optimizer.step()
     for p in params:
         p.grad = None
@@ -404,7 +408,10 @@ class MetricRing:
     has filled; no two queued entries share one. On the CPU the copy is the
     tensor itself and there is no event. A call of K steps
     (``scan_steps``) is one entry whose metrics are [K] tensors; ``drain``
-    fans it out to K steps."""
+    fans it out to K steps. An entry may carry the steps' device phase
+    segments (``tracing.close_phases``) as columns after the metrics:
+    ``drain`` leaves them out of the metric dicts and hands each step's to
+    the recorder."""
 
     def __init__(self):
         self._entries: list = []
@@ -413,15 +420,20 @@ class MetricRing:
     def __len__(self) -> int:
         return len(self._entries)
 
-    def push(self, metrics: dict, step: int) -> None:
+    def push(self, metrics: dict, step: int, phase_names: tuple = (),
+             phases: Optional[torch.Tensor] = None) -> None:
         """``metrics``: 0-d tensors of one step, or [K] tensors of K steps,
-        the first of which is ``step``."""
-        stacked = torch.stack([v.detach().float().reshape(-1) for v in metrics.values()],
-                              dim=1)  # [K, n]
-        self.push_stacked(tuple(metrics), stacked, step)
+        the first of which is ``step``; ``phases``: float32 [K, m], the
+        steps' device segments ``phase_names``."""
+        cols = [v.detach().float().reshape(-1) for v in metrics.values()]
+        if phase_names:
+            cols.extend(phases.unbind(1))
+        self.push_stacked(tuple(metrics), torch.stack(cols, dim=1), step, phase_names)
 
-    def push_stacked(self, names: tuple, stacked: torch.Tensor, step: int) -> None:
-        """``stacked``: float32 [K, n], column i the metric ``names[i]``."""
+    def push_stacked(self, names: tuple, stacked: torch.Tensor, step: int,
+                     phase_names: tuple = ()) -> None:
+        """``stacked``: float32 [K, n + m], column i < n the metric
+        ``names[i]``, column n + j the phase segment ``phase_names[j]``."""
         event = None
         if stacked.is_cuda:
             free = self._free.get(tuple(stacked.shape))
@@ -432,7 +444,7 @@ class MetricRing:
             event.record()
         else:
             host = stacked
-        self._entries.append((names, host, event, step))
+        self._entries.append((names, phase_names, host, event, step))
 
     def drain(self, keep_tail: int = 0) -> list:
         """[(host metrics dict, step), ...] of the drained entries' steps,
@@ -442,11 +454,16 @@ class MetricRing:
             return []
         drained, self._entries = self._entries[:n], self._entries[n:]
         out = []
-        for names, host, event, step in drained:
+        t_ns = time.perf_counter_ns()
+        for names, phase_names, host, event, step in drained:
             if event is not None:
-                event.synchronize()
-            out.extend((dict(zip(names, row)), step + j)
-                       for j, row in enumerate(host.tolist()))
+                with tracing.span("ring.wait"):
+                    event.synchronize()
+            with tracing.span("ring.read"):
+                for j, row in enumerate(host.tolist()):
+                    out.append((dict(zip(names, row)), step + j))
+                    if phase_names:
+                        tracing.RECORDER.phases(step + j, t_ns, phase_names, row[len(names):])
             if event is not None:
                 self._free.setdefault(tuple(host.shape), []).append(host)
         return out
@@ -590,25 +607,36 @@ class VAESolver:
         k = self.scan_steps
         batches = batch.unbind(0) if k > 1 else (batch,)
         noises = noise if k > 1 and noise is not None else [noise] * k
-        if self.graphed is not None:
-            # K replays; each row copied out before the next overwrites it
-            stacked = None
-            for j, (b, n) in enumerate(zip(batches, noises)):
-                names, row = self.graphed(state, b, n)
-                if stacked is None:
-                    stacked = torch.empty((k, row.numel()), dtype=row.dtype,
-                                          device=row.device)
-                stacked[j].copy_(row)
-            self.metric_ring.push_stacked(names, stacked, cur_iter + 1)
-            metrics = {name: stacked[:, i] if k > 1 else stacked[0, i]
-                       for i, name in enumerate(names)}
-        else:
-            steps = [self._step_fn(state, normalize_input(b), n)
-                     for b, n in zip(batches, noises)]
-            metrics = steps[0] if k == 1 else {
-                name: torch.stack([m[name] for m in steps]) for name in steps[0]}
-            metrics = average_metrics(metrics, self.hyper.mesh)
-            self.metric_ring.push(metrics, cur_iter + 1)
+        with tracing.span("step", unit=cur_iter + 1):
+            if self.graphed is not None:
+                # K replays; each row copied out before the next overwrites it
+                stacked = None
+                for j, (b, n) in enumerate(zip(batches, noises)):
+                    names, row = self.graphed(state, b, n)
+                    if stacked is None:
+                        stacked = torch.empty((k, row.numel()), dtype=row.dtype,
+                                              device=row.device)
+                    stacked[j].copy_(row)
+                with tracing.span("step.push"):
+                    self.metric_ring.push_stacked(names, stacked, cur_iter + 1,
+                                                  self.graphed.phase_names)
+                metrics = {name: stacked[:, i] if k > 1 else stacked[0, i]
+                           for i, name in enumerate(names)}
+            else:
+                steps, phases = [], []
+                for b, n in zip(batches, noises):
+                    with tracing.span("step.eager"):
+                        tracing.open_phases()
+                        steps.append(self._step_fn(state, normalize_input(b), n))
+                        phase_names, seg = tracing.close_phases(b)
+                    if seg is not None:
+                        phases.append(seg.clone())  # the next step's stamps reuse the buffer
+                metrics = steps[0] if k == 1 else {
+                    name: torch.stack([m[name] for m in steps]) for name in steps[0]}
+                metrics = average_metrics(metrics, self.hyper.mesh)
+                with tracing.span("step.push"):
+                    self.metric_ring.push(metrics, cur_iter + 1, phase_names if phases else (),
+                                          torch.stack(phases) if phases else None)
         if self.heavy_writes and cur_iter % self.test_iter == 0:
             self._write_heavy_metrics(state, batches[-1], cur_iter)
         return state, metrics
@@ -628,11 +656,13 @@ class VAESolver:
         at its global iteration, ``step - 1`` (the ring records the step
         count after the step; JAX writes at the count before it), and the
         writer is flushed once per drain."""
-        out = self.metric_ring.drain(keep_tail)
-        if self.writer is not None and out:
-            for metrics, step in out:
-                self._write_scalar_metrics(metrics, step - 1)
-            self.writer.flush()
+        with tracing.span("ring.drain"):
+            out = self.metric_ring.drain(keep_tail)
+            if self.writer is not None and out:
+                with tracing.span("ring.read"):
+                    for metrics, step in out:
+                        self._write_scalar_metrics(metrics, step - 1)
+                    self.writer.flush()
         return out
 
     def flush_writes(self) -> list:

@@ -41,6 +41,11 @@ and runs it as one ``torch.cuda.CUDAGraph``:
 * The launch counters keep counting: the capture's launches are the
   graph's tally (``ops/launch_counts.py``), added on every replay.
 * A failed capture raises. Nothing falls back to eager.
+* The recorder (``utils/tracing.py``) times a call's parts as spans and
+  reads the counters ``captures``, ``replays``, ``eager`` (calls run
+  eagerly) and ``drops`` (graphs dropped, by reason: ``signature`` or
+  ``shape``). The body brackets the step with the device phase stamps and
+  stacks their segments after its metrics (``phase_names``).
 
 ``GraphedEval`` does the same for an eval-mode pass, fn(inp) -> a tensor
 or a tuple of tensors (the metric pipeline's encoder, the serving path's
@@ -57,6 +62,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from intro_tc_vae_tpu_torch.ops import launch_counts
+from intro_tc_vae_tpu_torch.utils import tracing
 
 WARMUP_STEPS = 3  # eager steps before the capture
 EVAL_WARMUP_CALLS = 1  # eager calls of an eval pass, per input shape, before its capture
@@ -87,9 +93,10 @@ class CudaGraph:
 
 class GraphedStep:
     """``step`` (state, batch, noise) -> metrics dict as a captured graph;
-    a call returns (metric names, float32 [n] metrics). The returned
-    tensor of a replay is the graph's static output: the next call
-    overwrites it, so the caller copies it first."""
+    a call returns (metric names, float32 [n + m] metrics then the step's
+    m device phase segments, ``phase_names``). The returned tensor of a
+    replay is the graph's static output: the next call overwrites it, so
+    the caller copies it first."""
 
     def __init__(self, step: Callable, noise_keys: Sequence[str], zdim: int,
                  graph_factory: Callable = CudaGraph, warmup: int = WARMUP_STEPS):
@@ -100,13 +107,22 @@ class GraphedStep:
         self.warmup = warmup
         self.warm = 0                 # eager steps taken
         self.captures = 0
+        self.replays = 0
+        self.eager = 0
+        self.drops = {"signature": 0, "shape": 0}
         self.names: tuple = ()
+        self.phase_names: tuple = ()
         self.graph = None
         self.tally: Optional[launch_counts.Tally] = None
         self._batch: Optional[torch.Tensor] = None
         self._noise: dict = {}
         self._out: Optional[torch.Tensor] = None
         self._signature = None
+        tracing.watch(self)
+
+    def counters(self) -> dict:
+        return {"captures": self.captures, "replays": self.replays, "eager": self.eager,
+                "drops": dict(self.drops)}
 
     # -- buffers ----------------------------------------------------------
 
@@ -124,6 +140,8 @@ class GraphedStep:
             buf = self._batch if key == "batch" else self._noise.get(key)
             if (buf is None or buf.shape != src.shape or buf.dtype != src.dtype
                     or buf.device != src.device):
+                if self.graph is not None:
+                    self.drops["shape"] += 1
                 self.drop()  # the graph read the old buffers
                 # one eager step first: it fills the caches the new shapes
                 # key (the TC weights, tables), which a capture cannot
@@ -136,12 +154,16 @@ class GraphedStep:
             buf.copy_(src)
 
     def body(self, state) -> torch.Tensor:
-        """The step on the static buffers, its metrics stacked: [n]."""
+        """The step on the static buffers, its metrics and phase segments
+        stacked: [n + m]."""
         from intro_tc_vae_tpu_torch.solvers.base import normalize_input
 
+        tracing.open_phases()
         metrics = self.step(state, normalize_input(self._batch), self._noise)
+        self.phase_names, seg = tracing.close_phases(self._batch)
         self.names = tuple(metrics)
-        return torch.stack([v.detach().float().reshape(()) for v in metrics.values()])
+        cols = [v.detach().float().reshape(()) for v in metrics.values()]
+        return torch.stack(cols + (list(seg.unbind()) if seg is not None else []))
 
     # -- the graph --------------------------------------------------------
 
@@ -185,17 +207,27 @@ class GraphedStep:
         self.captures += 1
 
     def __call__(self, state, batch: torch.Tensor, noise: Optional[dict] = None):
-        self.fill(state, batch, noise)
-        if self.graph is not None and self.signature(state) != self._signature:
-            self.drop()
+        with tracing.span("step.fill"):
+            self.fill(state, batch, noise)
+        if self.graph is not None:
+            with tracing.span("step.check"):
+                changed = self.signature(state) != self._signature
+            if changed:
+                self.drops["signature"] += 1
+                self.drop()
         if self.graph is None:
             if self.warm < self.warmup or not self._initialized(state):
                 self.warm += 1
-                out = self.body(state)  # sets self.names
+                self.eager += 1
+                with tracing.span("step.eager"):
+                    out = self.body(state)  # sets self.names
                 return self.names, out
-            self._capture(state)
-        self.graph.replay()
+            with tracing.span("step.capture"):
+                self._capture(state)
+        with tracing.span("step.launch"):
+            self.graph.replay()
         self.tally.add()
+        self.replays += 1
         state.step += 1
         return self.names, self._out
 
@@ -226,7 +258,10 @@ class GraphedEval:
     * The launch counters keep counting: a capture's launches are its
       graph's tally, added on every replay (``ops/launch_counts.py``).
     * A failed capture raises and keeps no graph. Nothing falls back to
-      eager."""
+      eager.
+    * The recorder times a call's parts as spans and reads the counters, as
+      ``GraphedStep``'s (a graph evicted for a new shape is a ``shape``
+      drop)."""
 
     def __init__(self, fn: Callable, modules: Sequence[torch.nn.Module],
                  graph_factory: Callable = CudaGraph):
@@ -234,10 +269,16 @@ class GraphedEval:
         self.modules = tuple(modules)
         self.graph_factory = graph_factory
         self.captures = 0
+        self.replays = 0
+        self.eager = 0
+        self.drops = {"signature": 0, "shape": 0}
         self._warm: dict = {}    # input key -> eager calls made
         # input key -> (graph, tally, static input, outputs), least recently used first
         self._graphs: dict = {}
         self._signature = None
+        tracing.watch(self)
+
+    counters = GraphedStep.counters
 
     def signature(self) -> tuple:
         """Every parameter's and buffer's address."""
@@ -253,6 +294,7 @@ class GraphedEval:
     def _capture(self, inp: torch.Tensor) -> tuple:
         if len(self._graphs) >= MAX_EVAL_GRAPHS:
             del self._graphs[next(iter(self._graphs))]
+            self.drops["shape"] += 1
         static = torch.empty_like(inp, memory_format=torch.contiguous_format)
         static.copy_(inp)
         kept = next(iter(self._graphs.values()), None)
@@ -263,21 +305,31 @@ class GraphedEval:
         return graph, tally, static, out
 
     def __call__(self, inp: torch.Tensor):
-        signature = self.signature()
-        if signature != self._signature:
-            self.drop()
-            self._signature = signature
-        key = (tuple(inp.shape), inp.dtype, inp.device)
-        entry = self._graphs.pop(key, None)
-        if entry is None:
-            if self._warm.get(key, 0) < EVAL_WARMUP_CALLS:
-                self._warm[key] = self._warm.get(key, 0) + 1
-                return self.fn(inp)
-            entry = self._capture(inp)
-        else:
-            entry[2].copy_(inp)
-        self._graphs[key] = entry  # the most recently used last
-        graph, tally, _, out = entry
-        graph.replay()
-        tally.add()
-        return out
+        with tracing.span("eval", unit=self.replays + self.eager + 1):
+            with tracing.span("eval.check"):
+                signature = self.signature()
+            if signature != self._signature:
+                if self._graphs:
+                    self.drops["signature"] += 1
+                self.drop()
+                self._signature = signature
+            key = (tuple(inp.shape), inp.dtype, inp.device)
+            entry = self._graphs.pop(key, None)
+            if entry is None:
+                if self._warm.get(key, 0) < EVAL_WARMUP_CALLS:
+                    self._warm[key] = self._warm.get(key, 0) + 1
+                    self.eager += 1
+                    with tracing.span("eval.eager"):
+                        return self.fn(inp)
+                with tracing.span("eval.capture"):
+                    entry = self._capture(inp)
+            else:
+                with tracing.span("eval.copy"):
+                    entry[2].copy_(inp)
+            self._graphs[key] = entry  # the most recently used last
+            graph, tally, _, out = entry
+            with tracing.span("eval.launch"):
+                graph.replay()
+            tally.add()
+            self.replays += 1
+            return out

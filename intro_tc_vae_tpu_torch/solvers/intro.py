@@ -10,6 +10,10 @@ grad), which changes no value: the conv kernels' autograd then launches
 no weight-gradient kernel for the network the phase does not update, as
 XLA drops those dead gradients in the JAX step.
 
+Device phase stamps (``utils/tracing.py``) mark each phase's forward
+(``fwd``), its backward, the gradient average and clip included (``bwd``),
+and, in ``apply_grads``, its optimizer update (``opt``).
+
 BatchNorm running statistics update in place on every train-mode pass —
 including the detached/fake passes — so each pass runs exactly once, in
 the JAX step's order:
@@ -57,6 +61,7 @@ from intro_tc_vae_tpu_torch.solvers.base import (
     step_noise,
     tc_decomp_metrics,
 )
+from intro_tc_vae_tpu_torch.utils import tracing
 
 
 def build_intro_step(h: SolverHyper, encoder, decoder, paired: bool = True,
@@ -90,6 +95,7 @@ def build_intro_step(h: SolverHyper, encoder, decoder, paired: bool = True,
 
         # ================= Phase E: update encoder =======================
         # only the encoder is differentiated: no decoder weight gradient
+        tracing.stamp("fwd", batch)
         with frozen(decoder):
             if paired:
                 mu, logvar = enc_p(encoder, batch)
@@ -136,6 +142,7 @@ def build_intro_step(h: SolverHyper, encoder, decoder, paired: bool = True,
             lossE = (h.scale * (loss_rec + lossE_real_kl)
                      + 0.25 * (expelbo_rec + expelbo_fake))
             shard_e = shards(enc_params)
+            tracing.stamp("bwd", lossE)
             grads_e = average_grads(torch.autograd.grad(lossE, enc_params), h.mesh, shard_e)
         # the real batch's KL site (JAX solvers/intro.py:154-155)
         decomp = tc_decomp_metrics(h, z, mu, logvar) if h.kl_kind == "tc_full" else {}
@@ -148,6 +155,7 @@ def build_intro_step(h: SolverHyper, encoder, decoder, paired: bool = True,
 
         # ================= Phase D: update decoder =======================
         # only the decoder is differentiated: no encoder weight gradient
+        tracing.stamp("fwd", batch)
         with frozen(encoder):
             z_detached = z.detach()
             if paired:
@@ -187,6 +195,7 @@ def build_intro_step(h: SolverHyper, encoder, decoder, paired: bool = True,
                 + 0.5 * (loss_rec_rec + loss_fake_rec)
             )
             shard_d = shards(dec_params)
+            tracing.stamp("bwd", lossD)
             grads_d = average_grads(torch.autograd.grad(lossD, dec_params), h.mesh, shard_d)
         total_norm_d = None
         if h.clip:

@@ -7,7 +7,9 @@ The one reparameterization draw is the noise entry ``"real"``, drawn
 from ``state.generator`` unless it is passed in (the parity tests hand
 the JAX step's draw to the port). Under a data group the gradients and
 metrics are averaged over the ranks, and under a model axis the norms
-count the sharded gradients' slices once (``solvers/base.py``).
+count the sharded gradients' slices once (``solvers/base.py``). Device
+phase stamps (``utils/tracing.py``): ``fwd``, ``bwd`` before the gradients,
+``opt`` before each of the two updates.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from intro_tc_vae_tpu_torch.solvers.base import (
     step_noise,
     tc_decomp_metrics,
 )
+from intro_tc_vae_tpu_torch.utils import tracing
 
 
 def build_vae_step(h: SolverHyper, encoder, decoder):
@@ -46,6 +49,7 @@ def build_vae_step(h: SolverHyper, encoder, decoder):
              noise: Optional[dict] = None) -> dict:
         noise = step_noise(h, state.generator, noise, batch.shape[0], batch.device,
                            VAE_NOISE_KEYS)
+        tracing.stamp("fwd", batch)
         mu, logvar = encode(encoder, batch)
         z = ops.reparameterize(mu, logvar, noise["real"])
         rec = decode(decoder, z)
@@ -55,6 +59,7 @@ def build_vae_step(h: SolverHyper, encoder, decoder):
 
         # one all-reduce for both networks' gradients under a data group
         shard = shards(enc_params + dec_params)
+        tracing.stamp("bwd", loss)
         grads = average_grads(torch.autograd.grad(loss, enc_params + dec_params), h.mesh,
                               shard)
         fc_grad_norm = global_norm([g for g, p in zip(grads, enc_params) if id(p) in fc_ids],

@@ -135,7 +135,8 @@ from intro_tc_vae_tpu_torch.utils.checkpoint import (
 )
 from intro_tc_vae_tpu_torch.utils.lossdict import LossDict
 from intro_tc_vae_tpu_torch.utils.nan import anomaly_detection, check_unit_range
-from intro_tc_vae_tpu_torch.utils.profiling import StepTimer, profile_trace
+from intro_tc_vae_tpu_torch.utils import tracing
+from intro_tc_vae_tpu_torch.utils.profiling import profile_trace
 from intro_tc_vae_tpu_torch.utils.writer import SingletonWriter, make_writer
 
 PRINT_EVERY = 5     # steps between progress lines
@@ -393,7 +394,6 @@ def _train(config: Config, device: Optional[torch.device],
     # ----- epoch loop (JAX train.py:242-348) -----
     state.model.train()
     scan_steps = max(1, config.scan_steps)
-    timer = StepTimer(run.device if config.profile else None)
     trace_dir = f"{config.log_dir or 'runs'}/profile"
     epoch_rates: list = []  # img/s of each epoch, the wait for its last step included
     step_seconds: dict = {}  # host seconds of each queued step, by step
@@ -438,15 +438,14 @@ def _train(config: Config, device: Optional[torch.device],
                                     async_save=config.async_checkpoint, group=group)
 
                 epoch_t0 = t_prev = time.perf_counter()
+                epoch_t0_ns = time.perf_counter_ns()
                 n_steps = 0
                 with (profile_trace(trace_dir, enabled=config.profile),
                       contextlib.closing(iter(loader)) as batches):
                     for batch in batches:
                         if config.anomaly_detection:  # uint8 paths: normalized here
                             check_unit_range(normalize_input(batch))
-                        timer.start()
                         state, _ = solver.train_step(state, batch)
-                        timer.stop()
                         t_now = time.perf_counter()
                         for step in range(state.step - scan_steps + 1, state.step + 1):
                             step_seconds[step] = (t_now - t_prev) / scan_steps
@@ -468,7 +467,7 @@ def _train(config: Config, device: Optional[torch.device],
                         writer.add_scalar("perf/images_per_sec", epoch_rates[-1], epoch)
 
                 if config.profile:
-                    say("profile:", timer.summary())
+                    say("profile:", tracing.RECORDER.summary(epoch_t0_ns))
                     break
 
                 if epoch == config.num_epochs - 1 and batch is not None:
@@ -506,6 +505,9 @@ def _train(config: Config, device: Optional[torch.device],
         say(f"training throughput: {rate:,.1f} img/s on {grid} x "
             f"{device_name(run.device)} (steps after the first {WARMUP_STEPS}; "
             f"{len(state.history)} steps)")
+    # the graphs' captures, replays, eager calls and drops, the loader's
+    # batches and bytes, the hand kernels' launches (utils/tracing.py)
+    say(f"counters: {tracing.RECORDER.counters()}")
 
     # ----- hparams table (reference train.py:244-264) -----
     if writer is not None:

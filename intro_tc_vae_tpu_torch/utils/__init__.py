@@ -1,6 +1,7 @@
 """Host-side utilities: checkpoints, loss averaging, non-finite checks,
-profiling, the TensorBoard writer (the reader is ``utils.tb_reader``), and
-the weight bridges from the JAX package and from reference checkpoints."""
+profiling, the flight recorder (``utils.tracing``), the TensorBoard writer
+(the reader is ``utils.tb_reader``), and the weight bridges from the JAX
+package and from reference checkpoints."""
 
 from intro_tc_vae_tpu_torch.utils.checkpoint import (
     find_latest_checkpoint,
@@ -12,7 +13,7 @@ from intro_tc_vae_tpu_torch.utils.checkpoint import (
 )
 from intro_tc_vae_tpu_torch.utils.lossdict import LossDict
 from intro_tc_vae_tpu_torch.utils.nan import check_non_finite_gradients, check_non_finite_gradints
-from intro_tc_vae_tpu_torch.utils.profiling import StepTimer, profile_trace
+from intro_tc_vae_tpu_torch.utils.profiling import profile_trace
 from intro_tc_vae_tpu_torch.utils.transplant import flax_to_port, load_torch_checkpoint
 from intro_tc_vae_tpu_torch.utils.writer import SingletonWriter, make_writer
 
@@ -27,7 +28,6 @@ __all__ = [
     "check_non_finite_gradients",
     "check_non_finite_gradints",
     "profile_trace",
-    "StepTimer",
     "flax_to_port",
     "load_torch_checkpoint",
     "SingletonWriter",

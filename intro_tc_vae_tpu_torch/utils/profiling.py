@@ -1,10 +1,12 @@
-"""Profiling: a ``torch.profiler`` trace and a step timer.
+"""Profiling: a ``torch.profiler`` trace.
 
 Counterpart of ``intro_tc_vae_tpu/utils/profiling.py``: ``profile: true``
 traces the train loop's first epoch up to iteration 50, which then stops
-and prints ``StepTimer``'s summary. The trace is Chrome's trace-event
-JSON (``*.pt.trace.json``), which TensorBoard's profiler plugin and
-``chrome://tracing`` / Perfetto both open.
+and prints the flight recorder's summary (``utils/tracing.py``: each host
+span's and device phase's median a step, the counters). The trace is
+Chrome's trace-event JSON (``*.pt.trace.json``), which TensorBoard's
+profiler plugin and ``chrome://tracing`` / Perfetto both open; it carries
+the recorder's spans as ``itcvae::`` ranges.
 """
 
 from __future__ import annotations
@@ -13,7 +15,6 @@ import contextlib
 import os
 import socket
 import time
-from typing import Optional
 
 import torch
 
@@ -39,31 +40,3 @@ def profile_trace(log_dir: str = "runs/profile", enabled: bool = True):
                                      f"{time.time_ns()}.pt.trace.json")
         prof.export_chrome_trace(path)
         print(f"profiler trace written to {path}")
-
-
-class StepTimer:
-    """Wall-clock step timing. Given a CUDA device, ``stop`` waits for the
-    card first, so each time covers the step's work, not its enqueueing."""
-
-    def __init__(self, device: Optional[torch.device] = None):
-        self.times: list = []
-        self._t0 = None
-        self._device = device if device is not None and device.type == "cuda" else None
-
-    def start(self):
-        self._t0 = time.perf_counter()
-
-    def stop(self):
-        if self._device is not None:
-            torch.cuda.synchronize(self._device)
-        self.times.append(time.perf_counter() - self._t0)
-
-    def summary(self) -> dict:
-        """The times after the first (the warm-up), or the first alone."""
-        ts = self.times[1:] or self.times
-        return {
-            "steps": len(ts),
-            "mean_s": sum(ts) / len(ts),
-            "min_s": min(ts),
-            "max_s": max(ts),
-        }

@@ -30,6 +30,7 @@ from intro_tc_vae_tpu.solvers.base import u8_to_unit_f32 as ju8_to_unit_f32
 from intro_tc_vae_tpu_torch.config import load_config
 from intro_tc_vae_tpu_torch.data import DeviceLoader, WrappedDataLoader, datasets
 from intro_tc_vae_tpu_torch.solvers.base import normalize_input, u8_to_unit_f32
+from intro_tc_vae_tpu_torch.utils import tracing
 from tests import _torch_dp_workers as workers
 from tests._torch_threads import one_thread  # noqa: F401  (autouse)
 from tests.test_torch_data import _ukiyo_pair, dsprites_root  # noqa: F401  (fixture)
@@ -300,9 +301,13 @@ def test_many_loaders_at_once_keep_their_order():
 
 def test_stats_count_batches_and_no_copy_on_the_cpu():
     loader = DeviceLoader(_u8_dataset(), 8, CPU, transfer_dtype="uint8")
+    t0 = time.perf_counter_ns()
     list(loader)
     assert loader.stats.batches == 4 and loader.stats.h2d_bytes == 0
-    assert loader.stats.host_s > 0
+    # the host's time making them: the recorder's spans on the producer thread
+    made_ns, made = tracing.RECORDER.span_ns(("loader.make",), t0, time.perf_counter_ns())
+    assert made == 4 and made_ns > 0
+    assert tracing.RECORDER.span_ns(("loader.wait",), t0, time.perf_counter_ns())[1] == 5
 
 
 # ---------------------------------------------------------------------------

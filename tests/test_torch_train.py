@@ -363,8 +363,9 @@ def _capture_run(monkeypatch) -> list:
 def test_profile_stops_at_iteration_50_and_writes_a_trace(tmp_path, capsys):
     """profile: true traces the first epoch and stops after the step at
     iteration 50 (JAX train.py:297-315): 51 steps of the 64 an epoch of
-    batch 1 has, the timer's summary printed, a Chrome trace written, no
-    final checkpoint."""
+    batch 1 has, the flight recorder's summary printed (its spans and
+    device phases a step), a Chrome trace written that carries the
+    recorder's spans as ``itcvae::`` ranges, no final checkpoint."""
     config = small_config(tmp_path, solver="vae", batch_size=1, profile=True, num_epochs=2)
     state = train_soft_intro_vae(config, device=CPU)
     assert state.step == len(state.history) == 51
@@ -374,8 +375,12 @@ def test_profile_stops_at_iteration_50_and_writes_a_trace(tmp_path, capsys):
     with open(traces[0]) as f:
         events = json.load(f)["traceEvents"]
     assert any("conv2d" in e.get("name", "") for e in events)
+    assert {"itcvae::step", "itcvae::step.eager"} <= {e.get("name") for e in events}
     out = capsys.readouterr().out
-    assert "profile: {'steps': 50" in out and "profiler trace written to" in out
+    assert "profile: {'units': 51" in out and "profiler trace written to" in out
+    summary = out[out.index("profile: {"):].splitlines()[0]
+    assert all(f"'{name}'" in summary for name in ("step", "step.push", "ring.drain",
+                                                   "fwd", "bwd", "opt"))
     assert not (tmp_path / "saves").exists()
 
 
