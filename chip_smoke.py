@@ -47,6 +47,15 @@ result line):
    named as ``conv_cuda.LAUNCHES`` counts them: conv3x3_fwd and
    conv3x3_dw are the fp32 bodies, conv3x3_fwd_wgmma / conv3x3_dw_wgmma
    and conv3x3_fwd_ragged / conv3x3_dw_ragged the bf16 entry points.
+   BatchNorm (``phase_bn_kernels``): the five kernels of train-mode
+   BatchNorm + leaky ReLU (csrc/bn_kernels.cu) through their autograd
+   function against the float64 plain version (ops/batchnorm.py) at
+   ``BN_CHECKS`` (the flagship's and the 128 px step's calls, bf16, fp32,
+   fp16, planes of no whole vector), twice bit-equal; at ``BN_TIMED`` in
+   bf16 each kernel's median time beside its bound (``bn_bounds``) and the
+   launch floor, and the whole forward and backward of the kernels, the
+   plain version and ``F.batch_norm`` + ``F.leaky_relu``; the targets
+   (``BN_TARGETS``) printed, not enforced.
    TC gathered (``phase_gathered_kernels``): the same three kernels in
    their data-parallel form, each rank's rows against the whole mu bank of
    a global batch of 128 for R in {2, 8}, against the plain gathered
@@ -59,9 +68,12 @@ result line):
    epoch = 20 steps in four arms: (tc_impl, conv_impl) = (pallas, xla),
    (xla, xla), (pallas, pallas), (pallas, hybrid). Every loss is finite;
    the launch counters of each phase of each step rise by exactly the
-   counts derived in ``expected_intro_launches``, and the run's total by
-   those and the eval-mode decode after the last epoch
-   (``final_decode_launches``). The rates in img/s, steps after the first
+   counts derived in ``expected_intro_launches`` (the BatchNorm kernels'
+   among them: 67 calls a step, every one through the kernels), and the
+   run's total by those and the eval-mode decode after the last epoch
+   (``final_decode_launches``). ``bn_calls_128``: the 128 px recipe, 7
+   graphed steps, 81 train-mode BatchNorm calls a step through the
+   kernels, none plain; an eval decode launches no BatchNorm kernel. The rates in img/s, steps after the first
    4 (a graphed step's 3 eager steps and its capture), each bound by the
    completion of the epoch's last step (the metrics are read on the host
    two steps behind the card). The step runs as one captured CUDA graph
@@ -312,6 +324,8 @@ SOURCE = {
     "conv3x3_pack_w": "intro_tc_vae_tpu_torch/csrc/conv_wgmma.cu",
     "conv3x3_fwd": "intro_tc_vae_tpu_torch/csrc/conv_fp32.cu",
     "conv3x3_dw": "intro_tc_vae_tpu_torch/csrc/conv_fp32.cu",
+    **dict.fromkeys(("bn_stats", "bn_finalize", "bn_apply", "bn_bwd_reduce", "bn_bwd_dx"),
+                    "intro_tc_vae_tpu_torch/csrc/bn_kernels.cu"),
 }
 REPLACES = {
     "tc_fwd": "intro_tc_vae_tpu/ops/tc_pallas.py:109",
@@ -327,6 +341,9 @@ REPLACES = {
     "conv3x3_dw_wgmma": "intro_tc_vae_tpu/ops/conv_pallas.py:253",
     "conv3x3_fwd_ragged": "intro_tc_vae_tpu/ops/conv_pallas.py:238",
     "conv3x3_dw_ragged": "intro_tc_vae_tpu/ops/conv_pallas.py:253",
+    # new kernels: the JAX package leaves BatchNorm to XLA (PERF.md section 6)
+    **dict.fromkeys(("bn_stats", "bn_finalize", "bn_apply", "bn_bwd_reduce", "bn_bwd_dx"),
+                    "none: train-mode BatchNorm + leaky ReLU, XLA's on the TPU"),
 }
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): bound_ms of
 # a kernel is max(bytes / HBM_BYTES_S, operations / peak of their type),
@@ -1022,21 +1039,263 @@ def phase_conv_kernels(card: str) -> dict:
     return {"errs": errs, "times": times, "bounds": bounds, "host_us": host}
 
 
-def all_launches() -> dict:
-    from intro_tc_vae_tpu_torch.ops import conv_cuda, tc_cuda
+BN_CHECKS = [  # (shape, groups, dtype, slope): the flagship's and the 128 px step's calls
+    ((128, 64, 64, 64), 2, "bf16", 0.2), ((64, 64, 64, 64), 1, "bf16", 0.2),
+    ((128, 128, 32, 32), 2, "bf16", 0.2), ((128, 512, 4, 4), 2, "bf16", 0.2),
+    ((64, 512, 4, 4), 1, "bf16", 0.2), ((256, 64, 128, 128), 2, "bf16", 0.2),
+    ((128, 64, 64, 64), 2, "bf16", 1.0), ((128, 64, 64, 64), 2, "fp32", 0.2),
+    ((128, 512, 4, 4), 2, "fp32", 0.2), ((64, 256, 8, 8), 1, "fp16", 0.2),
+    ((6, 10, 5, 3), 2, "bf16", 0.2), ((12, 24, 6, 6), 3, "fp32", 1.0),
+]
+BN_TIMED = [  # (shape, groups): the largest and the smallest calls of both steps
+    ((128, 64, 64, 64), 2), ((64, 64, 64, 64), 1), ((256, 64, 128, 128), 2),
+    ((128, 512, 4, 4), 2), ((64, 512, 4, 4), 1),
+]
+BN_MAIN = (128, 64, 64, 64)
+# bn_apply and bn_bwd_dx at >= 0.6 of their bound and bn_stats + bn_finalize
+# at >= 0.5 at BN_MAIN; at the 4x4 x 512 shapes each within 3 launch floors
+BN_TARGETS = {"apply": 0.6, "bwd_dx": 0.6, "stats+finalize": 0.5, "floors": 3.0}
 
-    return {**tc_cuda.LAUNCHES, **conv_cuda.LAUNCHES}
+
+def bn_bounds(shape, size: int) -> dict:
+    """Bounds of the BatchNorm kernels on x ``shape`` of ``size`` bytes an
+    element: bn_stats reads x, bn_apply reads x and writes y, bn_bwd_reduce
+    reads x and dy, bn_bwd_dx reads x and dy and writes dx; their fp32
+    partials and the [G, C] statistics (kilobytes) count in none, and
+    bn_finalize's bound is those (under a launch)."""
+    act = math.prod(shape) * size
+    c = shape[1]
+    return {"bn_stats": bound(act, 0, "fp32"), "bn_finalize": bound(32 * c, 0, "fp32"),
+            "bn_apply": bound(2 * act, 0, "fp32"), "bn_bwd_reduce": bound(2 * act, 0, "fp32"),
+            "bn_bwd_dx": bound(3 * act, 0, "fp32")}
+
+
+def phase_bn_kernels(card: str) -> dict:
+    """Phase 3, BatchNorm: the five kernels (csrc/bn_kernels.cu) through the
+    autograd function against the float64 plain version (the tolerances of
+    tests/test_torch_bn_cuda.py), twice bit-equal, at ``BN_CHECKS``; then
+    at ``BN_TIMED`` in bf16 each kernel's median time in turns beside its
+    bound and the launch floor, the whole forward and backward of the
+    kernels, of the plain version (the module's stock passes) and of the
+    library yardstick ``F.batch_norm`` + ``F.leaky_relu`` (training, the
+    batch as one group: the same bytes). Returns per-kernel max_abs_err,
+    the times at ``BN_MAIN`` and the bounds there."""
+    import torch
+    import torch.nn.functional as F
+
+    from intro_tc_vae_tpu_torch.ops import batchnorm as bn, batchnorm_cuda as bc, tc_cuda
+
+    dev = torch.device("cuda", 0)
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32, "fp16": torch.float16}
+    rounding = {"bf16": 2.0**-8, "fp16": 2.0**-11, "fp32": 0.5e-5}
+    errs = dict.fromkeys(bc.KERNELS, 0.0)
+
+    def data(shape, dtype, seed=0):
+        g = torch.Generator().manual_seed(seed)
+        c = shape[1]
+        return ((torch.randn(shape, generator=g) * 1.7 + 0.3).to(dtype).to(dev),
+                (torch.rand(c, generator=g) * 0.4 + 0.8).to(dev),
+                (torch.rand(c, generator=g) * 0.2 - 0.1).to(dev),
+                torch.randn(shape, generator=g).to(dtype).to(dev))
+
+    def fused(x, w, b, dy, groups, slope):
+        c = x.shape[1]
+        rm, rv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+        xr, wr, br = (t.clone().requires_grad_(True) for t in (x, w, b))
+        y = bc._BatchNormAct.apply(xr, wr, br, (rm, rv), groups, 1e-4, 0.1, slope)
+        y.backward(dy)
+        return y.detach(), xr.grad, wr.grad, br.grad, rm, rv
+
+    names = ("y", "dx", "dweight", "dbias", "running_mean", "running_var")
+    worst = {}
+    for shape, groups, kind, slope in BN_CHECKS:
+        x, w, b, dy = data(shape, dtypes[kind])
+        got, again = fused(x, w, b, dy, groups, slope), fused(x, w, b, dy, groups, slope)
+        if not all(torch.equal(a, r) for a, r in zip(got, again)):
+            die(f"bn {shape} g{groups} {kind}: two runs differ")
+        f64 = torch.float64
+        c = shape[1]
+        rm, rv = torch.zeros(c, device=dev, dtype=f64), torch.ones(c, device=dev, dtype=f64)
+        want = (bn.batchnorm_act(x.double(), w.double(), b.double(), (rm, rv), groups, 1e-4,
+                                 0.1, slope, f64),
+                *bn.batchnorm_act_backward_reference(x.double(), dy.double(), w.double(),
+                                                     b.double(), groups, 1e-4, slope), rm, rv)
+        for name, a, r in zip(names, got, want):
+            m, d = float(r.abs().max()), (a.double() - r).abs()
+            e = rounding[kind] * (2 if name == "y" and slope != 1.0 else 1)
+            if name in ("y", "dx"):
+                ok = d <= e * r.abs() + 1e-4 * m
+            elif name in ("dweight", "dbias"):
+                ok = d <= 1e-3 * (r.abs() + m)
+            else:
+                ok = d <= 1e-5 * r.abs()
+            if not bool(ok.all()):
+                die(f"bn {shape} g{groups} {kind} slope {slope}: {name} max |d| "
+                    f"{float(d.max()):.3g} (max |ref| {m:.3g})")
+            worst[name] = max(worst.get(name, 0.0), float(d.max()))
+            if kind == "bf16" and shape == BN_MAIN and slope != 1.0:
+                # each kernel's error: that of the output it decides
+                for k in {"y": ("bn_apply",), "dx": ("bn_bwd_dx",),
+                          "dweight": ("bn_bwd_reduce",),
+                          "running_mean": ("bn_stats", "bn_finalize")}.get(name, ()):
+                    errs[k] = float(d.max())
+    print("phase 3: bn kernels match the float64 plain version at "
+          + json.dumps([[list(s), g, k, sl] for s, g, k, sl in BN_CHECKS])
+          + " (y, dx: e |ref| + 1e-4 max|ref|, e the dtype's roundings; dweight, dbias 1e-3; "
+          "running statistics rtol 1e-5), two runs bit-equal; max |d| "
+          + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()}))
+
+    floor = median_ms(lambda: tc_cuda.launch_empty(dev), reps=11)
+    times, bounds = {}, {}
+    for shape, groups in BN_TIMED:
+        x, w, b, dy = data(shape, torch.bfloat16)
+        n, c = shape[:2]
+        hw = math.prod(shape[2:])
+        plan = bn.launch_plan(n, c, hw, groups, 2, bc.sm_count(dev))
+        sh = (n, c, hw, groups, plan.slices, plan.samples, plan.vector, plan.threads)
+        part = torch.empty((groups * c * plan.slices, 2), device=dev)
+        stat = torch.empty((groups, c, 4), device=dev)
+        rm, rv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+        y, dx = torch.empty_like(x), torch.empty_like(x)
+        dw, db = torch.empty(c, device=dev), torch.empty(c, device=dev)
+        count = n // groups * hw
+        bc.launch("bn_stats", x, part, *sh, 1, device=dev)
+        bc.launch("bn_finalize", part, w, stat, rm, rv, c, groups, plan.slices, count, 1e-4,
+                  0.9, 0.1, device=dev)
+        xr, wr, br = (t.clone().requires_grad_(True) for t in (x, w, b))
+        paths = {}
+        for label, fn in (("kernels", lambda a, p, q: bc._BatchNormAct.apply(
+                                a, p, q, None, groups, 1e-4, 0.1, 0.2)),
+                          ("plain", lambda a, p, q: bn.batchnorm_act(
+                              a, p, q, None, groups, 1e-4, 0.1, 0.2, torch.bfloat16)),
+                          ("library", lambda a, p, q: F.leaky_relu(F.batch_norm(
+                              a, None, None, p, q, True, 0.1, 1e-4), 0.2))):
+            out = fn(xr, wr, br)
+            paths[f"{label}_fwd"] = lambda fn=fn: fn(xr, wr, br)
+            paths[f"{label}_bwd"] = lambda out=out: torch.autograd.grad(
+                out, (xr, wr, br), dy, retain_graph=True)
+        fns = {
+            "bn_stats": lambda: bc.launch("bn_stats", x, part, *sh, 1, device=dev),
+            "bn_finalize": lambda: bc.launch("bn_finalize", part, w, stat, None, None, c, groups,
+                                             plan.slices, count, 1e-4, 0.9, 0.1, device=dev),
+            "bn_apply": lambda: bc.launch("bn_apply", x, stat, b, y, *sh, 0.2, 1, device=dev),
+            "bn_bwd_reduce": lambda: bc.launch("bn_bwd_reduce", x, dy, stat, b, part, *sh, 0.2,
+                                               1, device=dev),
+            "bn_bwd_dx": lambda: bc.launch("bn_bwd_dx", x, dy, stat, b, part, dx, dw, db, *sh,
+                                           0.2, 1, device=dev),
+            **paths,
+        }
+        rounds = [{k: median_ms(f, reps=11) for k, f in order}
+                  for order in (list(fns.items()), list(fns.items())[::-1])]
+        t = {k: (rounds[0][k] + rounds[1][k]) / 2 for k in fns}
+        bd = bn_bounds(shape, 2)
+        share = {k: bd[k]["bound_ms"] / t[k] for k in bc.KERNELS}
+        share["stats+finalize"] = bd["bn_stats"]["bound_ms"] / (t["bn_stats"] + t["bn_finalize"])
+        print(f"phase 3: bn {list(shape)} groups {groups} bf16 {plan}; median ms per call, mean "
+              "of two rounds in turns " + json.dumps({k: round(v, 5) for k, v in t.items()})
+              + "; bounds " + json.dumps({k: round(v["bound_ms"], 5) for k, v in bd.items()})
+              + "; share of the bound " + json.dumps({k: round(v, 3) for k, v in share.items()})
+              + "; launch floors " + json.dumps({k: round(t[k] / floor, 2) for k in bc.KERNELS})
+              + f" (floor {floor:.5f} ms) on {card}")
+        if shape == BN_MAIN:
+            met = {f"{k} >= {v} of the bound": share[k if k == "stats+finalize" else f"bn_{k}"]
+                   >= v for k, v in BN_TARGETS.items() if k != "floors"}
+        elif shape[2] == 4:
+            met = {f"{k} <= {BN_TARGETS['floors']} launch floors":
+                   t[k] <= BN_TARGETS["floors"] * floor for k in bc.KERNELS}
+        else:
+            met = None
+        if met is not None:
+            print(f"phase 3: bn {list(shape)} groups {groups} targets (printed, not enforced): "
+                  + json.dumps(met))
+        if shape == BN_MAIN:
+            for k in bc.KERNELS:
+                side = "fwd" if k in ("bn_stats", "bn_finalize", "bn_apply") else "bwd"
+                times[k] = {"ms": t[k], "plain_ms": t[f"plain_{side}"],
+                            "library_ms": t[f"library_{side}"]}
+                bounds[k] = bd[k]
+    return {"errs": errs, "times": times, "bounds": bounds}
+
+
+def bn_calls_128(card: str) -> None:
+    """Phase 4 (bn): the 128 px recipe (batch 128) with tc and conv
+    'pallas' through ``bench.build_solver``, graphed by the trainer's rule,
+    7 steps (3 eager, the capture, 3 replays): every train-mode BatchNorm
+    call goes through the kernels, 81 a step (the flagship's 67 are phase
+    4's exact counts), none takes the plain route; an eval-mode decode
+    launches no BatchNorm kernel."""
+    import torch
+
+    from intro_tc_vae_tpu_torch import bench
+    from intro_tc_vae_tpu_torch.ops import batchnorm_cuda as bc
+
+    batch, steps = 128, 7
+    enc, dec = bn_layers(channels=tuple(bench.CHANNELS[128]))
+    want = bn_launches(3 * enc + 4 * dec)  # three encoder and four decoder calls a step
+    solver, state, x = bench.build_solver(
+        "intro_tc", batch, 128, "cuda", conv_impl="pallas", **bench.BETAS,
+        tc_impl="pallas", fuse_passes=True, test_iter=10**9)
+    bc.reset_launch_counts()
+    for _ in range(steps):
+        solver.train_step(state, x)
+    solver.drain_metrics(0)
+    torch.cuda.synchronize()
+    launches = dict(bc.LAUNCHES)
+    if launches != {k: steps * v for k, v in want.items()} or any(bc.CALLS.values()):
+        die(f"bn at 128 px: launches {launches}, calls {dict(bc.CALLS)} in {steps} steps, "
+            f"expected {want} a step and no plain call")
+    with torch.no_grad():
+        state.model.eval()
+        state.model.decoder(torch.randn(batch, bench.ZDIM, device=x.device))
+        torch.cuda.synchronize()
+    if dict(bc.LAUNCHES) != launches:
+        die("bn at 128 px: an eval-mode decode launched BatchNorm kernels")
+    print(f"phase 4 (bn): 128 px batch {batch}: {want['bn_stats']} BatchNorm calls a step "
+          f"through the kernels, launches a step " + json.dumps(want)
+          + f", no plain call; an eval decode launches none on {card}")
+    del solver, state, x
+    torch.cuda.empty_cache()
+
+
+def bn_layers(arch: str = "conv", channels: tuple = (64, 128, 256, 512)) -> tuple:
+    """(encoder, decoder) GroupedBatchNorm layers of an ``arch`` model with
+    ``channels`` (the 64 px datasets' by default): a pass calls each once.
+    conv and res at 64 px: (9, 10), the stem and two a block of the
+    encoder's four blocks, two a block of the decoder's five; inception
+    three a block."""
+    from intro_tc_vae_tpu_torch.models import Decoder, Encoder, GroupedBatchNorm
+
+    kw = dict(arch=arch, cdim=3, zdim=8, channels=channels, image_size=2 ** len(channels))
+    return tuple(sum(isinstance(m, GroupedBatchNorm) for m in net(**kw).modules())
+                 for net in (Encoder, Decoder))
+
+
+def bn_launches(calls: int, recomputed: int = 0) -> dict:
+    """batchnorm_cuda.LAUNCHES after ``calls`` differentiated train-mode
+    BatchNorm calls, ``recomputed`` of them run again in the backward
+    (remat): a call launches the forward's three kernels and the
+    backward's two once each, a recompute the forward's once more."""
+    fwd = calls + recomputed
+    return {"bn_stats": fwd, "bn_finalize": fwd, "bn_apply": fwd, "bn_bwd_reduce": calls,
+            "bn_bwd_dx": calls}
+
+
+def all_launches() -> dict:
+    from intro_tc_vae_tpu_torch.ops import batchnorm_cuda, conv_cuda, tc_cuda
+
+    return {**tc_cuda.LAUNCHES, **conv_cuda.LAUNCHES, **batchnorm_cuda.LAUNCHES}
 
 
 def reset_all_launches() -> None:
-    from intro_tc_vae_tpu_torch.ops import conv_cuda, tc_cuda
+    from intro_tc_vae_tpu_torch.ops import batchnorm_cuda, conv_cuda, tc_cuda
 
     tc_cuda.reset_launch_counts()
     conv_cuda.reset_launch_counts()
+    batchnorm_cuda.reset_launch_counts()
 
 
-def expected_intro_launches(tc_impl: str, conv_impl: str, remat: bool = False,
-                            routed: int = 3, body: str = "wgmma") -> tuple:
+def expected_intro_launches(tc_impl: str, conv_impl: str, remat=False, routed: int = 3,
+                            body: str = "wgmma", bn: tuple | None = None) -> tuple:
     """Launches in phase E and in phase D of one paired flagship step,
     derived from the pass list of solvers/intro.py.
 
@@ -1060,17 +1319,29 @@ def expected_intro_launches(tc_impl: str, conv_impl: str, remat: bool = False,
     conv's forward once more, a kernel launch under 'pallas' (the stock
     forward under 'hybrid'); the TC calls lie outside the recomputed
     regions (tests/test_torch_solver_surface.py counts the same on the
-    CPU)."""
+    CPU).
+    BatchNorm: ``bn`` (encoder, decoder) layers (``bn_layers()``, the
+    flagship's, when None; (0, 0) where a data group takes the plain
+    version). Phase E calls the encoder twice (the batch, then rec and
+    fake paired) and the decoder twice, phase D the encoder once and the
+    decoder twice, every call differentiated: 2 x 9 + 2 x 10 = 38 and 9 +
+    2 x 10 = 29 calls at 64 px, 67 a step. ``remat`` "pass" recomputes
+    every call once more, "block" every call but the encoder's stem, which
+    lies outside its blocks."""
     tc = 1 if tc_impl == "pallas" else 0
+    enc, dec = bn_layers() if bn is None else bn
+    redo = {False: 0, "block": enc - 1, "pass": enc}[remat] if enc else 0
     fwd_per_conv = {"pallas": 2 + bool(remat), "hybrid": 1, "xla": 0}[conv_impl]
     dw = 2 * routed if conv_impl != "xla" else 0
 
-    def counts(tc_calls, fwd, dws):
+    def counts(tc_calls, fwd, dws, encodes):
+        calls = encodes * enc + 2 * dec
         return {**conv_launches(fwd, dws, body), "tc_fwd": tc_calls * tc,
-                "tc_bwd_dz": tc_calls * tc, "tc_bwd_dmu": tc_calls * tc}
+                "tc_bwd_dz": tc_calls * tc, "tc_bwd_dmu": tc_calls * tc,
+                **bn_launches(calls, encodes * redo + 2 * dec if remat else 0)}
 
     per_phase = 2 * routed * fwd_per_conv
-    return counts(3, per_phase, 0), counts(2, per_phase, dw)
+    return counts(3, per_phase, 0, 2), counts(2, per_phase, dw, 1)
 
 
 def conv_launches(fwd: int, dw: int, body: str) -> dict:
@@ -1182,6 +1453,33 @@ def phase_main_path(card: str) -> dict:
     print("phase 4: img/s (steps 5-20, bf16, batch 64) "
           + json.dumps({k: round(v, 1) for k, v in rates.items()}) + f" on {card}")
     return {"rates": rates, "launches": launches["tc pallas, conv pallas"]}
+
+
+@contextlib.contextmanager
+def plain_batchnorm():
+    """Train-mode BatchNorm takes its plain version (``ops/batchnorm.py``)
+    on the card, for the float64 references: its kernels take float32,
+    bfloat16 and float16 only, as the conv and TC kernels do, whose plain
+    versions conv_impl and tc_impl 'xla' pick. A data group's calls go on
+    as the program routes them."""
+    from intro_tc_vae_tpu_torch.models import blocks
+    from intro_tc_vae_tpu_torch.ops import batchnorm as bn
+
+    routed = blocks.batchnorm_act_train
+
+    def plain(x, weight, bias, running, groups, eps, momentum, slope, out_dtype,
+              data_group=None):
+        if data_group is not None:
+            return routed(x, weight, bias, running, groups, eps, momentum, slope, out_dtype,
+                          data_group)
+        return bn.batchnorm_act(x, weight, bias, running, groups, eps, momentum, slope,
+                                out_dtype)
+
+    blocks.batchnorm_act_train = plain
+    try:
+        yield
+    finally:
+        blocks.batchnorm_act_train = routed
 
 
 @contextlib.contextmanager
@@ -1325,7 +1623,7 @@ def phase_in_context(dev) -> None:
 def phase_decoder(dev, kw: dict, init: dict) -> None:
     """Phase 5 (c): the flagship decoder's forward and backward in fp32,
     conv_impl 'pallas' and 'xla' (cuDNN, TF32 off), each against the
-    float64 decoder (cuDNN in float64), same weights and z [128, 128] as
+    float64 decoder (cuDNN in float64, ``plain_batchnorm``), same weights and z [128, 128] as
     two groups of 64 (a paired call), in train and in eval mode; the
     gradients are those of sum(y * c), c ~ N(0, 1).
 
@@ -1352,9 +1650,10 @@ def phase_decoder(dev, kw: dict, init: dict) -> None:
         dec = Decoder(**{**kw, "compute_dtype": dtype}, conv_impl=conv_impl)
         dec.load_state_dict({k[len("decoder."):]: v for k, v in init.items()})
         dec.to(dev).to(dtype).train(train)
-        y = dec(z.to(dtype), groups=2)
-        names, params = zip(*dec.named_parameters())
-        grads = torch.autograd.grad((y.to(dtype) * cot.to(dtype)).sum(), params)
+        with plain_batchnorm() if dtype == torch.float64 else contextlib.nullcontext():
+            y = dec(z.to(dtype), groups=2)
+            names, params = zip(*dec.named_parameters())
+            grads = torch.autograd.grad((y.to(dtype) * cot.to(dtype)).sum(), params)
         torch.cuda.synchronize()
         return (y.detach().double().cpu().numpy(),
                 {n: g.double().cpu().numpy() for n, g in zip(names, grads)})
@@ -1401,16 +1700,18 @@ def phase_other_paths(card: str) -> dict:
     from intro_tc_vae_tpu_torch.train import images_per_second
 
     rates, vae_launches = {}, {}
-    for label, config, update, tc in (
-            ("vae_synthetic (res, vae)", VAE_SYNTHETIC, {}, 0),
+    for label, config, update, tc, arch in (
+            ("vae_synthetic (res, vae)", VAE_SYNTHETIC, {}, 0, "res"),
             ("tc_dsprites (conv, tc)", TC_DSPRITES,
-             {"dataset": "synthetic", "tc_impl": "pallas", "use_tensorboard": False}, 1)):
+             {"dataset": "synthetic", "tc_impl": "pallas", "use_tensorboard": False}, 1,
+             "conv")):
         for conv_impl in ("pallas", "xla"):
             run = f"{label}, conv {conv_impl}"
             k = 1 if conv_impl == "pallas" else 0
             tail = final_decode_launches(conv_impl, fp32=True)
             want = {**conv_launches(20 * 6 * k + tail["conv3x3_fwd"], 20 * 3 * k, "fp32"),
-                    "tc_fwd": 20 * tc, "tc_bwd_dz": 20 * tc, "tc_bwd_dmu": 20 * tc}
+                    "tc_fwd": 20 * tc, "tc_bwd_dz": 20 * tc, "tc_bwd_dmu": 20 * tc,
+                    **bn_launches(20 * sum(bn_layers(arch)))}
             reset_all_launches()
             with tf32_at_optimizer_calls() as tf32:
                 state = run_cli(config, {**update, "conv_impl": conv_impl, "num_epochs": 1},
@@ -1440,8 +1741,8 @@ DP_UPDATE = {"dataset": "synthetic128", "data_parallel": DP_RANKS, "tc_impl": "p
 def dp_step_setup(dev, config: str = DP_CONFIG, update: dict = DP_UPDATE, f64: bool = False):
     """The inputs of phase 7 (b)'s and phase 14 (c)'s gate step, made alike
     in every process: ``config``'s models (with ``update``) in fp32 (with
-    ``f64``: in float64 and conv_impl 'xla', the kernels taking fp32 and
-    bf16 only) from torch.manual_seed(0), the first global batch of its
+    ``f64``: in float64, conv_impl 'xla' and, in ``dp_step``, BatchNorm's
+    plain version, the kernels taking fp32 and bf16 only) from torch.manual_seed(0), the first global batch of its
     dataset and the step's noise at the global batch (CPU generator, seed
     1). Returns (config, dataset, models, batch, noise)."""
     import numpy as np
@@ -1502,7 +1803,7 @@ def dp_step(dev, mesh=None, config: str = DP_CONFIG, update: dict = DP_UPDATE,
     state = solver.init_state(0)
     if mesh is not None:
         state = shard_state(replicate_state(state, mesh), mesh)
-    with fp32_exact():
+    with fp32_exact(), plain_batchnorm() if f64 else contextlib.nullcontext():
         state, metrics = solver.train_step(state, batch[rows].to(dev), noise=noise)
         torch.cuda.synchronize()
     return ({k: float(v) for k, v in metrics.items()},
@@ -1678,10 +1979,10 @@ def phase_data_parallel(card: str) -> dict:
 
     cfg = load_config(DP_CONFIG, DP_UPDATE)
     steps = len(load_dataset(cfg.dataset)[0]) // cfg.batch_size  # 1280 / 128
-    from intro_tc_vae_tpu_torch.ops import conv_cuda
+    from intro_tc_vae_tpu_torch.ops import batchnorm_cuda, conv_cuda
 
     want_e = {"tc_fwd": 3, "tc_bwd_dz": 3, "tc_bwd_dmu": 3,
-              **dict.fromkeys(conv_cuda.KERNELS, 0),
+              **dict.fromkeys(conv_cuda.KERNELS, 0), **dict.fromkeys(batchnorm_cuda.KERNELS, 0),
               "calls.tc_logsumexp": 0, "calls.tc_logsumexp_gathered": 3}
     want_d = {**want_e, "tc_fwd": 2, "tc_bwd_dz": 2, "tc_bwd_dmu": 2,
               "calls.tc_logsumexp_gathered": 2}
@@ -2911,7 +3212,8 @@ def solver_surface(card: str, work: str) -> dict:
     with launches_per_phase() as (phase_e, phase_d):
         state = run_cli(FLAGSHIP, inception, "phase 11 (a)")
     counts = all_launches()
-    want_e, want_d = expected_intro_launches("pallas", "xla")  # 1x1 convs: none routes
+    # 1x1 convs: none routes
+    want_e, want_d = expected_intro_launches("pallas", "xla", bn=bn_layers("inception"))
     for label, got, want in (("phase E", phase_e, {k: 20 * v for k, v in want_e.items()}),
                              ("phase D", phase_d, {k: 20 * v for k, v in want_d.items()}),
                              ("total", counts, {k: 20 * (want_e[k] + want_d[k])
@@ -2968,7 +3270,7 @@ def solver_surface(card: str, work: str) -> dict:
         memory_gate("phase 11 (b)", f"batch {b}, remat {mode!r}", remat[(b, mode, False)], r,
                     card)
         if b == MAIN_B:
-            want_e, want_d = expected_intro_launches("pallas", "pallas", bool(mode))
+            want_e, want_d = expected_intro_launches("pallas", "pallas", mode)
             for label, got, want in (("phase E", r["phase_e"], want_e),
                                      ("phase D", r["phase_d"], want_d)):
                 want = {k: SURFACE_STEPS * v for k, v in want.items()}
@@ -3110,10 +3412,10 @@ def start():
     # ---- phase 2: build from the checkout's sources, one nvcc per source
     from concurrent.futures import ThreadPoolExecutor
 
-    from intro_tc_vae_tpu_torch.ops import conv_cuda, cuda_build, tc_cuda
+    from intro_tc_vae_tpu_torch.ops import batchnorm_cuda, conv_cuda, cuda_build, tc_cuda
     from intro_tc_vae_tpu_torch.runtime import native
 
-    libraries = ("tc_kernels", *conv_cuda.LIBRARIES)  # every source under csrc/
+    libraries = ("tc_kernels", "bn_kernels", *conv_cuda.LIBRARIES)  # every source under csrc/
     for path in [cuda_build.library_path(lib) for lib in libraries] + [native.library_path()]:
         if path.exists():
             path.unlink()  # always compile this checkout's source
@@ -3121,6 +3423,7 @@ def start():
         host_build = pool.submit(native.build)  # the data core, g++ (phase 9)
         built = list(pool.map(cuda_build.build, libraries)) + [host_build.result()]
     tc_cuda._library()
+    batchnorm_cuda._library()
     for lib in conv_cuda.LIBRARIES:
         conv_cuda._library(lib)
     for path, seconds in built:
@@ -3804,8 +4107,9 @@ def phase_tensor_parallel(card: str) -> dict:
     every loss finite and equal on all ranks; per rank the launches of
     each phase equal ``expected_intro_launches("pallas", "pallas")`` (the
     routed 64 -> 64 convs are never cut at min_dim 256: each rank runs
-    them whole), the TC's 5 calls a step take the single-device route on
-    (a) and the gathered one on (b); replicated leaves bit-equal and the
+    them whole; on (b), whose data axis takes BatchNorm's plain version,
+    no BatchNorm kernel), the TC's 5 calls a step take the single-device
+    route on (a) and the gathered one on (b); replicated leaves bit-equal and the
     gathered state equal on all ranks; each rank's bytes of parameters,
     statistics and optimizer state against the whole state's; peak device
     memory per rank. (c) One step of (b)'s four ranks against the same
@@ -3832,10 +4136,12 @@ def phase_tensor_parallel(card: str) -> dict:
     one = tp_train({**TP_UPDATE, "checkpoint_dir": one_dir})
     shutil.rmtree(one_dir)
     seconds = {"one process": time.perf_counter() - t0}
-    want_e, want_d = expected_intro_launches("pallas", "pallas")
     tail = final_decode_launches("pallas")
     results = {}
     for grid, n in TP_GRIDS.items():
+        # a data axis of more than one rank: its BatchNorm takes the plain version
+        want_e, want_d = expected_intro_launches(
+            "pallas", "pallas", bn=(0, 0) if n // TP_MODEL > 1 else None)
         t0 = time.perf_counter()
         work = tempfile.mkdtemp(prefix=f"chip_smoke_tp_{grid}_")
         ranks, rank0_log = start_ranks(f"phase 14 ({grid})", n, ["--tp-rank", grid], work)
@@ -4890,7 +5196,7 @@ def main() -> None:
     import torch
 
     name, card = start()
-    from intro_tc_vae_tpu_torch.ops import conv_cuda, tc_cuda
+    from intro_tc_vae_tpu_torch.ops import batchnorm_cuda, conv_cuda, tc_cuda
 
     def timed(label, fn, *args):
         t0 = time.perf_counter()
@@ -4902,6 +5208,7 @@ def main() -> None:
         kernels = timed("phase 3 (TC)", phase_kernels, card)
         gathered = timed("phase 3 (TC gathered)", phase_gathered_kernels, card)
         conv = timed("phase 3 (conv)", phase_conv_kernels, card)
+        bnk = timed("phase 3 (bn)", phase_bn_kernels, card)
     fwd, g = kernels["fwd"], gathered["times"]
     reached = {"B=64 time / launch floor": fwd[MAIN_B][0] / fwd[MAIN_B][2],
                "B=512 ms": fwd[512][0], "B=2048 bound / time": fwd[2048][1] / fwd[2048][0],
@@ -4913,6 +5220,7 @@ def main() -> None:
           + json.dumps(TC_FWD_TARGETS) + ", met " + json.dumps(met) + f" on {card}")
 
     main_path = timed("phase 4", phase_main_path, card)
+    timed("phase 4 (bn)", bn_calls_128, card)
     with fp32_exact():  # same conv algorithms in both runs
         timed("phase 5", phase_in_context, torch.device("cuda", 0))
     other = timed("phase 6", phase_other_paths, card)
@@ -4974,9 +5282,10 @@ def main() -> None:
     # the ragged entry points from phase 12's conv pallas arm.
     tc_plain = {"tc_fwd": "plain_fwd", "tc_bwd_dz": "plain_bwd", "tc_bwd_dmu": "plain_bwd"}
     times = {**{k: {"ms": kernels["times"][k], "plain_ms": kernels["times"][p],
-                    "library_ms": None} for k, p in tc_plain.items()}, **conv["times"]}
-    errs = {**kernels["errs"], **conv["errs"]}
-    bounds = {**tc_bounds(MAIN_B, MAIN_B), **conv["bounds"]}
+                    "library_ms": None} for k, p in tc_plain.items()}, **conv["times"],
+             **bnk["times"]}
+    errs = {**kernels["errs"], **conv["errs"], **bnk["errs"]}
+    bounds = {**tc_bounds(MAIN_B, MAIN_B), **conv["bounds"], **bnk["bounds"]}
     launches = {**main_path["launches"],
                 "conv3x3_fwd": other["conv3x3_fwd"], "conv3x3_dw": other["conv3x3_dw"],
                 "conv3x3_fwd_ragged": at48["launches"]["conv3x3_fwd_ragged"],
@@ -4986,7 +5295,7 @@ def main() -> None:
          "launches": launches[k], "max_abs_err": errs[k],
          "ms": times[k]["ms"], "plain_ms": times[k]["plain_ms"], **bounds[k],
          "library_ms": times[k]["library_ms"]}
-        for k in (*tc_cuda.KERNELS, *conv_cuda.KERNELS)
+        for k in (*tc_cuda.KERNELS, *conv_cuda.KERNELS, *batchnorm_cuda.KERNELS)
     ]
     # the three TC kernels launched in their gathered form, counted by the
     # gathered calls of phase 7's ranks; ms: one gathered call's three

@@ -53,10 +53,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from intro_tc_vae_tpu_torch.ops.batchnorm_cuda import batchnorm_act_train
 from intro_tc_vae_tpu_torch.ops.conv import supported
 from intro_tc_vae_tpu_torch.ops.conv_cuda import conv3x3_hybrid, conv3x3_pallas
 from intro_tc_vae_tpu_torch.parallel.collectives import (
-    all_reduce_sum,
     copy_to_model,
     gather_channels,
     reduce_from_model,
@@ -310,7 +310,8 @@ class Linear(nn.Linear):
 
 
 class GroupedBatchNorm(nn.Module):
-    """BatchNorm with the JAX package's numerics and *grouped* statistics.
+    """BatchNorm with the JAX package's numerics and *grouped* statistics,
+    and the leaky ReLU after it.
 
     Differs from ``nn.BatchNorm2d`` on purpose: the running variance is
     updated with the biased batch variance max(0, E[x²] - E[x]²) (flax's
@@ -324,6 +325,14 @@ class GroupedBatchNorm(nn.Module):
     forward that recomputes a ``remat`` region in the backward
     (``update_stats`` False there): they update once per forward the step
     takes, as JAX's ``nn.remat`` threads ``batch_stats`` once.
+
+    ``forward(x, groups, slope)`` returns the leaky ReLU of slope ``slope``
+    (1.0: none) of the normalized x, in ``compute_dtype``: the activation
+    the blocks apply after it, taken into the call so that train mode runs
+    both as the CUDA kernels of ``ops/batchnorm_cuda.py`` on the card
+    (``batchnorm_act_train``, which also picks the plain two-pass version
+    of ``ops/batchnorm.py`` for CPU tensors and the cases its docstring
+    lists). Eval mode uses the running statistics, unfused.
 
     Data parallel: with ``data_group`` set (``models.set_data_group``) to
     a group of several ranks, each rank holds its rows of every group, and
@@ -350,58 +359,24 @@ class GroupedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.update_stats = True
 
-    def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, groups: int = 1, slope: float = 1.0) -> torch.Tensor:
         group = getattr(self, "model_group", None)
         if tp_dim(self) is not None:
             x = local(x, self.num_features, group)
         else:
             x = whole(x, self.num_features, group)
-        c = x.shape[1]
-        bshape = (c,) + (1,) * (x.dim() - 2)  # broadcast over [C, H, W]
         if not self.training:
+            bshape = (x.shape[1],) + (1,) * (x.dim() - 2)  # broadcast over [C, H, W]
             scale = torch.rsqrt(self.running_var + self.eps) * self.weight
             y = (x - self.running_mean.reshape(bshape)) * scale.reshape(bshape) \
                 + self.bias.reshape(bshape)
-            return y.to(self.compute_dtype)
-
-        b = x.shape[0]
-        if b % groups:
-            raise ValueError(f"batch {b} not divisible by groups {groups}")
-        xg = x.reshape(groups, b // groups, *x.shape[1:])
-        xf = xg.to(torch.promote_types(xg.dtype, torch.float32))  # stats in >= fp32
-        axes = (1,) + tuple(range(3, xg.dim()))
-        if self.data_group is None:
-            mean = xf.mean(axes)                              # [G, C]
-            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
-        else:
-            mean, var = self._global_stats(xf, axes)
-        if self.update_stats:
-            self._update_running(mean.detach(), var.detach(), groups)
-        gshape = (groups, 1) + bshape
-        y = (xg - mean.reshape(gshape)) * (
-            torch.rsqrt(var.reshape(gshape) + self.eps) * self.weight.reshape(bshape)
-        ) + self.bias.reshape(bshape)
-        return y.reshape(x.shape).to(self.compute_dtype)
-
-    @torch.no_grad()
-    def _update_running(self, mean: torch.Tensor, var: torch.Tensor, groups: int) -> None:
-        keep = 1.0 - self.momentum
-        rm, rv = self.running_mean, self.running_var
-        for g in range(groups):  # sequential per-pass EMA composition
-            rm = keep * rm + (1.0 - keep) * mean[g]
-            rv = keep * rv + (1.0 - keep) * var[g]
-        self.running_mean.copy_(rm)
-        self.running_var.copy_(rv)
-
-    def _global_stats(self, xf: torch.Tensor, axes: tuple):
-        """[G, C] mean and var over the rows of every rank."""
-        groups, c = xf.shape[0], xf.shape[2]
-        count = torch.full((groups, 1), xf.numel() // (groups * c), dtype=xf.dtype,
-                           device=xf.device)
-        sums = torch.cat([xf.sum(axes), (xf * xf).sum(axes), count], dim=1)
-        total, sq, n = all_reduce_sum(sums, self.data_group).split([c, c, 1], dim=1)
-        mean = total / n
-        return mean, torch.clamp(sq / n - mean * mean, min=0.0)
+            y = y.to(self.compute_dtype)
+            return y if slope == 1.0 else F.leaky_relu(y, slope)
+        if x.shape[0] % groups:
+            raise ValueError(f"batch {x.shape[0]} not divisible by groups {groups}")
+        running = (self.running_mean, self.running_var) if self.update_stats else None
+        return batchnorm_act_train(x, self.weight, self.bias, running, groups, self.eps,
+                                   self.momentum, slope, self.compute_dtype, self.data_group)
 
 
 @contextlib.contextmanager
@@ -448,8 +423,8 @@ class ConvolutionalBlock(nn.Module):
         self.bn2 = GroupedBatchNorm(outc, eps=1e-4, compute_dtype=dt)
 
     def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
-        y = leaky_relu(self.bn1(self.conv1(x), groups))
-        return leaky_relu(self.bn2(self.conv2(y), groups))
+        y = self.bn1(self.conv1(x), groups, LEAKY_SLOPE)
+        return self.bn2(self.conv2(y), groups, LEAKY_SLOPE)
 
 
 class ResidualBlock(nn.Module):
@@ -474,7 +449,7 @@ class ResidualBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
         identity = x if self.conv_expand is None else self.conv_expand(x)
-        y = leaky_relu(self.bn1(self.conv1(x), groups))
+        y = self.bn1(self.conv1(x), groups, LEAKY_SLOPE)
         y = self.bn2(self.conv2(y), groups)
         group = getattr(self, "model_group", None)
         return leaky_relu(y + like(identity, y, self.bn2.num_features, group))
@@ -490,7 +465,7 @@ class Conv2dBatchNorm(nn.Module):
         self.batch_norm = GroupedBatchNorm(outc, eps=1e-4, compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
-        return leaky_relu(self.batch_norm(self.conv(x), groups))
+        return self.batch_norm(self.conv(x), groups, LEAKY_SLOPE)
 
 
 class InceptionResnetBlock(nn.Module):

@@ -55,6 +55,7 @@ import torch
 from torch import nn
 
 from intro_tc_vae_tpu_torch.models.blocks import (
+    LEAKY_SLOPE,
     GroupedBatchNorm,
     Linear,
     whole,
@@ -62,7 +63,6 @@ from intro_tc_vae_tpu_torch.models.blocks import (
     avg_pool2,
     conv,
     get_conv_class,
-    leaky_relu,
     remat,
     upsample_nearest2,
 )
@@ -140,7 +140,7 @@ class Encoder(nn.Module):
         return conv_output_size(self.image_size, self.channels)
 
     def forward(self, x: torch.Tensor, groups: int = 1):
-        y = avg_pool2(leaky_relu(self.main["1"](self.main["0"](x), groups)))
+        y = avg_pool2(self.main["1"](self.main["0"](x), groups, LEAKY_SLOPE))
         for name in self.stages[:-1]:
             y = avg_pool2(run_block(self.main[name], y, groups, self.remat))
         y = run_block(self.main[self.stages[-1]], y, groups, self.remat)
