@@ -11,9 +11,11 @@ from perfbench.reference import model as ref
 
 
 def arch_of(cell) -> ref.Arch:
+    """The reference's shape of the cell's model: its blocks are
+    ``config.arch``'s; an arch the reference has no blocks for raises."""
     m, c = cell.config["model"], cell.config["config"]
     return ref.Arch(image_size=m["image_size"], channels=tuple(m["channels"]),
-                    cdim=m["cdim"], zdim=c["z_dim"])
+                    cdim=m["cdim"], zdim=c["z_dim"], block=c["arch"])
 
 
 @contextlib.contextmanager

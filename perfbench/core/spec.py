@@ -5,7 +5,10 @@ names ``BENCHMARK.json`` gives them:
 
 * ``configs/<config>.json``: the repo configuration it comes from, each
   key it changes, ``reduced``, ``assumed``, its ``source``, and the whole
-  configuration as run (``config``) with the model's shape (``model``);
+  configuration as run (``config``) with the model's shape (``model``).
+  ``config.arch`` selects the reference's blocks (``conv``, ``res`` or
+  ``inception``, ``reference/model.py::BLOCKS``); the reference has the
+  ``intro_tc`` step only, so ``config.solver`` is ``intro_tc``;
 * ``traffic/<traffic>.json``: ``mode`` (``train`` or ``sample``, the
   driver ``modes/<mode>.py``) and its parameters;
 * ``limits/<workload>.json``: each number the comparison reads, with its

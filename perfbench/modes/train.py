@@ -22,6 +22,11 @@ Of each checked stage the program's losses, its first gradient as Adam
 took it (worked out from the moments after the stage's first step and
 before it) and its parameters after the third step are kept on the host.
 
+The program runs as ``train.py`` runs it: ``build`` and ``window`` hold
+``train.true_fp32`` for the configuration's precision, so an "fp32"
+configuration's convolutions and matrix products are fp32 proper, not
+TF32 (a "bf16" one leaves the switches as they are).
+
 The window (``window``) repeats, per epoch: ``iter(loader)``, then for
 each batch ``solver.train_step(state, batch, noise)`` with the step's
 noise drawn by the harness, a CUDA event after it, and
@@ -135,8 +140,21 @@ def copy_weights(module: torch.nn.Module, weights: dict) -> None:
             p.copy_(weights[name])
 
 
+def program_precision(cell):
+    """``train.true_fp32`` for the cell's precision: the TF32 switches as
+    ``train.py`` sets them around its run."""
+    from intro_tc_vae_tpu_torch.train import true_fp32
+
+    return true_fp32(cell.config["config"]["precision"])
+
+
 def build(cell, seed: int, device) -> Session:
     """Everything before the window; see the module docstring."""
+    with program_precision(cell):
+        return _build(cell, seed, device)
+
+
+def _build(cell, seed: int, device) -> Session:
     from intro_tc_vae_tpu_torch import train as program_train
     from intro_tc_vae_tpu_torch.config import Config
     from intro_tc_vae_tpu_torch.solvers.base import RING_DEPTH
@@ -280,6 +298,11 @@ class Window:
 def window(s: Session, seconds: float, trace: bool) -> Window:
     """The timed window; with ``trace``, a profiler over a steady stretch
     of it (see ``core/profiled.py``)."""
+    with program_precision(s.cell):
+        return _window(s, seconds, trace)
+
+
+def _window(s: Session, seconds: float, trace: bool) -> Window:
     from perfbench.core.profiled import Stretch
 
     cuda = s.device.type == "cuda"

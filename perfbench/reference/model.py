@@ -8,12 +8,20 @@ no caches. It imports nothing of the program under test: its parameters
 are a dict of tensors named as the program's ``state_dict`` names them,
 so that one set of weights made by the benchmark can be handed to both.
 
-* ``encoder`` / ``decoder``: the 'conv' arch (5x5 stem conv, BatchNorm
-  eps 1e-4 with the batch's biased variance max(0, E[x^2] - E[x]^2),
-  LeakyReLU 0.2, AvgPool 2; per stage a block conv3x3 - BN - LReLU -
-  conv3x3 - BN - LReLU; a Linear head to (mu, logvar); the decoder
-  mirrors it with nearest x2 upsampling, a 5x5 predict conv with bias and
-  a sigmoid). NCHW, features flattened channel-major.
+* ``encoder`` / ``decoder``: a 5x5 stem conv, BatchNorm (eps 1e-4, the
+  batch's biased variance max(0, E[x^2] - E[x]^2)), LeakyReLU 0.2, AvgPool
+  2; per stage a block of the configuration's arch (``Arch.block``); a
+  Linear head to (mu, logvar); the decoder mirrors it with nearest x2
+  upsampling, a 5x5 predict conv with bias and a sigmoid. NCHW, features
+  flattened channel-major. The blocks (upstream ``models.py``):
+
+  - ``conv``: conv3x3 - BN - LReLU - conv3x3 - BN - LReLU, BN eps 1e-4;
+  - ``res``: identity = x, or a 1x1 ``conv_expand`` without bias where the
+    channels change; LReLU(BN(conv3x3(LReLU(BN(conv3x3(x))))) + identity),
+    BN eps 1e-5 (torch's default: upstream passes none);
+  - ``inception``: branch_0 a 1x1 conv - BN - LReLU to out/2, branch_1 two
+    of those (in -> out, out -> out/2), concatenated, a 1x1 ``conv`` with
+    bias, + identity (or a 1x1 ``conv_expand``), LReLU; BN eps 1e-4.
 * ``intro_tc_step``: the two-phase step, the encoder phase then the
   decoder phase on the encoder phase's update, each pass once and in
   sequence, every KL site (beta - 1) TC + KL with the stratified
@@ -39,7 +47,6 @@ import torch
 import torch.nn.functional as F
 
 LEAKY = 0.2
-BN_EPS = 1e-4
 VAR_FLOOR = 1e-4
 LOG_PROB_FLOOR = -50.0
 LOG_2PI = math.log(2.0 * math.pi)
@@ -56,6 +63,12 @@ class Arch:
     channels: tuple
     cdim: int
     zdim: int
+    block: str = "conv"
+
+    def __post_init__(self):
+        if self.block not in BLOCKS:
+            raise ValueError(f"the reference has no {self.block!r} blocks "
+                             f"(it has {sorted(BLOCKS)})")
 
     @property
     def bottom(self) -> int:
@@ -94,39 +107,58 @@ def _stages(arch: Arch):
     return enc, dec
 
 
+def _conv_leaves(prefix: str, cin: int, cout: int, k: int, bias: bool = False) -> list:
+    out = [(f"{prefix}.weight", (cout, cin, k, k), "w", cin * k * k)]
+    if bias:
+        out.append((f"{prefix}.bias", (cout,), "b", cin * k * k))
+    return out
+
+
+def _bn_leaves(prefix: str, c: int) -> list:
+    return [(f"{prefix}.weight", (c,), "bn_w", 0), (f"{prefix}.bias", (c,), "bn_b", 0)]
+
+
+def _expand_leaves(prefix: str, cin: int, cout: int) -> list:
+    return _conv_leaves(f"{prefix}.conv_expand", cin, cout, 1) if cin != cout else []
+
+
+def _conv_block_leaves(prefix: str, cin: int, cout: int) -> list:
+    return (_conv_leaves(f"{prefix}.conv1", cin, cout, 3) + _bn_leaves(f"{prefix}.bn1", cout)
+            + _conv_leaves(f"{prefix}.conv2", cout, cout, 3) + _bn_leaves(f"{prefix}.bn2", cout))
+
+
+def _res_block_leaves(prefix: str, cin: int, cout: int) -> list:
+    return _expand_leaves(prefix, cin, cout) + _conv_block_leaves(prefix, cin, cout)
+
+
+def _inception_block_leaves(prefix: str, cin: int, cout: int) -> list:
+    """branch_1's middle width is out (the port's scale 1.0)."""
+    out = _expand_leaves(prefix, cin, cout)
+    for unit, a, b in (("branch_0", cin, cout // 2), ("branch_1.0", cin, cout),
+                       ("branch_1.1", cout, cout // 2)):
+        out += _conv_leaves(f"{prefix}.{unit}.conv", a, b, 1)
+        out += _bn_leaves(f"{prefix}.{unit}.batch_norm", b)
+    return out + _conv_leaves(f"{prefix}.conv", cout, cout, 1, bias=True)
+
+
 def leaf_specs(arch: Arch) -> list:
-    """Every parameter: (name, shape, kind, fan_in). ``kind`` is "w" (a
-    conv or dense weight), "b" (a conv or dense bias), "bn_w" or "bn_b"."""
-    out = []
-
-    def conv(prefix, cin, cout, k, bias=False):
-        out.append((f"{prefix}.weight", (cout, cin, k, k), "w", cin * k * k))
-        if bias:
-            out.append((f"{prefix}.bias", (cout,), "b", cin * k * k))
-
-    def bn(prefix, c):
-        out.append((f"{prefix}.weight", (c,), "bn_w", 0))
-        out.append((f"{prefix}.bias", (c,), "bn_b", 0))
-
-    def block(prefix, cin, cout):
-        conv(f"{prefix}.conv1", cin, cout, 3)
-        bn(f"{prefix}.bn1", cout)
-        conv(f"{prefix}.conv2", cout, cout, 3)
-        bn(f"{prefix}.bn2", cout)
-
+    """Every parameter, in the order of the program's ``named_parameters``:
+    (name, shape, kind, fan_in). ``kind`` is "w" (a conv or dense weight),
+    "b" (a conv or dense bias), "bn_w" or "bn_b"."""
+    block = BLOCKS[arch.block][0]
     enc, dec = _stages(arch)
     feat = arch.bottom ** 2 * arch.channels[-1]
-    conv("encoder.main.0", arch.cdim, arch.channels[0], 5)
-    bn("encoder.main.1", arch.channels[0])
+    out = _conv_leaves("encoder.main.0", arch.cdim, arch.channels[0], 5)
+    out += _bn_leaves("encoder.main.1", arch.channels[0])
     for name, cin, cout in enc:
-        block(f"encoder.main.{name}", cin, cout)
+        out += block(f"encoder.main.{name}", cin, cout)
     out.append(("encoder.fc.weight", (2 * arch.zdim, feat), "w", feat))
     out.append(("encoder.fc.bias", (2 * arch.zdim,), "b", feat))
     out.append(("decoder.fc.0.weight", (feat, arch.zdim), "w", arch.zdim))
     out.append(("decoder.fc.0.bias", (feat,), "b", arch.zdim))
     for name, cin, cout in dec:
-        block(f"decoder.main.{name}", cin, cout)
-    conv("decoder.main.predict", arch.channels[0], arch.cdim, 5, bias=True)
+        out += block(f"decoder.main.{name}", cin, cout)
+    out += _conv_leaves("decoder.main.predict", arch.channels[0], arch.cdim, 5, bias=True)
     return out
 
 
@@ -199,7 +231,7 @@ def _conv(p, name, x, q, pad):
     return q(y)
 
 
-def _bn(p, name, x, q, stats: Optional[dict], record: Optional[dict]):
+def _bn(p, name, x, q, stats: Optional[dict], record: Optional[dict], eps: float):
     """Train mode (``stats`` None): the batch's statistics; eval mode:
     ``stats``' running ones. ``record`` collects each layer's batch
     (mean, var)."""
@@ -214,24 +246,56 @@ def _bn(p, name, x, q, stats: Optional[dict], record: Optional[dict]):
         var = torch.clamp((x * x).mean(dim=(0, 2, 3), keepdim=True) - mean * mean, min=0.0)
         if record is not None:
             record[name] = (mean.detach().flatten(), var.detach().flatten())
-    return q((x - mean) * torch.rsqrt(var + BN_EPS) * w + b)
+    return q((x - mean) * torch.rsqrt(var + eps) * w + b)
 
 
-def _block(p, name, x, q, stats, record):
-    x = F.leaky_relu(_bn(p, f"{name}.bn1", _conv(p, f"{name}.conv1", x, q, 1), q, stats,
-                         record), LEAKY)
-    return F.leaky_relu(_bn(p, f"{name}.bn2", _conv(p, f"{name}.conv2", x, q, 1), q, stats,
-                            record), LEAKY)
+def _conv_bn_act(p, conv, bn, x, q, stats, record, eps: float, pad: int):
+    return F.leaky_relu(_bn(p, bn, _conv(p, conv, x, q, pad), q, stats, record, eps), LEAKY)
+
+
+def _identity(p, name, x, q):
+    expand = f"{name}.conv_expand"
+    return _conv(p, expand, x, q, 0) if f"{expand}.weight" in p else x
+
+
+def _conv_block(p, name, x, q, stats, record):
+    x = _conv_bn_act(p, f"{name}.conv1", f"{name}.bn1", x, q, stats, record, 1e-4, 1)
+    return _conv_bn_act(p, f"{name}.conv2", f"{name}.bn2", x, q, stats, record, 1e-4, 1)
+
+
+def _res_block(p, name, x, q, stats, record):
+    identity = _identity(p, name, x, q)
+    y = _conv_bn_act(p, f"{name}.conv1", f"{name}.bn1", x, q, stats, record, 1e-5, 1)
+    y = _bn(p, f"{name}.bn2", _conv(p, f"{name}.conv2", y, q, 1), q, stats, record, 1e-5)
+    return F.leaky_relu(y + identity, LEAKY)
+
+
+def _inception_block(p, name, x, q, stats, record):
+    identity = _identity(p, name, x, q)
+
+    def unit(sub, y):
+        return _conv_bn_act(p, f"{name}.{sub}.conv", f"{name}.{sub}.batch_norm", y, q, stats,
+                            record, 1e-4, 0)
+
+    y = torch.cat([unit("branch_0", x), unit("branch_1.1", unit("branch_1.0", x))], dim=1)
+    return F.leaky_relu(_conv(p, f"{name}.conv", y, q, 0) + identity, LEAKY)
+
+
+# arch -> (its block's leaves, its block's forward)
+BLOCKS = {"conv": (_conv_block_leaves, _conv_block),
+          "res": (_res_block_leaves, _res_block),
+          "inception": (_inception_block_leaves, _inception_block)}
 
 
 def encoder(p: dict, arch: Arch, x: torch.Tensor, q: Callable = QUANTIZERS[None],
             stats: Optional[dict] = None, record: Optional[dict] = None):
     """x [B, C, H, W] in [0, 1] -> (mu, logvar), [B, z] each."""
     enc, _ = _stages(arch)
-    y = _conv(p, "encoder.main.0", x, q, 2)
-    y = F.avg_pool2d(F.leaky_relu(_bn(p, "encoder.main.1", y, q, stats, record), LEAKY), 2)
+    block = BLOCKS[arch.block][1]
+    y = _conv_bn_act(p, "encoder.main.0", "encoder.main.1", x, q, stats, record, 1e-4, 2)
+    y = F.avg_pool2d(y, 2)
     for i, (name, _, _) in enumerate(enc):
-        y = _block(p, f"encoder.main.{name}", y, q, stats, record)
+        y = block(p, f"encoder.main.{name}", y, q, stats, record)
         if i < len(enc) - 1:
             y = F.avg_pool2d(y, 2)
     y = q(F.linear(q(y.flatten(1)), q(p["encoder.fc.weight"]), q(p["encoder.fc.bias"])))
@@ -243,11 +307,12 @@ def decoder(p: dict, arch: Arch, z: torch.Tensor, q: Callable = QUANTIZERS[None]
             stats: Optional[dict] = None, record: Optional[dict] = None) -> torch.Tensor:
     """z [B, z] -> image [B, C, H, W] in [0, 1]."""
     _, dec = _stages(arch)
+    block = BLOCKS[arch.block][1]
     s = arch.bottom
     y = q(F.linear(q(z), q(p["decoder.fc.0.weight"]), q(p["decoder.fc.0.bias"])))
     y = F.leaky_relu(y, LEAKY).view(z.shape[0], arch.channels[-1], s, s)
     for i, (name, _, _) in enumerate(dec):
-        y = _block(p, f"decoder.main.{name}", y, q, stats, record)
+        y = block(p, f"decoder.main.{name}", y, q, stats, record)
         if i < len(dec) - 1:
             y = F.interpolate(y, scale_factor=2, mode="nearest")
     return torch.sigmoid(_conv(p, "decoder.main.predict", y, q, 2))

@@ -9,6 +9,7 @@ import shutil
 import pytest
 
 from perfbench.core import spec
+from perfbench.core.common import arch_of
 from perfbench.core.spec import ROOT
 
 
@@ -27,6 +28,20 @@ def test_every_cell_finds_its_files():
         assert spec.mode_driver(cell.mode).end_to_end
     with pytest.raises(KeyError):
         spec.cell("no.such")
+
+
+@pytest.mark.parametrize("block", ["conv", "res", "inception"])
+def test_config_arch_selects_the_reference_blocks(block):
+    cell = spec.cell("itc64.train")
+    cell.config["config"] = dict(cell.config["config"], arch=block)
+    assert arch_of(cell).block == block
+
+
+def test_an_arch_the_reference_lacks_raises():
+    cell = spec.cell("itc64.train")
+    cell.config["config"] = dict(cell.config["config"], arch="dense")
+    with pytest.raises(ValueError, match="no 'dense' blocks"):
+        arch_of(cell)
 
 
 def test_configs_list_what_they_change():
