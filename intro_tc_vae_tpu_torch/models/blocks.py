@@ -41,6 +41,21 @@ never sharded at the default ``min_dim`` 256. Where a lower ``min_dim``
 shards one, ``PallasConv3x3`` gathers its weight and runs it whole on the
 whole input, as GSPMD runs a custom call whose operands it cannot
 partition, and the BatchNorm after it takes its slice.
+
+``STOCK_CALLS`` counts the calls that take a stock route where the
+decision is made, one add a call (forward only: a conv's backward follows
+its forward's route). It is registered with ``ops/launch_counts.py``, so
+it keeps counting under CUDA graph replay (Python runs only at the
+capture; each replay adds the capture's tally):
+
+* ``conv_stock_size``: a ``PallasConv3x3`` (impl 'pallas' or 'hybrid')
+  whose weight is 64 -> 64 3x3 but whose input ``supported`` refuses by
+  H, W or H * W (a 64 -> 64 conv at 256 x 256), run by the stock conv;
+* ``conv_stock_channels``: a ``PallasConv3x3`` that is not 64 -> 64, run
+  by the stock conv;
+* ``residual_tail``: a ``ResidualBlock`` call, whose residual add and
+  LeakyReLU run as stock passes;
+* ``conv_expand``: a ``ResidualBlock`` call through its 1x1 projection.
 """
 
 from __future__ import annotations
@@ -53,8 +68,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from intro_tc_vae_tpu_torch.ops import launch_counts
 from intro_tc_vae_tpu_torch.ops.batchnorm_cuda import batchnorm_act_train
-from intro_tc_vae_tpu_torch.ops.conv import supported
+from intro_tc_vae_tpu_torch.ops.conv import WEIGHT_SHAPE, supported
 from intro_tc_vae_tpu_torch.ops.conv_cuda import conv3x3_hybrid, conv3x3_pallas
 from intro_tc_vae_tpu_torch.parallel.collectives import (
     copy_to_model,
@@ -63,6 +79,8 @@ from intro_tc_vae_tpu_torch.parallel.collectives import (
 )
 
 LEAKY_SLOPE = 0.2
+STOCK_CALLS = launch_counts.register(dict.fromkeys(
+    ("conv_stock_size", "conv_stock_channels", "residual_tail", "conv_expand"), 0))
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -167,6 +185,8 @@ class PallasConv3x3(Conv2d):
         if supported(x.shape, w.shape):
             fn = conv3x3_hybrid if self.impl == "hybrid" else conv3x3_pallas
             return fn(x, w)
+        STOCK_CALLS["conv_stock_size" if tuple(w.shape) == WEIGHT_SHAPE
+                    else "conv_stock_channels"] += 1
         return F.conv2d(x, w, padding=self.padding)
 
 
@@ -448,10 +468,15 @@ class ResidualBlock(nn.Module):
         self.bn2 = GroupedBatchNorm(outc, eps=1e-5, compute_dtype=dt)
 
     def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
-        identity = x if self.conv_expand is None else self.conv_expand(x)
+        if self.conv_expand is None:
+            identity = x
+        else:
+            STOCK_CALLS["conv_expand"] += 1
+            identity = self.conv_expand(x)
         y = self.bn1(self.conv1(x), groups, LEAKY_SLOPE)
         y = self.bn2(self.conv2(y), groups)
         group = getattr(self, "model_group", None)
+        STOCK_CALLS["residual_tail"] += 1
         return leaky_relu(y + like(identity, y, self.bn2.num_features, group))
 
 
