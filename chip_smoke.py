@@ -55,7 +55,13 @@ result line):
    bf16 each kernel's median time beside its bound (``bn_bounds``) and the
    launch floor, and the whole forward and backward of the kernels, the
    plain version and ``F.batch_norm`` + ``F.leaky_relu``; the targets
-   (``BN_TARGETS``) printed, not enforced.
+   (``BN_TARGETS``) printed, not enforced. Resamples
+   (``phase_bn_resample``): at ``BN_RESAMPLE_CHECKS`` a call whose 2x2
+   average pool or nearest 2x upsample the kernels take, bit-equal to the
+   kernels followed by the stock pass (y, dx, dweight, dbias, running
+   statistics); at ``BN_MAIN`` each variant's median time beside its byte
+   bound (``bn_resample_bounds``), and the fused forward and backward
+   beside the unfused chain.
    TC gathered (``phase_gathered_kernels``): the same three kernels in
    their data-parallel form, each rank's rows against the whole mu bank of
    a global batch of 128 for R in {2, 8}, against the plain gathered
@@ -71,9 +77,11 @@ result line):
    counts derived in ``expected_intro_launches`` (the BatchNorm kernels'
    among them: 67 calls a step, every one through the kernels), and the
    run's total by those and the eval-mode decode after the last epoch
-   (``final_decode_launches``). ``bn_calls_128``: the 128 px recipe, 7
-   graphed steps, 81 train-mode BatchNorm calls a step through the
-   kernels, none plain; an eval decode launches no BatchNorm kernel. The rates in img/s, steps after the first
+   (``final_decode_launches``); the resamples the kernels take
+   (``resample_pool``, ``resample_up``) are counted there too.
+   ``bn_calls_128``: the 128 px recipe, 7 graphed steps, 81 train-mode
+   BatchNorm calls a step through the kernels, 15 pools and 20 upsamples
+   taken, none plain; an eval decode launches no BatchNorm kernel. The rates in img/s, steps after the first
    4 (a graphed step's 3 eager steps and its capture), each bound by the
    completion of the epoch's last step (the metrics are read on the host
    two steps behind the card). The step runs as one captured CUDA graph
@@ -1159,6 +1167,7 @@ def phase_bn_kernels(card: str) -> dict:
         y, dx = torch.empty_like(x), torch.empty_like(x)
         dw, db = torch.empty(c, device=dev), torch.empty(c, device=dev)
         count = n // groups * hw
+        w0 = (shape[-1], 0)  # the plane's width; no resample
         bc.launch("bn_stats", x, part, *sh, 1, device=dev)
         bc.launch("bn_finalize", part, w, stat, rm, rv, c, groups, plan.slices, count, 1e-4,
                   0.9, 0.1, device=dev)
@@ -1178,11 +1187,12 @@ def phase_bn_kernels(card: str) -> dict:
             "bn_stats": lambda: bc.launch("bn_stats", x, part, *sh, 1, device=dev),
             "bn_finalize": lambda: bc.launch("bn_finalize", part, w, stat, None, None, c, groups,
                                              plan.slices, count, 1e-4, 0.9, 0.1, device=dev),
-            "bn_apply": lambda: bc.launch("bn_apply", x, stat, b, y, *sh, 0.2, 1, device=dev),
-            "bn_bwd_reduce": lambda: bc.launch("bn_bwd_reduce", x, dy, stat, b, part, *sh, 0.2,
-                                               1, device=dev),
+            "bn_apply": lambda: bc.launch("bn_apply", x, stat, b, y, *sh, *w0, 0.2, 1,
+                                          device=dev),
+            "bn_bwd_reduce": lambda: bc.launch("bn_bwd_reduce", x, dy, stat, b, part, None, *sh,
+                                               *w0, 0.2, 1, device=dev),
             "bn_bwd_dx": lambda: bc.launch("bn_bwd_dx", x, dy, stat, b, part, dx, dw, db, *sh,
-                                           0.2, 1, device=dev),
+                                           *w0, 0.2, 1, device=dev),
             **paths,
         }
         rounds = [{k: median_ms(f, reps=11) for k, f in order}
@@ -1217,6 +1227,146 @@ def phase_bn_kernels(card: str) -> dict:
     return {"errs": errs, "times": times, "bounds": bounds}
 
 
+BN_RESAMPLE_CHECKS = [  # (x's shape, groups, dtype, slope, resample): the flagship's and the
+    # 128 px step's pooled and upsampled planes, fp32, fp16, planes of no whole vector a row
+    ((128, 64, 64, 64), 2, "bf16", 0.2, "pool"), ((128, 512, 8, 8), 2, "bf16", 0.2, "pool"),
+    ((256, 64, 128, 128), 2, "bf16", 0.2, "pool"), ((128, 64, 32, 32), 2, "bf16", 0.2, "up"),
+    ((128, 512, 4, 4), 2, "bf16", 0.2, "up"), ((256, 64, 64, 64), 2, "bf16", 0.2, "up"),
+    ((128, 64, 64, 64), 2, "fp32", 0.2, "pool"), ((128, 512, 4, 4), 2, "fp32", 1.0, "up"),
+    ((64, 256, 8, 8), 1, "fp16", 0.2, "pool"), ((6, 10, 6, 10), 3, "bf16", 0.2, "pool"),
+    ((6, 10, 5, 3), 2, "bf16", 0.2, "up"),
+]
+
+
+def bn_resample_bounds(shape, size: int) -> dict:
+    """Byte bounds of the resample variants and of the stock passes they
+    replace, on x ``shape`` of ``size`` bytes an element: a pooled
+    tensor is a quarter of x, an upsampled one four times x;
+    bn_bwd_reduce's upsample variant also writes the summed gradient, which
+    the plain bn_bwd_dx reads."""
+    act = math.prod(shape) * size
+    moved = {"bn_apply_pool": 1.25, "bn_bwd_reduce_pool": 1.25, "bn_bwd_dx_pool": 2.25,
+             "bn_apply_up": 5, "bn_bwd_reduce_up": 6, "bn_bwd_dx_up": 3,
+             "avg_pool2d": 1.25, "avg_pool2d_backward": 1.25, "upsample_nearest2d": 5,
+             "upsample_nearest2d_backward": 5}
+    return {k: bound(v * act, 0, "fp32") for k, v in moved.items()}
+
+
+def phase_bn_resample(card: str) -> dict:
+    """Phase 3, BatchNorm resamples: at ``BN_RESAMPLE_CHECKS`` a call whose
+    2x2 average pool or nearest 2x upsample the kernels take
+    (``_BatchNormAct`` with ``resample``) against the kernels followed by
+    the stock pass (``F.avg_pool2d``, ``F.interpolate``) and autograd:
+    y, dx, dweight, dbias and the running statistics bit-equal. Then at
+    ``BN_MAIN`` in bf16, 2 groups, each variant's median time beside its
+    byte bound, and the fused forward and backward beside the unfused
+    chain (the plain kernels and the stock pass, each timed alone)."""
+    import torch
+    import torch.nn.functional as F
+
+    from intro_tc_vae_tpu_torch.ops import batchnorm as bn, batchnorm_cuda as bc
+
+    dev = torch.device("cuda", 0)
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32, "fp16": torch.float16}
+    stock = {"pool": lambda t: F.avg_pool2d(t, 2),
+             "up": lambda t: F.interpolate(t, scale_factor=2, mode="nearest")}
+
+    def data(shape, dtype, out_shape, seed=0):
+        g = torch.Generator().manual_seed(seed)
+        c = shape[1]
+        return ((torch.randn(shape, generator=g) * 1.7 + 0.3).to(dtype).to(dev),
+                (torch.rand(c, generator=g) * 0.4 + 0.8).to(dev),
+                (torch.rand(c, generator=g) * 0.2 - 0.1).to(dev),
+                torch.randn(out_shape, generator=g).to(dtype).to(dev))
+
+    def call(x, w, b, dy, groups, slope, resample, fused):
+        c = x.shape[1]
+        rm, rv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+        xr, wr, br = (t.clone().requires_grad_(True) for t in (x, w, b))
+        if fused:
+            y = bc._BatchNormAct.apply(xr, wr, br, (rm, rv), groups, 1e-4, 0.1, slope, resample)
+        else:
+            y = stock[resample](bc._BatchNormAct.apply(xr, wr, br, (rm, rv), groups, 1e-4, 0.1,
+                                                       slope))
+        y.backward(dy)
+        return y.detach(), xr.grad, wr.grad, br.grad, rm, rv
+
+    names = ("y", "dx", "dweight", "dbias", "running_mean", "running_var")
+    for shape, groups, kind, slope, resample in BN_RESAMPLE_CHECKS:
+        n, c, h, w = shape
+        out = (n, c, h // 2, w // 2) if resample == "pool" else (n, c, 2 * h, 2 * w)
+        x, wt, b, dy = data(shape, dtypes[kind], out)
+        got = call(x, wt, b, dy, groups, slope, resample, True)
+        want = call(x, wt, b, dy, groups, slope, resample, False)
+        for name, a, r in zip(names, got, want):
+            if a.shape != r.shape or not torch.equal(a, r):
+                die(f"bn {resample} {shape} g{groups} {kind} slope {slope}: {name} differs "
+                    f"from the kernels and the stock pass")
+    print("phase 3: bn resample variants bit-equal to the kernels and the stock pass (y, dx, "
+          "dweight, dbias, running statistics) at "
+          + json.dumps([[list(s), g, k, sl, r] for s, g, k, sl, r in BN_RESAMPLE_CHECKS]))
+
+    shape, groups = BN_MAIN, 2
+    n, c, h, w = shape
+    hw = h * w
+    x, wt, b, dy = data(shape, torch.bfloat16, shape)
+    plan = bn.launch_plan(n, c, hw, groups, 2, bc.sm_count(dev))
+    sh = (n, c, hw, groups, plan.slices, plan.samples, plan.vector, plan.threads)
+    part = torch.empty((groups * c * plan.slices, 2), device=dev)
+    stat = torch.empty((groups, c, 4), device=dev)
+    bc.launch("bn_stats", x, part, *sh, 1, device=dev)
+    bc.launch("bn_finalize", part, wt, stat, None, None, c, groups, plan.slices,
+              n // groups * hw, 1e-4, 0.9, 0.1, device=dev)
+    y, dx, dsum = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
+    yp = x.new_empty((n, c, h // 2, w // 2))
+    yu = x.new_empty((n, c, 2 * h, 2 * w))
+    dyp, dyu = torch.randn_like(yp), torch.randn_like(yu)
+    dw, db = torch.empty(c, device=dev), torch.empty(c, device=dev)
+    bc.launch("bn_apply", x, stat, b, y, *sh, w, 0, 0.2, 1, device=dev)
+
+    def kernel(entry, *args, resample=0):
+        return lambda: bc.launch(entry, *args, *sh, w, resample, 0.2, 1, device=dev)
+
+    fns = {
+        "bn_apply": kernel("bn_apply", x, stat, b, y),
+        "bn_bwd_reduce": kernel("bn_bwd_reduce", x, dy, stat, b, part, None),
+        "bn_bwd_dx": kernel("bn_bwd_dx", x, dy, stat, b, part, dx, dw, db),
+        "bn_apply_pool": kernel("bn_apply", x, stat, b, yp, resample=1),
+        "bn_bwd_reduce_pool": kernel("bn_bwd_reduce", x, dyp, stat, b, part, None, resample=1),
+        "bn_bwd_dx_pool": kernel("bn_bwd_dx", x, dyp, stat, b, part, dx, dw, db, resample=1),
+        "bn_apply_up": kernel("bn_apply", x, stat, b, yu, resample=2),
+        "bn_bwd_reduce_up": kernel("bn_bwd_reduce", x, dyu, stat, b, part, dsum, resample=2),
+        "bn_bwd_dx_up": kernel("bn_bwd_dx", x, dsum, stat, b, part, dx, dw, db),
+        "avg_pool2d": lambda: F.avg_pool2d(y, 2),
+        "avg_pool2d_backward": lambda: torch.ops.aten.avg_pool2d_backward(
+            dyp, y, [2, 2], [2, 2], [0, 0], False, True, None),
+        "upsample_nearest2d": lambda: F.interpolate(y, scale_factor=2, mode="nearest"),
+        "upsample_nearest2d_backward": lambda: torch.ops.aten.upsample_nearest2d_backward(
+            dyu, [2 * h, 2 * w], list(shape), 2.0, 2.0),
+    }
+    rounds = [{k: median_ms(f, reps=11) for k, f in order}
+              for order in (list(fns.items()), list(fns.items())[::-1])]
+    t = {k: (rounds[0][k] + rounds[1][k]) / 2 for k in fns}
+    bd = bn_resample_bounds(shape, 2)
+    share = {k: bd[k]["bound_ms"] / t[k] for k in bd}
+    chains = {
+        "pool fwd": (t["bn_apply_pool"], t["bn_apply"] + t["avg_pool2d"]),
+        "pool bwd": (t["bn_bwd_reduce_pool"] + t["bn_bwd_dx_pool"],
+                     t["avg_pool2d_backward"] + t["bn_bwd_reduce"] + t["bn_bwd_dx"]),
+        "up fwd": (t["bn_apply_up"], t["bn_apply"] + t["upsample_nearest2d"]),
+        "up bwd": (t["bn_bwd_reduce_up"] + t["bn_bwd_dx_up"],
+                   t["upsample_nearest2d_backward"] + t["bn_bwd_reduce"] + t["bn_bwd_dx"]),
+    }
+    print(f"phase 3: bn resample {list(shape)} groups {groups} bf16 {plan}; median ms per call, "
+          "mean of two rounds in turns " + json.dumps({k: round(v, 5) for k, v in t.items()})
+          + "; bounds " + json.dumps({k: round(v["bound_ms"], 5) for k, v in bd.items()})
+          + "; share of the bound " + json.dumps({k: round(v, 3) for k, v in share.items()})
+          + "; (fused, unfused chain) ms "
+          + json.dumps({k: [round(a, 5), round(u, 5)] for k, (a, u) in chains.items()})
+          + f" on {card}")
+    return {"times": t, "bounds": bd, "chains": chains}
+
+
 def bn_calls_128(card: str) -> None:
     """Phase 4 (bn): the 128 px recipe (batch 128) with tc and conv
     'pallas' through ``bench.build_solver``, graphed by the trainer's rule,
@@ -1230,8 +1380,11 @@ def bn_calls_128(card: str) -> None:
     from intro_tc_vae_tpu_torch.ops import batchnorm_cuda as bc
 
     batch, steps = 128, 7
-    enc, dec = bn_layers(channels=tuple(bench.CHANNELS[128]))
-    want = bn_launches(3 * enc + 4 * dec)  # three encoder and four decoder calls a step
+    channels = tuple(bench.CHANNELS[128])
+    enc, dec = bn_layers(channels=channels)
+    pools, ups = resample_layers(channels=channels)
+    # three encoder and four decoder calls a step
+    want = bn_launches(3 * enc + 4 * dec, resamples=(3 * pools, 4 * ups))
     solver, state, x = bench.build_solver(
         "intro_tc", batch, 128, "cuda", conv_impl="pallas", **bench.BETAS,
         tc_impl="pallas", fuse_passes=True, test_iter=10**9)
@@ -1240,7 +1393,7 @@ def bn_calls_128(card: str) -> None:
         solver.train_step(state, x)
     solver.drain_metrics(0)
     torch.cuda.synchronize()
-    launches = dict(bc.LAUNCHES)
+    launches = {**bc.LAUNCHES, **bc.RESAMPLED}
     if launches != {k: steps * v for k, v in want.items()} or any(bc.CALLS.values()):
         die(f"bn at 128 px: launches {launches}, calls {dict(bc.CALLS)} in {steps} steps, "
             f"expected {want} a step and no plain call")
@@ -1248,7 +1401,7 @@ def bn_calls_128(card: str) -> None:
         state.model.eval()
         state.model.decoder(torch.randn(batch, bench.ZDIM, device=x.device))
         torch.cuda.synchronize()
-    if dict(bc.LAUNCHES) != launches:
+    if {**bc.LAUNCHES, **bc.RESAMPLED} != launches:
         die("bn at 128 px: an eval-mode decode launched BatchNorm kernels")
     print(f"phase 4 (bn): 128 px batch {batch}: {want['bn_stats']} BatchNorm calls a step "
           f"through the kernels, launches a step " + json.dumps(want)
@@ -1270,20 +1423,33 @@ def bn_layers(arch: str = "conv", channels: tuple = (64, 128, 256, 512)) -> tupl
                  for net in (Encoder, Decoder))
 
 
-def bn_launches(calls: int, recomputed: int = 0) -> dict:
-    """batchnorm_cuda.LAUNCHES after ``calls`` differentiated train-mode
-    BatchNorm calls, ``recomputed`` of them run again in the backward
-    (remat): a call launches the forward's three kernels and the
-    backward's two once each, a recompute the forward's once more."""
+def resample_layers(arch: str = "conv", channels: tuple = (64, 128, 256, 512)) -> tuple:
+    """(encoder, decoder) resamples a train-mode pass hands to the
+    BatchNorm kernels (``batchnorm_cuda.RESAMPLED``): the stem's pool, and
+    in the conv arch each stage's pool (len(channels) with the stem's) and
+    upsample (len(channels)); a residual or inception block runs its
+    stage's resample after its tail, as a stock pass."""
+    stages = len(channels)
+    return (stages, stages) if arch == "conv" else (1, 0)
+
+
+def bn_launches(calls: int, recomputed: int = 0, resamples: tuple = (0, 0)) -> dict:
+    """batchnorm_cuda.LAUNCHES and RESAMPLED after ``calls``
+    differentiated train-mode BatchNorm calls, ``recomputed`` of them run
+    again in the backward (remat): a call launches the forward's three
+    kernels and the backward's two once each, a recompute the forward's
+    once more; ``resamples``: the (pool, upsample) calls among them and
+    their recomputes, whose resample the kernels take."""
     fwd = calls + recomputed
     return {"bn_stats": fwd, "bn_finalize": fwd, "bn_apply": fwd, "bn_bwd_reduce": calls,
-            "bn_bwd_dx": calls}
+            "bn_bwd_dx": calls, "resample_pool": resamples[0], "resample_up": resamples[1]}
 
 
 def all_launches() -> dict:
     from intro_tc_vae_tpu_torch.ops import batchnorm_cuda, conv_cuda, tc_cuda
 
-    return {**tc_cuda.LAUNCHES, **conv_cuda.LAUNCHES, **batchnorm_cuda.LAUNCHES}
+    return {**tc_cuda.LAUNCHES, **conv_cuda.LAUNCHES, **batchnorm_cuda.LAUNCHES,
+            **batchnorm_cuda.RESAMPLED}
 
 
 def reset_all_launches() -> None:
@@ -1295,7 +1461,8 @@ def reset_all_launches() -> None:
 
 
 def expected_intro_launches(tc_impl: str, conv_impl: str, remat=False, routed: int = 3,
-                            body: str = "wgmma", bn: tuple | None = None) -> tuple:
+                            body: str = "wgmma", bn: tuple | None = None,
+                            arch: str = "conv") -> tuple:
     """Launches in phase E and in phase D of one paired flagship step,
     derived from the pass list of solvers/intro.py.
 
@@ -1320,25 +1487,33 @@ def expected_intro_launches(tc_impl: str, conv_impl: str, remat=False, routed: i
     forward under 'hybrid'); the TC calls lie outside the recomputed
     regions (tests/test_torch_solver_surface.py counts the same on the
     CPU).
-    BatchNorm: ``bn`` (encoder, decoder) layers (``bn_layers()``, the
+    BatchNorm: ``bn`` (encoder, decoder) layers (``bn_layers(arch)``, the
     flagship's, when None; (0, 0) where a data group takes the plain
     version). Phase E calls the encoder twice (the batch, then rec and
     fake paired) and the decoder twice, phase D the encoder once and the
     decoder twice, every call differentiated: 2 x 9 + 2 x 10 = 38 and 9 +
     2 x 10 = 29 calls at 64 px, 67 a step. ``remat`` "pass" recomputes
     every call once more, "block" every call but the encoder's stem, which
-    lies outside its blocks."""
+    lies outside its blocks. The resamples the kernels take
+    (``resample_layers(arch)``; none where a data group takes the plain
+    version): 2 x 4 pools and 2 x 4 upsamples in phase E, 4 and 8 in
+    phase D at 64 px; a recompute counts its calls' again (all but the
+    stem's pool under "block")."""
     tc = 1 if tc_impl == "pallas" else 0
-    enc, dec = bn_layers() if bn is None else bn
+    enc, dec = bn_layers(arch) if bn is None else bn
+    pools, ups = resample_layers(arch) if enc else (0, 0)
     redo = {False: 0, "block": enc - 1, "pass": enc}[remat] if enc else 0
+    redo_pools = {False: 0, "block": pools - 1, "pass": pools}[remat] if pools else 0
     fwd_per_conv = {"pallas": 2 + bool(remat), "hybrid": 1, "xla": 0}[conv_impl]
     dw = 2 * routed if conv_impl != "xla" else 0
 
     def counts(tc_calls, fwd, dws, encodes):
         calls = encodes * enc + 2 * dec
+        again = 2 if remat else 1
+        resamples = (encodes * (pools + redo_pools), 2 * ups * again)
         return {**conv_launches(fwd, dws, body), "tc_fwd": tc_calls * tc,
                 "tc_bwd_dz": tc_calls * tc, "tc_bwd_dmu": tc_calls * tc,
-                **bn_launches(calls, encodes * redo + 2 * dec if remat else 0)}
+                **bn_launches(calls, encodes * redo + 2 * dec if remat else 0, resamples)}
 
     per_phase = 2 * routed * fwd_per_conv
     return counts(3, per_phase, 0, 2), counts(2, per_phase, dw, 1)
@@ -1460,15 +1635,16 @@ def plain_batchnorm():
     """Train-mode BatchNorm takes its plain version (``ops/batchnorm.py``)
     on the card, for the float64 references: its kernels take float32,
     bfloat16 and float16 only, as the conv and TC kernels do, whose plain
-    versions conv_impl and tc_impl 'xla' pick. A data group's calls go on
-    as the program routes them."""
+    versions conv_impl and tc_impl 'xla' pick; a stage's resample then runs
+    as the stock pass after the call. A data group's calls go on as the
+    program routes them."""
     from intro_tc_vae_tpu_torch.models import blocks
     from intro_tc_vae_tpu_torch.ops import batchnorm as bn
 
-    routed = blocks.batchnorm_act_train
+    routed, takes = blocks.batchnorm_act_train, blocks.takes_resample
 
     def plain(x, weight, bias, running, groups, eps, momentum, slope, out_dtype,
-              data_group=None):
+              data_group=None, resample=None):
         if data_group is not None:
             return routed(x, weight, bias, running, groups, eps, momentum, slope, out_dtype,
                           data_group)
@@ -1476,10 +1652,11 @@ def plain_batchnorm():
                                 out_dtype)
 
     blocks.batchnorm_act_train = plain
+    blocks.takes_resample = lambda x, resample, data_group: False
     try:
         yield
     finally:
-        blocks.batchnorm_act_train = routed
+        blocks.batchnorm_act_train, blocks.takes_resample = routed, takes
 
 
 @contextlib.contextmanager
@@ -1711,7 +1888,8 @@ def phase_other_paths(card: str) -> dict:
             tail = final_decode_launches(conv_impl, fp32=True)
             want = {**conv_launches(20 * 6 * k + tail["conv3x3_fwd"], 20 * 3 * k, "fp32"),
                     "tc_fwd": 20 * tc, "tc_bwd_dz": 20 * tc, "tc_bwd_dmu": 20 * tc,
-                    **bn_launches(20 * sum(bn_layers(arch)))}
+                    **bn_launches(20 * sum(bn_layers(arch)),
+                                  resamples=tuple(20 * r for r in resample_layers(arch)))}
             reset_all_launches()
             with tf32_at_optimizer_calls() as tf32:
                 state = run_cli(config, {**update, "conv_impl": conv_impl, "num_epochs": 1},
@@ -1983,6 +2161,7 @@ def phase_data_parallel(card: str) -> dict:
 
     want_e = {"tc_fwd": 3, "tc_bwd_dz": 3, "tc_bwd_dmu": 3,
               **dict.fromkeys(conv_cuda.KERNELS, 0), **dict.fromkeys(batchnorm_cuda.KERNELS, 0),
+              **dict.fromkeys(batchnorm_cuda.RESAMPLED, 0),
               "calls.tc_logsumexp": 0, "calls.tc_logsumexp_gathered": 3}
     want_d = {**want_e, "tc_fwd": 2, "tc_bwd_dz": 2, "tc_bwd_dmu": 2,
               "calls.tc_logsumexp_gathered": 2}
@@ -3213,7 +3392,7 @@ def solver_surface(card: str, work: str) -> dict:
         state = run_cli(FLAGSHIP, inception, "phase 11 (a)")
     counts = all_launches()
     # 1x1 convs: none routes
-    want_e, want_d = expected_intro_launches("pallas", "xla", bn=bn_layers("inception"))
+    want_e, want_d = expected_intro_launches("pallas", "xla", arch="inception")
     for label, got, want in (("phase E", phase_e, {k: 20 * v for k, v in want_e.items()}),
                              ("phase D", phase_d, {k: 20 * v for k, v in want_d.items()}),
                              ("total", counts, {k: 20 * (want_e[k] + want_d[k])
@@ -5209,6 +5388,7 @@ def main() -> None:
         gathered = timed("phase 3 (TC gathered)", phase_gathered_kernels, card)
         conv = timed("phase 3 (conv)", phase_conv_kernels, card)
         bnk = timed("phase 3 (bn)", phase_bn_kernels, card)
+        timed("phase 3 (bn resample)", phase_bn_resample, card)
     fwd, g = kernels["fwd"], gathered["times"]
     reached = {"B=64 time / launch floor": fwd[MAIN_B][0] / fwd[MAIN_B][2],
                "B=512 ms": fwd[512][0], "B=2048 bound / time": fwd[2048][1] / fwd[2048][0],

@@ -55,7 +55,13 @@ capture; each replay adds the capture's tally):
   by the stock conv;
 * ``residual_tail``: a ``ResidualBlock`` call, whose residual add and
   LeakyReLU run as stock passes;
-* ``conv_expand``: a ``ResidualBlock`` call through its 1x1 projection.
+* ``conv_expand``: a ``ResidualBlock`` call through its 1x1 projection;
+* ``pool_stock``, ``up_stock``: a stage's 2x2 average pool or nearest 2x
+  upsample run as its own stock pass (``stock_resample``): after a
+  residual or inception block's tail, in eval mode, and wherever the
+  BatchNorm kernels do not take it into the call that ends the stage
+  (``ops/batchnorm_cuda.py::takes_resample``; those they take count in
+  ``batchnorm_cuda.RESAMPLED``).
 """
 
 from __future__ import annotations
@@ -69,7 +75,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from intro_tc_vae_tpu_torch.ops import launch_counts
-from intro_tc_vae_tpu_torch.ops.batchnorm_cuda import batchnorm_act_train
+from intro_tc_vae_tpu_torch.ops.batchnorm_cuda import batchnorm_act_train, takes_resample
 from intro_tc_vae_tpu_torch.ops.conv import WEIGHT_SHAPE, supported
 from intro_tc_vae_tpu_torch.ops.conv_cuda import conv3x3_hybrid, conv3x3_pallas
 from intro_tc_vae_tpu_torch.parallel.collectives import (
@@ -80,7 +86,8 @@ from intro_tc_vae_tpu_torch.parallel.collectives import (
 
 LEAKY_SLOPE = 0.2
 STOCK_CALLS = launch_counts.register(dict.fromkeys(
-    ("conv_stock_size", "conv_stock_channels", "residual_tail", "conv_expand"), 0))
+    ("conv_stock_size", "conv_stock_channels", "residual_tail", "conv_expand", "pool_stock",
+     "up_stock"), 0))
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -95,6 +102,16 @@ def avg_pool2(x: torch.Tensor) -> torch.Tensor:
 def upsample_nearest2(x: torch.Tensor) -> torch.Tensor:
     """nn.Upsample(scale_factor=2, mode='nearest')."""
     return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def stock_resample(x: torch.Tensor, resample) -> torch.Tensor:
+    """x after a stage's ``resample`` ("pool": ``avg_pool2``, "up":
+    ``upsample_nearest2``, None: none) as a stock pass, counted in
+    ``STOCK_CALLS``."""
+    if resample is None:
+        return x
+    STOCK_CALLS[f"{resample}_stock"] += 1
+    return avg_pool2(x) if resample == "pool" else upsample_nearest2(x)
 
 
 def tp_dim(module: nn.Module, name: str = "weight"):
@@ -346,13 +363,18 @@ class GroupedBatchNorm(nn.Module):
     (``update_stats`` False there): they update once per forward the step
     takes, as JAX's ``nn.remat`` threads ``batch_stats`` once.
 
-    ``forward(x, groups, slope)`` returns the leaky ReLU of slope ``slope``
-    (1.0: none) of the normalized x, in ``compute_dtype``: the activation
+    ``forward(x, groups, slope, resample)`` returns the leaky ReLU of
+    slope ``slope`` (1.0: none) of the normalized x, in ``compute_dtype``,
+    resampled by ``resample`` (None; "pool": 2x2 average pool, stride 2;
+    "up": nearest 2x upsample): the activation and the stage's resample
     the blocks apply after it, taken into the call so that train mode runs
-    both as the CUDA kernels of ``ops/batchnorm_cuda.py`` on the card
+    them as the CUDA kernels of ``ops/batchnorm_cuda.py`` on the card
     (``batchnorm_act_train``, which also picks the plain two-pass version
     of ``ops/batchnorm.py`` for CPU tensors and the cases its docstring
-    lists). Eval mode uses the running statistics, unfused.
+    lists). Where the kernels do not take the resample
+    (``takes_resample``), it runs after the call as the stock pass
+    (``stock_resample``). Eval mode uses the running statistics, unfused,
+    then the stock resample.
 
     Data parallel: with ``data_group`` set (``models.set_data_group``) to
     a group of several ranks, each rank holds its rows of every group, and
@@ -379,7 +401,8 @@ class GroupedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.update_stats = True
 
-    def forward(self, x: torch.Tensor, groups: int = 1, slope: float = 1.0) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, groups: int = 1, slope: float = 1.0,
+                resample=None) -> torch.Tensor:
         group = getattr(self, "model_group", None)
         if tp_dim(self) is not None:
             x = local(x, self.num_features, group)
@@ -391,12 +414,15 @@ class GroupedBatchNorm(nn.Module):
             y = (x - self.running_mean.reshape(bshape)) * scale.reshape(bshape) \
                 + self.bias.reshape(bshape)
             y = y.to(self.compute_dtype)
-            return y if slope == 1.0 else F.leaky_relu(y, slope)
+            return stock_resample(y if slope == 1.0 else F.leaky_relu(y, slope), resample)
         if x.shape[0] % groups:
             raise ValueError(f"batch {x.shape[0]} not divisible by groups {groups}")
         running = (self.running_mean, self.running_var) if self.update_stats else None
-        return batchnorm_act_train(x, self.weight, self.bias, running, groups, self.eps,
-                                   self.momentum, slope, self.compute_dtype, self.data_group)
+        fused = resample if takes_resample(x, resample, self.data_group) else None
+        y = batchnorm_act_train(x, self.weight, self.bias, running, groups, self.eps,
+                                self.momentum, slope, self.compute_dtype, self.data_group,
+                                fused)
+        return y if fused == resample else stock_resample(y, resample)
 
 
 @contextlib.contextmanager
@@ -429,7 +455,8 @@ def remat(module: nn.Module, fn, *args):
 class ConvolutionalBlock(nn.Module):
     """Plain double-conv block (reference models.py:8-54): no skip path.
 
-    conv3x3 -> BN(1e-4) -> LReLU -> conv3x3 -> BN(1e-4) -> LReLU.
+    conv3x3 -> BN(1e-4) -> LReLU -> conv3x3 -> BN(1e-4) -> LReLU, then the
+    stage's ``resample`` (None, "pool", "up"), taken into ``bn2``.
     """
 
     def __init__(self, inc: int, outc: int,
@@ -442,9 +469,9 @@ class ConvolutionalBlock(nn.Module):
         self.conv2 = conv(outc, outc, 3, compute_dtype=dt, impl=conv_impl, tile_rows=tile_rows)
         self.bn2 = GroupedBatchNorm(outc, eps=1e-4, compute_dtype=dt)
 
-    def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, groups: int = 1, resample=None) -> torch.Tensor:
         y = self.bn1(self.conv1(x), groups, LEAKY_SLOPE)
-        return self.bn2(self.conv2(y), groups, LEAKY_SLOPE)
+        return self.bn2(self.conv2(y), groups, LEAKY_SLOPE, resample)
 
 
 class ResidualBlock(nn.Module):
@@ -453,7 +480,8 @@ class ResidualBlock(nn.Module):
 
     identity = x, or a 1x1 ``conv_expand`` (no bias) when inc != outc;
     out = LReLU(BN(conv3x3(LReLU(BN(conv3x3(x))))) + identity), BN eps 1e-5
-    (torch's default: the reference passes none).
+    (torch's default: the reference passes none), then the stage's
+    ``resample`` as a stock pass after the tail.
     """
 
     def __init__(self, inc: int, outc: int,
@@ -467,7 +495,7 @@ class ResidualBlock(nn.Module):
         self.conv2 = conv(outc, outc, 3, compute_dtype=dt, impl=conv_impl, tile_rows=tile_rows)
         self.bn2 = GroupedBatchNorm(outc, eps=1e-5, compute_dtype=dt)
 
-    def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, groups: int = 1, resample=None) -> torch.Tensor:
         if self.conv_expand is None:
             identity = x
         else:
@@ -477,7 +505,8 @@ class ResidualBlock(nn.Module):
         y = self.bn2(self.conv2(y), groups)
         group = getattr(self, "model_group", None)
         STOCK_CALLS["residual_tail"] += 1
-        return leaky_relu(y + like(identity, y, self.bn2.num_features, group))
+        return stock_resample(leaky_relu(y + like(identity, y, self.bn2.num_features, group)),
+                              resample)
 
 
 class Conv2dBatchNorm(nn.Module):
@@ -499,7 +528,8 @@ class InceptionResnetBlock(nn.Module):
 
     branch_0: 1x1 -> outc/2; branch_1: 1x1 -> midc -> 1x1 -> outc/2;
     concat -> 1x1 ``conv`` (with bias) -> + identity (a 1x1 ``conv_expand``
-    when inc != outc) -> LReLU. Every conv is 1x1, so ``conv_impl`` and
+    when inc != outc) -> LReLU, then the stage's ``resample`` as a stock
+    pass. Every conv is 1x1, so ``conv_impl`` and
     ``tile_rows`` route nothing (accepted as the other blocks accept them).
     Under tensor parallelism each branch is gathered before the concat:
     two channel slices side by side are not a slice of the concat.
@@ -519,14 +549,15 @@ class InceptionResnetBlock(nn.Module):
                                        Conv2dBatchNorm(midc, outc // 2, compute_dtype=dt)])
         self.conv = Conv2d(outc, outc, 1, bias=True, compute_dtype=dt)
 
-    def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, groups: int = 1, resample=None) -> torch.Tensor:
         identity = x if self.conv_expand is None else self.conv_expand(x)
         x0 = self.branch_0(x, groups)
         x1 = self.branch_1[1](self.branch_1[0](x, groups), groups)
         group = getattr(self, "model_group", None)
         half = self.conv.in_channels // 2
         y = self.conv(torch.cat([whole(x0, half, group), whole(x1, half, group)], dim=1))
-        return leaky_relu(y + like(identity, y, self.conv.out_channels, group))
+        return stock_resample(leaky_relu(y + like(identity, y, self.conv.out_channels, group)),
+                              resample)
 
 
 _BLOCKS = {"conv": ConvolutionalBlock, "res": ResidualBlock,

@@ -10,6 +10,12 @@ models.py:196-298):
   nearest x2 upsample} stages, a final block, 5x5 predict conv (with
   bias) + sigmoid.
 
+A stage's resample is handed to the module that ends it (the stem's
+BatchNorm, a block's ``resample``): a ``ConvolutionalBlock`` passes it to
+its last BatchNorm, whose kernels take it into the call on the card
+(``models/blocks.py::GroupedBatchNorm``); a residual or inception block
+runs it as a stock pass after its tail.
+
 Module names follow the reference torch model (``encoder.main.0`` stem
 conv, ``encoder.main.1`` stem BN, ``*.main.res_in_{sz}``, ``encoder.fc``,
 ``decoder.fc.0``, ``decoder.main.predict``), so the JAX package's
@@ -29,10 +35,11 @@ keep the plain conv's parameters.
 
 ``remat=True`` (config ``remat: true | "block"``; JAX
 ``models/vae.py:104-118``, ``:161-167``) recomputes each encoder and
-decoder block in the backward (``blocks.remat``); the stem, the fc layers
-and the predict conv stay outside, as in JAX. The recompute runs the
-tensor-parallel collectives of its region again, in the same order on
-every rank (every rank recomputes the same regions of the same graph).
+decoder block in the backward (``blocks.remat``), its stage's resample
+with it; the stem, the fc layers and the predict conv stay outside, as
+in JAX. The recompute runs the tensor-parallel collectives of its region
+again, in the same order on every rank (every rank recomputes the same
+regions of the same graph).
 
 Tensor parallelism (``parallel.shard_state``; the layouts are
 ``models/blocks.py``'s): at the flagship width the encoder fc [2z, h w c]
@@ -60,11 +67,9 @@ from intro_tc_vae_tpu_torch.models.blocks import (
     Linear,
     whole,
     PackedPredictConv,
-    avg_pool2,
     conv,
     get_conv_class,
     remat,
-    upsample_nearest2,
 )
 
 
@@ -97,12 +102,13 @@ def resolve_conv_impl(conv_impl: str) -> str:
     return conv_impl
 
 
-def run_block(block: nn.Module, y: torch.Tensor, groups: int, checkpointed: bool):
-    """One block's forward, recomputed in the backward when ``checkpointed``
-    and a graph is being built."""
+def run_block(block: nn.Module, y: torch.Tensor, groups: int, checkpointed: bool,
+              resample=None):
+    """One block's forward with its stage's ``resample``, recomputed in the
+    backward when ``checkpointed`` and a graph is being built."""
     if checkpointed and torch.is_grad_enabled():
-        return remat(block, block, y, groups)
-    return block(y, groups)
+        return remat(block, block, y, groups, resample)
+    return block(y, groups, resample)
 
 
 class Encoder(nn.Module):
@@ -140,9 +146,9 @@ class Encoder(nn.Module):
         return conv_output_size(self.image_size, self.channels)
 
     def forward(self, x: torch.Tensor, groups: int = 1):
-        y = avg_pool2(self.main["1"](self.main["0"](x), groups, LEAKY_SLOPE))
+        y = self.main["1"](self.main["0"](x), groups, LEAKY_SLOPE, "pool")
         for name in self.stages[:-1]:
-            y = avg_pool2(run_block(self.main[name], y, groups, self.remat))
+            y = run_block(self.main[name], y, groups, self.remat, "pool")
         y = run_block(self.main[self.stages[-1]], y, groups, self.remat)
         y = whole(self.fc(y.flatten(1)), 2 * self.zdim, getattr(self.fc, "model_group", None))
         # loss math runs in fp32 regardless of the conv compute dtype
@@ -196,7 +202,7 @@ class Decoder(nn.Module):
             y = whole(y, h * w * c, group)
         y = y.reshape(z.shape[0], -1, h, w)
         for name in self.stages[:-1]:
-            y = upsample_nearest2(run_block(self.main[name], y, groups, self.remat))
+            y = run_block(self.main[name], y, groups, self.remat, "up")
         y = run_block(self.main[self.stages[-1]], y, groups, self.remat)
         y = whole(self.main["predict"](y), self.cdim, group)
         # sigmoid + reconstruction losses in fp32

@@ -8,6 +8,17 @@ the running statistics' EMA), ``bn_apply`` (y); backward: ``bn_bwd_reduce``
 and dbias where asked for). The plain version, the numerics and the launch
 plan are ``ops/batchnorm.py``'s.
 
+``resample`` ("pool": the 2x2 average pool, stride 2; "up": the nearest 2x
+upsample) takes the resample that follows the call into its kernels: the
+output is the resampled act(BN(x)), written by ``bn_apply`` without the
+full-size y, and the backward reads the resampled output's gradient in
+``bn_bwd_reduce`` and ``bn_bwd_dx`` (an upsample's summed gradient is
+written once by the first, for the second to read). The bits are those of
+the call followed by ``F.avg_pool2d(y, 2)`` or ``F.interpolate(y,
+scale_factor=2)`` and their backward passes; ``takes_resample`` says which
+calls the kernels take it for (x [N, C, H, W] on the kernels' route, and,
+for the pool, H and W even), and ``RESAMPLED`` counts them.
+
 ``batchnorm_act_train`` is the one entry point of ``GroupedBatchNorm``'s
 train mode; ``route`` decides from what the call can observe:
 
@@ -22,9 +33,11 @@ train mode; ``route`` decides from what the call can observe:
   than x's, parameters that are not float32, 2^31 elements or more.
 
 ``LAUNCHES`` counts kernel launches (``bn_stats`` once a call that takes
-the kernels) and ``CALLS`` the calls that take the plain version on a data
-group; both are registered with ``launch_counts``, which keeps them
-counting under CUDA graph replay. ``running`` None (a ``remat``
+the kernels; a resample variant counts under its kernel's name),
+``CALLS`` the calls that take the plain version on a data group and
+``RESAMPLED`` the calls whose resample the kernels take; all are
+registered with ``launch_counts``, which keeps them counting under CUDA
+graph replay. ``running`` None (a ``remat``
 recompute) leaves the running statistics as they are. Saved for the
 backward: x in its own dtype, the bias and the [G, C] float32 statistics;
 a gradient nobody asked for (``needs_input_grad``) is not computed.
@@ -49,27 +62,31 @@ from intro_tc_vae_tpu_torch.parallel.collectives import all_reduce_sum
 KERNELS = ("bn_stats", "bn_finalize", "bn_apply", "bn_bwd_reduce", "bn_bwd_dx")
 LAUNCHES = launch_counts.register(dict.fromkeys(KERNELS, 0))
 CALLS = launch_counts.register({"plain_data_group": 0})
+RESAMPLED = launch_counts.register({"resample_pool": 0, "resample_up": 0})
+_RESAMPLE_CODE = {None: 0, "pool": 1, "up": 2}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SHAPE = [_I] * 8  # n, c, hw, groups, slices, per_slice, vec, threads
+_RESAMPLE = [_I, _I]  # w, resample
 _ARGTYPES = {
     # x, part, shape, dtype, device, stream
     "bn_stats": [_P, _P] + _SHAPE + [_I, _I, _P],
     # part, weight, stat, running_mean, running_var, c, groups, slices,
     # count, eps, keep, momentum, device, stream
     "bn_finalize": [_P] * 5 + [_I] * 4 + [_F] * 3 + [_I, _P],
-    # x, stat, bias, y, shape, slope, dtype, device, stream
-    "bn_apply": [_P] * 4 + _SHAPE + [_F, _I, _I, _P],
-    # x, dy, stat, bias, part, shape, slope, dtype, device, stream
-    "bn_bwd_reduce": [_P] * 5 + _SHAPE + [_F, _I, _I, _P],
-    # x, dy, stat, bias, part, dx, dweight, dbias, shape, slope, dtype, device, stream
-    "bn_bwd_dx": [_P] * 8 + _SHAPE + [_F, _I, _I, _P],
+    # x, stat, bias, y, shape, w, resample, slope, dtype, device, stream
+    "bn_apply": [_P] * 4 + _SHAPE + _RESAMPLE + [_F, _I, _I, _P],
+    # x, dy, stat, bias, part, dsum, shape, w, resample, slope, dtype, device, stream
+    "bn_bwd_reduce": [_P] * 6 + _SHAPE + _RESAMPLE + [_F, _I, _I, _P],
+    # x, dy, stat, bias, part, dx, dweight, dbias, shape, w, resample, slope, dtype,
+    # device, stream
+    "bn_bwd_dx": [_P] * 8 + _SHAPE + _RESAMPLE + [_F, _I, _I, _P],
 }
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, CALLS):
+    for counts in (LAUNCHES, CALLS, RESAMPLED):
         for k in counts:
             counts[k] = 0
 
@@ -110,18 +127,36 @@ def route(x: torch.Tensor, data_group) -> str:
     return "plain" if x.device.type == "cpu" else "fused"
 
 
+def takes_resample(x: torch.Tensor, resample, data_group) -> bool:
+    """Whether the kernels take ``resample`` ("pool", "up" or None) into
+    the call: a call on their route (``route``) of x [N, C, H, W], with H
+    and W even for the pool (an upsample has no such condition). Elsewhere
+    the caller runs the stock resample after the call."""
+    if resample is None or x.dim() != 4 or route(x, data_group) != "fused":
+        return False
+    return resample == "up" or (x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0)
+
+
 def batchnorm_act_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, running,
                         groups: int, eps: float, momentum: float, slope: float,
-                        out_dtype: torch.dtype, data_group=None) -> torch.Tensor:
+                        out_dtype: torch.dtype, data_group=None,
+                        resample=None) -> torch.Tensor:
     """Train-mode BatchNorm of x [N, C, ...] in ``groups`` groups, then a
     leaky ReLU of ``slope`` (1.0: none), by the route ``route`` picks;
-    ``running``: (running_mean, running_var) to update, or None."""
+    ``running``: (running_mean, running_var) to update, or None;
+    ``resample``: "pool" or "up" where ``takes_resample`` holds (the
+    output is then resampled), else None."""
+    if resample is not None and not takes_resample(x, resample, data_group):
+        raise ValueError(f"the kernels take no {resample!r} resample of x "
+                         f"{tuple(x.shape)} on {x.device}")
     path = route(x, data_group)
     if path == "fused":
         if out_dtype != x.dtype:
             raise ValueError(f"the kernels write y in x's dtype {x.dtype}, not {out_dtype}")
+        if resample is not None:
+            RESAMPLED[f"resample_{resample}"] += 1
         return _BatchNormAct.apply(x.contiguous(), weight, bias, running, groups, eps,
-                                   momentum, slope)
+                                   momentum, slope, resample)
     reduce = None
     if path == "plain_data_group":
         CALLS[path] += 1
@@ -157,42 +192,58 @@ def _shape_args(n: int, c: int, hw: int, groups: int, plan: Plan) -> tuple:
     return (n, c, hw, groups, plan.slices, plan.samples, plan.vector, plan.threads)
 
 
+def resampled_shape(x: torch.Tensor, resample) -> tuple:
+    """The shape of x [N, C, H, W] after ``resample``."""
+    if resample is None:
+        return tuple(x.shape)
+    n, c, h, w = x.shape
+    return (n, c, h // 2, w // 2) if resample == "pool" else (n, c, 2 * h, 2 * w)
+
+
 class _BatchNormAct(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, running, groups: int, eps: float, momentum: float,
-                slope: float):
+                slope: float, resample=None):
         _check(x, weight, bias, groups)
         n, c, hw, plan = _plan(x, groups)
         shape = _shape_args(n, c, hw, groups, plan)
         code, dev = _DTYPE_CODE[x.dtype], x.device
+        rs = (x.shape[-1], _RESAMPLE_CODE[resample])
         part = torch.empty((groups * c * plan.slices, 2), device=dev, dtype=torch.float32)
         launch("bn_stats", x, part, *shape, code, device=dev)
         stat = torch.empty((groups, c, 4), device=dev, dtype=torch.float32)
         rm, rv = running if running is not None else (None, None)
         launch("bn_finalize", part, weight, stat, rm, rv, c, groups, plan.slices,
                n // groups * hw, eps, 1.0 - momentum, momentum, device=dev)
-        y = torch.empty_like(x)
-        launch("bn_apply", x, stat, bias, y, *shape, slope, code, device=dev)
+        y = x.new_empty(resampled_shape(x, resample))
+        launch("bn_apply", x, stat, bias, y, *shape, *rs, slope, code, device=dev)
         ctx.save_for_backward(x, bias, stat)
-        ctx.meta = (groups, slope)
+        ctx.meta = (groups, slope, resample)
         return y
 
     @staticmethod
     def backward(ctx, dy):
         x, bias, stat = ctx.saved_tensors
-        groups, slope = ctx.meta
+        groups, slope, resample = ctx.meta
         dy = dy.to(x.dtype).contiguous()
         n, c, hw, plan = _plan(x, groups)
-        if plan != _plan(dy, groups)[3]:  # a vector width dy's alignment refuses
+        # a vector width dy's alignment refuses; a resampled dy is read
+        # element by element instead (the kernels' rows), in x's plan
+        if resample is None and plan != _plan(dy, groups)[3]:
             plan = plan._replace(vector=1)
         shape = _shape_args(n, c, hw, groups, plan)
         code, dev = _DTYPE_CODE[x.dtype], x.device
+        w, rcode = x.shape[-1], _RESAMPLE_CODE[resample]
         part = torch.empty((groups * c * plan.slices, 2), device=dev, dtype=torch.float32)
-        launch("bn_bwd_reduce", x, dy, stat, bias, part, *shape, slope, code, device=dev)
+        dsum = torch.empty_like(x) if resample == "up" else None
+        launch("bn_bwd_reduce", x, dy, stat, bias, part, dsum, *shape, w, rcode, slope, code,
+               device=dev)
+        if dsum is not None:  # the upsample's gradient, summed: the plain bn_bwd_dx reads it
+            dy, rcode = dsum, 0
         want_x, want_w, want_b = ctx.needs_input_grad[:3]
         dx = torch.empty_like(x) if want_x else None
         dw = torch.empty(c, device=dev, dtype=torch.float32) if want_w else None
         db = torch.empty(c, device=dev, dtype=torch.float32) if want_b else None
-        launch("bn_bwd_dx", x, dy, stat, bias, part, dx, dw, db, *shape, slope, code,
+        launch("bn_bwd_dx", x, dy, stat, bias, part, dx, dw, db, *shape, w, rcode, slope, code,
                device=dev)
-        return dx, dw, db, None, None, None, None, None
+        return dx, dw, db, None, None, None, None, None, None

@@ -10,12 +10,16 @@ inputs (``ops/batchnorm.py``), with M the largest |reference| of the
 tensor: y and dx |d| <= e |ref| + 1e-4 M, e the dtype's two roundings of y
 (bf16 2^-7, fp16 2^-10; fp32 1e-5) and one of dx; dweight and dbias
 (sums of up to 2.1 M fp32 terms in a fixed tree) |d| <= 1e-3 (|ref| + M);
-the running statistics rtol 1e-5.
+the running statistics rtol 1e-5. The resample variants (a 2x2 average
+pool or a nearest 2x upsample taken into the call) against the kernels
+followed by the stock pass and its autograd: bit for bit.
 """
 
 import pytest
 import torch
+import torch.nn.functional as F
 
+from intro_tc_vae_tpu_torch.models import blocks
 from intro_tc_vae_tpu_torch.models.blocks import GroupedBatchNorm
 from intro_tc_vae_tpu_torch.ops import batchnorm as bn
 from intro_tc_vae_tpu_torch.ops import batchnorm_cuda as bc
@@ -184,18 +188,179 @@ def test_the_module_routes_by_what_it_observes(dev):
         {"bn_stats": 2, "bn_apply": 2}
 
 
+RESAMPLED_KERNELS = ("bn_apply_pool", "bn_apply_up", "bn_bwd_reduce_pool", "bn_bwd_reduce_up",
+                     "bn_bwd_dx_pool")
+
+
 def test_every_kernel_name_counts_as_memory_bound(dev):
     """The benchmark's ``memory_bound_ms.train`` reads the kernels by their
-    names on the card: every ``bn_`` kernel counts there, and none as a
-    hand conv or TC kernel or a library product."""
+    names on the card: every ``bn_`` kernel, the resample variants' too,
+    counts there, and none as a hand conv or TC kernel or a library
+    product."""
     from perfbench.core.trace import is_hand, is_library_compute, is_memory_bound
 
     x, w, b, dy = inputs((16, 64, 8, 8), torch.bfloat16, dev)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         kernels(x, w, b, dy, 2, 0.2)
+        for resample in ("pool", "up"):
+            resampled(x, w, b, grad_of(x, resample), 2, 0.2, resample, fused=True)
         torch.cuda.synchronize(dev)
     names = {e.name for e in prof.events() if "bn_" in e.name}
-    for k in bc.KERNELS:
+    for k in bc.KERNELS + RESAMPLED_KERNELS:
         assert any(k in n for n in names), (k, names)
     for n in names:
         assert is_memory_bound(n) and not is_hand(n) and not is_library_compute(n), n
+
+
+# ---------------------------------------------------------------------------
+# the resample variants
+# ---------------------------------------------------------------------------
+
+STOCK = {"pool": lambda t: F.avg_pool2d(t, 2),
+         "up": lambda t: F.interpolate(t, scale_factor=2, mode="nearest")}
+
+
+def grad_of(x, resample, seed=3, offset=0):
+    """A gradient for x's resampled output; ``offset`` elements into its
+    storage (a misaligned tensor, which the kernels read element by
+    element)."""
+    n, c, h, w = x.shape
+    shape = (n, c, h // 2, w // 2) if resample == "pool" else (n, c, 2 * h, 2 * w)
+    numel = n * c * shape[2] * shape[3]
+    g = torch.Generator().manual_seed(seed)
+    flat = torch.randn(numel + offset, generator=g).to(x.dtype).to(x.device)
+    return flat[offset:].view(shape)
+
+
+def misaligned_copy(x):
+    """x's values one element into a fresh storage: 16-byte vectors refused."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    return flat[1:].view(x.shape).copy_(x)
+
+
+def resampled(x, w, b, dy, groups, slope, resample, fused, running=True, misaligned=False):
+    """y, dx, dweight, dbias, running mean and var of a call whose resample
+    the kernels take (``fused``), or of the kernels and the stock pass; x
+    misaligned to 16 bytes if asked."""
+    c = x.shape[1]
+    rm, rv = torch.zeros(c, device=x.device), torch.ones(c, device=x.device)
+    xr = (misaligned_copy(x) if misaligned else x.clone()).requires_grad_(True)
+    wr, br = w.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    stats = (rm, rv) if running else None
+    if fused:
+        y = bc._BatchNormAct.apply(xr, wr, br, stats, groups, EPS, MOMENTUM, slope, resample)
+    else:
+        y = STOCK[resample](bc._BatchNormAct.apply(xr, wr, br, stats, groups, EPS, MOMENTUM,
+                                                   slope))
+    y.backward(dy)
+    return y.detach(), xr.grad, wr.grad, br.grad, rm, rv
+
+
+def assert_bitwise(got, want, what):
+    for name, a, r in zip(("y", "dx", "dweight", "dbias", "running_mean", "running_var"),
+                          got, want):
+        assert a.shape == r.shape and a.dtype == r.dtype, (what, name)
+        assert torch.equal(a, r), (what, name, float((a.double() - r.double()).abs().max()))
+
+
+# the planes the three train cells resample: pools from 128^2 down to 8^2,
+# upsamples from 4^2 up to 64^2; 12 samples, so 1, 2 and 3 groups divide them
+POOLED = [128, 64, 32, 16, 8]
+UPSAMPLED = [4, 8, 16, 32, 64]
+
+
+@pytest.mark.parametrize("slope", [0.2, 1.0])
+@pytest.mark.parametrize("groups", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_resample_variants_are_the_kernels_and_the_stock_pass(dev, dtype, groups, slope):
+    for resample, planes in (("pool", POOLED), ("up", UPSAMPLED)):
+        for side in planes:
+            c = 8 if side >= 64 else 32
+            x, w, b, _ = inputs((12, c, side, side), dtype, dev, seed=side)
+            dy = grad_of(x, resample)
+            got = resampled(x, w, b, dy, groups, slope, resample, fused=True)
+            want = resampled(x, w, b, dy, groups, slope, resample, fused=False)
+            assert_bitwise(got, want, (resample, side))
+
+
+@pytest.mark.parametrize("resample", ["pool", "up"])
+def test_one_element_a_vector_and_a_misaligned_gradient(dev, resample):
+    """x misaligned to 16 bytes (a plan of vector width 1), a gradient
+    misaligned (read element by element in x's plan), planes whose rows
+    hold no whole vector (W 4 and 12 in bf16; W 6): the same bits."""
+    for shape, dtype in (((12, 16, 16, 16), torch.bfloat16), ((12, 16, 4, 4), torch.bfloat16),
+                         ((6, 8, 8, 12), torch.bfloat16), ((6, 8, 6, 6), torch.float32)):
+        x, w, b, _ = inputs(shape, dtype, dev, seed=7)
+        assert bc._plan(misaligned_copy(x), 2)[3].vector == 1
+        for misaligned in (False, True):
+            for offset in (0, 1):
+                dy = grad_of(x, resample, offset=offset)
+                got = resampled(x, w, b, dy, 2, 0.2, resample, True, misaligned=misaligned)
+                want = resampled(x, w, b, dy, 2, 0.2, resample, False, misaligned=misaligned)
+                assert_bitwise(got, want, (shape, misaligned, offset))
+
+
+def test_frozen_parameters_and_a_recompute_with_a_resample(dev):
+    """Only the gradients asked for, and no running statistics, as the
+    plain kernels; the rest as with all of them."""
+    x, w, b, _ = inputs((12, 32, 16, 16), torch.bfloat16, dev, seed=4)
+    for resample in ("pool", "up"):
+        dy = grad_of(x, resample)
+        full = resampled(x, w, b, dy, 2, 0.2, resample, fused=True)
+        frozen = resampled(x, w, b, dy, 2, 0.2, resample, fused=True, running=False)
+        assert torch.equal(frozen[0], full[0]) and torch.equal(frozen[1], full[1])
+        assert torch.equal(frozen[4], torch.zeros_like(frozen[4]))
+        xr = x.clone().requires_grad_(True)
+        y = bc._BatchNormAct.apply(xr, w, b, None, 2, EPS, MOMENTUM, 0.2, resample)
+        (dx,) = torch.autograd.grad(y, (xr,), dy)
+        assert torch.equal(y, full[0]) and torch.equal(dx, full[1])
+
+
+def test_an_odd_plane_takes_the_stock_pool_and_is_counted(dev):
+    """A pool of an odd H or W runs as the stock pass after the kernels
+    (``pool_stock``); an upsample of any plane is taken (``resample_up``)."""
+    module = GroupedBatchNorm(8, eps=EPS, compute_dtype=torch.bfloat16).to(dev).train()
+    for shape in ((4, 8, 5, 6), (4, 8, 6, 5)):
+        x = torch.randn(shape, device=dev).to(torch.bfloat16)
+        before_s, before_r = dict(blocks.STOCK_CALLS), dict(bc.RESAMPLED)
+        got = module(x, 2, 0.2, "pool")
+        assert blocks.STOCK_CALLS["pool_stock"] == before_s["pool_stock"] + 1
+        assert bc.RESAMPLED == before_r
+        assert torch.equal(got, F.avg_pool2d(module(x, 2, 0.2), 2))
+        before_s, before_r = dict(blocks.STOCK_CALLS), dict(bc.RESAMPLED)
+        got = module(x, 2, 0.2, "up")
+        assert blocks.STOCK_CALLS == before_s
+        assert bc.RESAMPLED == {**before_r, "resample_up": before_r["resample_up"] + 1}
+        assert torch.equal(got, STOCK["up"](module(x, 2, 0.2)))
+
+
+def test_a_captured_graph_keeps_the_resample_counts(dev):
+    """A module's pooled and upsampled calls, forward and backward,
+    captured: the tally holds the five kernels twice and one resample of
+    each kind, and each replay adds them, as the launches."""
+    module = GroupedBatchNorm(64, eps=EPS, compute_dtype=torch.bfloat16).to(dev).train()
+    x = torch.randn(32, 64, 16, 16, device=dev).to(torch.bfloat16).requires_grad_(True)
+
+    def body():
+        y = module(x, 2, 0.2, "pool").float().square().sum() + \
+            module(x, 2, 0.2, "up").float().square().sum()
+        return torch.autograd.grad(y, (x, module.weight, module.bias))
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        body()  # warm-up, outside the capture
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with launch_counts.recording() as tally, torch.cuda.graph(graph):
+        body()
+    assert tally.launches() == {**dict.fromkeys(bc.KERNELS, 2), "resample_pool": 1,
+                                "resample_up": 1}
+    before = {**bc.LAUNCHES, **bc.RESAMPLED}
+    for _ in range(3):
+        graph.replay()
+        tally.add()
+    torch.cuda.synchronize(dev)
+    after = {**bc.LAUNCHES, **bc.RESAMPLED}
+    assert {k: after[k] - before[k] for k in after} == {**dict.fromkeys(bc.KERNELS, 6),
+                                                         "resample_pool": 3, "resample_up": 3}

@@ -33,7 +33,8 @@ from tests._torch_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "intro_tc_ukiyo256_res.json")
-COUNTERS = ("conv_stock_size", "conv_stock_channels", "residual_tail", "conv_expand")
+COUNTERS = ("conv_stock_size", "conv_stock_channels", "residual_tail", "conv_expand",
+            "pool_stock", "up_stock")
 # the benchmark's 64 and 128 px cells and this configuration, by dataset
 MODELS = {"itc64": "ukiyo_e64", "itc128": "ukiyo_e128", "itc256res": "ukiyo_e256"}
 
@@ -156,7 +157,8 @@ def test_a_conv_counts_its_stock_route(counts, impl):
         blocks.PallasConv3x3(64, 128, impl=impl)(torch.zeros(1, 64, 128, 128, device="meta"))
         blocks.PallasConv3x3(3, 64, impl=impl)(torch.zeros(1, 3, 64, 64, device="meta"))
     assert dict(counts) == {"conv_stock_size": 2, "conv_stock_channels": 2,
-                            "residual_tail": 0, "conv_expand": 0}
+                            "residual_tail": 0, "conv_expand": 0, "pool_stock": 0,
+                            "up_stock": 0}
 
 
 def test_a_stock_conv_module_counts_nothing(counts):
@@ -173,11 +175,13 @@ def test_a_residual_block_counts_its_tail_and_projection(counts):
     with torch.no_grad():
         blocks.ResidualBlock(16, 32, conv_impl="pallas")(x)
         assert dict(counts) == {"conv_stock_size": 0, "conv_stock_channels": 2,
-                                "residual_tail": 1, "conv_expand": 1}
+                                "residual_tail": 1, "conv_expand": 1, "pool_stock": 0,
+                                "up_stock": 0}
         blocks.ResidualBlock(16, 16, conv_impl="pallas")(x)
         blocks.ConvolutionalBlock(16, 16, conv_impl="pallas")(x)
     assert dict(counts) == {"conv_stock_size": 0, "conv_stock_channels": 6,
-                            "residual_tail": 2, "conv_expand": 1}
+                            "residual_tail": 2, "conv_expand": 1, "pool_stock": 0,
+                            "up_stock": 0}
 
 
 def test_a_tally_adds_what_the_capture_counted(counts):
@@ -231,11 +235,15 @@ def test_only_the_256px_model_sends_a_64_64_conv_to_the_stock_route(counts, monk
         assert got[model]["encoder"]["residual_tail"] == 0
     res = got["itc256res"]
     # the decoder's last block, res_in_256: two 64 -> 64 convs at 256 x 256;
-    # the encoder has no 64 -> 64 conv (its first block is 64 -> 128)
+    # the encoder has no 64 -> 64 conv (its first block is 64 -> 128). In
+    # eval mode every stage's resample is a stock pass: the stem's and five
+    # blocks' pools, six upsamples
     assert res["encoder"] == {"conv_stock_size": 0, "conv_stock_channels": 12,
-                              "residual_tail": 6, "conv_expand": 3}
+                              "residual_tail": 6, "conv_expand": 3, "pool_stock": 6,
+                              "up_stock": 0}
     assert res["decoder"] == {"conv_stock_size": 2, "conv_stock_channels": 11,
-                              "residual_tail": 7, "conv_expand": 3}
+                              "residual_tail": 7, "conv_expand": 3, "pool_stock": 0,
+                              "up_stock": 6}
     # what is routed at 256 px: the decoder's res_in_128 conv2, 64 -> 64 at 128 x 128
     assert routed[-1:] == [(1, 64, 128, 128)]
 
