@@ -831,7 +831,7 @@ def phase_conv_kernels(card: str) -> dict:
     and the bounds."""
     import torch
 
-    from intro_tc_vae_tpu_torch.ops import conv, conv_cuda, tc_cuda
+    from intro_tc_vae_tpu_torch.ops import conv, conv_cuda, launch_counts, tc_cuda
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -862,7 +862,7 @@ def phase_conv_kernels(card: str) -> dict:
         x = (torch.randn(shape, device=dev, generator=gen) * 0.5).to(dtype)
         w = (torch.randn((64, 64, 3, 3), device=dev, generator=gen) * 0.05).to(dtype)
         gy = torch.randn(shape, device=dev, generator=gen).to(dtype)
-        conv_cuda.reset_launch_counts()
+        launch_counts.reset()
         got = {"y": conv_cuda.conv3x3_fwd(x, w),
                "dx": conv_cuda.conv3x3_fwd(gy, w, rot=True),
                "dw": conv_cuda.conv3x3_dw(x, gy)}
@@ -1091,7 +1091,7 @@ def phase_bn_kernels(card: str) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from intro_tc_vae_tpu_torch.ops import batchnorm as bn, batchnorm_cuda as bc, tc_cuda
+    from intro_tc_vae_tpu_torch.ops import batchnorm as bn, batchnorm_cuda as bc, cuda_build, tc_cuda
 
     dev = torch.device("cuda", 0)
     dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32, "fp16": torch.float16}
@@ -1159,7 +1159,7 @@ def phase_bn_kernels(card: str) -> dict:
         x, w, b, dy = data(shape, torch.bfloat16)
         n, c = shape[:2]
         hw = math.prod(shape[2:])
-        plan = bn.launch_plan(n, c, hw, groups, 2, bc.sm_count(dev))
+        plan = bn.launch_plan(n, c, hw, groups, 2, cuda_build.sm_count(dev))
         sh = (n, c, hw, groups, plan.slices, plan.samples, plan.vector, plan.threads)
         part = torch.empty((groups * c * plan.slices, 2), device=dev)
         stat = torch.empty((groups, c, 4), device=dev)
@@ -1264,7 +1264,7 @@ def phase_bn_resample(card: str) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from intro_tc_vae_tpu_torch.ops import batchnorm as bn, batchnorm_cuda as bc
+    from intro_tc_vae_tpu_torch.ops import batchnorm as bn, batchnorm_cuda as bc, cuda_build
 
     dev = torch.device("cuda", 0)
     dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32, "fp16": torch.float16}
@@ -1310,7 +1310,7 @@ def phase_bn_resample(card: str) -> dict:
     n, c, h, w = shape
     hw = h * w
     x, wt, b, dy = data(shape, torch.bfloat16, shape)
-    plan = bn.launch_plan(n, c, hw, groups, 2, bc.sm_count(dev))
+    plan = bn.launch_plan(n, c, hw, groups, 2, cuda_build.sm_count(dev))
     sh = (n, c, hw, groups, plan.slices, plan.samples, plan.vector, plan.threads)
     part = torch.empty((groups * c * plan.slices, 2), device=dev)
     stat = torch.empty((groups, c, 4), device=dev)
@@ -1378,6 +1378,7 @@ def bn_calls_128(card: str) -> None:
 
     from intro_tc_vae_tpu_torch import bench
     from intro_tc_vae_tpu_torch.ops import batchnorm_cuda as bc
+    from intro_tc_vae_tpu_torch.ops import launch_counts
 
     batch, steps = 128, 7
     channels = tuple(bench.CHANNELS[128])
@@ -1388,12 +1389,12 @@ def bn_calls_128(card: str) -> None:
     solver, state, x = bench.build_solver(
         "intro_tc", batch, 128, "cuda", conv_impl="pallas", **bench.BETAS,
         tc_impl="pallas", fuse_passes=True, test_iter=10**9)
-    bc.reset_launch_counts()
+    launch_counts.reset()
     for _ in range(steps):
         solver.train_step(state, x)
     solver.drain_metrics(0)
     torch.cuda.synchronize()
-    launches = {**bc.LAUNCHES, **bc.RESAMPLED}
+    launches = {k: n for k, n in all_launches().items() if k in want}
     if launches != {k: steps * v for k, v in want.items()} or any(bc.CALLS.values()):
         die(f"bn at 128 px: launches {launches}, calls {dict(bc.CALLS)} in {steps} steps, "
             f"expected {want} a step and no plain call")
@@ -1401,7 +1402,7 @@ def bn_calls_128(card: str) -> None:
         state.model.eval()
         state.model.decoder(torch.randn(batch, bench.ZDIM, device=x.device))
         torch.cuda.synchronize()
-    if {**bc.LAUNCHES, **bc.RESAMPLED} != launches:
+    if {k: n for k, n in all_launches().items() if k in want} != launches:
         die("bn at 128 px: an eval-mode decode launched BatchNorm kernels")
     print(f"phase 4 (bn): 128 px batch {batch}: {want['bn_stats']} BatchNorm calls a step "
           f"through the kernels, launches a step " + json.dumps(want)
@@ -1425,7 +1426,7 @@ def bn_layers(arch: str = "conv", channels: tuple = (64, 128, 256, 512)) -> tupl
 
 def resample_layers(arch: str = "conv", channels: tuple = (64, 128, 256, 512)) -> tuple:
     """(encoder, decoder) resamples a train-mode pass hands to the
-    BatchNorm kernels (``batchnorm_cuda.RESAMPLED``): the stem's pool, and
+    BatchNorm kernels (``resample_pool``, ``resample_up``): the stem's pool, and
     in the conv arch each stage's pool (len(channels) with the stem's) and
     upsample (len(channels)); a residual or inception block runs its
     stage's resample after its tail, as a stock pass."""
@@ -1434,7 +1435,7 @@ def resample_layers(arch: str = "conv", channels: tuple = (64, 128, 256, 512)) -
 
 
 def bn_launches(calls: int, recomputed: int = 0, resamples: tuple = (0, 0)) -> dict:
-    """batchnorm_cuda.LAUNCHES and RESAMPLED after ``calls``
+    """batchnorm_cuda.LAUNCHES and the taken resamples after ``calls``
     differentiated train-mode BatchNorm calls, ``recomputed`` of them run
     again in the backward (remat): a call launches the forward's three
     kernels and the backward's two once each, a recompute the forward's
@@ -1446,18 +1447,14 @@ def bn_launches(calls: int, recomputed: int = 0, resamples: tuple = (0, 0)) -> d
 
 
 def all_launches() -> dict:
-    from intro_tc_vae_tpu_torch.ops import batchnorm_cuda, conv_cuda, tc_cuda
+    """The hand kernels' launches and the resamples the BatchNorm kernels
+    take, read from the registry of counters (``ops/launch_counts.py``;
+    ``launch_counts.reset()`` zeroes them all)."""
+    from intro_tc_vae_tpu_torch.ops import batchnorm_cuda, conv_cuda, launch_counts, tc_cuda
 
-    return {**tc_cuda.LAUNCHES, **conv_cuda.LAUNCHES, **batchnorm_cuda.LAUNCHES,
-            **batchnorm_cuda.RESAMPLED}
-
-
-def reset_all_launches() -> None:
-    from intro_tc_vae_tpu_torch.ops import batchnorm_cuda, conv_cuda, tc_cuda
-
-    tc_cuda.reset_launch_counts()
-    conv_cuda.reset_launch_counts()
-    batchnorm_cuda.reset_launch_counts()
+    keys = {*tc_cuda.KERNELS, *conv_cuda.KERNELS, *batchnorm_cuda.KERNELS, "resample_pool",
+            "resample_up"}
+    return {k: n for counts in launch_counts.snapshot() for k, n in counts.items() if k in keys}
 
 
 def expected_intro_launches(tc_impl: str, conv_impl: str, remat=False, routed: int = 3,
@@ -1600,6 +1597,7 @@ INTRO_ARMS = (("pallas", "xla"), ("xla", "xla"), ("pallas", "pallas"), ("pallas"
 
 def phase_main_path(card: str) -> dict:
     """Phase 4: the CLI trains 20 flagship steps in each of INTRO_ARMS."""
+    from intro_tc_vae_tpu_torch.ops import launch_counts
     from intro_tc_vae_tpu_torch.train import images_per_second
 
     rates, launches = {}, {}
@@ -1607,7 +1605,7 @@ def phase_main_path(card: str) -> dict:
         arm = f"tc {tc_impl}, conv {conv_impl}"
         update = {"dataset": "synthetic", "tc_impl": tc_impl, "conv_impl": conv_impl,
                   "num_epochs": 1, "use_tensorboard": False}
-        reset_all_launches()
+        launch_counts.reset()
         with launches_per_phase() as (phase_e, phase_d):
             state = run_cli(FLAGSHIP, update, arm)
         counts = all_launches()
@@ -1638,25 +1636,15 @@ def plain_batchnorm():
     versions conv_impl and tc_impl 'xla' pick; a stage's resample then runs
     as the stock pass after the call. A data group's calls go on as the
     program routes them."""
-    from intro_tc_vae_tpu_torch.models import blocks
-    from intro_tc_vae_tpu_torch.ops import batchnorm as bn
+    from intro_tc_vae_tpu_torch.ops import batchnorm_cuda
 
-    routed, takes = blocks.batchnorm_act_train, blocks.takes_resample
-
-    def plain(x, weight, bias, running, groups, eps, momentum, slope, out_dtype,
-              data_group=None, resample=None):
-        if data_group is not None:
-            return routed(x, weight, bias, running, groups, eps, momentum, slope, out_dtype,
-                          data_group)
-        return bn.batchnorm_act(x, weight, bias, running, groups, eps, momentum, slope,
-                                out_dtype)
-
-    blocks.batchnorm_act_train = plain
-    blocks.takes_resample = lambda x, resample, data_group: False
+    route = batchnorm_cuda.route
+    batchnorm_cuda.route = lambda x, data_group: (
+        "plain" if data_group is None else route(x, data_group))
     try:
         yield
     finally:
-        blocks.batchnorm_act_train, blocks.takes_resample = routed, takes
+        batchnorm_cuda.route = route
 
 
 @contextlib.contextmanager
@@ -1874,6 +1862,7 @@ def phase_other_paths(card: str) -> dict:
     must be off: cuDNN's convs of the 'xla' arm are true fp32 like the
     routed ones of the 'pallas' arm. Returns the launches of the
     vae_synthetic run."""
+    from intro_tc_vae_tpu_torch.ops import launch_counts
     from intro_tc_vae_tpu_torch.train import images_per_second
 
     rates, vae_launches = {}, {}
@@ -1890,7 +1879,7 @@ def phase_other_paths(card: str) -> dict:
                     "tc_fwd": 20 * tc, "tc_bwd_dz": 20 * tc, "tc_bwd_dmu": 20 * tc,
                     **bn_launches(20 * sum(bn_layers(arch)),
                                   resamples=tuple(20 * r for r in resample_layers(arch)))}
-            reset_all_launches()
+            launch_counts.reset()
             with tf32_at_optimizer_calls() as tf32:
                 state = run_cli(config, {**update, "conv_impl": conv_impl, "num_epochs": 1},
                                 run)
@@ -1999,7 +1988,7 @@ def dp_rank(out_path: str) -> None:
 
     from intro_tc_vae_tpu_torch import main as cli_main
     from intro_tc_vae_tpu_torch.config import load_config
-    from intro_tc_vae_tpu_torch.ops import tc_cuda
+    from intro_tc_vae_tpu_torch.ops import launch_counts, tc_cuda
     from intro_tc_vae_tpu_torch.parallel import make_mesh, state_digest
     from intro_tc_vae_tpu_torch.train import images_per_second
 
@@ -2008,7 +1997,7 @@ def dp_rank(out_path: str) -> None:
 
     # the final checkpoint (rank 0 writes) beside the results, for (g)
     update = {**DP_UPDATE, "checkpoint_dir": os.path.join(os.path.dirname(out_path), "saves")}
-    reset_all_launches()
+    launch_counts.reset()
     with launches_per_phase(counts) as (phase_e, phase_d):
         state = cli_main.cli(["-f", DP_CONFIG, "-u", json.dumps(update)])
     train = dict(history=state.history, counts=counts(), phase_e=phase_e,
@@ -2161,7 +2150,7 @@ def phase_data_parallel(card: str) -> dict:
 
     want_e = {"tc_fwd": 3, "tc_bwd_dz": 3, "tc_bwd_dmu": 3,
               **dict.fromkeys(conv_cuda.KERNELS, 0), **dict.fromkeys(batchnorm_cuda.KERNELS, 0),
-              **dict.fromkeys(batchnorm_cuda.RESAMPLED, 0),
+              "resample_pool": 0, "resample_up": 0,
               "calls.tc_logsumexp": 0, "calls.tc_logsumexp_gathered": 3}
     want_d = {**want_e, "tc_fwd": 2, "tc_bwd_dz": 2, "tc_bwd_dmu": 2,
               "calls.tc_logsumexp_gathered": 2}
@@ -2311,7 +2300,7 @@ def phase_checkpoints(card: str) -> dict:
 
         marks = {}
         handle = launch_counts.on_mark(lambda: marks.update(last=all_launches()))
-        reset_all_launches()
+        launch_counts.reset()
         try:
             state_a = run_cli(FLAGSHIP, update, "phase 8 (a)")
         finally:
@@ -2419,7 +2408,7 @@ def phase_checkpoints(card: str) -> dict:
         if out.returncode != 0 or not os.path.exists(png):
             die(f"phase 8 (f): the sampler failed:\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
         written = np.asarray(Image.open(png))
-        reset_all_launches()
+        launch_counts.reset()
         grid = sample.main([*argv, "--out", os.path.join(work, "again.png")])
         launched = {k: v for k, v in all_launches().items() if v}
         if launched:
@@ -2604,6 +2593,7 @@ def phase_data_paths(card: str, main_path: dict) -> dict:
     import torch
 
     from intro_tc_vae_tpu_torch.data import DSprites, UkiyoE
+    from intro_tc_vae_tpu_torch.ops import launch_counts
     from intro_tc_vae_tpu_torch.runtime import native
     from intro_tc_vae_tpu_torch.solvers.base import u8_to_unit_f32
     from intro_tc_vae_tpu_torch.train import images_per_second
@@ -2681,7 +2671,7 @@ def phase_data_paths(card: str, main_path: dict) -> dict:
         # (e)
         update = {"data_root": ukiyo_root, "use_tensorboard": False, "num_epochs": 1,
                   "tc_impl": "pallas", "conv_impl": "pallas"}
-        reset_all_launches()
+        launch_counts.reset()
         state, lines = run_cli_captured(FLAGSHIP, update, "phase 9 (e)")
         counts = all_launches()
         if not any(line.startswith("device cache:") for line in lines):
@@ -2901,6 +2891,7 @@ def observe(card: str, main_path: dict, work: str) -> dict:
 
     from intro_tc_vae_tpu_torch import evaluate
     from intro_tc_vae_tpu_torch.models import inception
+    from intro_tc_vae_tpu_torch.ops import launch_counts
     from intro_tc_vae_tpu_torch.train import images_per_second
 
     out = {}
@@ -2911,7 +2902,7 @@ def observe(card: str, main_path: dict, work: str) -> dict:
     update = {"data_root": ukiyo_root, "num_epochs": 1, "tc_impl": "pallas",
               "conv_impl": "pallas", "test_iter": OBS_TEST_ITER["flagship"],
               "log_dir": os.path.join(log_a, "tb"), "checkpoint_dir": saves_a}
-    reset_all_launches()
+    launch_counts.reset()
     state, lines, stats, devices = observed_cli(FLAGSHIP, update, "phase 10 (a)", 20)
     counts = all_launches()
     decode = final_decode_launches("pallas")
@@ -2959,7 +2950,7 @@ def observe(card: str, main_path: dict, work: str) -> dict:
     update = {"dataset": "dsprites_small", "data_root": dsprites_root, "num_epochs": 1,
               "tc_impl": "pallas", "conv_impl": "pallas",
               "test_iter": OBS_TEST_ITER["tc_dsprites"], "log_dir": os.path.join(log_b, "tb")}
-    reset_all_launches()
+    launch_counts.reset()
     state, lines, stats, devices = observed_cli(TC_DSPRITES, update, "phase 10 (b)", 112)
     counts = all_launches()
     if not counts["tc_fwd"] == counts["tc_bwd_dz"] == counts["tc_bwd_dmu"] == 112:
@@ -3247,12 +3238,14 @@ def profiled_run(label: str, solver, state, batches: list, active: int = 3,
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from intro_tc_vae_tpu_torch.ops import launch_counts
+
     graphed = solver.graphed
     if graphed is not None and len(batches) - active <= graphed.warmup:
         die(f"{phase}: {label}: {len(batches)} steps leave the capture in the profiled window")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_all_launches()
+    launch_counts.reset()
     metrics = []
 
     def step(batch):
@@ -3377,6 +3370,7 @@ def solver_surface(card: str, work: str) -> dict:
     from intro_tc_vae_tpu_torch.config import load_config
     from intro_tc_vae_tpu_torch.data import load_dataset
     from intro_tc_vae_tpu_torch.models import Decoder, Encoder, SoftIntroVAE
+    from intro_tc_vae_tpu_torch.ops import launch_counts
     from intro_tc_vae_tpu_torch.solvers import NOISE_KEYS
     from intro_tc_vae_tpu_torch.train import images_per_second
 
@@ -3387,7 +3381,7 @@ def solver_surface(card: str, work: str) -> dict:
     inception = {"dataset": "synthetic", "arch": "inception", "tc_impl": "pallas",
                  "conv_impl": "pallas", "num_epochs": 1, "use_tensorboard": False,
                  "checkpoint_dir": saves}
-    reset_all_launches()
+    launch_counts.reset()
     with launches_per_phase() as (phase_e, phase_d):
         state = run_cli(FLAGSHIP, inception, "phase 11 (a)")
     counts = all_launches()
@@ -3594,17 +3588,16 @@ def start():
     from intro_tc_vae_tpu_torch.ops import batchnorm_cuda, conv_cuda, cuda_build, tc_cuda
     from intro_tc_vae_tpu_torch.runtime import native
 
-    libraries = ("tc_kernels", "bn_kernels", *conv_cuda.LIBRARIES)  # every source under csrc/
+    bound = (tc_cuda.LIBRARY, batchnorm_cuda.LIBRARY, *conv_cuda.LIBRARIES.values())
+    libraries = [lib.name for lib in bound]  # every source under csrc/
     for path in [cuda_build.library_path(lib) for lib in libraries] + [native.library_path()]:
         if path.exists():
             path.unlink()  # always compile this checkout's source
     with ThreadPoolExecutor(len(libraries) + 1) as pool:
         host_build = pool.submit(native.build)  # the data core, g++ (phase 9)
         built = list(pool.map(cuda_build.build, libraries)) + [host_build.result()]
-    tc_cuda._library()
-    batchnorm_cuda._library()
-    for lib in conv_cuda.LIBRARIES:
-        conv_cuda._library(lib)
+    for lib in bound:
+        lib.cdll  # binds every entry point: a missing symbol raises here
     for path, seconds in built:
         print(f"phase 2: built {os.path.relpath(path, HERE)} in {seconds:.1f} s")
     return name, card
@@ -3818,12 +3811,14 @@ def option_run(label: str, update: dict, card: str) -> tuple:
     routes, so none launches, the final decode's included), device ms per
     step over the last PROFILED_STEPS (``profiled_steps``). Returns
     (device ms/step, the final TrainState)."""
+    from intro_tc_vae_tpu_torch.ops import launch_counts
+
     conv_impl = update["conv_impl"]
     routed = 0 if update.get("tile_rows", 0) > 0 else 3
     full = {"dataset": "synthetic", "tc_impl": "pallas", "num_epochs": 1,
             "use_tensorboard": False, **update}
     box = []
-    reset_all_launches()
+    launch_counts.reset()
     with synthetic_steps(PHASE13_STEPS), launches_per_phase() as (phase_e, phase_d):
         by_name = profiled_steps(
             lambda: box.append(run_cli(FLAGSHIP, full, label, steps=PHASE13_STEPS)),
@@ -3854,7 +3849,7 @@ def predict_conv_times(dev, card: str) -> dict:
     a 3x3 conv, pixel_shuffle) at b = 2 and 4, bf16, at the paired
     decoder's [128, 64, 64, 64]: the forward, and forward plus the backward
     to the input, weight and bias. Library times, recorded for the measured
-    ``pack_predict: -1`` (auto) decision (ROADMAP Queue 1 item 1)."""
+    ``pack_predict: -1`` (auto) decision (ROADMAP Queue 5 item 2)."""
     import torch
 
     from intro_tc_vae_tpu_torch.models.blocks import Conv2d, PackedPredictConv
@@ -3948,8 +3943,9 @@ def option_clis(path: str, work: str) -> None:
 
     from intro_tc_vae_tpu_torch import evaluate, sample
     from intro_tc_vae_tpu_torch.evaluation import fid
+    from intro_tc_vae_tpu_torch.ops import launch_counts
 
-    reset_all_launches()
+    launch_counts.reset()
     argv = ["--checkpoint", path, "--dataset", "synthetic", "--arch", "conv",
             "--z-dim", str(Z_DIM)]
     grids = {p: sample.main([*argv, "--num", "16", "--seed", "3", "--pack", str(p),
@@ -4223,7 +4219,7 @@ def tp_train(update: dict) -> dict:
     import torch
 
     from intro_tc_vae_tpu_torch import main as cli_main
-    from intro_tc_vae_tpu_torch.ops import tc_cuda
+    from intro_tc_vae_tpu_torch.ops import launch_counts, tc_cuda
     from intro_tc_vae_tpu_torch.parallel import gather_state, state_digest
     from intro_tc_vae_tpu_torch.parallel.mesh import sharded_keys
     from intro_tc_vae_tpu_torch.train import images_per_second
@@ -4233,7 +4229,7 @@ def tp_train(update: dict) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     box = []
-    reset_all_launches()
+    launch_counts.reset()
     with synthetic_steps(TP_STEPS), launches_per_phase(counts) as (phase_e, phase_d):
         by_name = profiled_steps(
             lambda: box.append(cli_main.cli(["-f", FLAGSHIP, "-u", json.dumps(update)])),
@@ -4485,6 +4481,7 @@ def graph_arm(graph: bool, update: dict | None = None, steps: int = GRAPH_STEPS,
     import torch
 
     from intro_tc_vae_tpu_torch.config import load_config
+    from intro_tc_vae_tpu_torch.ops import launch_counts
     from intro_tc_vae_tpu_torch.solvers.base import RING_DEPTH
     from intro_tc_vae_tpu_torch.train import setup
     from intro_tc_vae_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
@@ -4499,7 +4496,7 @@ def graph_arm(graph: bool, update: dict | None = None, steps: int = GRAPH_STEPS,
             calls.extend(epoch)
     calls = calls[:steps // k]
     returned, drained, at8 = [], [], None
-    reset_all_launches()
+    launch_counts.reset()
     with launches_per_phase() as (phase_e, phase_d):
         for i, batch in enumerate(calls):
             if resume_at is not None and i == resume_at:
@@ -4736,9 +4733,10 @@ def harness_trend(card: str, work: str) -> None:
     import math
 
     from intro_tc_vae_tpu_torch.analysis import eval_config5_trend
+    from intro_tc_vae_tpu_torch.ops import launch_counts
 
     out = os.path.join(work, "trend")
-    reset_all_launches()
+    launch_counts.reset()
     r = eval_config5_trend.main(["--steps", "4", "--eval-points", "2", "--out", out])
     launched = all_launches()
     points = r["points"]
@@ -4807,6 +4805,7 @@ def phase_harnesses(card: str) -> dict:
         stability_report,
     )
     from intro_tc_vae_tpu_torch.config import load_config
+    from intro_tc_vae_tpu_torch.ops import launch_counts
     from intro_tc_vae_tpu_torch.train import train_soft_intro_vae
 
     dev = torch.device("cuda", 0)
@@ -4835,7 +4834,7 @@ def phase_harnesses(card: str) -> dict:
               + f" on {card}")
         lap("(a)")
         # (b)
-        reset_all_launches()
+        launch_counts.reset()
         c = ceiling.main(["--measure", "--only", f"intro_tc:64:{MAIN_B}"])
         launched = all_launches()
         row, = c["rows"]
@@ -4919,13 +4918,14 @@ def bench_main_arms(card: str) -> dict:
     drained step); the launches of each phase exactly phase 4's arm's,
     scaled to the steps run (warm-up and capture included)."""
     from intro_tc_vae_tpu_torch import bench
+    from intro_tc_vae_tpu_torch.ops import launch_counts
 
     out = {}
     for tc_impl, conv_impl in BENCH_ARMS:
         want_e, want_d = expected_intro_launches(tc_impl, conv_impl)
         for graph in (True, False):
             arm = f"tc {tc_impl}, conv {conv_impl}, {'graphed' if graph else 'eager'}"
-            reset_all_launches()
+            launch_counts.reset()
             with launches_per_phase() as (phase_e, phase_d):
                 r = bench.main(tc_impl=tc_impl, conv_impl=conv_impl, graph=graph)
             n = r["steps"]

@@ -10,16 +10,6 @@ that use them. The TPU's Pallas kernels on the main path are hand-written CUDA
 kernels under ``csrc/``, built at first use (``ops/cuda_build.py``), and the
 host's data core is C++ (``runtime/``), built at first use too; neither
 at import.
-
-Options the port does not carry yet raise ``NotImplementedError`` naming
-the ROADMAP item that ports them (``not_ported``).
 """
 
 __version__ = "0.1.0"
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error for an option this port does not carry yet."""
-    return NotImplementedError(
-        f"{what} is not ported to intro_tc_vae_tpu_torch yet (ROADMAP {item})"
-    )

@@ -129,7 +129,7 @@ def main(argv=None) -> dict:
     import torch
 
     from intro_tc_vae_tpu_torch.analysis._timing import median_ms
-    from intro_tc_vae_tpu_torch.ops import conv_cuda
+    from intro_tc_vae_tpu_torch.ops import conv_cuda, launch_counts
 
     device = torch.device(a.device)
     cuda = device.type == "cuda"
@@ -149,7 +149,7 @@ def main(argv=None) -> dict:
     rows = {}
     print(f"shape [B={b}, {s}x{s}, 64->64] 3x3 SAME, {gflop:.1f} GFLOP fwd, on {device}")
     for name, (fn, grad) in arms().items():
-        conv_cuda.reset_launch_counts()
+        launch_counts.reset()
         call(fn, grad, x, w)
         if cuda:
             torch.cuda.synchronize(device)

@@ -2,9 +2,8 @@
 
 A copy of ``intro_tc_vae_tpu/config.py`` (same fields, defaults, merge
 order and validation), so every ``configs/*.json`` loads unchanged. The
-port cannot import the JAX package: importing it imports jax. Which of
-these options the port carries yet is checked in ``train.py``
-(``check_ported``); the rest raise ``NotImplementedError`` there.
+port cannot import the JAX package: importing it imports jax. The port
+carries every option.
 """
 
 from __future__ import annotations

@@ -55,13 +55,12 @@ capture; each replay adds the capture's tally):
   by the stock conv;
 * ``residual_tail``: a ``ResidualBlock`` call, whose residual add and
   LeakyReLU run as stock passes;
-* ``conv_expand``: a ``ResidualBlock`` call through its 1x1 projection;
-* ``pool_stock``, ``up_stock``: a stage's 2x2 average pool or nearest 2x
-  upsample run as its own stock pass (``stock_resample``): after a
-  residual or inception block's tail, in eval mode, and wherever the
-  BatchNorm kernels do not take it into the call that ends the stage
-  (``ops/batchnorm_cuda.py::takes_resample``; those they take count in
-  ``batchnorm_cuda.RESAMPLED``).
+* ``conv_expand``: a ``ResidualBlock`` call through its 1x1 projection.
+
+A stage's resample is decided and counted in ``ops/batchnorm_cuda.py``
+(``RESAMPLES``): taken into the BatchNorm call that ends the stage, or run
+as the stock pass ``stock_resample``, which the residual and inception
+blocks call after their tails.
 """
 
 from __future__ import annotations
@@ -75,7 +74,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from intro_tc_vae_tpu_torch.ops import launch_counts
-from intro_tc_vae_tpu_torch.ops.batchnorm_cuda import batchnorm_act_train, takes_resample
+from intro_tc_vae_tpu_torch.ops.batchnorm_cuda import batchnorm_act_train, stock_resample
 from intro_tc_vae_tpu_torch.ops.conv import WEIGHT_SHAPE, supported
 from intro_tc_vae_tpu_torch.ops.conv_cuda import conv3x3_hybrid, conv3x3_pallas
 from intro_tc_vae_tpu_torch.parallel.collectives import (
@@ -86,32 +85,11 @@ from intro_tc_vae_tpu_torch.parallel.collectives import (
 
 LEAKY_SLOPE = 0.2
 STOCK_CALLS = launch_counts.register(dict.fromkeys(
-    ("conv_stock_size", "conv_stock_channels", "residual_tail", "conv_expand", "pool_stock",
-     "up_stock"), 0))
+    ("conv_stock_size", "conv_stock_channels", "residual_tail", "conv_expand"), 0))
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, LEAKY_SLOPE)
-
-
-def avg_pool2(x: torch.Tensor) -> torch.Tensor:
-    """AvgPool2d(2): window 2, stride 2."""
-    return F.avg_pool2d(x, 2)
-
-
-def upsample_nearest2(x: torch.Tensor) -> torch.Tensor:
-    """nn.Upsample(scale_factor=2, mode='nearest')."""
-    return F.interpolate(x, scale_factor=2, mode="nearest")
-
-
-def stock_resample(x: torch.Tensor, resample) -> torch.Tensor:
-    """x after a stage's ``resample`` ("pool": ``avg_pool2``, "up":
-    ``upsample_nearest2``, None: none) as a stock pass, counted in
-    ``STOCK_CALLS``."""
-    if resample is None:
-        return x
-    STOCK_CALLS[f"{resample}_stock"] += 1
-    return avg_pool2(x) if resample == "pool" else upsample_nearest2(x)
 
 
 def tp_dim(module: nn.Module, name: str = "weight"):
@@ -371,10 +349,9 @@ class GroupedBatchNorm(nn.Module):
     them as the CUDA kernels of ``ops/batchnorm_cuda.py`` on the card
     (``batchnorm_act_train``, which also picks the plain two-pass version
     of ``ops/batchnorm.py`` for CPU tensors and the cases its docstring
-    lists). Where the kernels do not take the resample
-    (``takes_resample``), it runs after the call as the stock pass
-    (``stock_resample``). Eval mode uses the running statistics, unfused,
-    then the stock resample.
+    lists, and runs a resample the kernels do not take as the stock pass
+    after the call). Eval mode uses the running statistics, unfused, then
+    the stock resample (``stock_resample``).
 
     Data parallel: with ``data_group`` set (``models.set_data_group``) to
     a group of several ranks, each rank holds its rows of every group, and
@@ -418,11 +395,9 @@ class GroupedBatchNorm(nn.Module):
         if x.shape[0] % groups:
             raise ValueError(f"batch {x.shape[0]} not divisible by groups {groups}")
         running = (self.running_mean, self.running_var) if self.update_stats else None
-        fused = resample if takes_resample(x, resample, self.data_group) else None
-        y = batchnorm_act_train(x, self.weight, self.bias, running, groups, self.eps,
-                                self.momentum, slope, self.compute_dtype, self.data_group,
-                                fused)
-        return y if fused == resample else stock_resample(y, resample)
+        return batchnorm_act_train(x, self.weight, self.bias, running, groups, self.eps,
+                                   self.momentum, slope, self.compute_dtype, self.data_group,
+                                   resample)
 
 
 @contextlib.contextmanager

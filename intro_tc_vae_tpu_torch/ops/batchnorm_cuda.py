@@ -17,10 +17,13 @@ written once by the first, for the second to read). The bits are those of
 the call followed by ``F.avg_pool2d(y, 2)`` or ``F.interpolate(y,
 scale_factor=2)`` and their backward passes; ``takes_resample`` says which
 calls the kernels take it for (x [N, C, H, W] on the kernels' route, and,
-for the pool, H and W even), and ``RESAMPLED`` counts them.
+for the pool, H and W even). Every other resample (the plain routes, an
+odd plane's pool, eval mode, a residual or inception block's tail) is the
+stock pass ``stock_resample``; this module is the one place that decides.
 
 ``batchnorm_act_train`` is the one entry point of ``GroupedBatchNorm``'s
-train mode; ``route`` decides from what the call can observe:
+train mode, for every resample; ``route`` decides from what the call can
+observe:
 
 * a tensor on the CPU: the plain version;
 * the statistics of a data group (``data_group`` set): the plain version,
@@ -35,10 +38,11 @@ train mode; ``route`` decides from what the call can observe:
 ``LAUNCHES`` counts kernel launches (``bn_stats`` once a call that takes
 the kernels; a resample variant counts under its kernel's name),
 ``CALLS`` the calls that take the plain version on a data group and
-``RESAMPLED`` the calls whose resample the kernels take; all are
-registered with ``launch_counts``, which keeps them counting under CUDA
-graph replay. ``running`` None (a ``remat``
-recompute) leaves the running statistics as they are. Saved for the
+``RESAMPLES`` a stage's resamples by who ran them: ``resample_pool`` /
+``resample_up`` the kernels, ``pool_stock`` / ``up_stock`` the stock pass.
+All are registered with ``launch_counts``, which keeps them counting under
+CUDA graph replay. ``running`` None (a ``remat`` recompute) leaves the
+running statistics as they are. Saved for the
 backward: x in its own dtype, the bias and the [G, C] float32 statistics;
 a gradient nobody asked for (``needs_input_grad``) is not computed.
 """
@@ -49,74 +53,40 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
-from intro_tc_vae_tpu_torch.ops import launch_counts
+from intro_tc_vae_tpu_torch.ops import cuda_build, launch_counts
 from intro_tc_vae_tpu_torch.ops.batchnorm import (
     Plan,
     batchnorm_act,
     launch_plan,
 )
-from intro_tc_vae_tpu_torch.ops.cuda_build import load_library
 from intro_tc_vae_tpu_torch.parallel.collectives import all_reduce_sum
 
 KERNELS = ("bn_stats", "bn_finalize", "bn_apply", "bn_bwd_reduce", "bn_bwd_dx")
 LAUNCHES = launch_counts.register(dict.fromkeys(KERNELS, 0))
 CALLS = launch_counts.register({"plain_data_group": 0})
-RESAMPLED = launch_counts.register({"resample_pool": 0, "resample_up": 0})
+RESAMPLES = launch_counts.register(dict.fromkeys(
+    ("resample_pool", "resample_up", "pool_stock", "up_stock"), 0))
 _RESAMPLE_CODE = {None: 0, "pool": 1, "up": 2}
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SHAPE = [_I] * 8  # n, c, hw, groups, slices, per_slice, vec, threads
 _RESAMPLE = [_I, _I]  # w, resample
-_ARGTYPES = {
-    # x, part, shape, dtype, device, stream
-    "bn_stats": [_P, _P] + _SHAPE + [_I, _I, _P],
+LIBRARY = cuda_build.Library("bn_kernels", {
+    # x, part, shape, dtype
+    "bn_stats": [_P, _P] + _SHAPE + [_I],
     # part, weight, stat, running_mean, running_var, c, groups, slices,
-    # count, eps, keep, momentum, device, stream
-    "bn_finalize": [_P] * 5 + [_I] * 4 + [_F] * 3 + [_I, _P],
-    # x, stat, bias, y, shape, w, resample, slope, dtype, device, stream
-    "bn_apply": [_P] * 4 + _SHAPE + _RESAMPLE + [_F, _I, _I, _P],
-    # x, dy, stat, bias, part, dsum, shape, w, resample, slope, dtype, device, stream
-    "bn_bwd_reduce": [_P] * 6 + _SHAPE + _RESAMPLE + [_F, _I, _I, _P],
-    # x, dy, stat, bias, part, dx, dweight, dbias, shape, w, resample, slope, dtype,
-    # device, stream
-    "bn_bwd_dx": [_P] * 8 + _SHAPE + _RESAMPLE + [_F, _I, _I, _P],
-}
-
-
-def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, CALLS, RESAMPLED):
-        for k in counts:
-            counts[k] = 0
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = load_library("bn_kernels")
-    for entry, argtypes in _ARGTYPES.items():
-        fn = getattr(lib, f"{entry}_launch")
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def launch(entry: str, *args, device: torch.device) -> None:
-    """Enqueue ``entry`` on the current stream; tensors pass as their data
-    pointers (None as a null pointer), then the device and the stream."""
-    fn = getattr(_library(), f"{entry}_launch")
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with launch_counts.host_range(f"itcvae::launch:{entry}"):
-        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
-                 device.index, stream)
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {entry} failed to launch: cudaError {err}")
-    LAUNCHES[entry] += 1
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    # count, eps, keep, momentum
+    "bn_finalize": [_P] * 5 + [_I] * 4 + [_F] * 3,
+    # x, stat, bias, y, shape, w, resample, slope, dtype
+    "bn_apply": [_P] * 4 + _SHAPE + _RESAMPLE + [_F, _I],
+    # x, dy, stat, bias, part, dsum, shape, w, resample, slope, dtype
+    "bn_bwd_reduce": [_P] * 6 + _SHAPE + _RESAMPLE + [_F, _I],
+    # x, dy, stat, bias, part, dx, dweight, dbias, shape, w, resample, slope, dtype
+    "bn_bwd_dx": [_P] * 8 + _SHAPE + _RESAMPLE + [_F, _I],
+})
+launch = functools.partial(cuda_build.launch, LIBRARY, counts=LAUNCHES)
 
 
 def route(x: torch.Tensor, data_group) -> str:
@@ -131,10 +101,22 @@ def takes_resample(x: torch.Tensor, resample, data_group) -> bool:
     """Whether the kernels take ``resample`` ("pool", "up" or None) into
     the call: a call on their route (``route``) of x [N, C, H, W], with H
     and W even for the pool (an upsample has no such condition). Elsewhere
-    the caller runs the stock resample after the call."""
+    the stock resample runs after the call."""
     if resample is None or x.dim() != 4 or route(x, data_group) != "fused":
         return False
     return resample == "up" or (x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0)
+
+
+def stock_resample(x: torch.Tensor, resample) -> torch.Tensor:
+    """x after a stage's ``resample`` as a stock pass ("pool": AvgPool2d(2),
+    window 2, stride 2; "up": nn.Upsample(scale_factor=2, mode='nearest');
+    None: none), counted in ``pool_stock`` / ``up_stock``."""
+    if resample is None:
+        return x
+    RESAMPLES[f"{resample}_stock"] += 1
+    if resample == "pool":
+        return F.avg_pool2d(x, 2)
+    return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
 def batchnorm_act_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, running,
@@ -144,38 +126,38 @@ def batchnorm_act_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tenso
     """Train-mode BatchNorm of x [N, C, ...] in ``groups`` groups, then a
     leaky ReLU of ``slope`` (1.0: none), by the route ``route`` picks;
     ``running``: (running_mean, running_var) to update, or None;
-    ``resample``: "pool" or "up" where ``takes_resample`` holds (the
-    output is then resampled), else None."""
-    if resample is not None and not takes_resample(x, resample, data_group):
-        raise ValueError(f"the kernels take no {resample!r} resample of x "
-                         f"{tuple(x.shape)} on {x.device}")
+    ``resample``: the stage's "pool" or "up" after it, or None, taken into
+    the kernels where ``takes_resample`` holds (counted in
+    ``resample_pool`` / ``resample_up``), else run after the call as the
+    stock pass (``stock_resample``)."""
     path = route(x, data_group)
     if path == "fused":
         if out_dtype != x.dtype:
             raise ValueError(f"the kernels write y in x's dtype {x.dtype}, not {out_dtype}")
-        if resample is not None:
-            RESAMPLED[f"resample_{resample}"] += 1
-        return _BatchNormAct.apply(x.contiguous(), weight, bias, running, groups, eps,
-                                   momentum, slope, resample)
+        args = (x.contiguous(), weight, bias, running, groups, eps, momentum, slope)
+        if takes_resample(x, resample, data_group):
+            RESAMPLES[f"resample_{resample}"] += 1
+            return _BatchNormAct.apply(*args, resample)
+        return stock_resample(_BatchNormAct.apply(*args), resample)
     reduce = None
     if path == "plain_data_group":
         CALLS[path] += 1
         reduce = functools.partial(all_reduce_sum, mesh=data_group)
-    return batchnorm_act(x, weight, bias, running, groups, eps, momentum, slope, out_dtype,
-                         reduce)
+    return stock_resample(batchnorm_act(x, weight, bias, running, groups, eps, momentum, slope,
+                                        out_dtype, reduce), resample)
 
 
 def _plan(x: torch.Tensor, groups: int) -> tuple:
     """(n, c, hw, plan) of x [N, C, ...] in ``groups`` groups."""
     n, c = x.shape[0], x.shape[1]
     hw = x.numel() // (n * c)
-    plan = launch_plan(n, c, hw, groups, x.element_size(), sm_count(x.device),
+    plan = launch_plan(n, c, hw, groups, x.element_size(), cuda_build.sm_count(x.device),
                        aligned=x.data_ptr() % 16 == 0)
     return n, c, hw, plan
 
 
 def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int) -> None:
-    if x.device.type != "cuda" or x.dtype not in _DTYPE_CODE or not x.is_contiguous():
+    if x.device.type != "cuda" or x.dtype not in cuda_build.DTYPE_CODE or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous CUDA tensor of float32, bfloat16 or "
                          f"float16, got {x.dtype} on {x.device}")
     if x.dim() < 2 or x.numel() >= 2**31 or x.numel() == 0 or x.shape[0] % groups:
@@ -207,7 +189,7 @@ class _BatchNormAct(torch.autograd.Function):
         _check(x, weight, bias, groups)
         n, c, hw, plan = _plan(x, groups)
         shape = _shape_args(n, c, hw, groups, plan)
-        code, dev = _DTYPE_CODE[x.dtype], x.device
+        code, dev = cuda_build.DTYPE_CODE[x.dtype], x.device
         rs = (x.shape[-1], _RESAMPLE_CODE[resample])
         part = torch.empty((groups * c * plan.slices, 2), device=dev, dtype=torch.float32)
         launch("bn_stats", x, part, *shape, code, device=dev)
@@ -232,7 +214,7 @@ class _BatchNormAct(torch.autograd.Function):
         if resample is None and plan != _plan(dy, groups)[3]:
             plan = plan._replace(vector=1)
         shape = _shape_args(n, c, hw, groups, plan)
-        code, dev = _DTYPE_CODE[x.dtype], x.device
+        code, dev = cuda_build.DTYPE_CODE[x.dtype], x.device
         w, rcode = x.shape[-1], _RESAMPLE_CODE[resample]
         part = torch.empty((groups * c * plan.slices, 2), device=dev, dtype=torch.float32)
         dsum = torch.empty_like(x) if resample == "up" else None

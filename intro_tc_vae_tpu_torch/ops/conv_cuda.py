@@ -43,12 +43,11 @@ on the CPU; for CUDA tensors they launch the kernels or raise.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 import torch.nn.functional as F
 
-from intro_tc_vae_tpu_torch.ops import launch_counts
+from intro_tc_vae_tpu_torch.ops import cuda_build, launch_counts
 from intro_tc_vae_tpu_torch.ops.conv import (
     CHANNELS,
     WEIGHT_SHAPE,
@@ -60,77 +59,47 @@ from intro_tc_vae_tpu_torch.ops.conv import (
     pack_weights,
     rot_t,
 )
-from intro_tc_vae_tpu_torch.ops.cuda_build import load_library
 
 KERNELS = ("conv3x3_fwd", "conv3x3_dw", "conv3x3_dw_reduce", "conv3x3_pack_w",
            "conv3x3_fwd_wgmma", "conv3x3_dw_wgmma", "conv3x3_fwd_ragged", "conv3x3_dw_ragged")
 LAUNCHES = launch_counts.register(dict.fromkeys(KERNELS, 0))
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# library -> entry point -> argument types (device and stream last)
-_ARGTYPES = {
+# library -> entry point -> argument types
+LIBRARIES = {name: cuda_build.Library(name, argtypes) for name, argtypes in {
     "conv_kernels": {
-        # part, dw, n_parts, dtype, device, stream
-        "conv3x3_dw_reduce": [_P, _P, _I, _I, _I, _P],
+        # part, dw, n_parts, dtype
+        "conv3x3_dw_reduce": [_P, _P, _I, _I],
     },
     "conv_wgmma": {
-        # x, wp, y, N, H, W, rc, n_blocks, device, stream
-        "conv3x3_fwd_wgmma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-        # x, gy, part, N, H, W, rc, n_blocks, device, stream
-        "conv3x3_dw_wgmma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # x, wp, y, N, H, W, rc, n_blocks
+        "conv3x3_fwd_wgmma": [_P, _P, _P, _I, _I, _I, _I, _I],
+        # x, gy, part, N, H, W, rc, n_blocks
+        "conv3x3_dw_wgmma": [_P, _P, _P, _I, _I, _I, _I, _I],
         # the same two for every other even W
-        "conv3x3_fwd_ragged": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-        "conv3x3_dw_ragged": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-        # w, out, rot, dtype, device, stream
-        "conv3x3_pack_w": [_P, _P, _I, _I, _I, _P],
+        "conv3x3_fwd_ragged": [_P, _P, _P, _I, _I, _I, _I, _I],
+        "conv3x3_dw_ragged": [_P, _P, _P, _I, _I, _I, _I, _I],
+        # w, out, rot, dtype
+        "conv3x3_pack_w": [_P, _P, _I, _I],
     },
     "conv_fp32": {
-        # x, wp, y, N, H, W, n_blocks, device, stream
-        "conv3x3_fwd_fp32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-        # x, gy, part, N, H, W, n_blocks, device, stream
-        "conv3x3_dw_fp32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # x, wp, y, N, H, W, n_blocks
+        "conv3x3_fwd_fp32": [_P, _P, _P, _I, _I, _I, _I],
+        # x, gy, part, N, H, W, n_blocks
+        "conv3x3_dw_fp32": [_P, _P, _P, _I, _I, _I, _I],
     },
-}
-LIBRARIES = tuple(_ARGTYPES)
-_LIBRARY_OF = {entry: lib for lib, entries in _ARGTYPES.items() for entry in entries}
+}.items()}
+_LIBRARY_OF = {entry: lib for lib in LIBRARIES.values() for entry in lib.argtypes}
 # the fp32 bodies count under the wrappers' own names
 _COUNTED_AS = {"conv3x3_fwd_fp32": "conv3x3_fwd", "conv3x3_dw_fp32": "conv3x3_dw"}
 
 
-def reset_launch_counts() -> None:
-    for k in KERNELS:
-        LAUNCHES[k] = 0
-
-
-@functools.lru_cache(maxsize=None)
-def _library(name: str = "conv_kernels") -> ctypes.CDLL:
-    lib = load_library(name)
-    for entry, argtypes in _ARGTYPES[name].items():
-        fn = getattr(lib, f"{entry}_launch")
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def launch(entry: str, *args, device: torch.device) -> None:
-    """Enqueue entry point `entry` on the current stream; tensors are passed
-    as their data pointers, then the device and the stream are appended."""
-    fn = getattr(_library(_LIBRARY_OF[entry]), f"{entry}_launch")
-    stream = torch.cuda.current_stream(device).cuda_stream
-    counted = _COUNTED_AS.get(entry, entry)
-    with launch_counts.host_range(f"itcvae::launch:{counted}"):
-        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
-                 device.index, stream)
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {entry} failed to launch: cudaError {err}")
-    LAUNCHES[counted] += 1
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(device: torch.device) -> int:
-    """Persistent blocks of the wgmma and fp32 kernels: one per multiprocessor."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    """``cuda_build.launch`` of ``entry``, counted in ``LAUNCHES`` (an
+    fp32 body under its wrapper's name)."""
+    cuda_build.launch(_LIBRARY_OF[entry], entry, *args, device=device, counts=LAUNCHES,
+                      counted=_COUNTED_AS.get(entry, entry))
 
 
 def _check(**tensors) -> torch.Tensor:
@@ -141,7 +110,7 @@ def _check(**tensors) -> torch.Tensor:
         if t.device.type != "cuda" or t.device != first.device:
             raise ValueError(f"{name} is on {t.device}; the kernels take CUDA tensors "
                              f"on one device")
-        if t.dtype not in _DTYPE_CODE or t.dtype != first.dtype:
+        if t.dtype not in _DTYPES or t.dtype != first.dtype:
             raise TypeError(f"{name} is {t.dtype}; the kernels take float32 or "
                             f"bfloat16, one dtype for all operands")
         if not t.is_contiguous():
@@ -167,7 +136,7 @@ def conv3x3_pack_w(w: torch.Tensor, rot: bool = False) -> torch.Tensor:
 
 def _pack_w(w: torch.Tensor, rot: bool) -> torch.Tensor:
     out = torch.empty((9, CHANNELS, CHANNELS), device=w.device, dtype=w.dtype)
-    launch("conv3x3_pack_w", w, out, int(rot), _DTYPE_CODE[w.dtype], device=w.device)
+    launch("conv3x3_pack_w", w, out, int(rot), cuda_build.DTYPE_CODE[w.dtype], device=w.device)
     return out
 
 
@@ -186,14 +155,9 @@ def _conv3x3_fwd(x: torch.Tensor, w: torch.Tensor, rot: bool) -> torch.Tensor:
     _check(x=x, w=w)
     n, _, h, wd = x.shape
     y = torch.empty_like(x)
-    body = _body(x.shape, x.dtype)
-    if body == "fp32":
-        blocks = fp32_launch_plan(n, h, wd, sm_count(x.device))
-        launch("conv3x3_fwd_fp32", x, _pack_w(w, rot), y, n, h, wd, blocks, device=x.device)
-    else:
-        rc, blocks = launch_plan(n, h, wd, sm_count(x.device))
-        launch(f"conv3x3_fwd_{body}", x, _pack_w(w, rot), y, n, h, wd, rc, blocks,
-               device=x.device)
+    body, blocks, rc = dw_parts(x.shape, x.dtype, x.device)
+    plan = (blocks,) if body == "fp32" else (rc, blocks)
+    launch(f"conv3x3_fwd_{body}", x, _pack_w(w, rot), y, n, h, wd, *plan, device=x.device)
     return y
 
 
@@ -208,12 +172,12 @@ def _body(shape, dtype) -> str:
 def dw_parts(shape, dtype, device) -> tuple:
     """(body, n_parts, rows per unit) of conv3x3_dw on this shape: one
     partial per persistent block; rows per unit is the bf16 launchers'
-    argument, 0 for fp32."""
+    argument, 0 for fp32. The forward takes the same blocks."""
     n, _, h, wd = shape
     body = _body(shape, dtype)
     if body == "fp32":
-        return body, fp32_launch_plan(n, h, wd, sm_count(device)), 0
-    rc, blocks = launch_plan(n, h, wd, sm_count(device))
+        return body, fp32_launch_plan(n, h, wd, cuda_build.sm_count(device)), 0
+    rc, blocks = launch_plan(n, h, wd, cuda_build.sm_count(device))
     return body, blocks, rc
 
 
@@ -234,12 +198,11 @@ def _conv3x3_dw(x: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
     body, n_parts, rc = dw_parts(x.shape, x.dtype, x.device)
     part = torch.empty((n_parts, 9 * CHANNELS, CHANNELS), device=x.device,
                        dtype=torch.float32)
-    if body == "fp32":
-        launch("conv3x3_dw_fp32", x, gy, part, n, h, wd, n_parts, device=x.device)
-    else:
-        launch(f"conv3x3_dw_{body}", x, gy, part, n, h, wd, rc, n_parts, device=x.device)
+    plan = (n_parts,) if body == "fp32" else (rc, n_parts)
+    launch(f"conv3x3_dw_{body}", x, gy, part, n, h, wd, *plan, device=x.device)
     dw = torch.empty(WEIGHT_SHAPE, device=x.device, dtype=x.dtype)
-    launch("conv3x3_dw_reduce", part, dw, n_parts, _DTYPE_CODE[x.dtype], device=x.device)
+    launch("conv3x3_dw_reduce", part, dw, n_parts, cuda_build.DTYPE_CODE[x.dtype],
+           device=x.device)
     return dw
 
 

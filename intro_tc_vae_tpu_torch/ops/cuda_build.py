@@ -1,15 +1,24 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
+"""Build, load and launch the port's CUDA kernels (``csrc/*.cu``).
 
 Each source is compiled by ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes``; nothing includes PyTorch's headers,
 so a build takes seconds. The library goes to ``build/kernels/`` beside
 the package, named by a hash of the source and the flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is. Nothing here
-runs at import: ``load_library`` is called by the first kernel launch.
+runs at import: a ``Library`` is built, loaded and bound at its first
+launch.
+
+Every hand kernel is called the same way, through ``launch``: its
+``<entry>_launch`` C function takes the kernel's arguments, then the
+device's index and the stream, and returns a cudaError. The kernel
+modules (``tc_cuda``, ``conv_cuda``, ``batchnorm_cuda``) keep only their
+argument types, their checks and their launch plans; ``launch`` counts
+each launch in the caller's registered dict (``ops/launch_counts.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -19,10 +28,18 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
+
+import torch
+
+from intro_tc_vae_tpu_torch.ops import launch_counts
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
+
+# the kernels' dtype argument (every csrc/*.cu reads the same codes)
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -80,3 +97,51 @@ def build(name: str) -> tuple[Path, float]:
 def load_library(name: str) -> ctypes.CDLL:
     path, _ = build(name)
     return ctypes.CDLL(str(path))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The device's multiprocessors: one persistent block each, and the
+    launch plans' measure of a full card."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+class Library:
+    """The entry points of ``csrc/<name>.cu``: ``argtypes`` maps each entry
+    to the C argument types of its ``<entry>_launch`` before the device
+    and the stream, which every entry point takes last. Built, loaded and
+    bound at the first launch (``cdll``)."""
+
+    def __init__(self, name: str, argtypes: dict):
+        self.name, self.argtypes = name, argtypes
+
+    @functools.cached_property
+    def cdll(self) -> ctypes.CDLL:
+        lib = load_library(self.name)
+        for entry, types in self.argtypes.items():
+            fn = getattr(lib, f"{entry}_launch")
+            fn.argtypes = [*types, ctypes.c_int, ctypes.c_void_p]  # device, stream
+            fn.restype = ctypes.c_int  # a cudaError
+        return lib
+
+
+def launch(library: Library, entry: str, *args, device: torch.device,
+           counts: Optional[dict] = None, counted: Optional[str] = None) -> None:
+    """Enqueue ``library``'s ``entry`` on ``device``'s current stream:
+    tensors pass as their data pointers (None as a null pointer), then the
+    device's index and the stream; a non-zero return raises. A counted
+    launch (``counts`` given) runs inside the profiler range
+    ``itcvae::launch:<counted>`` and adds one to ``counts[counted]``
+    (``counted``: ``entry`` unless given); an uncounted one (an empty
+    kernel, a phase stamp) opens no range."""
+    fn = getattr(library.cdll, f"{entry}_launch")
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    counted = counted or entry
+    with (launch_counts.host_range(f"itcvae::launch:{counted}") if counts is not None
+          else contextlib.nullcontext()):
+        err = fn(*args, device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {entry} failed to launch: cudaError {err}")
+    if counts is not None:
+        counts[counted] += 1

@@ -2,7 +2,9 @@
 
 Each kernel module counts in dicts of its own (``tc_cuda.LAUNCHES``,
 ``tc_cuda.CALLS``, ``conv_cuda.LAUNCHES``), one add where a wrapper
-launches a kernel, and registers them here. A captured graph runs no
+launches a kernel (``cuda_build.launch``) or a route is chosen, and
+registers them here; ``reset`` zeroes them all. Every reader flattens the
+registry by name, so a name is registered once. A captured graph runs no
 wrapper when it is replayed, so ``recording()`` takes what a capture added
 as the graph's ``Tally`` and puts the counters back as they were (a capture
 runs nothing on the card); each replay then adds the tally
@@ -30,9 +32,22 @@ _recording: Optional[list] = None  # the snapshots of a capture in progress
 
 
 def register(counts: dict) -> dict:
-    """Count ``counts`` (a module's name -> launches dict); returns it."""
+    """Count ``counts`` (a module's name -> count dict); returns it. A name
+    another registered dict holds raises: ``snapshot``'s readers (the
+    flight recorder's ``counters()``, the benchmark's) flatten by name and
+    would merge the two."""
+    taken = sorted({k for c in _COUNTERS for k in c}.intersection(counts))
+    if taken:
+        raise ValueError(f"counters {taken} are already registered")
     _COUNTERS.append(counts)
     return counts
+
+
+def reset() -> None:
+    """Zero every registered counter."""
+    for counts in _COUNTERS:
+        for k in counts:
+            counts[k] = 0
 
 
 def snapshot() -> list:

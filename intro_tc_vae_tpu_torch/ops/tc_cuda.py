@@ -48,15 +48,13 @@ with ``launch_counts``, which keeps them counting under CUDA graph replay.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from intro_tc_vae_tpu_torch.ops import launch_counts
-from intro_tc_vae_tpu_torch.ops.cuda_build import load_library
+from intro_tc_vae_tpu_torch.ops import cuda_build, launch_counts
 from intro_tc_vae_tpu_torch.ops.density import (
     LOG_2PI,
     LOG_PROB_FLOOR,
@@ -73,14 +71,14 @@ CALLS = launch_counts.register(dict.fromkeys(("tc_logsumexp", "tc_logsumexp_gath
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # pointers, then B_j, B_i, Z, dataset_size, row_off, global_batch, the
 # plan (the forward's cut: slice_len, n_slices; a backward kernel's: rows,
-# slice_len, n_slices), device, stream
-_SHAPE, _PLAN, _WHERE = [_I, _I, _I, _LL, _I, _I], [_I] * 3, [_I, _P]
-_ARGTYPES = {
-    "tc_fwd": [_P] * 8 + _SHAPE + [_I] * 2 + _WHERE,
-    "tc_bwd_dz": [_P] * 9 + _SHAPE + _PLAN + _WHERE,
-    "tc_bwd_dmu": [_P] * 7 + _SHAPE + _PLAN + _WHERE,
-    "tc_empty": _WHERE,
-}
+# slice_len, n_slices)
+_SHAPE, _PLAN = [_I, _I, _I, _LL, _I, _I], [_I] * 3
+LIBRARY = cuda_build.Library("tc_kernels", {
+    "tc_fwd": [_P] * 8 + _SHAPE + [_I] * 2,
+    "tc_bwd_dz": [_P] * 9 + _SHAPE + _PLAN,
+    "tc_bwd_dmu": [_P] * 7 + _SHAPE + _PLAN,
+    "tc_empty": [],
+})
 
 MAX_SLICES = 16       # slices of the reduced axis, one warp each: 512 threads
 MIN_SLICE_LEN = 8     # rows of the reduced axis a warp takes at least
@@ -139,22 +137,6 @@ def scratch_bytes(b: int, global_batch: int, zdim: int) -> int:
     return 8 * (b * global_batch + 4 * b * zdim + b)
 
 
-def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, CALLS):
-        for k in counts:
-            counts[k] = 0
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = load_library("tc_kernels")
-    for name, argtypes in _ARGTYPES.items():
-        fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def launch(name: str, tensors, b_j: int, b_i: int, zdim: int,
            dataset_size: int, device: torch.device, row_off: int = 0,
            plan: ForwardPlan | BackwardPlan | None = None) -> None:
@@ -163,27 +145,18 @@ def launch(name: str, tensors, b_j: int, b_i: int, zdim: int,
     apply is b_i. The forward takes ``forward_plan``'s cut and a backward
     kernel ``backward_plan``'s launch, unless ``plan`` gives another (the
     forward refuses any other cut, a backward kernel one of other slices)."""
-    fn = getattr(_library(), f"{name}_launch")
-    stream = torch.cuda.current_stream(device).cuda_stream
     if plan is None:
         plan = (forward_plan(b_i, zdim) if name == "tc_fwd"
                 else backward_plan(name, b_j, b_i, zdim))
     if name == "tc_fwd":
         plan = plan[:2]  # the cut
-    with launch_counts.host_range(f"itcvae::launch:{name}"):
-        err = fn(*(t.data_ptr() for t in tensors), b_j, b_i, zdim, int(dataset_size),
-                 int(row_off), b_i, *plan, device.index, stream)
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
-    LAUNCHES[name] += 1
+    cuda_build.launch(LIBRARY, name, *tensors, b_j, b_i, zdim, int(dataset_size),
+                      int(row_off), b_i, *plan, device=device, counts=LAUNCHES)
 
 
 def launch_empty(device: torch.device) -> None:
     """An empty kernel on the current stream: what a launch costs."""
-    err = _library().tc_empty_launch(device.index,
-                                     torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel tc_empty failed to launch: cudaError {err}")
+    cuda_build.launch(LIBRARY, "tc_empty", device=device)
 
 
 def forward_buffers(b: int, global_batch: int, zdim: int, device: torch.device):

@@ -97,7 +97,6 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from intro_tc_vae_tpu_torch import not_ported
 from intro_tc_vae_tpu_torch.config import Config, validate_config
 from intro_tc_vae_tpu_torch.data import DeviceLoader, load_dataset
 from intro_tc_vae_tpu_torch.models import (
@@ -144,17 +143,6 @@ PRINT_EVERY = 5     # steps between progress lines
 # (solvers/graph.py) and the step that captures it
 WARMUP_STEPS = 4
 PROFILE_STEPS = 50  # profile: true stops after the step at this iteration
-
-
-def check_ported(config: Config) -> None:
-    """Raise for every option whose behaviour this port does not carry,
-    naming the ROADMAP item that ports it (``not_ported``). Every option
-    of the config is carried; a later option that is not goes in the
-    list."""
-    unported: list = []
-    for bad, what, item in unported:
-        if bad:
-            raise not_ported(what, item)
 
 
 def resolve_remat(config: Config, say: Callable = print) -> Config:
@@ -267,7 +255,6 @@ def setup(config: Config, device: Optional[torch.device] = None,
     state, as a run starts (reference train.py:38-192). ``graph``:
     ``graph_step``'s."""
     validate_config(config)
-    check_ported(config)
     distributed = initialize_distributed()
     n_data = data_axis_size(config, process_count())
     mp = max(1, config.model_parallel)
@@ -310,7 +297,7 @@ def setup(config: Config, device: Optional[torch.device] = None,
 
     encoder = Encoder(**model_kwargs).to(device)
     # pack_predict auto (-1) stays off, as in JAX, until the card has
-    # measured the packed predict conv in context (ROADMAP Queue 1 item 1)
+    # measured the packed predict conv in context (ROADMAP Queue 5 item 2)
     decoder = Decoder(**model_kwargs, pack_predict=max(0, config.pack_predict)).to(device)
     say(f"{num_params(SoftIntroVAE(encoder, decoder)):,} Parameters")
 
@@ -357,7 +344,7 @@ def build_solver(config: Config, dataset, encoder, decoder, mesh,
         kl_kind=config.kl_kind,
         # None (auto) pairs the passes; the crossover batch past which
         # unpaired passes win is not measured on this card yet (ROADMAP
-        # Queue 1 item 1)
+        # Queue 5 item 2)
         fuse_passes=config.fuse_passes is not False,
         mesh=mesh,
         scan_steps=max(1, config.scan_steps),

@@ -64,7 +64,6 @@ from __future__ import annotations
 
 import array
 import ctypes
-import functools
 import itertools
 import statistics
 import threading
@@ -75,7 +74,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from intro_tc_vae_tpu_torch.ops import launch_counts
+from intro_tc_vae_tpu_torch.ops import cuda_build, launch_counts
 
 # host spans kept: ~30 spans a sampling request at ~160 requests a second
 # would need 4.4 minutes to wrap the ring; a 30 s window holds ~25k
@@ -319,16 +318,9 @@ def watch(obj) -> None:
 # device phase stamps
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=None)
-def _stamp_launch():
-    from intro_tc_vae_tpu_torch.ops.cuda_build import load_library
-
-    fn = load_library("conv_kernels").phase_stamp_launch
-    # slots, i, seg (or NULL), device, stream
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+# phase_stamp (csrc/conv_kernels.cu): slots, i, seg (or NULL)
+_STAMP_KERNEL = cuda_build.Library("conv_kernels",
+                                   {"phase_stamp": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]})
 
 
 class PhaseStamps:
@@ -359,11 +351,8 @@ class PhaseStamps:
         names.append(name)
         slots, seg = self._buffer(like.device)
         if like.is_cuda:
-            err = _stamp_launch()(slots.data_ptr(), i, seg.data_ptr() if close else None,
-                                  like.device.index,
-                                  torch.cuda.current_stream(like.device).cuda_stream)
-            if err != 0:
-                raise RuntimeError(f"CUDA kernel phase_stamp failed to launch: cudaError {err}")
+            cuda_build.launch(_STAMP_KERNEL, "phase_stamp", slots, i, seg if close else None,
+                              device=like.device)
         else:
             slots[i] = time.perf_counter_ns()
             if close:

@@ -532,7 +532,7 @@ def test_the_eval_encoder_is_graphed_where_the_step_is(graph, monkeypatch):
 
 
 def test_graphed_eval_adds_the_capture_tally_on_every_replay():
-    conv_cuda.reset_launch_counts()
+    launch_counts.reset()
 
     def fn(x):
         conv_cuda.LAUNCHES["conv3x3_fwd_wgmma"] += 3
@@ -551,11 +551,11 @@ def test_graphed_eval_adds_the_capture_tally_on_every_replay():
         (entry,) = graphed._graphs.values()
         assert entry[1].launches() == {"conv3x3_fwd_wgmma": 3, "conv3x3_pack_w": 3}
     finally:
-        conv_cuda.reset_launch_counts()
+        launch_counts.reset()
 
 
 def test_a_failed_eval_capture_raises_and_restores_the_launch_counters():
-    conv_cuda.reset_launch_counts()
+    launch_counts.reset()
     calls = []
 
     def fn(x):
@@ -576,7 +576,7 @@ def test_a_failed_eval_capture_raises_and_restores_the_launch_counters():
         assert len(calls) == 3
         assert launch_counts._recording is None
     finally:
-        conv_cuda.reset_launch_counts()
+        launch_counts.reset()
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,6 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from intro_tc_vae_tpu_torch.models import blocks
 from intro_tc_vae_tpu_torch.models.blocks import GroupedBatchNorm
 from intro_tc_vae_tpu_torch.ops import batchnorm as bn
 from intro_tc_vae_tpu_torch.ops import batchnorm_cuda as bc
@@ -322,15 +321,13 @@ def test_an_odd_plane_takes_the_stock_pool_and_is_counted(dev):
     module = GroupedBatchNorm(8, eps=EPS, compute_dtype=torch.bfloat16).to(dev).train()
     for shape in ((4, 8, 5, 6), (4, 8, 6, 5)):
         x = torch.randn(shape, device=dev).to(torch.bfloat16)
-        before_s, before_r = dict(blocks.STOCK_CALLS), dict(bc.RESAMPLED)
+        before = dict(bc.RESAMPLES)
         got = module(x, 2, 0.2, "pool")
-        assert blocks.STOCK_CALLS["pool_stock"] == before_s["pool_stock"] + 1
-        assert bc.RESAMPLED == before_r
+        assert bc.RESAMPLES == {**before, "pool_stock": before["pool_stock"] + 1}
         assert torch.equal(got, F.avg_pool2d(module(x, 2, 0.2), 2))
-        before_s, before_r = dict(blocks.STOCK_CALLS), dict(bc.RESAMPLED)
+        before = dict(bc.RESAMPLES)
         got = module(x, 2, 0.2, "up")
-        assert blocks.STOCK_CALLS == before_s
-        assert bc.RESAMPLED == {**before_r, "resample_up": before_r["resample_up"] + 1}
+        assert bc.RESAMPLES == {**before, "resample_up": before["resample_up"] + 1}
         assert torch.equal(got, STOCK["up"](module(x, 2, 0.2)))
 
 
@@ -356,11 +353,12 @@ def test_a_captured_graph_keeps_the_resample_counts(dev):
         body()
     assert tally.launches() == {**dict.fromkeys(bc.KERNELS, 2), "resample_pool": 1,
                                 "resample_up": 1}
-    before = {**bc.LAUNCHES, **bc.RESAMPLED}
+    before = {**bc.LAUNCHES, **bc.RESAMPLES}
     for _ in range(3):
         graph.replay()
         tally.add()
     torch.cuda.synchronize(dev)
-    after = {**bc.LAUNCHES, **bc.RESAMPLED}
+    after = {**bc.LAUNCHES, **bc.RESAMPLES}
     assert {k: after[k] - before[k] for k in after} == {**dict.fromkeys(bc.KERNELS, 6),
-                                                         "resample_pool": 3, "resample_up": 3}
+                                                         "resample_pool": 3, "resample_up": 3,
+                                                         "pool_stock": 0, "up_stock": 0}

@@ -37,7 +37,7 @@ import torch.nn.functional as F
 from intro_tc_vae_tpu_torch.data import DeviceLoader, Synthetic
 from intro_tc_vae_tpu_torch.data.datasets import _ArrayDataset
 from intro_tc_vae_tpu_torch.models import Decoder, Encoder
-from intro_tc_vae_tpu_torch.ops import conv, conv_cuda, tc_cuda
+from intro_tc_vae_tpu_torch.ops import conv, conv_cuda, cuda_build, launch_counts, tc_cuda
 from intro_tc_vae_tpu_torch.solvers import make_optimizer, make_solver
 
 pytestmark = pytest.mark.cuda
@@ -409,7 +409,7 @@ def test_intro_step_launches_no_weight_gradient_in_phase_e(dev):
     batch = torch.from_numpy(solver.dataset.get_batch(np.arange(4)).transpose(0, 3, 1, 2)
                              .copy()).to(dev)
     state = solver.init_state(0)
-    conv_cuda.reset_launch_counts()
+    launch_counts.reset()
     at_opt_e = []
     state.opt_e.register_step_pre_hook(lambda *a: at_opt_e.append(dict(conv_cuda.LAUNCHES)))
     solver.train_step(state, batch)
@@ -517,7 +517,7 @@ def test_wgmma_conv_kernels_match_plain(dev, shape):
     gy = torch.randn(shape, device=dev, generator=g).to(dtype)
     for rot in (False, True):
         assert torch.equal(conv_cuda.conv3x3_pack_w(w, rot), conv.pack_weights(w, rot))
-    conv_cuda.reset_launch_counts()
+    launch_counts.reset()
     got = {"y": conv_cuda.conv3x3_fwd(x, w),
            "dx": conv_cuda.conv3x3_fwd(gy, w, rot=True),
            "dw": conv_cuda.conv3x3_dw(x, gy)}
@@ -550,7 +550,7 @@ def test_wgmma_dw_equals_its_partials_reference(dev, shape):
     g = torch.Generator(device=dev).manual_seed(3)
     x = (torch.randn(shape, device=dev, generator=g) * 0.5).to(dtype)
     gy = torch.randn(shape, device=dev, generator=g).to(dtype)
-    want_dw, want_parts = conv.conv3x3_dw_partials_reference(x, gy, conv_cuda.sm_count(dev))
+    want_dw, want_parts = conv.conv3x3_dw_partials_reference(x, gy, cuda_build.sm_count(dev))
     body, n_parts, rc = conv_cuda.dw_parts(shape, dtype, dev)
     assert body == ("wgmma" if shape[3] == 64 else "ragged")
     assert n_parts == want_parts.shape[0]
@@ -579,7 +579,7 @@ def test_fp32_dw_equals_its_partials_reference(dev, shape):
     x = torch.randn(shape, device=dev, generator=g) * 0.5
     gy = torch.randn(shape, device=dev, generator=g)
     want_dw, want_parts = conv.conv3x3_dw_partials_reference(
-        x, gy, conv_cuda.sm_count(dev), conv.fp32_tile_schedule)
+        x, gy, cuda_build.sm_count(dev), conv.fp32_tile_schedule)
     body, n_parts, _ = conv_cuda.dw_parts(shape, torch.float32, dev)
     assert body == "fp32" and n_parts == want_parts.shape[0]
     part = torch.empty((n_parts, 576, 64), device=dev)
@@ -611,7 +611,7 @@ def test_wgmma_conv_autograd_matches_plain(dev, impl):
     w0 = (torch.randn((64, 64, 3, 3), device=dev, generator=g) * 0.05).to(dtype)
     cot = torch.randn((16, 64, 32, 32), device=dev, generator=g).to(dtype)
     fn = conv_cuda.conv3x3_pallas if impl == "pallas" else conv_cuda.conv3x3_hybrid
-    conv_cuda.reset_launch_counts()
+    launch_counts.reset()
     results = []
     for f, dt in ((fn, dtype), (lambda a, b: F.conv2d(a, b, padding=1), torch.float64)):
         x = x0.to(dt).clone().requires_grad_(True)

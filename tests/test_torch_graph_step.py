@@ -11,7 +11,10 @@ the CPU can hold:
 * the launch tally (``ops/launch_counts.py``): a stub graph whose capture
   runs a body that adds N launches records them as its tally and leaves
   the counters as they were; K replays add K·N, with the phase hooks run
-  between the tally's segments as an eager step runs them;
+  between the tally's segments as an eager step runs them; ``reset``
+  zeroes every registered counter and a name registers once; the one
+  launcher (``ops/cuda_build.py::launch``) against a stub library: its
+  arguments, its count and profiler range, its refusal of an error;
 * each of the eight optimizers with its step count on the parameters'
   device (torch's classes ``capturable``; their CUDA-only check is lifted
   for the CPU here) against optax over 5 updates, float64 (torch's step
@@ -155,8 +158,7 @@ def _reads():
 
 @pytest.mark.parametrize("replays", [1, 5])
 def test_launch_tally_of_a_stub_graph(replays):
-    tc_cuda.reset_launch_counts()
-    conv_cuda.reset_launch_counts()
+    launch_counts.reset()
     one_step = {}
     for phase in PHASES:
         for counts, key, n in phase:
@@ -194,8 +196,7 @@ def test_launch_tally_of_a_stub_graph(replays):
         assert replay_phase_e == eager_phase_e
     finally:
         handle.remove()
-        tc_cuda.reset_launch_counts()
-        conv_cuda.reset_launch_counts()
+        launch_counts.reset()
 
 
 def test_a_new_batch_shape_steps_eagerly_once_then_captures_again():
@@ -208,17 +209,79 @@ def test_a_new_batch_shape_steps_eagerly_once_then_captures_again():
     assert graphed.captures == 1 and graphed.graph is None
     graphed(state, torch.ones(6, 2))
     assert graphed.captures == 2 and state.step == 6
-    tc_cuda.reset_launch_counts()
-    conv_cuda.reset_launch_counts()
+    launch_counts.reset()
 
 
 def test_recording_restores_the_counters_when_the_capture_fails():
-    tc_cuda.reset_launch_counts()
+    launch_counts.reset()
     with pytest.raises(RuntimeError, match="capture failed"):
         with launch_counts.recording():
             tc_cuda.LAUNCHES["tc_fwd"] += 7
             raise RuntimeError("capture failed")
     assert tc_cuda.LAUNCHES["tc_fwd"] == 0
+
+
+def test_reset_zeroes_every_registered_counter_and_a_name_registers_once():
+    from intro_tc_vae_tpu_torch.models import blocks
+    from intro_tc_vae_tpu_torch.ops import batchnorm_cuda
+
+    ported = (tc_cuda.LAUNCHES, tc_cuda.CALLS, conv_cuda.LAUNCHES, batchnorm_cuda.LAUNCHES,
+              batchnorm_cuda.CALLS, batchnorm_cuda.RESAMPLES, blocks.STOCK_CALLS)
+    saved = launch_counts.snapshot()
+    try:
+        for counts in ported:
+            counts.update(dict.fromkeys(counts, 5))
+        launch_counts.reset()
+        assert all(n == 0 for counts in launch_counts.snapshot() for n in counts.values())
+        assert all(n == 0 for counts in ported for n in counts.values())
+    finally:
+        for counts, before in zip(launch_counts._COUNTERS, saved):
+            counts.update(before)
+    registered = len(saved)
+    for name in ("tc_fwd", "tc_logsumexp", "conv3x3_dw", "bn_stats", "plain_data_group",
+                 "resample_pool", "pool_stock", "conv_expand"):
+        with pytest.raises(ValueError, match=f"counters \\['{name}'\\] are already registered"):
+            launch_counts.register({"a_new_counter": 0, name: 0})
+    assert len(launch_counts.snapshot()) == registered
+
+
+class _StubLibrary:
+    """``cuda_build.Library``'s ``cdll`` stood in for: ``k_launch``
+    records its arguments and returns 0, ``bad_launch`` returns an error."""
+
+    def __init__(self):
+        self.calls = []
+
+    def k_launch(self, *args):
+        self.calls.append(args)
+        return 0
+
+    def bad_launch(self, *args):
+        return 719
+
+
+def test_the_launcher_passes_pointers_then_device_and_stream_and_counts(monkeypatch):
+    from intro_tc_vae_tpu_torch.ops import cuda_build
+
+    library = cuda_build.Library("stub", {})
+    stub = library.__dict__["cdll"] = _StubLibrary()  # what the first launch would bind
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=4096 + device.index))
+    dev, x = torch.device("cuda", 2), torch.ones(3)
+    counts = {"k": 0, "k_body": 0}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        cuda_build.launch(library, "k", x, None, 7, 0.5, device=dev, counts=counts)
+        cuda_build.launch(library, "k", x, device=dev, counts=counts, counted="k_body")
+        cuda_build.launch(library, "k", device=dev)  # uncounted: no count, no range
+    assert stub.calls == [(x.data_ptr(), None, 7, 0.5, 2, 4098), (x.data_ptr(), 2, 4098),
+                          (2, 4098)]
+    assert counts == {"k": 1, "k_body": 1}
+    ranges = [e.name for e in prof.events() if e.name.startswith("itcvae::launch:")]
+    assert ranges == ["itcvae::launch:k", "itcvae::launch:k_body"]
+    failed = {"bad": 0}
+    with pytest.raises(RuntimeError, match="CUDA kernel bad failed to launch: cudaError 719"):
+        cuda_build.launch(library, "bad", device=dev, counts=failed)
+    assert failed == {"bad": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """PyTorch port: the 256 px residual Intro-TC-VAE configuration
 (``configs/intro_tc_ukiyo256_res.json``: IntroVAE / Soft-IntroVAE widths,
 ``res`` blocks, z 512) and the stock-route counters of ``models/blocks.py``
-(``STOCK_CALLS``).
+(``STOCK_CALLS``) with the stock resamples of ``ops/batchnorm_cuda.py``
+(``RESAMPLES``).
 
 On the CPU: the configuration loads, and its model has the leaves of the
 benchmark's plain reference (``perfbench/reference/model.py``) by name,
@@ -28,13 +29,14 @@ from intro_tc_vae_tpu_torch.config import load_config
 from intro_tc_vae_tpu_torch.data.datasets import _TABLE
 from intro_tc_vae_tpu_torch.models import Decoder, Encoder, blocks
 from intro_tc_vae_tpu_torch.models.vae import SoftIntroVAE, num_params
-from intro_tc_vae_tpu_torch.ops import launch_counts
+from intro_tc_vae_tpu_torch.ops import batchnorm_cuda, launch_counts
 from tests._torch_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "intro_tc_ukiyo256_res.json")
-COUNTERS = ("conv_stock_size", "conv_stock_channels", "residual_tail", "conv_expand",
-            "pool_stock", "up_stock")
+ROUTES = ("conv_stock_size", "conv_stock_channels", "residual_tail", "conv_expand")
+STOCK_RESAMPLES = ("pool_stock", "up_stock")  # kept in batchnorm_cuda.RESAMPLES
+COUNTERS = ROUTES + STOCK_RESAMPLES
 # the benchmark's 64 and 128 px cells and this configuration, by dataset
 MODELS = {"itc64": "ukiyo_e64", "itc128": "ukiyo_e128", "itc256res": "ukiyo_e256"}
 
@@ -45,13 +47,26 @@ def model_kwargs(config) -> dict:
                 image_size=image_size, conv_impl="pallas")
 
 
+def stock_counts() -> dict:
+    """``COUNTERS``, each read where it is kept."""
+    return {**{k: blocks.STOCK_CALLS[k] for k in ROUTES},
+            **{k: batchnorm_cuda.RESAMPLES[k] for k in STOCK_RESAMPLES}}
+
+
+def zero_counts() -> None:
+    blocks.STOCK_CALLS.update(dict.fromkeys(ROUTES, 0))
+    batchnorm_cuda.RESAMPLES.update(dict.fromkeys(STOCK_RESAMPLES, 0))
+
+
 @pytest.fixture
 def counts():
-    """``STOCK_CALLS`` from zero; put back as they were afterwards."""
-    saved = dict(blocks.STOCK_CALLS)
-    blocks.STOCK_CALLS.update(dict.fromkeys(COUNTERS, 0))
+    """``STOCK_CALLS`` (yielded) and the stock resamples from zero; put
+    back as they were afterwards."""
+    saved, saved_resamples = dict(blocks.STOCK_CALLS), dict(batchnorm_cuda.RESAMPLES)
+    zero_counts()
     yield blocks.STOCK_CALLS
     blocks.STOCK_CALLS.update(saved)
+    batchnorm_cuda.RESAMPLES.update(saved_resamples)
 
 
 # ---------------------------------------------------------------------------
@@ -150,15 +165,15 @@ def test_a_conv_counts_its_stock_route(counts, impl):
     conv64 = blocks.PallasConv3x3(64, 64, impl=impl)
     with torch.no_grad():
         conv64(torch.zeros(1, 64, 256, 256, device="meta"))  # H * W > 128^2: refused
-        assert dict(counts) == dict.fromkeys(COUNTERS, 0) | {"conv_stock_size": 1}
+        assert stock_counts() == dict.fromkeys(COUNTERS, 0) | {"conv_stock_size": 1}
         conv64(torch.randn(1, 64, 128, 128))  # routed (the CPU's plain version)
         conv64(torch.zeros(2, 64, 24, 32, device="meta"))  # H % 16: refused
         assert counts["conv_stock_size"] == 2 and counts["conv_stock_channels"] == 0
         blocks.PallasConv3x3(64, 128, impl=impl)(torch.zeros(1, 64, 128, 128, device="meta"))
         blocks.PallasConv3x3(3, 64, impl=impl)(torch.zeros(1, 3, 64, 64, device="meta"))
-    assert dict(counts) == {"conv_stock_size": 2, "conv_stock_channels": 2,
-                            "residual_tail": 0, "conv_expand": 0, "pool_stock": 0,
-                            "up_stock": 0}
+    assert stock_counts() == {"conv_stock_size": 2, "conv_stock_channels": 2,
+                              "residual_tail": 0, "conv_expand": 0, "pool_stock": 0,
+                              "up_stock": 0}
 
 
 def test_a_stock_conv_module_counts_nothing(counts):
@@ -174,14 +189,14 @@ def test_a_residual_block_counts_its_tail_and_projection(counts):
     x = torch.randn(2, 16, 32, 32)
     with torch.no_grad():
         blocks.ResidualBlock(16, 32, conv_impl="pallas")(x)
-        assert dict(counts) == {"conv_stock_size": 0, "conv_stock_channels": 2,
-                                "residual_tail": 1, "conv_expand": 1, "pool_stock": 0,
-                                "up_stock": 0}
+        assert stock_counts() == {"conv_stock_size": 0, "conv_stock_channels": 2,
+                                  "residual_tail": 1, "conv_expand": 1, "pool_stock": 0,
+                                  "up_stock": 0}
         blocks.ResidualBlock(16, 16, conv_impl="pallas")(x)
         blocks.ConvolutionalBlock(16, 16, conv_impl="pallas")(x)
-    assert dict(counts) == {"conv_stock_size": 0, "conv_stock_channels": 6,
-                            "residual_tail": 2, "conv_expand": 1, "pool_stock": 0,
-                            "up_stock": 0}
+    assert stock_counts() == {"conv_stock_size": 0, "conv_stock_channels": 6,
+                              "residual_tail": 2, "conv_expand": 1, "pool_stock": 0,
+                              "up_stock": 0}
 
 
 def test_a_tally_adds_what_the_capture_counted(counts):
@@ -191,18 +206,18 @@ def test_a_tally_adds_what_the_capture_counted(counts):
     x = torch.randn(2, 16, 32, 32)
     with torch.no_grad():
         block(x)
-        eager = dict(counts)
+        eager = stock_counts()
         with launch_counts.recording() as tally:
             block(x)
-    assert dict(counts) == eager
+    assert stock_counts() == eager
     assert {k: v for k, v in tally.launches().items() if k in COUNTERS} == \
         {k: v for k, v in eager.items() if v}
     tally.add(3)
-    assert dict(counts) == {k: 4 * v for k, v in eager.items()}
+    assert stock_counts() == {k: 4 * v for k, v in eager.items()}
 
 
 def _forward_counts(dataset: str) -> dict:
-    """``STOCK_CALLS`` of one encoder and one decoder pass of the
+    """``COUNTERS`` of one encoder and one decoder pass of the
     configuration's model at full width, eval mode, on the meta device (the
     routed convs through a meta-device stand-in of the kernels)."""
     config = load_config(CONFIG, {"dataset": dataset,
@@ -213,10 +228,10 @@ def _forward_counts(dataset: str) -> dict:
     out = {}
     for name, fn, inp in (("encoder", enc, (1, kw["cdim"], kw["image_size"], kw["image_size"])),
                           ("decoder", dec, (1, kw["zdim"]))):
-        blocks.STOCK_CALLS.update(dict.fromkeys(COUNTERS, 0))
+        zero_counts()
         with torch.no_grad():
             fn(torch.zeros(inp, device="meta"))
-        out[name] = dict(blocks.STOCK_CALLS)
+        out[name] = stock_counts()
     return out
 
 
@@ -317,9 +332,9 @@ def test_replays_add_an_eager_steps_counts(model):
     graphed = solver.graphed
     deltas = []
     for _ in range(graphed.warmup + 4):
-        before = dict(blocks.STOCK_CALLS)
+        before = stock_counts()
         solver.train_step(state, x)
-        deltas.append({k: blocks.STOCK_CALLS[k] - before[k] for k in COUNTERS})
+        deltas.append({k: n - before[k] for k, n in stock_counts().items()})
     solver.drain_metrics()
     assert graphed.captures == 1 and graphed.replays == 4 and graphed.eager == graphed.warmup
     assert all(d == deltas[0] for d in deltas), deltas

@@ -6,13 +6,13 @@ On the CPU the BatchNorm takes its plain version, and the resample runs
 as the stock pass after it; with the kernels' route stood in for (the
 route patched to "fused", the autograd function to the plain version
 followed by the stock pass), the call takes the resample, as it does on
-the card. Either way ``GroupedBatchNorm`` and the encoder and decoder
-give the bits of the wiring before the change (the oracles below: the
-stock ``avg_pool2`` / ``upsample_nearest2`` after each stage's module),
-forward and backward, for every arch, ``remat`` mode and group count;
-and a step of each train cell's model counts its resamples as the
-benchmark expects: those the kernels take (``RESAMPLED``) and those left
-to a stock pass (``STOCK_CALLS``). The kernels themselves:
+the card. Either way ``batchnorm_act_train``, ``GroupedBatchNorm`` and
+the encoder and decoder give the bits of the wiring before the change
+(the oracles below: the stock ``F.avg_pool2d`` / ``F.interpolate`` after
+each stage's module), forward and backward, for every arch, ``remat``
+mode and group count; and a step of each train cell's model counts its
+resamples as the benchmark expects, all four in ``RESAMPLES``: those the
+kernels take and those left to a stock pass. The kernels themselves:
 ``tests/test_torch_bn_cuda.py``, on the card.
 """
 
@@ -20,27 +20,30 @@ import copy
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from intro_tc_vae_tpu_torch import bench
-from intro_tc_vae_tpu_torch.models import Decoder, Encoder, blocks
-from intro_tc_vae_tpu_torch.models.blocks import (
-    LEAKY_SLOPE,
-    GroupedBatchNorm,
-    avg_pool2,
-    remat,
-    upsample_nearest2,
-)
+from intro_tc_vae_tpu_torch.models import Decoder, Encoder
+from intro_tc_vae_tpu_torch.models.blocks import LEAKY_SLOPE, GroupedBatchNorm, remat
 from intro_tc_vae_tpu_torch.ops import batchnorm as bn
 from intro_tc_vae_tpu_torch.ops import batchnorm_cuda as bc
 from tests._torch_threads import one_thread  # noqa: F401  (autouse)
+
+
+def avg_pool2(x):
+    return F.avg_pool2d(x, 2)
+
+
+def upsample_nearest2(x):
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
 
 STOCK = {"pool": avg_pool2, "up": upsample_nearest2}
 KEYS = ("resample_pool", "resample_up", "pool_stock", "up_stock")
 
 
 def counted() -> dict:
-    return {**{k: bc.RESAMPLED[k] for k in KEYS[:2]},
-            **{k: blocks.STOCK_CALLS[k] for k in KEYS[2:]}}
+    return {k: bc.RESAMPLES[k] for k in KEYS}
 
 
 def delta(before: dict) -> dict:
@@ -87,10 +90,32 @@ def test_takes_resample_by_what_the_call_observes():
         assert not bc.takes_resample(x, resample, group), (tuple(x.shape), resample, group)
 
 
-def test_a_resample_the_kernels_do_not_take_is_refused():
-    x, w, b = torch.ones(2, 4, 6, 6), torch.ones(4), torch.zeros(4)
-    with pytest.raises(ValueError, match="no 'pool' resample"):
-        bc.batchnorm_act_train(x, w, b, None, 1, 1e-4, 0.1, 0.2, torch.float32, None, "pool")
+def test_the_cpu_route_runs_the_stock_pass_after_the_call():
+    """``batchnorm_act_train`` with "pool" and "up" on CPU tensors (a route
+    the kernels do not take a resample on): the plain call, then the stock
+    pass, bit for bit, forward and backward, counted in ``pool_stock`` /
+    ``up_stock``."""
+    torch.manual_seed(3)
+    x = torch.randn(4, 6, 6, 8) * 1.5 + 0.3
+    w, b = torch.rand(6) * 0.4 + 0.8, torch.rand(6) * 0.2 - 0.1
+    for resample, out in (("pool", (4, 6, 3, 4)), ("up", (4, 6, 12, 16))):
+        dy = torch.randn(out)
+        results = []
+        for routed in (True, False):
+            xr, wr, br = (t.clone().requires_grad_(True) for t in (x, w, b))
+            running = (torch.zeros(6), torch.ones(6))
+            start = counted()
+            if routed:
+                y = bc.batchnorm_act_train(xr, wr, br, running, 2, 1e-4, 0.1, 0.2,
+                                           torch.float32, None, resample)
+                assert delta(start) == {k: int(k == f"{resample}_stock") for k in KEYS}
+            else:
+                y = STOCK[resample](bn.batchnorm_act(xr, wr, br, running, 2, 1e-4, 0.1, 0.2,
+                                                     torch.float32))
+            assert tuple(y.shape) == out
+            results.append((y, *torch.autograd.grad(y, (xr, wr, br), dy), *running))
+        for got, want in zip(*results):
+            assert torch.equal(got, want), resample
 
 
 def test_resampled_shape():
@@ -286,16 +311,16 @@ def test_the_reader_reads_the_resamples_a_step(monkeypatch):
 
     read = spec.metric_reader("fused_resample_calls.train")
     monkeypatch.setattr(tracing, "RECORDER", tracing.Recorder(capacity=64, phase_capacity=8))
-    saved = dict(bc.RESAMPLED)
+    saved = dict(bc.RESAMPLES)
     try:
-        bc.RESAMPLED.update(resample_pool=0, resample_up=0)
+        bc.RESAMPLES.update(resample_pool=0, resample_up=0)
         assert read(None) is None  # no graphed step
         graphed = GraphedStep(lambda *a: {}, (), 1)
         graphed.eager, graphed.replays = 3, 5
         assert read(None) is None  # neither counter in the launches, as on the parent
-        bc.RESAMPLED.update(resample_pool=96, resample_up=128)
+        bc.RESAMPLES.update(resample_pool=96, resample_up=128)
         assert read(None) == pytest.approx(28.0)
-        bc.RESAMPLED.update(resample_pool=24, resample_up=0)
+        bc.RESAMPLES.update(resample_pool=24, resample_up=0)
         assert read(None) == pytest.approx(3.0)
     finally:
-        bc.RESAMPLED.update(saved)
+        bc.RESAMPLES.update(saved)

@@ -117,15 +117,14 @@ def test_singleton_writer():
 @pytest.mark.parametrize("name", TB_CONFIGS)
 def test_tensorboard_configs_set_up(tmp_path, name):
     """Every repo config with ``use_tensorboard: true`` passes validation and
-    ``setup`` (no option left unported) at the synthetic_small size, and
+    ``setup`` at the synthetic_small size, and
     rank 0 gets a writer in ``log_dir + run_comment()``."""
-    from intro_tc_vae_tpu_torch.train import check_ported, setup
+    from intro_tc_vae_tpu_torch.train import setup
 
     config = load_config(os.path.join(REPO, "configs", name),
                          dict(dataset="synthetic_small", batch_size=8, z_dim=8,
                               data_parallel=0, log_dir=str(tmp_path / "tb")))
     assert config.use_tensorboard
-    check_ported(config)
     run = setup(config, device=CPU)
     try:
         assert run.writer is not None and run.solver.writer is run.writer
