@@ -51,17 +51,19 @@ result line):
    BatchNorm + leaky ReLU (csrc/bn_kernels.cu) through their autograd
    function against the float64 plain version (ops/batchnorm.py) at
    ``BN_CHECKS`` (the flagship's and the 128 px step's calls, bf16, fp32,
-   fp16, planes of no whole vector), twice bit-equal; at ``BN_TIMED`` in
-   bf16 each kernel's median time beside its bound (``bn_bounds``) and the
-   launch floor, and the whole forward and backward of the kernels, the
-   plain version and ``F.batch_norm`` + ``F.leaky_relu``; the targets
-   (``BN_TARGETS``) printed, not enforced. Resamples
-   (``phase_bn_resample``): at ``BN_RESAMPLE_CHECKS`` a call whose 2x2
-   average pool or nearest 2x upsample the kernels take, bit-equal to the
-   kernels followed by the stock pass (y, dx, dweight, dbias, running
-   statistics); at ``BN_MAIN`` each variant's median time beside its byte
-   bound (``bn_resample_bounds``), and the fused forward and backward
-   beside the unfused chain.
+   fp16, planes of no whole vector), x contiguous and channels-last (the
+   NHWC bodies), twice bit-equal; at ``BN_TIMED`` in bf16, in both layouts,
+   each kernel's median time beside its bound (``bn_bounds``) and the
+   launch floor, and the whole forward and backward of the kernels (NCHW:
+   of the plain version and ``F.batch_norm`` + ``F.leaky_relu`` too); the
+   targets (``BN_TARGETS``) printed, not enforced. Resamples
+   (``phase_bn_resample``): at ``BN_RESAMPLE_CHECKS`` in both layouts a
+   call whose 2x2 average pool or nearest 2x upsample the kernels take,
+   bit-equal to the kernels followed by the stock pass (y, dx, dweight,
+   dbias, running statistics); at ``BN_MAIN`` and [128, 512, 4, 4], in
+   both layouts, each variant's median time beside its byte bound
+   (``bn_resample_bounds``), and the fused forward and backward beside the
+   unfused chain.
    TC gathered (``phase_gathered_kernels``): the same three kernels in
    their data-parallel form, each rank's rows against the whole mu bank of
    a global batch of 128 for R in {2, 8}, against the plain gathered
@@ -81,7 +83,9 @@ result line):
    (``resample_pool``, ``resample_up``) are counted there too.
    ``bn_calls_128``: the 128 px recipe, 7 graphed steps, 81 train-mode
    BatchNorm calls a step through the kernels, 15 pools and 20 upsamples
-   taken, none plain; an eval decode launches no BatchNorm kernel. The rates in img/s, steps after the first
+   taken, none plain, ``LAYOUT_COUNTS_128`` (69 calls through the NHWC
+   bodies, 13 conv inputs converted between the layouts) a step; an eval
+   decode launches no BatchNorm kernel. The rates in img/s, steps after the first
    4 (a graphed step's 3 eager steps and its capture), each bound by the
    completion of the epoch's last step (the metrics are read on the host
    two steps behind the card). The step runs as one captured CUDA graph
@@ -303,6 +307,7 @@ with the TF32 switches as each run sets them (off in the fp32 runs).
 """
 
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -332,8 +337,8 @@ SOURCE = {
     "conv3x3_pack_w": "intro_tc_vae_tpu_torch/csrc/conv_wgmma.cu",
     "conv3x3_fwd": "intro_tc_vae_tpu_torch/csrc/conv_fp32.cu",
     "conv3x3_dw": "intro_tc_vae_tpu_torch/csrc/conv_fp32.cu",
-    **dict.fromkeys(("bn_stats", "bn_finalize", "bn_apply", "bn_bwd_reduce", "bn_bwd_dx"),
-                    "intro_tc_vae_tpu_torch/csrc/bn_kernels.cu"),
+    **dict.fromkeys(("bn_stats", "bn_finalize", "bn_apply", "bn_bwd_reduce", "bn_bwd_dx",
+                     "relayout"), "intro_tc_vae_tpu_torch/csrc/bn_kernels.cu"),
 }
 REPLACES = {
     "tc_fwd": "intro_tc_vae_tpu/ops/tc_pallas.py:109",
@@ -352,6 +357,8 @@ REPLACES = {
     # new kernels: the JAX package leaves BatchNorm to XLA (PERF.md section 6)
     **dict.fromkeys(("bn_stats", "bn_finalize", "bn_apply", "bn_bwd_reduce", "bn_bwd_dx"),
                     "none: train-mode BatchNorm + leaky ReLU, XLA's on the TPU"),
+    # the JAX package keeps every activation NHWC: it converts no layout
+    "relayout": "none: the port's layout conversions at the routed convs' borders",
 }
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): bound_ms of
 # a kernel is max(bytes / HBM_BYTES_S, operations / peak of their type),
@@ -1060,6 +1067,14 @@ BN_TIMED = [  # (shape, groups): the largest and the smallest calls of both step
     ((128, 512, 4, 4), 2), ((64, 512, 4, 4), 1),
 ]
 BN_MAIN = (128, 64, 64, 64)
+# (shape, dtype) the layout transposes take in the cells (models/blocks.py::
+# as_layout): a routed conv's channels-last input at 128^2 and 64^2, the
+# batch's images into the stem at 128 and 256 px, the decoder's fc output;
+# fp32, odd planes and channels
+RELAYOUT_CHECKS = [((256, 64, 128, 128), "bf16"), ((128, 64, 64, 64), "bf16"),
+                   ((128, 3, 128, 128), "bf16"), ((64, 3, 256, 256), "bf16"),
+                   ((256, 512, 4, 4), "bf16"), ((128, 512, 4, 4), "bf16"),
+                   ((128, 512, 4, 4), "fp32"), ((3, 5, 7, 9), "fp16")]
 # bn_apply and bn_bwd_dx at >= 0.6 of their bound and bn_stats + bn_finalize
 # at >= 0.5 at BN_MAIN; at the 4x4 x 512 shapes each within 3 launch floors
 BN_TARGETS = {"apply": 0.6, "bwd_dx": 0.6, "stats+finalize": 0.5, "floors": 3.0}
@@ -1091,7 +1106,8 @@ def phase_bn_kernels(card: str) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from intro_tc_vae_tpu_torch.ops import batchnorm as bn, batchnorm_cuda as bc, cuda_build, tc_cuda
+    from intro_tc_vae_tpu_torch.ops import batchnorm as bn, batchnorm_cuda as bc
+    from intro_tc_vae_tpu_torch.ops import layout_cuda, tc_cuda
 
     dev = torch.device("cuda", 0)
     dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32, "fp16": torch.float16}
@@ -1106,21 +1122,24 @@ def phase_bn_kernels(card: str) -> dict:
                 (torch.rand(c, generator=g) * 0.2 - 0.1).to(dev),
                 torch.randn(shape, generator=g).to(dtype).to(dev))
 
-    def fused(x, w, b, dy, groups, slope):
+    def fused(x, w, b, dy, groups, slope, layout=torch.contiguous_format):
         c = x.shape[1]
         rm, rv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
-        xr, wr, br = (t.clone().requires_grad_(True) for t in (x, w, b))
+        xr = x.clone(memory_format=layout).requires_grad_(True)
+        wr, br = (t.clone().requires_grad_(True) for t in (w, b))
         y = bc._BatchNormAct.apply(xr, wr, br, (rm, rv), groups, 1e-4, 0.1, slope)
-        y.backward(dy)
+        y.backward(dy.contiguous(memory_format=layout))
         return y.detach(), xr.grad, wr.grad, br.grad, rm, rv
 
     names = ("y", "dx", "dweight", "dbias", "running_mean", "running_var")
     worst = {}
-    for shape, groups, kind, slope in BN_CHECKS:
+    for (shape, groups, kind, slope), layout in itertools.product(
+            BN_CHECKS, (torch.contiguous_format, torch.channels_last)):
         x, w, b, dy = data(shape, dtypes[kind])
-        got, again = fused(x, w, b, dy, groups, slope), fused(x, w, b, dy, groups, slope)
+        got = fused(x, w, b, dy, groups, slope, layout)
+        again = fused(x, w, b, dy, groups, slope, layout)
         if not all(torch.equal(a, r) for a, r in zip(got, again)):
-            die(f"bn {shape} g{groups} {kind}: two runs differ")
+            die(f"bn {shape} g{groups} {kind} {layout}: two runs differ")
         f64 = torch.float64
         c = shape[1]
         rm, rv = torch.zeros(c, device=dev, dtype=f64), torch.ones(c, device=dev, dtype=f64)
@@ -1129,7 +1148,7 @@ def phase_bn_kernels(card: str) -> dict:
                 *bn.batchnorm_act_backward_reference(x.double(), dy.double(), w.double(),
                                                      b.double(), groups, 1e-4, slope), rm, rv)
         for name, a, r in zip(names, got, want):
-            m, d = float(r.abs().max()), (a.double() - r).abs()
+            m, d = float(r.detach().abs().max()), (a.double() - r).abs()
             e = rounding[kind] * (2 if name == "y" and slope != 1.0 else 1)
             if name in ("y", "dx"):
                 ok = d <= e * r.abs() + 1e-4 * m
@@ -1138,16 +1157,17 @@ def phase_bn_kernels(card: str) -> dict:
             else:
                 ok = d <= 1e-5 * r.abs()
             if not bool(ok.all()):
-                die(f"bn {shape} g{groups} {kind} slope {slope}: {name} max |d| "
+                die(f"bn {shape} g{groups} {kind} slope {slope} {layout}: {name} max |d| "
                     f"{float(d.max()):.3g} (max |ref| {m:.3g})")
             worst[name] = max(worst.get(name, 0.0), float(d.max()))
-            if kind == "bf16" and shape == BN_MAIN and slope != 1.0:
+            if (kind == "bf16" and shape == BN_MAIN and slope != 1.0
+                    and layout == torch.contiguous_format):
                 # each kernel's error: that of the output it decides
                 for k in {"y": ("bn_apply",), "dx": ("bn_bwd_dx",),
                           "dweight": ("bn_bwd_reduce",),
                           "running_mean": ("bn_stats", "bn_finalize")}.get(name, ()):
                     errs[k] = float(d.max())
-    print("phase 3: bn kernels match the float64 plain version at "
+    print("phase 3: bn kernels, NCHW and NHWC bodies, match the float64 plain version at "
           + json.dumps([[list(s), g, k, sl] for s, g, k, sl in BN_CHECKS])
           + " (y, dx: e |ref| + 1e-4 max|ref|, e the dtype's roundings; dweight, dbias 1e-3; "
           "running statistics rtol 1e-5), two runs bit-equal; max |d| "
@@ -1155,23 +1175,25 @@ def phase_bn_kernels(card: str) -> dict:
 
     floor = median_ms(lambda: tc_cuda.launch_empty(dev), reps=11)
     times, bounds = {}, {}
-    for shape, groups in BN_TIMED:
+    for (shape, groups), layout in itertools.product(BN_TIMED, ("nchw", "nhwc")):
         x, w, b, dy = data(shape, torch.bfloat16)
+        if layout == "nhwc":
+            x, dy = (t.contiguous(memory_format=torch.channels_last) for t in (x, dy))
         n, c = shape[:2]
         hw = math.prod(shape[2:])
-        plan = bn.launch_plan(n, c, hw, groups, 2, cuda_build.sm_count(dev))
-        sh = (n, c, hw, groups, plan.slices, plan.samples, plan.vector, plan.threads)
+        plan, sh = bc.plan_of(x, groups)
         part = torch.empty((groups * c * plan.slices, 2), device=dev)
         stat = torch.empty((groups, c, 4), device=dev)
+        coef = torch.empty((groups, c, 2), device=dev) if layout == "nhwc" else None
         rm, rv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
         y, dx = torch.empty_like(x), torch.empty_like(x)
         dw, db = torch.empty(c, device=dev), torch.empty(c, device=dev)
         count = n // groups * hw
-        w0 = (shape[-1], 0)  # the plane's width; no resample
         bc.launch("bn_stats", x, part, *sh, 1, device=dev)
         bc.launch("bn_finalize", part, w, stat, rm, rv, c, groups, plan.slices, count, 1e-4,
                   0.9, 0.1, device=dev)
-        xr, wr, br = (t.clone().requires_grad_(True) for t in (x, w, b))
+        xr, wr, br = x.clone().requires_grad_(True), *(t.clone().requires_grad_(True)
+                                                      for t in (w, b))
         paths = {}
         for label, fn in (("kernels", lambda a, p, q: bc._BatchNormAct.apply(
                                 a, p, q, None, groups, 1e-4, 0.1, 0.2)),
@@ -1179,6 +1201,8 @@ def phase_bn_kernels(card: str) -> dict:
                               a, p, q, None, groups, 1e-4, 0.1, 0.2, torch.bfloat16)),
                           ("library", lambda a, p, q: F.leaky_relu(F.batch_norm(
                               a, None, None, p, q, True, 0.1, 1e-4), 0.2))):
+            if layout == "nhwc" and label != "kernels":
+                continue
             out = fn(xr, wr, br)
             paths[f"{label}_fwd"] = lambda fn=fn: fn(xr, wr, br)
             paths[f"{label}_bwd"] = lambda out=out: torch.autograd.grad(
@@ -1187,12 +1211,12 @@ def phase_bn_kernels(card: str) -> dict:
             "bn_stats": lambda: bc.launch("bn_stats", x, part, *sh, 1, device=dev),
             "bn_finalize": lambda: bc.launch("bn_finalize", part, w, stat, None, None, c, groups,
                                              plan.slices, count, 1e-4, 0.9, 0.1, device=dev),
-            "bn_apply": lambda: bc.launch("bn_apply", x, stat, b, y, *sh, *w0, 0.2, 1,
+            "bn_apply": lambda: bc.launch("bn_apply", x, stat, b, y, *sh, 0, 0.2, 1,
                                           device=dev),
             "bn_bwd_reduce": lambda: bc.launch("bn_bwd_reduce", x, dy, stat, b, part, None, *sh,
-                                               *w0, 0.2, 1, device=dev),
-            "bn_bwd_dx": lambda: bc.launch("bn_bwd_dx", x, dy, stat, b, part, dx, dw, db, *sh,
-                                           *w0, 0.2, 1, device=dev),
+                                               0, 0.2, 1, device=dev),
+            "bn_bwd_dx": lambda: bc.launch("bn_bwd_dx", x, dy, stat, b, part, coef, dx, dw, db,
+                                           *sh, 0, 0.2, 1, device=dev),
             **paths,
         }
         rounds = [{k: median_ms(f, reps=11) for k, f in order}
@@ -1201,8 +1225,9 @@ def phase_bn_kernels(card: str) -> dict:
         bd = bn_bounds(shape, 2)
         share = {k: bd[k]["bound_ms"] / t[k] for k in bc.KERNELS}
         share["stats+finalize"] = bd["bn_stats"]["bound_ms"] / (t["bn_stats"] + t["bn_finalize"])
-        print(f"phase 3: bn {list(shape)} groups {groups} bf16 {plan}; median ms per call, mean "
-              "of two rounds in turns " + json.dumps({k: round(v, 5) for k, v in t.items()})
+        print(f"phase 3: bn {layout} {list(shape)} groups {groups} bf16 {plan}; median ms per "
+              "call, mean of two rounds in turns "
+              + json.dumps({k: round(v, 5) for k, v in t.items()})
               + "; bounds " + json.dumps({k: round(v["bound_ms"], 5) for k, v in bd.items()})
               + "; share of the bound " + json.dumps({k: round(v, 3) for k, v in share.items()})
               + "; launch floors " + json.dumps({k: round(t[k] / floor, 2) for k in bc.KERNELS})
@@ -1216,14 +1241,61 @@ def phase_bn_kernels(card: str) -> dict:
         else:
             met = None
         if met is not None:
-            print(f"phase 3: bn {list(shape)} groups {groups} targets (printed, not enforced): "
-                  + json.dumps(met))
+            print(f"phase 3: bn {layout} {list(shape)} groups {groups} targets (printed, not "
+                  "enforced): " + json.dumps(met))
         if shape == BN_MAIN:
             for k in bc.KERNELS:
+                if layout == "nhwc":
+                    times[k]["nhwc_ms"] = t[k]
+                    continue
                 side = "fwd" if k in ("bn_stats", "bn_finalize", "bn_apply") else "bwd"
                 times[k] = {"ms": t[k], "plain_ms": t[f"plain_{side}"],
                             "library_ms": t[f"library_{side}"]}
                 bounds[k] = bd[k]
+    # the layout transposes (ops/layout_cuda.py) at the shapes the cells hand
+    # them, both ways: the kernel's output and its gradient bit for bit
+    # PyTorch's copy, in the layout asked for, each launch counted
+    cl, nchw = torch.channels_last, torch.contiguous_format
+    for shape, kind in RELAYOUT_CHECKS:
+        x = data(shape, dtypes[kind])[0]
+        for fmt, src in ((cl, x), (nchw, x.contiguous(memory_format=cl))):
+            if not layout_cuda.takes(src, fmt):
+                die(f"relayout {shape} {kind} to {fmt}: the kernel does not take it")
+            start = dict(layout_cuda.LAUNCHES)
+            src = src.clone(memory_format=torch.preserve_format).requires_grad_(True)
+            y = layout_cuda.relayout(src, fmt)
+            g = torch.randn(shape, device=dev).to(dtypes[kind]).contiguous(memory_format=fmt)
+            (dx,) = torch.autograd.grad(y, src, g)
+            launched = {k: n - start[k] for k, n in layout_cuda.LAUNCHES.items()}
+            want_y = src.detach().contiguous(memory_format=fmt)
+            want_dx = g.contiguous(memory_format=nchw if fmt == cl else cl)
+            if not (torch.equal(y, want_y) and y.stride() == want_y.stride()
+                    and torch.equal(dx, want_dx) and dx.stride() == src.stride()
+                    and launched == {"relayout": 1, "relayout_grad": 1}):
+                die(f"relayout {shape} {kind} to {fmt}: output or gradient differs from "
+                    f"PyTorch's copy, or launches {launched}")
+    print("phase 3: relayout, both ways, output and gradient bit-equal to PyTorch's copy "
+          "and in its layout, one counted launch each, at "
+          + json.dumps([[list(s), k] for s, k in RELAYOUT_CHECKS]))
+    # the same at BN_MAIN, timed beside PyTorch's copy into the other
+    # layout, each way; bound: x read and written once
+    x = data(BN_MAIN, torch.bfloat16)[0]
+    cl = x.contiguous(memory_format=torch.channels_last)
+    moves = {"relayout to nhwc": lambda: layout_cuda.relayout(x, torch.channels_last),
+             "relayout to nchw": lambda: layout_cuda.relayout(cl, torch.contiguous_format),
+             "copy to nhwc": lambda: x.contiguous(memory_format=torch.channels_last),
+             "copy to nchw": lambda: cl.contiguous()}
+    t = {k: median_ms(f, reps=11) for k, f in moves.items()}
+    moved = bound(2 * x.numel() * 2, 0, "fp32")
+    print(f"phase 3: layout transposes {list(BN_MAIN)} bf16, median ms per call "
+          + json.dumps({k: round(v, 5) for k, v in t.items()})
+          + f"; bound {moved['bound_ms']:.5f} ms, share "
+          + json.dumps({k: round(moved["bound_ms"] / v, 3) for k, v in t.items()}) + f" on {card}")
+    errs["relayout"] = 0.0  # bit-equal above
+    times["relayout"] = {"ms": (t["relayout to nhwc"] + t["relayout to nchw"]) / 2,
+                         "plain_ms": (t["copy to nhwc"] + t["copy to nchw"]) / 2,
+                         "library_ms": None}
+    bounds["relayout"] = moved
     return {"errs": errs, "times": times, "bounds": bounds}
 
 
@@ -1264,10 +1336,11 @@ def phase_bn_resample(card: str) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from intro_tc_vae_tpu_torch.ops import batchnorm as bn, batchnorm_cuda as bc, cuda_build
+    from intro_tc_vae_tpu_torch.ops import batchnorm_cuda as bc
 
     dev = torch.device("cuda", 0)
     dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32, "fp16": torch.float16}
+    rounding = {"bf16": 2.0**-8, "fp16": 2.0**-11, "fp32": 0.5e-5}
     stock = {"pool": lambda t: F.avg_pool2d(t, 2),
              "up": lambda t: F.interpolate(t, scale_factor=2, mode="nearest")}
 
@@ -1279,68 +1352,106 @@ def phase_bn_resample(card: str) -> dict:
                 (torch.rand(c, generator=g) * 0.2 - 0.1).to(dev),
                 torch.randn(out_shape, generator=g).to(dtype).to(dev))
 
-    def call(x, w, b, dy, groups, slope, resample, fused):
+    def call(x, w, b, dy, groups, slope, resample, fused, layout=torch.contiguous_format):
         c = x.shape[1]
         rm, rv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
-        xr, wr, br = (t.clone().requires_grad_(True) for t in (x, w, b))
+        xr = x.clone(memory_format=layout).requires_grad_(True)
+        wr, br = (t.clone().requires_grad_(True) for t in (w, b))
         if fused:
             y = bc._BatchNormAct.apply(xr, wr, br, (rm, rv), groups, 1e-4, 0.1, slope, resample)
         else:
             y = stock[resample](bc._BatchNormAct.apply(xr, wr, br, (rm, rv), groups, 1e-4, 0.1,
                                                        slope))
-        y.backward(dy)
+        y.backward(dy.contiguous(memory_format=layout))
         return y.detach(), xr.grad, wr.grad, br.grad, rm, rv
 
     names = ("y", "dx", "dweight", "dbias", "running_mean", "running_var")
-    for shape, groups, kind, slope, resample in BN_RESAMPLE_CHECKS:
+    for (shape, groups, kind, slope, resample), layout in itertools.product(
+            BN_RESAMPLE_CHECKS, (torch.contiguous_format, torch.channels_last)):
         n, c, h, w = shape
         out = (n, c, h // 2, w // 2) if resample == "pool" else (n, c, 2 * h, 2 * w)
         x, wt, b, dy = data(shape, dtypes[kind], out)
-        got = call(x, wt, b, dy, groups, slope, resample, True)
-        want = call(x, wt, b, dy, groups, slope, resample, False)
+        got = call(x, wt, b, dy, groups, slope, resample, True, layout)
+        want = call(x, wt, b, dy, groups, slope, resample, False, layout)
+        # an NHWC pool's backward sums window by window: its gradients
+        # within one rounding (dx) and float32 reordering (dweight, dbias)
+        reordered = layout == torch.channels_last and resample == "pool"
         for name, a, r in zip(names, got, want):
-            if a.shape != r.shape or not torch.equal(a, r):
-                die(f"bn {resample} {shape} g{groups} {kind} slope {slope}: {name} differs "
-                    f"from the kernels and the stock pass")
-    print("phase 3: bn resample variants bit-equal to the kernels and the stock pass (y, dx, "
-          "dweight, dbias, running statistics) at "
+            if reordered and name in ("dx", "dweight", "dbias"):
+                d, m = (a.double() - r.double()).abs(), float(r.abs().max())
+                e = 2 * rounding[kind] if name == "dx" else 1e-4
+                ok = bool((d <= e * r.double().abs() + 1e-5 * m).all())
+            else:
+                ok = a.shape == r.shape and torch.equal(a, r)
+            if not ok:
+                die(f"bn {resample} {shape} g{groups} {kind} slope {slope} {layout}: {name} "
+                    f"differs from the kernels and the stock pass")
+    print("phase 3: bn resample variants, NCHW and NHWC bodies, bit-equal to the kernels and "
+          "the stock pass (y, dx, dweight, dbias, running statistics; an NHWC pool's gradients "
+          "within one rounding, its sums reordered) at "
           + json.dumps([[list(s), g, k, sl, r] for s, g, k, sl, r in BN_RESAMPLE_CHECKS]))
 
-    shape, groups = BN_MAIN, 2
+    for (shape, groups), layout in itertools.product(((BN_MAIN, 2), ((128, 512, 4, 4), 2)),
+                                                     ("nchw", "nhwc")):
+        t, bd, chains = time_bn_resample(dev, data, stock, shape, groups, layout)
+        share = {k: bd[k]["bound_ms"] / t[k] for k in bd}
+        print(f"phase 3: bn resample {layout} {list(shape)} groups {groups} bf16; median ms per "
+              "call, mean of two rounds in turns "
+              + json.dumps({k: round(v, 5) for k, v in t.items()})
+              + "; bounds " + json.dumps({k: round(v["bound_ms"], 5) for k, v in bd.items()})
+              + "; share of the bound " + json.dumps({k: round(v, 3) for k, v in share.items()})
+              + "; (fused, unfused chain) ms "
+              + json.dumps({k: [round(a, 5), round(u, 5)] for k, (a, u) in chains.items()})
+              + f" on {card}")
+        if shape == BN_MAIN and layout == "nchw":
+            main = {"times": t, "bounds": bd, "chains": chains}
+    return main
+
+
+def time_bn_resample(dev, data, stock, shape, groups, layout) -> tuple:
+    """Each resample variant's median time at x ``shape`` in ``layout`` and
+    the plain kernels' and stock passes' beside it (mean of two rounds in
+    turns), their byte bounds, and the (fused, unfused chain) times."""
+    import torch
+
+    from intro_tc_vae_tpu_torch.ops import batchnorm_cuda as bc
+
     n, c, h, w = shape
-    hw = h * w
     x, wt, b, dy = data(shape, torch.bfloat16, shape)
-    plan = bn.launch_plan(n, c, hw, groups, 2, cuda_build.sm_count(dev))
-    sh = (n, c, hw, groups, plan.slices, plan.samples, plan.vector, plan.threads)
+    fmt = torch.channels_last if layout == "nhwc" else torch.contiguous_format
+    x, dy = (t.contiguous(memory_format=fmt) for t in (x, dy))
+    plan, sh = bc.plan_of(x, groups)
     part = torch.empty((groups * c * plan.slices, 2), device=dev)
     stat = torch.empty((groups, c, 4), device=dev)
+    coef = torch.empty((groups, c, 2), device=dev) if layout == "nhwc" else None
     bc.launch("bn_stats", x, part, *sh, 1, device=dev)
     bc.launch("bn_finalize", part, wt, stat, None, None, c, groups, plan.slices,
-              n // groups * hw, 1e-4, 0.9, 0.1, device=dev)
+              n // groups * h * w, 1e-4, 0.9, 0.1, device=dev)
     y, dx, dsum = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
-    yp = x.new_empty((n, c, h // 2, w // 2))
-    yu = x.new_empty((n, c, 2 * h, 2 * w))
+    yp = torch.empty((n, c, h // 2, w // 2), device=dev, dtype=x.dtype, memory_format=fmt)
+    yu = torch.empty((n, c, 2 * h, 2 * w), device=dev, dtype=x.dtype, memory_format=fmt)
     dyp, dyu = torch.randn_like(yp), torch.randn_like(yu)
     dw, db = torch.empty(c, device=dev), torch.empty(c, device=dev)
-    bc.launch("bn_apply", x, stat, b, y, *sh, w, 0, 0.2, 1, device=dev)
+    bc.launch("bn_apply", x, stat, b, y, *sh, 0, 0.2, 1, device=dev)
 
     def kernel(entry, *args, resample=0):
-        return lambda: bc.launch(entry, *args, *sh, w, resample, 0.2, 1, device=dev)
+        return lambda: bc.launch(entry, *args, *sh, resample, 0.2, 1, device=dev)
 
     fns = {
         "bn_apply": kernel("bn_apply", x, stat, b, y),
         "bn_bwd_reduce": kernel("bn_bwd_reduce", x, dy, stat, b, part, None),
-        "bn_bwd_dx": kernel("bn_bwd_dx", x, dy, stat, b, part, dx, dw, db),
+        "bn_bwd_dx": kernel("bn_bwd_dx", x, dy, stat, b, part, coef, dx, dw, db),
         "bn_apply_pool": kernel("bn_apply", x, stat, b, yp, resample=1),
         "bn_bwd_reduce_pool": kernel("bn_bwd_reduce", x, dyp, stat, b, part, None, resample=1),
-        "bn_bwd_dx_pool": kernel("bn_bwd_dx", x, dyp, stat, b, part, dx, dw, db, resample=1),
+        "bn_bwd_dx_pool": kernel("bn_bwd_dx", x, dyp, stat, b, part, coef, dx, dw, db,
+                                 resample=1),
         "bn_apply_up": kernel("bn_apply", x, stat, b, yu, resample=2),
         "bn_bwd_reduce_up": kernel("bn_bwd_reduce", x, dyu, stat, b, part, dsum, resample=2),
-        "bn_bwd_dx_up": kernel("bn_bwd_dx", x, dsum, stat, b, part, dx, dw, db),
-        "avg_pool2d": lambda: F.avg_pool2d(y, 2),
+        "bn_bwd_dx_up": kernel("bn_bwd_dx", x, dsum, stat, b, part, coef, dx, dw, db),
+        "avg_pool2d": lambda: stock["pool"](y),
         "avg_pool2d_backward": lambda: torch.ops.aten.avg_pool2d_backward(
             dyp, y, [2, 2], [2, 2], [0, 0], False, True, None),
-        "upsample_nearest2d": lambda: F.interpolate(y, scale_factor=2, mode="nearest"),
+        "upsample_nearest2d": lambda: stock["up"](y),
         "upsample_nearest2d_backward": lambda: torch.ops.aten.upsample_nearest2d_backward(
             dyu, [2 * h, 2 * w], list(shape), 2.0, 2.0),
     }
@@ -1348,7 +1459,6 @@ def phase_bn_resample(card: str) -> dict:
               for order in (list(fns.items()), list(fns.items())[::-1])]
     t = {k: (rounds[0][k] + rounds[1][k]) / 2 for k in fns}
     bd = bn_resample_bounds(shape, 2)
-    share = {k: bd[k]["bound_ms"] / t[k] for k in bd}
     chains = {
         "pool fwd": (t["bn_apply_pool"], t["bn_apply"] + t["avg_pool2d"]),
         "pool bwd": (t["bn_bwd_reduce_pool"] + t["bn_bwd_dx_pool"],
@@ -1357,28 +1467,32 @@ def phase_bn_resample(card: str) -> dict:
         "up bwd": (t["bn_bwd_reduce_up"] + t["bn_bwd_dx_up"],
                    t["upsample_nearest2d_backward"] + t["bn_bwd_reduce"] + t["bn_bwd_dx"]),
     }
-    print(f"phase 3: bn resample {list(shape)} groups {groups} bf16 {plan}; median ms per call, "
-          "mean of two rounds in turns " + json.dumps({k: round(v, 5) for k, v in t.items()})
-          + "; bounds " + json.dumps({k: round(v["bound_ms"], 5) for k, v in bd.items()})
-          + "; share of the bound " + json.dumps({k: round(v, 3) for k, v in share.items()})
-          + "; (fused, unfused chain) ms "
-          + json.dumps({k: [round(a, 5), round(u, 5)] for k, (a, u) in chains.items()})
-          + f" on {card}")
-    return {"times": t, "bounds": bd, "chains": chains}
+    return t, bd, chains
 
 
-def bn_calls_128(card: str) -> None:
+# (bn_nhwc, layout_copy) a paired step of the 128 px recipe: the BatchNorm
+# calls that take the NHWC bodies and the conv inputs converted between the
+# layouts (tests/test_torch_layout.py derives the same on the CPU)
+LAYOUT_COUNTS_128 = (69, 13)
+
+
+def bn_calls_128(card: str) -> dict:
     """Phase 4 (bn): the 128 px recipe (batch 128) with tc and conv
     'pallas' through ``bench.build_solver``, graphed by the trainer's rule,
     7 steps (3 eager, the capture, 3 replays): every train-mode BatchNorm
     call goes through the kernels, 81 a step (the flagship's 67 are phase
-    4's exact counts), none takes the plain route; an eval-mode decode
-    launches no BatchNorm kernel."""
+    4's exact counts), none takes the plain route, ``LAYOUT_COUNTS_128``
+    of them take the NHWC bodies and as many conv inputs are converted,
+    each by one ``relayout`` launch; the gradients moved back launch
+    ``relayout_grad`` as often every step. An eval-mode decode launches no
+    BatchNorm kernel and one ``relayout`` a conversion. Returns the
+    ``relayout`` launches (forward and backward) of the 7 steps."""
     import torch
 
     from intro_tc_vae_tpu_torch import bench
+    from intro_tc_vae_tpu_torch.models import blocks
     from intro_tc_vae_tpu_torch.ops import batchnorm_cuda as bc
-    from intro_tc_vae_tpu_torch.ops import launch_counts
+    from intro_tc_vae_tpu_torch.ops import launch_counts, layout_cuda
 
     batch, steps = 128, 7
     channels = tuple(bench.CHANNELS[128])
@@ -1395,20 +1509,35 @@ def bn_calls_128(card: str) -> None:
     solver.drain_metrics(0)
     torch.cuda.synchronize()
     launches = {k: n for k, n in all_launches().items() if k in want}
-    if launches != {k: steps * v for k, v in want.items()} or any(bc.CALLS.values()):
-        die(f"bn at 128 px: launches {launches}, calls {dict(bc.CALLS)} in {steps} steps, "
-            f"expected {want} a step and no plain call")
+    layouts = (bc.CALLS["bn_nhwc"], blocks.LAYOUT["layout_copy"])
+    moves = dict(layout_cuda.LAUNCHES)
+    if (launches != {k: steps * v for k, v in want.items()} or bc.CALLS["plain_data_group"]
+            or layouts != tuple(steps * v for v in LAYOUT_COUNTS_128)
+            or moves["relayout"] != layouts[1] or moves["relayout_grad"] % steps
+            or not 0 < moves["relayout_grad"] <= moves["relayout"]):
+        die(f"bn at 128 px: launches {launches}, calls {dict(bc.CALLS)}, layout copies "
+            f"{layouts[1]}, relayout launches {moves} in {steps} steps, expected {want} a "
+            f"step, no plain call, (bn_nhwc, layout_copy) {LAYOUT_COUNTS_128} a step, one "
+            "relayout a copy and as many relayout_grad every step")
     with torch.no_grad():
         state.model.eval()
         state.model.decoder(torch.randn(batch, bench.ZDIM, device=x.device))
         torch.cuda.synchronize()
     if {k: n for k, n in all_launches().items() if k in want} != launches:
         die("bn at 128 px: an eval-mode decode launched BatchNorm kernels")
+    decoded = (blocks.LAYOUT["layout_copy"] - layouts[1],
+               layout_cuda.LAUNCHES["relayout"] - moves["relayout"])
+    if decoded[0] != decoded[1] or not decoded[0]:
+        die(f"bn at 128 px: an eval-mode decode's (layout_copy, relayout) {decoded}")
     print(f"phase 4 (bn): 128 px batch {batch}: {want['bn_stats']} BatchNorm calls a step "
           f"through the kernels, launches a step " + json.dumps(want)
-          + f", no plain call; an eval decode launches none on {card}")
+          + f", no plain call; (bn_nhwc, layout_copy) a step {LAYOUT_COUNTS_128}, relayout "
+          f"{moves['relayout'] // steps} and relayout_grad {moves['relayout_grad'] // steps} a "
+          f"step; an eval decode launches no BatchNorm kernel and (layout_copy, relayout) "
+          f"{decoded} on {card}")
     del solver, state, x
     torch.cuda.empty_cache()
+    return moves
 
 
 def bn_layers(arch: str = "conv", channels: tuple = (64, 128, 256, 512)) -> tuple:
@@ -3351,6 +3480,51 @@ def phase_solver_surface(card: str) -> dict:
         shutil.rmtree(work)
 
 
+def remat_checks(card: str) -> dict:
+    """Phase 11 (b) (``phase_solver_surface``'s docstring): ``remat_runs``
+    checked and printed; returns the table of peaks and device times."""
+    import torch
+
+    with cudnn_deterministic():
+        remat = remat_runs(SURFACE_STEPS)
+    for (b, mode, graph), r in remat.items():
+        if not graph:
+            continue
+        memory_gate("phase 11 (b)", f"batch {b}, remat {mode!r}", remat[(b, mode, False)], r,
+                    card)
+        if b == MAIN_B:
+            want_e, want_d = expected_intro_launches("pallas", "pallas", mode)
+            for label, got, want in (("phase E", r["phase_e"], want_e),
+                                     ("phase D", r["phase_d"], want_d)):
+                want = {k: SURFACE_STEPS * v for k, v in want.items()}
+                if got != want:
+                    die(f"phase 11 (b): remat {mode!r}: {label} launches {got}, "
+                        f"expected {want}")
+        if r["metrics"] != remat[(b, mode, False)]["metrics"]:
+            die(f"phase 11 (b): batch {b}: remat {mode!r}: graphed metrics differ from eager")
+        base = remat[(b, False, True)]
+        if r["metrics"] != base["metrics"] or any(
+                not torch.equal(v, base["state"][k]) for k, v in r["state"].items()):
+            die(f"phase 11 (b): batch {b}: remat {mode!r} differs from remat false "
+                "(metrics, parameters or BatchNorm statistics)")
+    table = {f"batch {b}": {str(mode): {
+        "peak_MiB": remat[(b, mode, True)]["peak_bytes"] / 2**20,
+        "eager_peak_MiB": remat[(b, mode, False)]["peak_bytes"] / 2**20,
+        "device_ms": remat[(b, mode, True)]["device_ms"],
+        "eager_device_ms": remat[(b, mode, False)]["device_ms"]}
+        for mode in REMAT_MODES} for b in REMAT_BATCHES}
+    print(f"phase 11 (b): remat false / block / pass, flagship, tc and conv pallas, "
+          f"{SURFACE_STEPS} steps each, cuDNN deterministic: launches per phase equal the "
+          f"derived counts (recompute adds 6 conv3x3_fwd_wgmma + 6 conv3x3_pack_w a phase); "
+          f"block and pass bit-equal to false (metrics, parameters, BatchNorm statistics) at "
+          f"batch 64 and 256")
+    print("phase 11 (b): peak device MiB and device ms/step "
+          + json.dumps({b: {m: {k: round(v, 2) for k, v in d.items()} for m, d in t.items()}
+                        for b, t in table.items()}) + f" on {card}")
+
+    return table
+
+
 def rate_after(state, skip: int) -> float:
     """Host-clock img/s over the steps after the first ``skip``: with
     ``skip`` a multiple of scan_steps, whole calls only (a call's seconds
@@ -3435,44 +3609,7 @@ def solver_surface(card: str, work: str) -> dict:
 
     out["seconds"] = {"a": time.perf_counter() - t0}
     # (b) remat
-    with cudnn_deterministic():
-        remat = remat_runs(SURFACE_STEPS)
-    for (b, mode, graph), r in remat.items():
-        if not graph:
-            continue
-        memory_gate("phase 11 (b)", f"batch {b}, remat {mode!r}", remat[(b, mode, False)], r,
-                    card)
-        if b == MAIN_B:
-            want_e, want_d = expected_intro_launches("pallas", "pallas", mode)
-            for label, got, want in (("phase E", r["phase_e"], want_e),
-                                     ("phase D", r["phase_d"], want_d)):
-                want = {k: SURFACE_STEPS * v for k, v in want.items()}
-                if got != want:
-                    die(f"phase 11 (b): remat {mode!r}: {label} launches {got}, "
-                        f"expected {want}")
-        if r["metrics"] != remat[(b, mode, False)]["metrics"]:
-            die(f"phase 11 (b): batch {b}: remat {mode!r}: graphed metrics differ from eager")
-        base = remat[(b, False, True)]
-        if r["metrics"] != base["metrics"] or any(
-                not torch.equal(v, base["state"][k]) for k, v in r["state"].items()):
-            die(f"phase 11 (b): batch {b}: remat {mode!r} differs from remat false "
-                "(metrics, parameters or BatchNorm statistics)")
-    table = {f"batch {b}": {str(mode): {
-        "peak_MiB": remat[(b, mode, True)]["peak_bytes"] / 2**20,
-        "eager_peak_MiB": remat[(b, mode, False)]["peak_bytes"] / 2**20,
-        "device_ms": remat[(b, mode, True)]["device_ms"],
-        "eager_device_ms": remat[(b, mode, False)]["device_ms"]}
-        for mode in REMAT_MODES} for b in REMAT_BATCHES}
-    out["remat"] = table
-    print(f"phase 11 (b): remat false / block / pass, flagship, tc and conv pallas, "
-          f"{SURFACE_STEPS} steps each, cuDNN deterministic: launches per phase equal the "
-          f"derived counts (recompute adds 6 conv3x3_fwd_wgmma + 6 conv3x3_pack_w a phase); "
-          f"block and pass bit-equal to false (metrics, parameters, BatchNorm statistics) at "
-          f"batch 64 and 256")
-    print("phase 11 (b): peak device MiB and device ms/step "
-          + json.dumps({b: {m: {k: round(v, 2) for k, v in d.items()} for m, d in t.items()}
-                        for b, t in table.items()}) + f" on {card}")
-
+    out["remat"] = remat_checks(card)
     out["seconds"]["b"] = time.perf_counter() - t0 - sum(out["seconds"].values())
     # (c) scan_steps
     ukiyo = os.path.join(work, "ukiyo")
@@ -5400,7 +5537,7 @@ def main() -> None:
           + json.dumps(TC_FWD_TARGETS) + ", met " + json.dumps(met) + f" on {card}")
 
     main_path = timed("phase 4", phase_main_path, card)
-    timed("phase 4 (bn)", bn_calls_128, card)
+    moves = timed("phase 4 (bn)", bn_calls_128, card)
     with fp32_exact():  # same conv algorithms in both runs
         timed("phase 5", phase_in_context, torch.device("cuda", 0))
     other = timed("phase 6", phase_other_paths, card)
@@ -5457,9 +5594,13 @@ def main() -> None:
     # one PyTorch call that computes it (cuDNN for the convs), where there
     # is one. The TC backward kernels share the plain backward; the conv
     # forward's and dW's plain version is the library call. launches: the
+    # nhwc_ms: the BatchNorm kernels' channels-last bodies at the same
+    # shape (None for the kernels that have no such body). launches: the
     # flagship's (tc pallas, conv pallas) run of phase 4; the fp32 conv
     # bodies, which that run does not reach, from phase 6's vae_synthetic;
-    # the ragged entry points from phase 12's conv pallas arm.
+    # the ragged entry points from phase 12's conv pallas arm; relayout,
+    # forward and backward, from phase 4 (bn)'s 7 steps at 128 px, its ms
+    # and plain_ms (PyTorch's copy) the mean of the two ways at BN_MAIN.
     tc_plain = {"tc_fwd": "plain_fwd", "tc_bwd_dz": "plain_bwd", "tc_bwd_dmu": "plain_bwd"}
     times = {**{k: {"ms": kernels["times"][k], "plain_ms": kernels["times"][p],
                     "library_ms": None} for k, p in tc_plain.items()}, **conv["times"],
@@ -5469,13 +5610,14 @@ def main() -> None:
     launches = {**main_path["launches"],
                 "conv3x3_fwd": other["conv3x3_fwd"], "conv3x3_dw": other["conv3x3_dw"],
                 "conv3x3_fwd_ragged": at48["launches"]["conv3x3_fwd_ragged"],
-                "conv3x3_dw_ragged": at48["launches"]["conv3x3_dw_ragged"]}
+                "conv3x3_dw_ragged": at48["launches"]["conv3x3_dw_ragged"],
+                "relayout": moves["relayout"] + moves["relayout_grad"]}
     entries = [
         {"name": k, "route": "cuda", "source": SOURCE[k], "replaces": REPLACES[k],
          "launches": launches[k], "max_abs_err": errs[k],
          "ms": times[k]["ms"], "plain_ms": times[k]["plain_ms"], **bounds[k],
-         "library_ms": times[k]["library_ms"]}
-        for k in (*tc_cuda.KERNELS, *conv_cuda.KERNELS, *batchnorm_cuda.KERNELS)
+         "library_ms": times[k]["library_ms"], "nhwc_ms": times[k].get("nhwc_ms")}
+        for k in (*tc_cuda.KERNELS, *conv_cuda.KERNELS, *batchnorm_cuda.KERNELS, "relayout")
     ]
     # the three TC kernels launched in their gathered form, counted by the
     # gathered calls of phase 7's ranks; ms: one gathered call's three
@@ -5491,7 +5633,7 @@ def main() -> None:
                     "bound_ms": sum(b["bound_ms"] for b in g_bounds),
                     "bound_by": "bytes" if all(b["bound_by"] == "bytes" for b in g_bounds)
                     else "operations",
-                    "library_ms": None})
+                    "library_ms": None, "nhwc_ms": None})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

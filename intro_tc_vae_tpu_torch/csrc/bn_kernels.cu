@@ -74,11 +74,43 @@
 // the resampled tensor is aligned to 16 bytes, so its rows are read or
 // written in vectors; otherwise element by element (one element a vector,
 // the 4x4 planes of bf16, a misaligned gradient).
+//
+// Channels-last bodies (the template flag NHWC). A tensor of logical shape
+// [N, C, H, W] may lie channels-last ([N, H, W, C] in memory), as the stock
+// convs around a BatchNorm write it (models/blocks.py::conv_layout). Every
+// kernel takes either layout; y, dx and an upsample's summed gradient are
+// written in x's, dy is read in y's. In NHWC a run is `per_slice` image rows
+// of one group, every channel (ops/batchnorm.py::launch_plan), one block a
+// run, group-major: block b is run b % slices of group b / slices. Thread t
+// keeps one 16-byte vector of channels, t % (C / VW) (one channel where C is
+// no whole number of vectors), for the whole run and takes pixels
+// t / (C / VW), + threads / (C / VW), ... of it (for_each_pixel), 4 in
+// flight, so its channels' statistics stay in registers. The block folds
+// each channel's sums over its pixel rows in shared memory, in row order,
+// into part[(g C + c) slices + s], the NCHW order of the partials, which
+// bn_finalize folds as it does the NCHW ones. A block holds every channel,
+// so bn_bwd_dx cannot fold its pair's partials in front of its loads as the
+// NCHW body does (that would be C slices loads a block): its launcher runs
+// bn_bwd_fold first, one warp a channel, which folds each group's partials
+// into the two coefficients (coef[g, c]) and every group's into dweight and
+// dbias, in the NCHW body's arithmetic, and the streaming kernel reads coef.
+// The resample variants read and write whole channel vectors of each 2x2
+// window, whatever W (the 4x4 planes too); a pooled call's runs hold an
+// even number of rows, and its forward and backward walk the pooled
+// pixels' windows (for_each_window), one load of dy_p for four pixels, so
+// its backward sums run in another order than the plain kernels': its y
+// and running statistics are those of the call followed by the stock pool,
+// bit for bit, its gradients within rounding. An upsampled call keeps the
+// bits as in NCHW.
+// Also here, so that it costs no nvcc run of its own: relayout, the tiled
+// transpose of ops/layout_cuda.py (a conv input moved between the layouts).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -104,8 +136,8 @@ struct alignas(sizeof(T) * VW) Pack {
 
 struct Shape {
   int n, c, hw, groups;   // x [n, c, hw], groups of n / groups samples
-  int slices, per_slice;  // runs a pair, samples a run
-  int w;                  // a plane's width: hw = h w (the resample variants)
+  int slices, per_slice;  // runs a pair (NHWC: a group), samples (NHWC: rows) a run
+  int w;                  // a plane's width: hw = h w
 };
 
 enum Resample { NONE = 0, POOL = 1, UP = 2 };
@@ -162,6 +194,122 @@ __device__ __forceinline__ void for_each_vector(const Shape& sh, const Run& r, F
   for_each_unit(sh, r, sh.hw / VW, body);
 }
 
+// NHWC: run b's group g and index s within it, its first pixel and its
+// pixels (x as n h rows of w pixels; a group's rows lie together).
+struct Span {
+  int g, s, p0, count;
+};
+
+__device__ __forceinline__ Span span_of(const Shape& sh, int b) {
+  Span r;
+  r.s = b % sh.slices;
+  r.g = b / sh.slices;
+  const int rows = sh.n / sh.groups * (sh.hw / sh.w), first = r.s * sh.per_slice;
+  r.p0 = (r.g * rows + first) * sh.w;
+  r.count = min(sh.per_slice, rows - first) * sh.w;
+  return r;
+}
+
+// NHWC: the first of the VW channels thread t keeps.
+template <int VW>
+__device__ __forceinline__ int first_channel(const Shape& sh) {
+  return (int)threadIdx.x % (sh.c / VW) * VW;
+}
+
+// NHWC: calls body(idx, i, j, ok) on UNROLL pixels at a time of the
+// `count` pixels from p0 of planes `width` wide: thread t's channel vector
+// of pixels t / (C / VW), + rows, ... in order (rows = threads / (C / VW);
+// ok false past the end); idx is the vector's index, i the pixel's row
+// (n h + y, over the whole tensor) and j its column, stepped by an add and a
+// compare. tests/test_torch_batchnorm.py::thread_pixels models the walk.
+template <int VW, typename F>
+__device__ __forceinline__ void for_each_pixel(const Shape& sh, int p0, int count, int width,
+                                               F&& body) {
+  const int cvs = sh.c / VW, rows = (int)blockDim.x / cvs, cv = (int)threadIdx.x % cvs;
+  const int q = rows / width, rem = rows - q * width;
+  int p = (int)threadIdx.x / cvs;
+  int i = (p0 + p) / width, j = p0 + p - i * width;
+  while (p < count) {
+    size_t idx[UNROLL];
+    int ii[UNROLL], jj[UNROLL];
+    bool ok[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      ok[u] = p < count;
+      ii[u] = i;
+      jj[u] = j;
+      idx[u] = ((size_t)i * width + j) * cvs + cv;
+      p += rows;
+      i += q;
+      j += rem;
+      if (j >= width) {
+        j -= width;
+        ++i;
+      }
+    }
+    body(idx, ii, jj, ok);
+  }
+}
+
+// NHWC, a pooled call: calls body(out, top, ok) on UNROLL 2x2 windows at a
+// time, the run's pooled pixels walked as for_each_pixel walks a plane w / 2
+// wide: out is the pooled vector's index, top that of x's vector at (2i, 2j);
+// the window is top, top + C / VW and the two a row of x below. A window's
+// four pixels lie in one run (runs of an even number of rows).
+template <int VW, typename F>
+__device__ __forceinline__ void for_each_window(const Shape& sh, const Span& r, F&& body) {
+  const int cvs = sh.c / VW, cv = (int)threadIdx.x % cvs;
+  for_each_pixel<VW>(sh, r.p0 / 4, r.count / 4, sh.w / 2, [&](const size_t* out, const int* oi,
+                                                              const int* oj, const bool* ok) {
+    size_t top[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) top[u] = ((size_t)2 * oi[u] * sh.w + 2 * oj[u]) * cvs + cv;
+    body(out, top, ok);
+  });
+}
+
+// NHWC: each channel's sums of the block, folded over its pixel rows in
+// row order in shared memory, to part[(g C + c) slices + s].
+template <int VW>
+__device__ __forceinline__ void store_channels(const float (&s1)[VW], const float (&s2)[VW],
+                                               float2* __restrict__ part, const Shape& sh,
+                                               const Span& r) {
+  __shared__ float red[2][256 * VW];
+  const int cvs = sh.c / VW, rows = (int)blockDim.x / cvs;
+  const int at = (int)threadIdx.x / cvs * sh.c + first_channel<VW>(sh);
+#pragma unroll
+  for (int e = 0; e < VW; ++e) {
+    red[0][at + e] = s1[e];
+    red[1][at + e] = s2[e];
+  }
+  __syncthreads();
+  for (int ch = threadIdx.x; ch < sh.c; ch += blockDim.x) {
+    float a = 0.f, b = 0.f;
+    for (int q = 0; q < rows; ++q) {
+      a += red[0][q * sh.c + ch];
+      b += red[1][q * sh.c + ch];
+    }
+    part[(size_t)(r.g * sh.c + ch) * sh.slices + r.s] = make_float2(a, b);
+  }
+}
+
+// NHWC: mean, a and bias of the VW channels thread t keeps, of group g.
+template <int VW>
+struct Chans {
+  float mean[VW], a[VW], b[VW];
+  __device__ __forceinline__ Chans(const float4* __restrict__ stat,
+                                   const float* __restrict__ bias, const Shape& sh, int g) {
+    const int c0 = first_channel<VW>(sh);
+#pragma unroll
+    for (int e = 0; e < VW; ++e) {
+      const float4 st = stat[g * sh.c + c0 + e];
+      mean[e] = st.x;
+      a[e] = st.z;
+      b[e] = bias[c0 + e];
+    }
+  }
+};
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -214,30 +362,53 @@ __device__ __forceinline__ bool passes(float t, float slope) {
   return slope == 1.f || to_f<T>(from_f<T>(t)) > 0.f;
 }
 
-template <typename T, int VW>
+template <typename T, int VW, bool NHWC>
 __global__ void __launch_bounds__(256) bn_stats(const T* __restrict__ x, float2* __restrict__ part,
                                                 Shape sh) {
-  const Run r = run_of(sh, blockIdx.x);
   const Pack<T, VW>* xv = reinterpret_cast<const Pack<T, VW>*>(x);
-  float s1 = 0.f, s2 = 0.f;
-  for_each_vector<VW>(sh, r, [&](const size_t* idx, const int*, const bool* ok) {
-    Pack<T, VW> v[UNROLL];
+  if constexpr (NHWC) {
+    const Span r = span_of(sh, blockIdx.x);
+    float s1[VW] = {}, s2[VW] = {};
+    for_each_pixel<VW>(sh, r.p0, r.count, sh.w, [&](const size_t* idx, const int*, const int*,
+                                                    const bool* ok) {
+      Pack<T, VW> v[UNROLL];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u)
-      if (ok[u]) v[u] = xv[idx[u]];
+      for (int u = 0; u < UNROLL; ++u)
+        if (ok[u]) v[u] = xv[idx[u]];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      if (!ok[u]) continue;
+      for (int u = 0; u < UNROLL; ++u) {
+        if (!ok[u]) continue;
 #pragma unroll
-      for (int e = 0; e < VW; ++e) {
-        const float f = to_f<T>(v[u].v[e]);
-        s1 += f;
-        s2 = fmaf(f, f, s2);
+        for (int e = 0; e < VW; ++e) {
+          const float f = to_f<T>(v[u].v[e]);
+          s1[e] += f;
+          s2[e] = fmaf(f, f, s2[e]);
+        }
       }
-    }
-  });
-  block_sum2(s1, s2);
-  if (threadIdx.x == 0) part[blockIdx.x] = make_float2(s1, s2);
+    });
+    store_channels<VW>(s1, s2, part, sh, r);
+  } else {
+    const Run r = run_of(sh, blockIdx.x);
+    float s1 = 0.f, s2 = 0.f;
+    for_each_vector<VW>(sh, r, [&](const size_t* idx, const int*, const bool* ok) {
+      Pack<T, VW> v[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u)
+        if (ok[u]) v[u] = xv[idx[u]];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        if (!ok[u]) continue;
+#pragma unroll
+        for (int e = 0; e < VW; ++e) {
+          const float f = to_f<T>(v[u].v[e]);
+          s1 += f;
+          s2 = fmaf(f, f, s2);
+        }
+      }
+    });
+    block_sum2(s1, s2);
+    if (threadIdx.x == 0) part[blockIdx.x] = make_float2(s1, s2);
+  }
 }
 
 // One warp a channel: each group's statistics, then its EMA update.
@@ -389,198 +560,455 @@ struct Upsampled {
   }
 };
 
+// NHWC: the readers take x's vector idx of the pixel at row i, column j,
+// whose channel vector is idx - (i w + j) C / VW (a pooled call's backward
+// walks the pooled gradient's windows instead: for_each_window). dy itself:
 template <typename T, int VW>
+struct DirectNhwc {
+  Pack<T, VW> p;
+  __device__ __forceinline__ void load(const T* __restrict__ dy, const Shape&, size_t idx, int,
+                                       int) {
+    p = reinterpret_cast<const Pack<T, VW>*>(dy)[idx];
+  }
+  __device__ __forceinline__ float get(int e) const { return to_f<T>(p.v[e]); }
+};
+
+// NHWC: g of a nearest 2x upsample, [n, 2h, 2w, c]: the four vectors of the
+// pixel's 2x2 block.
+template <typename T, int VW>
+struct UpsampledNhwc {
+  Pack<T, VW> q[4];  // g00, g01, g10, g11
+  __device__ __forceinline__ void load(const T* __restrict__ dy, const Shape& sh, size_t idx,
+                                       int i, int j) {
+    const int cvs = sh.c / VW;
+    const size_t cv = idx - ((size_t)i * sh.w + j) * cvs;
+    const size_t tl = ((size_t)2 * i * 2 * sh.w + 2 * j) * cvs + cv;
+    const size_t below = (size_t)2 * sh.w * cvs;
+    const Pack<T, VW>* dv = reinterpret_cast<const Pack<T, VW>*>(dy);
+    q[0] = dv[tl];
+    q[1] = dv[tl + cvs];
+    q[2] = dv[tl + below];
+    q[3] = dv[tl + below + cvs];
+  }
+  __device__ __forceinline__ float get(int e) const {
+    return summed_grad<T>(q[0].v[e], q[1].v[e], q[2].v[e], q[3].v[e]);
+  }
+};
+
+template <typename T, int VW, bool NHWC>
 __global__ void __launch_bounds__(256) bn_apply(const T* __restrict__ x,
                                                 const float4* __restrict__ stat,
                                                 const float* __restrict__ bias, T* __restrict__ y,
                                                 Shape sh, float slope) {
-  const Run r = run_of(sh, blockIdx.x);
-  const float4 st = stat[r.g * sh.c + r.c];
-  const float mean = st.x, a = st.z, b = bias[r.c];
   const Pack<T, VW>* xv = reinterpret_cast<const Pack<T, VW>*>(x);
   Pack<T, VW>* yv = reinterpret_cast<Pack<T, VW>*>(y);
-  for_each_vector<VW>(sh, r, [&](const size_t* idx, const int*, const bool* ok) {
-    Pack<T, VW> v[UNROLL];
+  if constexpr (NHWC) {
+    const Span r = span_of(sh, blockIdx.x);
+    const Chans<VW> ch(stat, bias, sh, r.g);
+    for_each_pixel<VW>(sh, r.p0, r.count, sh.w, [&](const size_t* idx, const int*, const int*,
+                                                    const bool* ok) {
+      Pack<T, VW> v[UNROLL];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u)
-      if (ok[u]) v[u] = xv[idx[u]];
+      for (int u = 0; u < UNROLL; ++u)
+        if (ok[u]) v[u] = xv[idx[u]];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      if (!ok[u]) continue;
-      Pack<T, VW> out;
+      for (int u = 0; u < UNROLL; ++u) {
+        if (!ok[u]) continue;
+        Pack<T, VW> out;
 #pragma unroll
-      for (int e = 0; e < VW; ++e)
-        out.v[e] = act<T>(fmaf(to_f<T>(v[u].v[e]) - mean, a, b), slope);
-      yv[idx[u]] = out;
-    }
-  });
+        for (int e = 0; e < VW; ++e)
+          out.v[e] = act<T>(fmaf(to_f<T>(v[u].v[e]) - ch.mean[e], ch.a[e], ch.b[e]), slope);
+        yv[idx[u]] = out;
+      }
+    });
+  } else {
+    const Run r = run_of(sh, blockIdx.x);
+    const float4 st = stat[r.g * sh.c + r.c];
+    const float mean = st.x, a = st.z, b = bias[r.c];
+    for_each_vector<VW>(sh, r, [&](const size_t* idx, const int*, const bool* ok) {
+      Pack<T, VW> v[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u)
+        if (ok[u]) v[u] = xv[idx[u]];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        if (!ok[u]) continue;
+        Pack<T, VW> out;
+#pragma unroll
+        for (int e = 0; e < VW; ++e)
+          out.v[e] = act<T>(fmaf(to_f<T>(v[u].v[e]) - mean, a, b), slope);
+        yv[idx[u]] = out;
+      }
+    });
+  }
 }
 
 // y_p [n, c, h / 2, w / 2], walked in its own units: with rows, VW / 2
 // outputs from a vector of each of two rows of x; else one from four
-// elements.
-template <typename T, int VW, bool ROWS>
+// elements. NHWC: y_p [n, h / 2, w / 2, c], a vector of channels of each
+// output pixel from the four vectors of its window.
+template <typename T, int VW, bool ROWS, bool NHWC>
 __global__ void __launch_bounds__(256) bn_apply_pool(const T* __restrict__ x,
                                                      const float4* __restrict__ stat,
                                                      const float* __restrict__ bias,
                                                      T* __restrict__ y, Shape sh, float slope) {
-  constexpr int IN = ROWS ? VW : 2, OUT = IN / 2;  // x columns, outputs a unit
-  const Run r = run_of(sh, blockIdx.x);
-  const float4 st = stat[r.g * sh.c + r.c];
-  const float mean = st.x, a = st.z, b = bias[r.c];
-  const int across = sh.w / IN;  // units a row pair
-  for_each_unit(sh, r, sh.hw / (2 * IN), [&](const size_t* idx, const int* o, const bool* ok) {
-    Pack<T, IN> v[UNROLL][2];
+  if constexpr (NHWC) {
+    const Span r = span_of(sh, blockIdx.x);
+    const Chans<VW> ch(stat, bias, sh, r.g);
+    const Pack<T, VW>* xv = reinterpret_cast<const Pack<T, VW>*>(x);
+    const size_t right = sh.c / VW, below = (size_t)sh.w * right;
+    for_each_window<VW>(sh, r, [&](const size_t* idx, const size_t* top, const bool* ok) {
+      Pack<T, VW> v[UNROLL][4];  // x at (2i, 2j), (2i, 2j + 1), (2i + 1, 2j), (2i + 1, 2j + 1)
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      if (!ok[u]) continue;
-      const int pair = o[u] / across, k = o[u] - pair * across;
-      const size_t top = (idx[u] - o[u]) * 2 * IN + (size_t)2 * pair * sh.w + (size_t)k * IN;
-      if constexpr (ROWS) {
-        const Pack<T, IN>* xv = reinterpret_cast<const Pack<T, IN>*>(x);
-        v[u][0] = xv[top / IN];
-        v[u][1] = xv[(top + sh.w) / IN];
-      } else {
+      for (int u = 0; u < UNROLL; ++u) {
+        if (!ok[u]) continue;
+        v[u][0] = xv[top[u]];
+        v[u][1] = xv[top[u] + right];
+        v[u][2] = xv[top[u] + below];
+        v[u][3] = xv[top[u] + below + right];
+      }
 #pragma unroll
-        for (int j = 0; j < IN; ++j) {
-          v[u][0].v[j] = x[top + j];
-          v[u][1].v[j] = x[top + sh.w + j];
+      for (int u = 0; u < UNROLL; ++u) {
+        if (!ok[u]) continue;
+        Pack<T, VW> out;
+#pragma unroll
+        for (int e = 0; e < VW; ++e) {
+          float f[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            f[k] = to_f<T>(act<T>(fmaf(to_f<T>(v[u][k].v[e]) - ch.mean[e], ch.a[e], ch.b[e]),
+                                  slope));
+          out.v[e] = from_f<T>(__fmul_rn(sum4(f[0], f[1], f[2], f[3]), 0.25f));
+        }
+        reinterpret_cast<Pack<T, VW>*>(y)[idx[u]] = out;
+      }
+    });
+  } else {
+    constexpr int IN = ROWS ? VW : 2, OUT = IN / 2;  // x columns, outputs a unit
+    const Run r = run_of(sh, blockIdx.x);
+    const float4 st = stat[r.g * sh.c + r.c];
+    const float mean = st.x, a = st.z, b = bias[r.c];
+    const int across = sh.w / IN;  // units a row pair
+    for_each_unit(sh, r, sh.hw / (2 * IN), [&](const size_t* idx, const int* o, const bool* ok) {
+      Pack<T, IN> v[UNROLL][2];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        if (!ok[u]) continue;
+        const int pair = o[u] / across, k = o[u] - pair * across;
+        const size_t top = (idx[u] - o[u]) * 2 * IN + (size_t)2 * pair * sh.w + (size_t)k * IN;
+        if constexpr (ROWS) {
+          const Pack<T, IN>* xv = reinterpret_cast<const Pack<T, IN>*>(x);
+          v[u][0] = xv[top / IN];
+          v[u][1] = xv[(top + sh.w) / IN];
+        } else {
+#pragma unroll
+          for (int j = 0; j < IN; ++j) {
+            v[u][0].v[j] = x[top + j];
+            v[u][1].v[j] = x[top + sh.w + j];
+          }
         }
       }
-    }
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      if (!ok[u]) continue;
-      float f[2][IN];
+      for (int u = 0; u < UNROLL; ++u) {
+        if (!ok[u]) continue;
+        float f[2][IN];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+        for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < IN; ++j)
-          f[i][j] = to_f<T>(act<T>(fmaf(to_f<T>(v[u][i].v[j]) - mean, a, b), slope));
-      Pack<T, OUT> out;
+          for (int j = 0; j < IN; ++j)
+            f[i][j] = to_f<T>(act<T>(fmaf(to_f<T>(v[u][i].v[j]) - mean, a, b), slope));
+        Pack<T, OUT> out;
 #pragma unroll
-      for (int j = 0; j < OUT; ++j)
-        out.v[j] = from_f<T>(
-            __fmul_rn(sum4(f[0][2 * j], f[0][2 * j + 1], f[1][2 * j], f[1][2 * j + 1]), 0.25f));
-      reinterpret_cast<Pack<T, OUT>*>(y)[idx[u]] = out;
-    }
-  });
+        for (int j = 0; j < OUT; ++j)
+          out.v[j] = from_f<T>(
+              __fmul_rn(sum4(f[0][2 * j], f[0][2 * j + 1], f[1][2 * j], f[1][2 * j + 1]), 0.25f));
+        reinterpret_cast<Pack<T, OUT>*>(y)[idx[u]] = out;
+      }
+    });
+  }
 }
 
-// y_u [n, c, 2h, 2w]: each element of x's vector to its 2x2 block.
-template <typename T, int VW, bool ROWS>
+// y_u [n, c, 2h, 2w]: each element of x's vector to its 2x2 block. NHWC:
+// y_u [n, 2h, 2w, c], each vector of channels to the four pixels of its block.
+template <typename T, int VW, bool ROWS, bool NHWC>
 __global__ void __launch_bounds__(256) bn_apply_up(const T* __restrict__ x,
                                                    const float4* __restrict__ stat,
                                                    const float* __restrict__ bias,
                                                    T* __restrict__ y, Shape sh, float slope) {
-  const Run r = run_of(sh, blockIdx.x);
-  const float4 st = stat[r.g * sh.c + r.c];
-  const float mean = st.x, a = st.z, b = bias[r.c];
-  const Pack<T, VW>* xv = reinterpret_cast<const Pack<T, VW>*>(x);
-  const size_t wide = 2 * (size_t)sh.w;
-  for_each_vector<VW>(sh, r, [&](const size_t* idx, const int* o, const bool* ok) {
-    Pack<T, VW> v[UNROLL];
+  if constexpr (NHWC) {
+    const Span r = span_of(sh, blockIdx.x);
+    const Chans<VW> ch(stat, bias, sh, r.g);
+    const Pack<T, VW>* xv = reinterpret_cast<const Pack<T, VW>*>(x);
+    Pack<T, VW>* yv = reinterpret_cast<Pack<T, VW>*>(y);
+    const int cvs = sh.c / VW, cv = (int)threadIdx.x % cvs;
+    const size_t below = (size_t)2 * sh.w * cvs;  // a row of y_u, in vectors
+    for_each_pixel<VW>(sh, r.p0, r.count, sh.w, [&](const size_t* idx, const int* pi,
+                                                    const int* pj, const bool* ok) {
+      Pack<T, VW> v[UNROLL];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u)
-      if (ok[u]) v[u] = xv[idx[u]];
+      for (int u = 0; u < UNROLL; ++u)
+        if (ok[u]) v[u] = xv[idx[u]];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      if (!ok[u]) continue;
-      T t[VW];
+      for (int u = 0; u < UNROLL; ++u) {
+        if (!ok[u]) continue;
+        Pack<T, VW> out;
 #pragma unroll
-      for (int e = 0; e < VW; ++e) t[e] = act<T>(fmaf(to_f<T>(v[u].v[e]) - mean, a, b), slope);
-      const size_t plane = (idx[u] - o[u]) * VW * 4;
-      if constexpr (ROWS) {
-        const Pos at = pos_of(sh, o[u] * VW);
-        const size_t el = plane + 2 * at.h * wide + 2 * at.w;
-        Pack<T, VW>* yv = reinterpret_cast<Pack<T, VW>*>(y);
+        for (int e = 0; e < VW; ++e)
+          out.v[e] = act<T>(fmaf(to_f<T>(v[u].v[e]) - ch.mean[e], ch.a[e], ch.b[e]), slope);
+        const size_t tl = ((size_t)2 * pi[u] * 2 * sh.w + 2 * pj[u]) * cvs + cv;
+        yv[tl] = out;
+        yv[tl + cvs] = out;
+        yv[tl + below] = out;
+        yv[tl + below + cvs] = out;
+      }
+    });
+  } else {
+    const Run r = run_of(sh, blockIdx.x);
+    const float4 st = stat[r.g * sh.c + r.c];
+    const float mean = st.x, a = st.z, b = bias[r.c];
+    const Pack<T, VW>* xv = reinterpret_cast<const Pack<T, VW>*>(x);
+    const size_t wide = 2 * (size_t)sh.w;
+    for_each_vector<VW>(sh, r, [&](const size_t* idx, const int* o, const bool* ok) {
+      Pack<T, VW> v[UNROLL];
 #pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          Pack<T, VW> out;
+      for (int u = 0; u < UNROLL; ++u)
+        if (ok[u]) v[u] = xv[idx[u]];
 #pragma unroll
-          for (int j = 0; j < VW; ++j) out.v[j] = t[(k * VW + j) / 2];
-          yv[el / VW + k] = out;
-          yv[(el + wide) / VW + k] = out;
-        }
-      } else {
+      for (int u = 0; u < UNROLL; ++u) {
+        if (!ok[u]) continue;
+        T t[VW];
 #pragma unroll
-        for (int e = 0; e < VW; ++e) {
-          const Pos at = pos_of(sh, o[u] * VW + e);
+        for (int e = 0; e < VW; ++e) t[e] = act<T>(fmaf(to_f<T>(v[u].v[e]) - mean, a, b), slope);
+        const size_t plane = (idx[u] - o[u]) * VW * 4;
+        if constexpr (ROWS) {
+          const Pos at = pos_of(sh, o[u] * VW);
           const size_t el = plane + 2 * at.h * wide + 2 * at.w;
-          y[el] = t[e];
-          y[el + 1] = t[e];
-          y[el + wide] = t[e];
-          y[el + wide + 1] = t[e];
+          Pack<T, VW>* yv = reinterpret_cast<Pack<T, VW>*>(y);
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            Pack<T, VW> out;
+#pragma unroll
+            for (int j = 0; j < VW; ++j) out.v[j] = t[(k * VW + j) / 2];
+            yv[el / VW + k] = out;
+            yv[(el + wide) / VW + k] = out;
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < VW; ++e) {
+            const Pos at = pos_of(sh, o[u] * VW + e);
+            const size_t el = plane + 2 * at.h * wide + 2 * at.w;
+            y[el] = t[e];
+            y[el + 1] = t[e];
+            y[el + wide] = t[e];
+            y[el + wide + 1] = t[e];
+          }
         }
       }
-    }
-  });
+    });
+  }
 }
 
 // The run's partial sums of dy' and dy' (x - mean), dy read through G
 // (Direct, Pooled or Upsampled); with `dsum`, also the values G gives,
 // stored in x's layout for bn_bwd_dx.
-template <typename T, int VW, class G>
+template <typename T, int VW, class G, bool NHWC>
 __device__ __forceinline__ void bwd_reduce(const T* __restrict__ x, const T* __restrict__ dy,
                                            const float4* __restrict__ stat,
                                            const float* __restrict__ bias,
                                            float2* __restrict__ part, T* __restrict__ dsum,
                                            const Shape& sh, float slope) {
-  const Run r = run_of(sh, blockIdx.x);
-  const float4 st = stat[r.g * sh.c + r.c];
-  const float mean = st.x, a = st.z, b = bias[r.c];
   const Pack<T, VW>* xv = reinterpret_cast<const Pack<T, VW>*>(x);
-  float s1 = 0.f, s2 = 0.f;
-  for_each_vector<VW>(sh, r, [&](const size_t* idx, const int* o, const bool* ok) {
-    Pack<T, VW> v[UNROLL];
-    G d[UNROLL];
+  if constexpr (NHWC) {
+    const Span r = span_of(sh, blockIdx.x);
+    const Chans<VW> ch(stat, bias, sh, r.g);
+    float s1[VW] = {}, s2[VW] = {};
+    for_each_pixel<VW>(sh, r.p0, r.count, sh.w, [&](const size_t* idx, const int* pi,
+                                                    const int* pj, const bool* ok) {
+      Pack<T, VW> v[UNROLL];
+      G d[UNROLL];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u)
-      if (ok[u]) {
-        v[u] = xv[idx[u]];
-        d[u].load(dy, sh, idx[u], o[u]);
+      for (int u = 0; u < UNROLL; ++u)
+        if (ok[u]) {
+          v[u] = xv[idx[u]];
+          d[u].load(dy, sh, idx[u], pi[u], pj[u]);
+        }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        if (!ok[u]) continue;
+        Pack<T, VW> kept;
+#pragma unroll
+        for (int e = 0; e < VW; ++e) {
+          const float xc = to_f<T>(v[u].v[e]) - ch.mean[e];
+          float g = d[u].get(e);
+          if (dsum != nullptr) kept.v[e] = from_f<T>(g);
+          if (!passes<T>(fmaf(xc, ch.a[e], ch.b[e]), slope)) g *= slope;
+          s1[e] += g;
+          s2[e] = fmaf(g, xc, s2[e]);
+        }
+        if (dsum != nullptr) reinterpret_cast<Pack<T, VW>*>(dsum)[idx[u]] = kept;
       }
+    });
+    store_channels<VW>(s1, s2, part, sh, r);
+  } else {
+    const Run r = run_of(sh, blockIdx.x);
+    const float4 st = stat[r.g * sh.c + r.c];
+    const float mean = st.x, a = st.z, b = bias[r.c];
+    float s1 = 0.f, s2 = 0.f;
+    for_each_vector<VW>(sh, r, [&](const size_t* idx, const int* o, const bool* ok) {
+      Pack<T, VW> v[UNROLL];
+      G d[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u)
+        if (ok[u]) {
+          v[u] = xv[idx[u]];
+          d[u].load(dy, sh, idx[u], o[u]);
+        }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        if (!ok[u]) continue;
+        Pack<T, VW> kept;
+#pragma unroll
+        for (int e = 0; e < VW; ++e) {
+          const float xc = to_f<T>(v[u].v[e]) - mean;
+          float g = d[u].get(e);
+          if (dsum != nullptr) kept.v[e] = from_f<T>(g);
+          if (!passes<T>(fmaf(xc, a, b), slope)) g *= slope;
+          s1 += g;
+          s2 = fmaf(g, xc, s2);
+        }
+        if (dsum != nullptr) reinterpret_cast<Pack<T, VW>*>(dsum)[idx[u]] = kept;
+      }
+    });
+    block_sum2(s1, s2);
+    if (threadIdx.x == 0) part[blockIdx.x] = make_float2(s1, s2);
+  }
+}
+
+// NHWC, a pooled call's backward: each thread takes whole 2x2 windows
+// (for_each_window), the pooled gradient's vector once and x's four, so the
+// four pixels of a window share one load of dy_p. bwd_reduce_pool_nhwc sums
+// dy' and dy' (x - mean) of the run, a window's pixels in the order of
+// bn_apply_pool's sum; bwd_dx_pool_nhwc writes the four pixels' dx from
+// bn_bwd_fold's coefficients.
+template <typename T, int VW, typename F>
+__device__ __forceinline__ void for_each_window_grad(const T* __restrict__ x,
+                                                     const T* __restrict__ dy, const Shape& sh,
+                                                     const Span& r, F&& body) {
+  const Pack<T, VW>* xv = reinterpret_cast<const Pack<T, VW>*>(x);
+  const Pack<T, VW>* dv = reinterpret_cast<const Pack<T, VW>*>(dy);
+  const size_t right = sh.c / VW, below = (size_t)sh.w * right;
+  for_each_window<VW>(sh, r, [&](const size_t* out, const size_t* top, const bool* ok) {
+    Pack<T, VW> v[UNROLL][4], d[UNROLL];
+    size_t at[UNROLL][4];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
+      at[u][0] = top[u];
+      at[u][1] = top[u] + right;
+      at[u][2] = top[u] + below;
+      at[u][3] = top[u] + below + right;
       if (!ok[u]) continue;
-      Pack<T, VW> kept;
+      d[u] = dv[out[u]];
 #pragma unroll
-      for (int e = 0; e < VW; ++e) {
-        const float xc = to_f<T>(v[u].v[e]) - mean;
-        float g = d[u].get(e);
-        if (dsum != nullptr) kept.v[e] = from_f<T>(g);
-        if (!passes<T>(fmaf(xc, a, b), slope)) g *= slope;
-        s1 += g;
-        s2 = fmaf(g, xc, s2);
-      }
-      if (dsum != nullptr) reinterpret_cast<Pack<T, VW>*>(dsum)[idx[u]] = kept;
+      for (int k = 0; k < 4; ++k) v[u][k] = xv[at[u][k]];
     }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      if (ok[u]) body(v[u], d[u], at[u]);
   });
-  block_sum2(s1, s2);
-  if (threadIdx.x == 0) part[blockIdx.x] = make_float2(s1, s2);
 }
 
 template <typename T, int VW>
+__device__ __forceinline__ void bwd_reduce_pool_nhwc(const T* __restrict__ x,
+                                                     const T* __restrict__ dy,
+                                                     const float4* __restrict__ stat,
+                                                     const float* __restrict__ bias,
+                                                     float2* __restrict__ part, const Shape& sh,
+                                                     float slope) {
+  const Span r = span_of(sh, blockIdx.x);
+  const Chans<VW> ch(stat, bias, sh, r.g);
+  float s1[VW] = {}, s2[VW] = {};
+  for_each_window_grad<T, VW>(x, dy, sh, r, [&](const Pack<T, VW>* v, const Pack<T, VW>& d,
+                                                const size_t*) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int e = 0; e < VW; ++e) {
+        const float xc = to_f<T>(v[k].v[e]) - ch.mean[e];
+        float g = pooled_grad<T>(d.v[e]);
+        if (!passes<T>(fmaf(xc, ch.a[e], ch.b[e]), slope)) g *= slope;
+        s1[e] += g;
+        s2[e] = fmaf(g, xc, s2[e]);
+      }
+  });
+  store_channels<VW>(s1, s2, part, sh, r);
+}
+
+template <typename T, int VW>
+__device__ __forceinline__ void bwd_dx_pool_nhwc(const T* __restrict__ x,
+                                                 const T* __restrict__ dy,
+                                                 const float4* __restrict__ stat,
+                                                 const float* __restrict__ bias,
+                                                 const float2* __restrict__ coef,
+                                                 T* __restrict__ dx, const Shape& sh,
+                                                 float slope) {
+  const Span r = span_of(sh, blockIdx.x);
+  const Chans<VW> ch(stat, bias, sh, r.g);
+  float k1[VW], k2[VW];
+  const int c0 = first_channel<VW>(sh);
+#pragma unroll
+  for (int e = 0; e < VW; ++e) {
+    const float2 k = coef[r.g * sh.c + c0 + e];
+    k1[e] = k.x;
+    k2[e] = k.y;
+  }
+  Pack<T, VW>* ov = reinterpret_cast<Pack<T, VW>*>(dx);
+  for_each_window_grad<T, VW>(x, dy, sh, r, [&](const Pack<T, VW>* v, const Pack<T, VW>& d,
+                                                const size_t* at) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      Pack<T, VW> out;
+#pragma unroll
+      for (int e = 0; e < VW; ++e) {
+        const float xc = to_f<T>(v[k].v[e]) - ch.mean[e];
+        float g = pooled_grad<T>(d.v[e]);
+        if (!passes<T>(fmaf(xc, ch.a[e], ch.b[e]), slope)) g *= slope;
+        out.v[e] = from_f<T>(fmaf(xc, k2[e], fmaf(ch.a[e], g, k1[e])));
+      }
+      ov[at[k]] = out;
+    }
+  });
+}
+
+// A reader's layout: G for x in NCHW (with `rows`), or its NHWC counterpart.
+template <bool NHWC, class NCHW_G, class NHWC_G>
+using Reader = typename std::conditional<NHWC, NHWC_G, NCHW_G>::type;
+
+template <typename T, int VW, bool NHWC>
 __global__ void __launch_bounds__(256) bn_bwd_reduce(const T* __restrict__ x,
                                                      const T* __restrict__ dy,
                                                      const float4* __restrict__ stat,
                                                      const float* __restrict__ bias,
                                                      float2* __restrict__ part, Shape sh,
                                                      float slope) {
-  bwd_reduce<T, VW, Direct<T, VW>>(x, dy, stat, bias, part, nullptr, sh, slope);
+  bwd_reduce<T, VW, Reader<NHWC, Direct<T, VW>, DirectNhwc<T, VW>>, NHWC>(x, dy, stat, bias,
+                                                                           part, nullptr, sh,
+                                                                           slope);
 }
 
-template <typename T, int VW, bool ROWS>
+template <typename T, int VW, bool ROWS, bool NHWC>
 __global__ void __launch_bounds__(256) bn_bwd_reduce_pool(const T* __restrict__ x,
                                                           const T* __restrict__ dy,
                                                           const float4* __restrict__ stat,
                                                           const float* __restrict__ bias,
                                                           float2* __restrict__ part, Shape sh,
                                                           float slope) {
-  bwd_reduce<T, VW, Pooled<T, VW, ROWS>>(x, dy, stat, bias, part, nullptr, sh, slope);
+  if constexpr (NHWC)
+    bwd_reduce_pool_nhwc<T, VW>(x, dy, stat, bias, part, sh, slope);
+  else
+    bwd_reduce<T, VW, Pooled<T, VW, ROWS>, false>(x, dy, stat, bias, part, nullptr, sh, slope);
 }
 
-template <typename T, int VW, bool ROWS>
+template <typename T, int VW, bool ROWS, bool NHWC>
 __global__ void __launch_bounds__(256) bn_bwd_reduce_up(const T* __restrict__ x,
                                                         const T* __restrict__ dy,
                                                         const float4* __restrict__ stat,
@@ -588,7 +1016,8 @@ __global__ void __launch_bounds__(256) bn_bwd_reduce_up(const T* __restrict__ x,
                                                         float2* __restrict__ part,
                                                         T* __restrict__ dsum, Shape sh,
                                                         float slope) {
-  bwd_reduce<T, VW, Upsampled<T, VW, ROWS>>(x, dy, stat, bias, part, dsum, sh, slope);
+  bwd_reduce<T, VW, Reader<NHWC, Upsampled<T, VW, ROWS>, UpsampledNhwc<T, VW>>, NHWC>(
+      x, dy, stat, bias, part, dsum, sh, slope);
 }
 
 // dx of the run, after its first warp folds the pair's partials into the
@@ -658,157 +1087,300 @@ __device__ __forceinline__ void bwd_dx(const T* __restrict__ x, const T* __restr
   });
 }
 
+// NHWC: one warp a channel folds each group's partials of bn_bwd_reduce
+// into bn_bwd_dx's two coefficients, coef[g, c] = {k1, k2}, and every
+// group's into dweight and dbias (null: not asked for): the NCHW body's
+// arithmetic, in its order.
+__global__ void __launch_bounds__(256) bn_bwd_fold(const float2* __restrict__ part,
+                                                   const float4* __restrict__ stat,
+                                                   float2* __restrict__ coef,
+                                                   float* __restrict__ dweight,
+                                                   float* __restrict__ dbias, int c_count,
+                                                   int groups, int slices, int count) {
+  const int c = (int)((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  if (c >= c_count) return;
+  const float nf = (float)count;
+  float dw = 0.f, db = 0.f;
+  for (int g = 0; g < groups; ++g) {
+    const float2 s = fold(part + (size_t)(g * c_count + c) * slices, slices);
+    const float4 st = stat[g * c_count + c];
+    if (lane == 0)
+      coef[g * c_count + c] = make_float2(-st.z * s.x / nf, -st.z * st.y * st.y * s.y / nf * st.w);
+    dw = fmaf(st.y, s.y, dw);
+    db += s.x;
+  }
+  if (lane == 0) {
+    if (dweight != nullptr) dweight[c] = dw;
+    if (dbias != nullptr) dbias[c] = db;
+  }
+}
+
+// NHWC: dx of the run from bn_bwd_fold's coefficients.
 template <typename T, int VW>
+__device__ __forceinline__ void bwd_dx_nhwc(const T* __restrict__ x, const T* __restrict__ dy,
+                                            const float4* __restrict__ stat,
+                                            const float* __restrict__ bias,
+                                            const float2* __restrict__ coef, T* __restrict__ dx,
+                                            const Shape& sh, float slope) {
+  const Span r = span_of(sh, blockIdx.x);
+  const Chans<VW> ch(stat, bias, sh, r.g);
+  float k1[VW], k2[VW];
+  const int c0 = first_channel<VW>(sh);
+#pragma unroll
+  for (int e = 0; e < VW; ++e) {
+    const float2 k = coef[r.g * sh.c + c0 + e];
+    k1[e] = k.x;
+    k2[e] = k.y;
+  }
+  const Pack<T, VW>* xv = reinterpret_cast<const Pack<T, VW>*>(x);
+  const Pack<T, VW>* dv = reinterpret_cast<const Pack<T, VW>*>(dy);
+  Pack<T, VW>* ov = reinterpret_cast<Pack<T, VW>*>(dx);
+  for_each_pixel<VW>(sh, r.p0, r.count, sh.w, [&](const size_t* idx, const int*, const int*,
+                                                  const bool* ok) {
+    Pack<T, VW> v[UNROLL], d[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      if (ok[u]) {
+        v[u] = xv[idx[u]];
+        d[u] = dv[idx[u]];
+      }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      if (!ok[u]) continue;
+      Pack<T, VW> out;
+#pragma unroll
+      for (int e = 0; e < VW; ++e) {
+        const float xc = to_f<T>(v[u].v[e]) - ch.mean[e];
+        float g = to_f<T>(d[u].v[e]);
+        if (!passes<T>(fmaf(xc, ch.a[e], ch.b[e]), slope)) g *= slope;
+        out.v[e] = from_f<T>(fmaf(xc, k2[e], fmaf(ch.a[e], g, k1[e])));
+      }
+      ov[idx[u]] = out;
+    }
+  });
+}
+
+template <typename T, int VW, bool NHWC>
 __global__ void __launch_bounds__(256) bn_bwd_dx(const T* __restrict__ x,
                                                  const T* __restrict__ dy,
                                                  const float4* __restrict__ stat,
                                                  const float* __restrict__ bias,
                                                  const float2* __restrict__ part,
+                                                 const float2* __restrict__ coef,
                                                  T* __restrict__ dx, float* __restrict__ dweight,
                                                  float* __restrict__ dbias, Shape sh, int count,
                                                  float slope) {
-  bwd_dx<T, VW, Direct<T, VW>>(x, dy, stat, bias, part, dx, dweight, dbias, sh, count, slope);
+  if constexpr (NHWC)
+    bwd_dx_nhwc<T, VW>(x, dy, stat, bias, coef, dx, sh, slope);
+  else
+    bwd_dx<T, VW, Direct<T, VW>>(x, dy, stat, bias, part, dx, dweight, dbias, sh, count, slope);
 }
 
-template <typename T, int VW, bool ROWS>
+template <typename T, int VW, bool ROWS, bool NHWC>
 __global__ void __launch_bounds__(256) bn_bwd_dx_pool(const T* __restrict__ x,
                                                       const T* __restrict__ dy,
                                                       const float4* __restrict__ stat,
                                                       const float* __restrict__ bias,
                                                       const float2* __restrict__ part,
+                                                      const float2* __restrict__ coef,
                                                       T* __restrict__ dx,
                                                       float* __restrict__ dweight,
                                                       float* __restrict__ dbias, Shape sh,
                                                       int count, float slope) {
-  bwd_dx<T, VW, Pooled<T, VW, ROWS>>(x, dy, stat, bias, part, dx, dweight, dbias, sh, count,
-                                     slope);
+  if constexpr (NHWC)
+    bwd_dx_pool_nhwc<T, VW>(x, dy, stat, bias, coef, dx, sh, slope);
+  else
+    bwd_dx<T, VW, Pooled<T, VW, ROWS>>(x, dy, stat, bias, part, dx, dweight, dbias, sh, count,
+                                       slope);
 }
 
-bool shape_ok(const Shape& sh, int vec, int threads) {
+// The cut's checks: NCHW, runs of samples and vectors of a plane, whole
+// warps; NHWC, runs of a group's rows, whole channel vectors, a whole number
+// of them a block.
+bool shape_ok(const Shape& sh, int vec, int threads, bool nhwc) {
   const int per_group = sh.groups > 0 ? sh.n / sh.groups : 0;
-  return sh.n > 0 && sh.c > 0 && sh.hw > 0 && sh.groups > 0 && sh.n % sh.groups == 0 &&
-         sh.slices > 0 && sh.per_slice > 0 && (sh.slices - 1) * sh.per_slice < per_group &&
-         sh.slices * sh.per_slice >= per_group && vec > 0 && sh.hw % vec == 0 &&
-         threads >= 32 && threads <= 256 && threads % 32 == 0;
+  if (!(sh.n > 0 && sh.c > 0 && sh.hw > 0 && sh.groups > 0 && sh.n % sh.groups == 0 &&
+        sh.slices > 0 && sh.per_slice > 0 && vec > 0 && threads >= 1 && threads <= 256))
+    return false;
+  if (nhwc) {
+    if (sh.w < 1 || sh.hw % sh.w || sh.c % vec || threads % (sh.c / vec)) return false;
+    const int rows = per_group * (sh.hw / sh.w);
+    return (sh.slices - 1) * sh.per_slice < rows && sh.slices * sh.per_slice >= rows;
+  }
+  return (sh.slices - 1) * sh.per_slice < per_group && sh.slices * sh.per_slice >= per_group &&
+         sh.hw % vec == 0 && threads >= 32 && threads % 32 == 0;
 }
 
-// A resample the plane allows: a pool needs even H and W, an upsample any.
-bool resample_ok(const Shape& sh, int resample) {
+// A resample the plane allows: a pool needs even H and W (NHWC: and runs of
+// an even number of rows), an upsample any.
+bool resample_ok(const Shape& sh, int resample, bool nhwc) {
   if (resample == NONE) return true;
   if (sh.w < 1 || sh.hw % sh.w) return false;
-  if (resample == POOL) return sh.w % 2 == 0 && (sh.hw / sh.w) % 2 == 0;
+  if (resample == POOL)
+    return sh.w % 2 == 0 && (sh.hw / sh.w) % 2 == 0 && (!nhwc || sh.per_slice % 2 == 0);
   return resample == UP;
 }
 
-// Rows of the resampled tensor `t` in vectors: each of x's vectors in one
-// row and t aligned to 16 bytes.
-bool rows_of(const Shape& sh, int vec, int resample, const void* t) {
-  return resample != NONE && vec > 1 && sh.w % vec == 0 && (size_t)t % 16 == 0;
+// Rows of the resampled tensor `t` in vectors (NCHW): each of x's vectors in
+// one row and t aligned to 16 bytes.
+bool rows_of(const Shape& sh, int vec, int resample, const void* t, bool nhwc) {
+  return !nhwc && resample != NONE && vec > 1 && sh.w % vec == 0 && (size_t)t % 16 == 0;
 }
 
-int grid_of(const Shape& sh) { return sh.groups * sh.c * sh.slices; }
+// NHWC reads and writes every tensor in vectors: each aligned to 16 bytes.
+bool aligned(int vec, bool nhwc, const void* a, const void* b = nullptr) {
+  return !nhwc || vec == 1 || ((size_t)a % 16 == 0 && (size_t)b % 16 == 0);
+}
+
+int grid_of(const Shape& sh, bool nhwc) {
+  return nhwc ? sh.groups * sh.slices : sh.groups * sh.c * sh.slices;
+}
 
 // One launcher a streaming kernel, instantiated for each (dtype, vector,
-// rows); the kernel follows `resample`.
-template <typename T, int VW, bool ROWS>
+// rows, layout); the kernel follows `resample`.
+template <typename T, int VW, bool ROWS, bool NHWC>
 struct Stats {
   static void run(cudaStream_t s, int threads, const Shape& sh, const void* x, void* part) {
-    bn_stats<T, VW><<<grid_of(sh), threads, 0, s>>>((const T*)x, (float2*)part, sh);
+    bn_stats<T, VW, NHWC><<<grid_of(sh, NHWC), threads, 0, s>>>((const T*)x, (float2*)part, sh);
   }
 };
 
-template <typename T, int VW, bool ROWS>
+template <typename T, int VW, bool ROWS, bool NHWC>
 struct Apply {
   static void run(cudaStream_t s, int threads, const Shape& sh, const void* x, const void* stat,
                   const float* bias, void* y, int resample, float slope) {
     const T* xt = (const T*)x;
     const float4* st = (const float4*)stat;
+    const int grid = grid_of(sh, NHWC);
     if (resample == POOL)
-      bn_apply_pool<T, VW, ROWS><<<grid_of(sh), threads, 0, s>>>(xt, st, bias, (T*)y, sh, slope);
+      bn_apply_pool<T, VW, ROWS, NHWC><<<grid, threads, 0, s>>>(xt, st, bias, (T*)y, sh, slope);
     else if (resample == UP)
-      bn_apply_up<T, VW, ROWS><<<grid_of(sh), threads, 0, s>>>(xt, st, bias, (T*)y, sh, slope);
+      bn_apply_up<T, VW, ROWS, NHWC><<<grid, threads, 0, s>>>(xt, st, bias, (T*)y, sh, slope);
     else
-      bn_apply<T, VW><<<grid_of(sh), threads, 0, s>>>(xt, st, bias, (T*)y, sh, slope);
+      bn_apply<T, VW, NHWC><<<grid, threads, 0, s>>>(xt, st, bias, (T*)y, sh, slope);
   }
 };
 
-template <typename T, int VW, bool ROWS>
+template <typename T, int VW, bool ROWS, bool NHWC>
 struct BwdReduce {
   static void run(cudaStream_t s, int threads, const Shape& sh, const void* x, const void* dy,
                   const void* stat, const float* bias, void* part, void* dsum, int resample,
                   float slope) {
     const T *xt = (const T*)x, *dt = (const T*)dy;
     const float4* st = (const float4*)stat;
+    const int grid = grid_of(sh, NHWC);
     if (resample == POOL)
-      bn_bwd_reduce_pool<T, VW, ROWS><<<grid_of(sh), threads, 0, s>>>(xt, dt, st, bias,
-                                                                       (float2*)part, sh, slope);
+      bn_bwd_reduce_pool<T, VW, ROWS, NHWC><<<grid, threads, 0, s>>>(xt, dt, st, bias,
+                                                                     (float2*)part, sh, slope);
     else if (resample == UP)
-      bn_bwd_reduce_up<T, VW, ROWS><<<grid_of(sh), threads, 0, s>>>(
+      bn_bwd_reduce_up<T, VW, ROWS, NHWC><<<grid, threads, 0, s>>>(
           xt, dt, st, bias, (float2*)part, (T*)dsum, sh, slope);
     else
-      bn_bwd_reduce<T, VW><<<grid_of(sh), threads, 0, s>>>(xt, dt, st, bias, (float2*)part, sh,
-                                                           slope);
+      bn_bwd_reduce<T, VW, NHWC><<<grid, threads, 0, s>>>(xt, dt, st, bias, (float2*)part, sh,
+                                                          slope);
   }
 };
 
-template <typename T, int VW, bool ROWS>
+template <typename T, int VW, bool ROWS, bool NHWC>
 struct BwdDx {
   static void run(cudaStream_t s, int threads, const Shape& sh, const void* x, const void* dy,
-                  const void* stat, const float* bias, const void* part, void* dx,
-                  float* dweight, float* dbias, int count, int resample, float slope) {
+                  const void* stat, const float* bias, const void* part, const void* coef,
+                  void* dx, float* dweight, float* dbias, int count, int resample, float slope) {
     const T *xt = (const T*)x, *dt = (const T*)dy;
     const float4* st = (const float4*)stat;
-    const float2* pt = (const float2*)part;
+    const float2 *pt = (const float2*)part, *ct = (const float2*)coef;
+    const int grid = grid_of(sh, NHWC);
     if (resample == POOL)
-      bn_bwd_dx_pool<T, VW, ROWS><<<grid_of(sh), threads, 0, s>>>(
-          xt, dt, st, bias, pt, (T*)dx, dweight, dbias, sh, count, slope);
+      bn_bwd_dx_pool<T, VW, ROWS, NHWC><<<grid, threads, 0, s>>>(
+          xt, dt, st, bias, pt, ct, (T*)dx, dweight, dbias, sh, count, slope);
     else
-      bn_bwd_dx<T, VW><<<grid_of(sh), threads, 0, s>>>(xt, dt, st, bias, pt, (T*)dx, dweight,
-                                                       dbias, sh, count, slope);
+      bn_bwd_dx<T, VW, NHWC><<<grid, threads, 0, s>>>(xt, dt, st, bias, pt, ct, (T*)dx, dweight,
+                                                      dbias, sh, count, slope);
   }
 };
 
-// L<T, VW, ROWS>::run for dtype code `dtype` (0 float32, 1 bfloat16, 2
-// float16), `vec` elements a vector (16 bytes of T, or 1) and `rows`; the
-// launch's error.
-template <template <typename, int, bool> class L, typename... A>
-int dispatch(int dtype, int vec, bool rows, int device, void* stream, int threads,
+// L<T, VW, ROWS, NHWC>::run for dtype code `dtype` (0 float32, 1 bfloat16,
+// 2 float16), `vec` elements a vector (16 bytes of T, or 1), `rows` and
+// `nhwc`; the launch's error.
+template <template <typename, int, bool, bool> class L, typename... A>
+int dispatch(int dtype, int vec, bool rows, bool nhwc, int device, void* stream, int threads,
              const Shape& sh, A... args) {
-  if (!shape_ok(sh, vec, threads)) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(sh, vec, threads, nhwc)) return (int)cudaErrorInvalidValue;
   int err = (int)cudaSetDevice(device);
   if (err) return err;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0 && vec == 4 && rows) L<float, 4, true>::run(s, threads, sh, args...);
-  else if (dtype == 0 && vec == 4) L<float, 4, false>::run(s, threads, sh, args...);
-  else if (dtype == 0 && vec == 1) L<float, 1, false>::run(s, threads, sh, args...);
-  else if (dtype == 1 && vec == 8 && rows) L<bf16, 8, true>::run(s, threads, sh, args...);
-  else if (dtype == 1 && vec == 8) L<bf16, 8, false>::run(s, threads, sh, args...);
-  else if (dtype == 1 && vec == 1) L<bf16, 1, false>::run(s, threads, sh, args...);
-  else if (dtype == 2 && vec == 8 && rows) L<f16, 8, true>::run(s, threads, sh, args...);
-  else if (dtype == 2 && vec == 8) L<f16, 8, false>::run(s, threads, sh, args...);
-  else if (dtype == 2 && vec == 1) L<f16, 1, false>::run(s, threads, sh, args...);
+  if (nhwc) {
+    if (dtype == 0 && vec == 4) L<float, 4, false, true>::run(s, threads, sh, args...);
+    else if (dtype == 0 && vec == 1) L<float, 1, false, true>::run(s, threads, sh, args...);
+    else if (dtype == 1 && vec == 8) L<bf16, 8, false, true>::run(s, threads, sh, args...);
+    else if (dtype == 1 && vec == 1) L<bf16, 1, false, true>::run(s, threads, sh, args...);
+    else if (dtype == 2 && vec == 8) L<f16, 8, false, true>::run(s, threads, sh, args...);
+    else if (dtype == 2 && vec == 1) L<f16, 1, false, true>::run(s, threads, sh, args...);
+    else return (int)cudaErrorInvalidValue;
+    return (int)cudaGetLastError();
+  }
+  if (dtype == 0 && vec == 4 && rows) L<float, 4, true, false>::run(s, threads, sh, args...);
+  else if (dtype == 0 && vec == 4) L<float, 4, false, false>::run(s, threads, sh, args...);
+  else if (dtype == 0 && vec == 1) L<float, 1, false, false>::run(s, threads, sh, args...);
+  else if (dtype == 1 && vec == 8 && rows) L<bf16, 8, true, false>::run(s, threads, sh, args...);
+  else if (dtype == 1 && vec == 8) L<bf16, 8, false, false>::run(s, threads, sh, args...);
+  else if (dtype == 1 && vec == 1) L<bf16, 1, false, false>::run(s, threads, sh, args...);
+  else if (dtype == 2 && vec == 8 && rows) L<f16, 8, true, false>::run(s, threads, sh, args...);
+  else if (dtype == 2 && vec == 8) L<f16, 8, false, false>::run(s, threads, sh, args...);
+  else if (dtype == 2 && vec == 1) L<f16, 1, false, false>::run(s, threads, sh, args...);
   else return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// The layout transposes of models/blocks.py::as_layout (ops/layout_cuda.py):
+// each of n images, a [rows, cols] matrix of E (2- or 4-byte elements),
+// written as [cols, rows]: rows C and cols H W from NCHW to channels-last,
+// the other way back. A block moves a 32 x 32 tile through shared memory,
+// reading rows of the source and writing rows of the destination, so both
+// sides move whole 32-element runs.
+template <typename E>
+__global__ void __launch_bounds__(256) relayout(const E* __restrict__ in, E* __restrict__ out,
+                                                int rows, int cols) {
+  __shared__ E tile[32][33];
+  const size_t image = (size_t)blockIdx.z * rows * cols;
+  int x = blockIdx.x * 32 + threadIdx.x, y = blockIdx.y * 32 + threadIdx.y;
+#pragma unroll
+  for (int k = 0; k < 32; k += 8)
+    if (x < cols && y + k < rows)
+      tile[threadIdx.y + k][threadIdx.x] = in[image + (size_t)(y + k) * cols + x];
+  __syncthreads();
+  x = blockIdx.y * 32 + threadIdx.x;
+  y = blockIdx.x * 32 + threadIdx.y;
+#pragma unroll
+  for (int k = 0; k < 32; k += 8)
+    if (x < rows && y + k < cols)
+      out[image + (size_t)(y + k) * rows + x] = tile[threadIdx.x][threadIdx.y + k];
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes. Each launcher enqueues one kernel on
-// `stream` and returns cudaGetLastError() (0 on success); it neither
-// allocates nor synchronises. x, dx, dsum: [n, c, hw] contiguous in `dtype`
-// (0 float32, 1 bfloat16, 2 float16), 16-byte aligned where vec > 1; y and
-// dy the same, or, with `resample` (0 none, 1 the 2x2 average pool, 2 the
-// nearest 2x upsample; hw = h w, w the plane's width), the resampled
-// [n, c, h / 2, w / 2] or [n, c, 2h, 2w], any alignment; part: float2
-// [groups * c * slices]; stat: float4 [groups, c]; weight, bias, the
-// running statistics, dweight and dbias: float32 [c]. The streaming
-// kernels run groups * c * slices blocks of `threads`.
+// `stream` (bn_bwd_dx_launch in NHWC two: bn_bwd_fold, then the streaming
+// kernel) and returns cudaGetLastError() (0 on success); it neither
+// allocates nor synchronises. x, dx, dsum: [n, c, hw] in `dtype` (0
+// float32, 1 bfloat16, 2 float16), contiguous (nhwc 0) or channels-last
+// ([n, hw / w, w, c] in memory, nhwc 1), 16-byte aligned where vec > 1; y
+// and dy the same, or, with `resample` (0 none, 1 the 2x2 average pool, 2
+// the nearest 2x upsample; hw = h w, w the plane's width), the resampled
+// [n, c, h / 2, w / 2] or [n, c, 2h, 2w] in x's layout, any alignment in
+// NCHW; part: float2 [groups * c * slices]; stat: float4 [groups, c]; coef
+// (NHWC): float2 [groups, c]; weight, bias, the running statistics, dweight
+// and dbias: float32 [c]. The streaming kernels run groups * c * slices
+// blocks (NHWC: groups * slices) of `threads`.
 extern "C" {
 
-int bn_stats_launch(const void* x, void* part, int n, int c, int hw, int groups, int slices,
-                    int per_slice, int vec, int threads, int dtype, int device, void* stream) {
-  return dispatch<Stats>(dtype, vec, false, device, stream, threads,
-                         Shape{n, c, hw, groups, slices, per_slice, 0}, x, part);
+int bn_stats_launch(const void* x, void* part, int n, int c, int hw, int w, int groups,
+                    int slices, int per_slice, int vec, int threads, int nhwc, int dtype,
+                    int device, void* stream) {
+  const Shape sh{n, c, hw, groups, slices, per_slice, w};
+  if (nhwc && (sh.w < 1 || !aligned(vec, nhwc, x))) return (int)cudaErrorInvalidValue;
+  return dispatch<Stats>(dtype, vec, false, nhwc != 0, device, stream, threads, sh, x, part);
 }
 
 // running_mean, running_var: both null for no update (a remat recompute).
@@ -830,40 +1402,78 @@ int bn_finalize_launch(const void* part, const float* weight, void* stat, float*
 
 // y: the output of the resample `resample` of the BatchNorm's output.
 int bn_apply_launch(const void* x, const void* stat, const float* bias, void* y, int n, int c,
-                    int hw, int groups, int slices, int per_slice, int vec, int threads, int w,
-                    int resample, float slope, int dtype, int device, void* stream) {
+                    int hw, int w, int groups, int slices, int per_slice, int vec, int threads,
+                    int nhwc, int resample, float slope, int dtype, int device, void* stream) {
   const Shape sh{n, c, hw, groups, slices, per_slice, w};
-  if (!resample_ok(sh, resample)) return (int)cudaErrorInvalidValue;
-  return dispatch<Apply>(dtype, vec, rows_of(sh, vec, resample, y), device, stream, threads,
-                         sh, x, stat, bias, y, resample, slope);
+  if (!resample_ok(sh, resample, nhwc) || !aligned(vec, nhwc, x, y))
+    return (int)cudaErrorInvalidValue;
+  return dispatch<Apply>(dtype, vec, rows_of(sh, vec, resample, y, nhwc), nhwc != 0, device,
+                         stream, threads, sh, x, stat, bias, y, resample, slope);
 }
 
 // dy: the gradient of the resampled output; with resample 2, dsum (x's
-// shape) receives the gradient of the BatchNorm's output, for
+// shape and layout) receives the gradient of the BatchNorm's output, for
 // bn_bwd_dx_launch's dy (resample 0). dsum null otherwise.
 int bn_bwd_reduce_launch(const void* x, const void* dy, const void* stat, const float* bias,
-                         void* part, void* dsum, int n, int c, int hw, int groups, int slices,
-                         int per_slice, int vec, int threads, int w, int resample, float slope,
-                         int dtype, int device, void* stream) {
+                         void* part, void* dsum, int n, int c, int hw, int w, int groups,
+                         int slices, int per_slice, int vec, int threads, int nhwc, int resample,
+                         float slope, int dtype, int device, void* stream) {
   const Shape sh{n, c, hw, groups, slices, per_slice, w};
-  if (!resample_ok(sh, resample) || (resample == UP) != (dsum != nullptr))
+  if (!resample_ok(sh, resample, nhwc) || (resample == UP) != (dsum != nullptr) ||
+      !aligned(vec, nhwc, x, dy) || (dsum != nullptr && !aligned(vec, nhwc, dsum)))
     return (int)cudaErrorInvalidValue;
-  return dispatch<BwdReduce>(dtype, vec, rows_of(sh, vec, resample, dy), device, stream,
-                             threads, sh, x, dy, stat, bias, part, dsum, resample, slope);
+  return dispatch<BwdReduce>(dtype, vec, rows_of(sh, vec, resample, dy, nhwc), nhwc != 0, device,
+                             stream, threads, sh, x, dy, stat, bias, part, dsum, resample, slope);
 }
 
 // dx null: dweight and dbias only; dweight, dbias null: not computed.
-// resample 0 or 1 (an upsample's dy is bn_bwd_reduce_launch's dsum).
+// resample 0 or 1 (an upsample's dy is bn_bwd_reduce_launch's dsum). coef:
+// NHWC's scratch for bn_bwd_fold (null in NCHW).
 int bn_bwd_dx_launch(const void* x, const void* dy, const void* stat, const float* bias,
-                     const void* part, void* dx, float* dweight, float* dbias, int n, int c,
-                     int hw, int groups, int slices, int per_slice, int vec, int threads, int w,
-                     int resample, float slope, int dtype, int device, void* stream) {
+                     const void* part, void* coef, void* dx, float* dweight, float* dbias, int n,
+                     int c, int hw, int w, int groups, int slices, int per_slice, int vec,
+                     int threads, int nhwc, int resample, float slope, int dtype, int device,
+                     void* stream) {
   const Shape sh{n, c, hw, groups, slices, per_slice, w};
-  if (!resample_ok(sh, resample) || resample == UP) return (int)cudaErrorInvalidValue;
+  if (!resample_ok(sh, resample, nhwc) || resample == UP || (nhwc != 0) != (coef != nullptr) ||
+      !aligned(vec, nhwc, x, dy) || (dx != nullptr && !aligned(vec, nhwc, dx)))
+    return (int)cudaErrorInvalidValue;
   const int count = n / (groups > 0 ? groups : 1) * hw;
-  return dispatch<BwdDx>(dtype, vec, rows_of(sh, vec, resample, dy), device, stream, threads,
-                         sh, x, dy, stat, bias, part, dx, dweight, dbias, count, resample,
-                         slope);
+  if (nhwc) {
+    if (!shape_ok(sh, vec, threads, true)) return (int)cudaErrorInvalidValue;
+    int err = (int)cudaSetDevice(device);
+    if (err) return err;
+    const int blocks = (c * 32 + 255) / 256;
+    bn_bwd_fold<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+        (const float2*)part, (const float4*)stat, (float2*)coef, dweight, dbias, c, groups,
+        slices, count);
+    err = (int)cudaGetLastError();
+    if (err || dx == nullptr) return err;
+  }
+  return dispatch<BwdDx>(dtype, vec, rows_of(sh, vec, resample, dy, nhwc), nhwc != 0, device,
+                         stream, threads, sh, x, dy, stat, bias, part, (const void*)coef, dx,
+                         dweight, dbias, count, resample, slope);
+}
+
+// in, out: n images of rows x cols elements of elem_bytes (2 or 4) each;
+// out[i][c][r] = in[i][r][c].
+int relayout_launch(const void* in, void* out, int n, int rows, int cols, int elem_bytes,
+                    int device, void* stream) {
+  if (n < 1 || n > 65535 || rows < 1 || cols < 1 || (rows + 31) / 32 > 65535)
+    return (int)cudaErrorInvalidValue;
+  int err = (int)cudaSetDevice(device);
+  if (err) return err;
+  const dim3 grid((cols + 31) / 32, (rows + 31) / 32, n), block(32, 8);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (elem_bytes == 2)
+    relayout<unsigned short><<<grid, block, 0, s>>>((const unsigned short*)in,
+                                                   (unsigned short*)out, rows, cols);
+  else if (elem_bytes == 4)
+    relayout<unsigned int><<<grid, block, 0, s>>>((const unsigned int*)in, (unsigned int*)out,
+                                                 rows, cols);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

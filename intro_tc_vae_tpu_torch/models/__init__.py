@@ -1,4 +1,4 @@
-"""The 'conv' and 'res' arch encoder/decoder, NCHW."""
+"""The 'conv' and 'res' arch encoder/decoder."""
 
 from intro_tc_vae_tpu_torch.models.blocks import (
     ConvolutionalBlock,

@@ -1,5 +1,6 @@
-"""Conv building blocks, NCHW: the 'conv', 'res' and 'inception' archs of
-the JAX package.
+"""Conv building blocks: the 'conv', 'res' and 'inception' archs of the
+JAX package. Activations have the logical shape [N, C, H, W]; how each lies
+in memory is the layout rule's (below).
 
 Counterpart of ``intro_tc_vae_tpu/models/blocks.py``. Parameters stay
 float32; ``Conv2d`` and ``Linear`` cast their input and parameters to the
@@ -61,6 +62,23 @@ A stage's resample is decided and counted in ``ops/batchnorm_cuda.py``
 (``RESAMPLES``): taken into the BatchNorm call that ends the stage, or run
 as the stock pass ``stock_resample``, which the residual and inception
 blocks call after their tails.
+
+The layout rule (``conv_layout``, the one place that decides it): a conv
+the kernel gate routes reads and writes NCHW, as the conv kernels do; on
+the card at a 16-bit compute dtype every other conv reads and writes
+channels-last (NHWC strides, the same logical shape), the layout of
+cuDNN's bf16 kernels on sm_90, which otherwise wraps each conv in layout
+transposes, forward and backward; fp32 and the CPU keep NCHW. ``Conv2d.
+layout`` applies it to what a call observes (device, dtype, whether the
+gate routes it), ``as_layout`` converts an input that
+arrives in the other layout, once, counted in ``LAYOUT["layout_copy"]``
+(registered with ``ops/launch_counts.py``), and the weight's cast to the
+compute dtype writes the layout too. A conv that knows its plane lays its
+float32 weight in its calls' layout as the model is moved to the card
+(``Conv2d._apply``), so that the cast moves no element. Everything between
+two convs keeps the layout it is handed: the BatchNorm kernels have NHWC
+bodies, and the stock passes (residual add, LeakyReLU, resample, eval-mode
+BatchNorm, concat) follow their inputs.
 """
 
 from __future__ import annotations
@@ -77,6 +95,7 @@ from intro_tc_vae_tpu_torch.ops import launch_counts
 from intro_tc_vae_tpu_torch.ops.batchnorm_cuda import batchnorm_act_train, stock_resample
 from intro_tc_vae_tpu_torch.ops.conv import WEIGHT_SHAPE, supported
 from intro_tc_vae_tpu_torch.ops.conv_cuda import conv3x3_hybrid, conv3x3_pallas
+from intro_tc_vae_tpu_torch.ops.layout_cuda import channels_last, relayout
 from intro_tc_vae_tpu_torch.parallel.collectives import (
     copy_to_model,
     gather_channels,
@@ -86,6 +105,7 @@ from intro_tc_vae_tpu_torch.parallel.collectives import (
 LEAKY_SLOPE = 0.2
 STOCK_CALLS = launch_counts.register(dict.fromkeys(
     ("conv_stock_size", "conv_stock_channels", "residual_tail", "conv_expand"), 0))
+LAYOUT = launch_counts.register({"layout_copy": 0})
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -130,13 +150,60 @@ def whole_leaf(module: nn.Module, name: str) -> torch.Tensor:
     return t if d is None else gather_channels(t, module.model_group, d)
 
 
+def conv_layout(device: torch.device, dtype: torch.dtype, routed: bool) -> torch.memory_format:
+    """The layout a conv reads and writes (module docstring): NCHW
+    (``torch.contiguous_format``) where the conv kernels take it
+    (``routed``), off the card and at a compute dtype of 32 bits or more;
+    else channels-last, the 3-channel stem and predict convs too (timed
+    against NCHW on the card: PERF.md section 6)."""
+    if routed or device.type != "cuda" or dtype not in (torch.bfloat16, torch.float16):
+        return torch.contiguous_format
+    return torch.channels_last
+
+
+def as_layout(x: torch.Tensor, dtype: torch.dtype, fmt: torch.memory_format) -> torch.Tensor:
+    """x in ``dtype``, lying in layout ``fmt``: where it lies otherwise, cast
+    and moved once (``ops/layout_cuda.py::relayout``), counted in
+    ``layout_copy``."""
+    if x.is_contiguous(memory_format=fmt):
+        return x.to(dtype)
+    LAYOUT["layout_copy"] += 1
+    return relayout(x.to(dtype), fmt)
+
+
 class Conv2d(nn.Conv2d):
-    """Stride-1 'SAME' conv computed in ``compute_dtype``."""
+    """Stride-1 'SAME' conv computed in ``compute_dtype``, in the layout
+    ``layout`` gives (module docstring). ``plane``: the side of the square
+    planes it runs at, where the model knows it; the weight of such a conv
+    is laid in its calls' layout whenever the module is moved or cast
+    (``_apply``)."""
+
+    plane = 0
 
     def __init__(self, inc: int, outc: int, kernel: int, bias: bool = False,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__(inc, outc, kernel, padding=kernel // 2, bias=bias)
         self.compute_dtype = compute_dtype
+
+    def routes(self, x_shape) -> bool:
+        """Whether the conv kernels take a call on x of this shape."""
+        return False
+
+    def layout(self, x_shape, device: torch.device) -> torch.memory_format:
+        """The layout a call on x of this shape and device reads and writes."""
+        return conv_layout(device, self.compute_dtype, self.routes(x_shape))
+
+    def _apply(self, fn, *args, **kwargs):
+        """``nn.Module``'s move or cast, then the weight laid in the layout
+        of its calls at ``plane``, in place through ``.data``: so once, as
+        the model reaches the card, before any optimizer or capture sees
+        it. The values, ``state_dict`` and ``copy_`` are unchanged."""
+        super()._apply(fn, *args, **kwargs)
+        if self.plane:
+            fmt = self.layout((1, self.in_channels, self.plane, self.plane), self.weight.device)
+            if not self.weight.is_contiguous(memory_format=fmt):
+                self.weight.data = self.weight.data.contiguous(memory_format=fmt)
+        return self
 
     def tp_input(self, x: torch.Tensor) -> torch.Tensor:
         """The whole input; through ``copy_to_model`` when the weight is
@@ -147,9 +214,10 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.tp_input(x)
-        dt = self.compute_dtype
+        dt, fmt = self.compute_dtype, self.layout(x.shape, x.device)
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.conv2d(x.to(dt), self.weight.to(dt), bias, padding=self.padding)
+        return F.conv2d(as_layout(x, dt, fmt), self.weight.to(dt, memory_format=fmt), bias,
+                        padding=self.padding)
 
 
 class PallasConv3x3(Conv2d):
@@ -167,16 +235,20 @@ class PallasConv3x3(Conv2d):
         super().__init__(inc, outc, 3, compute_dtype=compute_dtype)
         self.impl = impl
 
+    def routes(self, x_shape) -> bool:
+        return supported(x_shape, (self.out_channels, self.in_channels, 3, 3))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         group = getattr(self, "model_group", None)
         x, w = whole(x, self.in_channels, group), self.weight
         if tp_dim(self) is not None:
-            if supported(x.shape, (self.out_channels, *w.shape[1:])):
+            if self.routes(x.shape):
                 w = whole_leaf(self, "weight")  # a routed conv runs whole
             else:
                 x = copy_to_model(x, group)
-        x, w = x.to(dt), w.to(dt)
+        fmt = self.layout(x.shape, x.device)
+        x, w = as_layout(x, dt, fmt), w.to(dt, memory_format=fmt)
         if supported(x.shape, w.shape):
             fn = conv3x3_hybrid if self.impl == "hybrid" else conv3x3_pallas
             return fn(x, w)
@@ -220,9 +292,12 @@ class StripTiledConv(Conv2d):
         super().__init__(inc, outc, kernel, bias=bias, compute_dtype=compute_dtype)
         self.tile_rows = tile_rows
 
+    def layout(self, x_shape, device: torch.device) -> torch.memory_format:
+        return torch.contiguous_format  # the strips are cut and stacked NCHW
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        x, w = self.tp_input(x).to(dt), self.weight.to(dt)
+        x, w = as_layout(self.tp_input(x), dt, torch.contiguous_format), self.weight.to(dt)
         bias = None if self.bias is None else self.bias.to(dt)
         n, c, h, width = x.shape
         r = self.kernel_size[0] // 2
@@ -281,6 +356,9 @@ class PackedPredictConv(Conv2d):
         self.register_buffer("onehot", torch.from_numpy(packed_tap_table(block)),
                              persistent=False)
 
+    def layout(self, x_shape, device: torch.device) -> torch.memory_format:
+        return torch.contiguous_format  # its weight is packed anew on every call
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt, b = self.compute_dtype, self.block
         cdim, cin, k, _ = self.weight.shape
@@ -289,7 +367,8 @@ class PackedPredictConv(Conv2d):
         wp = (self.onehot.to(dt) @ w).reshape(3, 3, b, b, b, b, cin, cdim)
         wp = wp.permute(7, 4, 5, 6, 2, 3, 0, 1).reshape(cdim * b * b, cin * b * b, 3, 3)
         bias = self.bias.to(dt).repeat_interleave(b * b)
-        yp = F.conv2d(F.pixel_unshuffle(self.tp_input(x).to(dt), b), wp, bias, padding=1)
+        x = as_layout(self.tp_input(x), dt, torch.contiguous_format)
+        yp = F.conv2d(F.pixel_unshuffle(x, b), wp, bias, padding=1)
         return F.pixel_shuffle(yp, b)
 
 
@@ -480,8 +559,11 @@ class ResidualBlock(nn.Module):
         y = self.bn2(self.conv2(y), groups)
         group = getattr(self, "model_group", None)
         STOCK_CALLS["residual_tail"] += 1
-        return stock_resample(leaky_relu(y + like(identity, y, self.bn2.num_features, group)),
-                              resample)
+        skip = like(identity, y, self.bn2.num_features, group)
+        # the sum lies as its first term: channels-last where either term
+        # is (bn2 after a routed conv lies NCHW); a + b is b + a bit for bit
+        total = skip + y if channels_last(skip) else y + skip
+        return stock_resample(leaky_relu(total), resample)
 
 
 class Conv2dBatchNorm(nn.Module):

@@ -1,4 +1,5 @@
-"""Encoder / Decoder of the 'conv' and 'res' archs, NCHW.
+"""Encoder / Decoder of the 'conv' and 'res' archs; activations [N, C, H,
+W], laid out by ``models/blocks.py``'s layout rule.
 
 Counterpart of ``intro_tc_vae_tpu/models/vae.py`` (topology of reference
 models.py:196-298):
@@ -63,6 +64,7 @@ from torch import nn
 
 from intro_tc_vae_tpu_torch.models.blocks import (
     LEAKY_SLOPE,
+    Conv2d,
     GroupedBatchNorm,
     Linear,
     whole,
@@ -102,6 +104,15 @@ def resolve_conv_impl(conv_impl: str) -> str:
     return conv_impl
 
 
+def at_plane(module: nn.Module, side: int) -> nn.Module:
+    """``module`` with ``side`` recorded as the plane of each of its convs
+    (``Conv2d.plane``: their weights' layout on the card)."""
+    for m in module.modules():
+        if isinstance(m, Conv2d):
+            m.plane = side
+    return module
+
+
 def run_block(block: nn.Module, y: torch.Tensor, groups: int, checkpointed: bool,
               resample=None):
     """One block's forward with its stage's ``resample``, recomputed in the
@@ -126,18 +137,21 @@ class Encoder(nn.Module):
         dt = compute_dtype
         cc = channels[0]
         self.main = nn.ModuleDict()
-        self.main["0"] = conv(cdim, cc, 5, compute_dtype=dt, tile_rows=tile_rows)
+        self.main["0"] = at_plane(conv(cdim, cc, 5, compute_dtype=dt, tile_rows=tile_rows),
+                                  image_size)
         self.main["1"] = GroupedBatchNorm(cc, eps=1e-4, compute_dtype=dt)
         sz = image_size // 2
         self.stages = []
         for ch in channels[1:]:
             self.stages.append(f"res_in_{sz}")
-            self.main[self.stages[-1]] = block(cc, ch, compute_dtype=dt,
-                                               conv_impl=conv_impl, tile_rows=tile_rows)
+            self.main[self.stages[-1]] = at_plane(block(cc, ch, compute_dtype=dt,
+                                                        conv_impl=conv_impl,
+                                                        tile_rows=tile_rows), sz)
             cc, sz = ch, sz // 2
         self.stages.append(f"res_in_{sz}")
-        self.main[self.stages[-1]] = block(cc, cc, compute_dtype=dt,
-                                           conv_impl=conv_impl, tile_rows=tile_rows)
+        self.main[self.stages[-1]] = at_plane(block(cc, cc, compute_dtype=dt,
+                                                    conv_impl=conv_impl, tile_rows=tile_rows),
+                                              sz)
         h, w, c = self.conv_output_size
         self.fc = Linear(h * w * c, 2 * zdim, compute_dtype=dt)
 
@@ -182,17 +196,19 @@ class Decoder(nn.Module):
         self.stages = []
         for ch in channels[::-1]:
             self.stages.append(f"res_in_{sz}")
-            self.main[self.stages[-1]] = block(cc, ch, compute_dtype=dt,
-                                               conv_impl=conv_impl, tile_rows=tile_rows)
+            self.main[self.stages[-1]] = at_plane(block(cc, ch, compute_dtype=dt,
+                                                        conv_impl=conv_impl,
+                                                        tile_rows=tile_rows), sz)
             cc, sz = ch, sz * 2
         self.stages.append(f"res_in_{sz}")
-        self.main[self.stages[-1]] = block(cc, cc, compute_dtype=dt,
-                                           conv_impl=conv_impl, tile_rows=tile_rows)
+        self.main[self.stages[-1]] = at_plane(block(cc, cc, compute_dtype=dt,
+                                                    conv_impl=conv_impl, tile_rows=tile_rows),
+                                              sz)
         if pack_predict > 1 and sz % pack_predict == 0:
-            self.main["predict"] = PackedPredictConv(cc, cdim, pack_predict, compute_dtype=dt)
+            predict = PackedPredictConv(cc, cdim, pack_predict, compute_dtype=dt)
         else:
-            self.main["predict"] = conv(cc, cdim, 5, compute_dtype=dt, tile_rows=tile_rows,
-                                        bias=True)
+            predict = conv(cc, cdim, 5, compute_dtype=dt, tile_rows=tile_rows, bias=True)
+        self.main["predict"] = at_plane(predict, sz)
 
     def forward(self, z: torch.Tensor, groups: int = 1) -> torch.Tensor:
         h, w, c = self.conv_input_size

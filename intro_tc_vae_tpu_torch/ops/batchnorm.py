@@ -27,10 +27,13 @@ where the last term is dropped for a pair whose variance was clamped
 (var's gradient is zero there, as ``clamp``'s is); dweight[c] and
 dbias[c] are sum(dy' * xhat) and sum(dy') added over the groups.
 
-``launch_plan`` says how the kernels cut the work, from the shape alone:
-each (group, channel) pair's samples are cut into ``slices`` runs of
-``samples`` (the last may hold fewer), one block a run; a block reads the
-run's planes in 16-byte vectors where the plane allows.
+``launch_plan`` says how the kernels cut the work, from the shape and the
+layout alone: in NCHW each (group, channel) pair's samples are cut into
+``slices`` runs of ``samples`` (the last may hold fewer), one block a run;
+a block reads the run's planes in 16-byte vectors where the plane allows.
+In NHWC (x channels-last) each group's image rows are cut into ``slices``
+runs of ``samples`` rows, one block a run over every channel, each thread
+a fixed 16-byte vector of channels (``nhwc_vector``).
 """
 
 from __future__ import annotations
@@ -45,18 +48,31 @@ MAX_THREADS = 256         # threads of a block
 BLOCK_ELEMENTS = 32768    # elements a block aims at: 64 KB of bf16
 MIN_BLOCK_ELEMENTS = 4096  # a pair is not cut below this to fill the card
 BLOCKS_PER_SM = 4         # blocks a multiprocessor should have to fill the card
+NHWC_MAX_SLICES = 512     # NHWC runs a group: bn_finalize's warp folds them a channel
 
 
 class Plan(NamedTuple):
-    slices: int    # runs of samples a (group, channel) pair is cut into
-    samples: int   # samples a run holds; the last run holds the rest
+    slices: int    # runs a (group, channel) pair (NHWC: a group) is cut into
+    samples: int   # samples (NHWC: image rows) a run holds; the last holds the rest
     vector: int    # elements a thread loads at once: 16 bytes, or 1
     threads: int   # threads a block
 
 
+def nhwc_vector(c: int, elem_bytes: int, aligned: bool = True) -> int:
+    """Channels a thread of the NHWC bodies keeps: a 16-byte vector where C
+    is a whole number of them and x is aligned to 16 bytes, else one; 0
+    where C / that exceeds ``MAX_THREADS`` (a block holds every channel),
+    so the NHWC bodies cannot take x."""
+    vector = VECTOR_BYTES // elem_bytes
+    if c % vector or not aligned:
+        vector = 1
+    return vector if c // vector <= MAX_THREADS else 0
+
+
 def launch_plan(n: int, c: int, hw: int, groups: int, elem_bytes: int, sm_count: int,
-                aligned: bool = True) -> Plan:
-    """The cut of x [n, c, hw] in ``groups`` groups. A pair holds
+                aligned: bool = True, nhwc: bool = False, w: int = 1) -> Plan:
+    """The cut of x [n, c, hw] in ``groups`` groups; with ``nhwc``, of x
+    channels-last with planes ``w`` wide (``_nhwc_plan``). A pair holds
     (n / groups) * hw elements: about ``BLOCK_ELEMENTS`` a block, and more
     blocks where the pairs are too few to give every multiprocessor
     ``BLOCKS_PER_SM``, while a run keeps ``MIN_BLOCK_ELEMENTS``. So the
@@ -64,6 +80,8 @@ def launch_plan(n: int, c: int, hw: int, groups: int, elem_bytes: int, sm_count:
     Vectors of 16 bytes where a plane is a whole number of them and x is
     aligned to 16 bytes; threads: the block's vectors in whole warps, up
     to ``MAX_THREADS``."""
+    if nhwc:
+        return _nhwc_plan(n, c, hw, groups, elem_bytes, sm_count, aligned, w)
     per_group = n // groups
     pair = per_group * hw
     slices = -(-pair // BLOCK_ELEMENTS)
@@ -77,6 +95,29 @@ def launch_plan(n: int, c: int, hw: int, groups: int, elem_bytes: int, sm_count:
     vectors = samples * hw // vector
     threads = min(MAX_THREADS, max(32, -(-vectors // 32) * 32))
     return Plan(slices, samples, vector, threads)
+
+
+def _nhwc_plan(n: int, c: int, hw: int, groups: int, elem_bytes: int, sm_count: int,
+               aligned: bool, w: int) -> Plan:
+    """The NHWC cut: a group's n / groups * h image rows of w pixels, all C
+    channels, into runs of about ``BLOCK_ELEMENTS`` (more runs to fill the
+    card as in NCHW, at most ``NHWC_MAX_SLICES``), an even number of rows
+    where h is even (a pool's runs hold whole pairs of rows); threads: the
+    channel vectors of a pixel (``nhwc_vector``) times the pixels a block
+    takes at once, up to ``MAX_THREADS``."""
+    vector = nhwc_vector(c, elem_bytes, aligned)
+    if not vector:
+        raise ValueError(f"C {c}: the NHWC bodies take at most {MAX_THREADS} channel vectors")
+    h = hw // w
+    rows = n // groups * h
+    elements = rows * w * c
+    slices = -(-elements // BLOCK_ELEMENTS)
+    fill = min(-(-BLOCKS_PER_SM * sm_count // groups), elements // MIN_BLOCK_ELEMENTS)
+    slices = min(max(slices, fill, 1), NHWC_MAX_SLICES, rows)
+    per = -(-rows // slices)
+    per += per % 2 if h % 2 == 0 else 0
+    vectors = c // vector
+    return Plan(-(-rows // per), per, vector, vectors * (MAX_THREADS // vectors))
 
 
 def stats_dtype(dtype: torch.dtype) -> torch.dtype:

@@ -288,7 +288,7 @@ def test_the_module_counts_its_route(monkeypatch):
     bn_module.data_group = group
     got = bn_module(x, 2, 0.2)
     assert reduced == [group]
-    assert bc.CALLS == {"plain_data_group": before["plain_data_group"] + 1}
+    assert bc.CALLS == {**before, "plain_data_group": before["plain_data_group"] + 1}
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
@@ -299,3 +299,82 @@ def test_eval_mode_applies_the_slope_after_the_running_statistics():
         bn_module.running_var.copy_(torch.tensor([0.5, 1.5, 2.0]))
     x = torch.randn(2, 3, 4, 4).to(torch.bfloat16)
     assert torch.equal(bn_module(x, 1, 0.2), F.leaky_relu(bn_module(x, 1), 0.2))
+
+
+NHWC_SHAPES = [  # (n, c, h, w, groups): the three train cells' channels-last calls, and
+    # channels of no whole vector, odd planes
+    (128, 64, 64, 64, 2), (64, 64, 64, 64, 1), (128, 128, 32, 32, 2), (128, 512, 4, 4, 2),
+    (64, 512, 4, 4, 1), (128, 512, 8, 8, 2), (256, 128, 64, 64, 2), (64, 64, 256, 256, 2),
+    (64, 256, 16, 16, 2), (6, 10, 5, 3, 2), (12, 24, 6, 6, 3), (7, 3, 5, 1, 1),
+]
+
+
+def thread_pixels(count: int, vectors: int, threads: int, t: int) -> list:
+    """The (pixel, channel vector) pairs thread ``t`` of a block visits, in
+    order, for a run of ``count`` pixels of ``vectors`` channel vectors
+    each: channel vector t % vectors of pixels t // vectors, + rows, ...
+    (rows = threads // vectors), four at a time, as
+    ``csrc/bn_kernels.cu::for_each_pixel`` steps them."""
+    rows, cv = threads // vectors, t % vectors
+    out, p = [], t // vectors
+    while p < count:
+        out += [(p + u * rows, cv) for u in range(4) if p + u * rows < count]
+        p += 4 * rows
+    return out
+
+
+@pytest.mark.parametrize("elem_bytes", [2, 4])
+@pytest.mark.parametrize("n,c,h,w,groups", NHWC_SHAPES)
+def test_nhwc_launch_plan_covers_every_element_once(n, c, h, w, groups, elem_bytes):
+    """The NHWC runs partition each group's image rows (an even number a
+    run where H is even, so that a pool's windows lie in one run); the
+    threads of a run visit each (pixel, channel vector) once (in the model
+    of the kernel's loop above); a vector is a whole number of channels and
+    a block a whole number of pixels' vectors."""
+    plan = bn.launch_plan(n, c, h * w, groups, elem_bytes, 132, nhwc=True, w=w)
+    rows = n // groups * h
+    runs = [range(s * plan.samples, min((s + 1) * plan.samples, rows))
+            for s in range(plan.slices)]
+    assert [i for r in runs for i in r] == list(range(rows))
+    assert h % 2 or plan.samples % 2 == 0
+    assert c % plan.vector == 0 and 1 <= plan.threads <= bn.MAX_THREADS
+    vectors = c // plan.vector
+    assert plan.threads % vectors == 0
+    for count in {len(r) * w for r in runs}:
+        seen = [v for t in range(plan.threads)
+                for v in thread_pixels(count, vectors, plan.threads, t)]
+        assert sorted(seen) == [(p, v) for p in range(count) for v in range(vectors)]
+
+
+def test_nhwc_launch_plan_adapts_to_the_shape():
+    """16-byte vectors of channels where C allows and x is aligned, one
+    channel a thread elsewhere, none where a block cannot hold a pixel's
+    vectors; about ``BLOCK_ELEMENTS`` a run, more runs to fill the card,
+    at most ``NHWC_MAX_SLICES`` a group."""
+    assert bn.nhwc_vector(64, 2) == 8 and bn.nhwc_vector(64, 4) == 4
+    assert bn.nhwc_vector(10, 2) == 1 and bn.nhwc_vector(64, 2, aligned=False) == 1
+    assert bn.nhwc_vector(512, 2, aligned=False) == 0 and bn.nhwc_vector(2048, 2) == 8
+    flagship = bn.launch_plan(128, 64, 64 * 64, 2, 2, 132, nhwc=True, w=64)
+    assert flagship.samples * 64 * 64 == bn.BLOCK_ELEMENTS and flagship.slices == 512
+    assert flagship.threads == 256 and flagship.vector == 8
+    small = bn.launch_plan(128, 512, 16, 2, 2, 132, nhwc=True, w=4)
+    assert 2 * small.slices >= 2 * 128 and small.samples * 4 * 512 >= bn.MIN_BLOCK_ELEMENTS
+    big = bn.launch_plan(64, 64, 256 * 256, 2, 2, 132, nhwc=True, w=256)
+    assert big.slices == bn.NHWC_MAX_SLICES
+    with pytest.raises(ValueError, match="channel vectors"):
+        bn.launch_plan(4, 512, 16, 1, 2, 132, aligned=False, nhwc=True, w=4)
+
+
+def test_a_channels_last_x_is_taken_as_it_lies():
+    """``batchnorm_cuda.nhwc``: a 4-d x lying channels-last and not also
+    contiguous, with channels the NHWC bodies hold; never a contiguous x,
+    one of 1x1 planes, another rank or a misaligned one of too many
+    channel vectors."""
+    cl = torch.channels_last
+    assert bc.nhwc(torch.ones(4, 8, 6, 6).contiguous(memory_format=cl))
+    assert not bc.nhwc(torch.ones(4, 8, 6, 6))
+    assert not bc.nhwc(torch.ones(4, 8, 1, 1).contiguous(memory_format=cl))
+    assert not bc.nhwc(torch.ones(4, 8, 6))
+    odd = torch.empty(4 * 4 * 4 * 512 + 1, dtype=torch.bfloat16)[1:].view(4, 4, 4, 512)
+    assert not bc.nhwc(odd.permute(0, 3, 1, 2))
+    assert bc.kernel_layout(torch.ones(2, 8, 3, 3).contiguous(memory_format=cl)) == cl

@@ -290,7 +290,7 @@ def test_one_element_a_vector_and_a_misaligned_gradient(dev, resample):
     for shape, dtype in (((12, 16, 16, 16), torch.bfloat16), ((12, 16, 4, 4), torch.bfloat16),
                          ((6, 8, 8, 12), torch.bfloat16), ((6, 8, 6, 6), torch.float32)):
         x, w, b, _ = inputs(shape, dtype, dev, seed=7)
-        assert bc._plan(misaligned_copy(x), 2)[3].vector == 1
+        assert bc.plan_of(misaligned_copy(x), 2)[0].vector == 1
         for misaligned in (False, True):
             for offset in (0, 1):
                 dy = grad_of(x, resample, offset=offset)
@@ -362,3 +362,185 @@ def test_a_captured_graph_keeps_the_resample_counts(dev):
     assert {k: after[k] - before[k] for k in after} == {**dict.fromkeys(bc.KERNELS, 6),
                                                          "resample_pool": 3, "resample_up": 3,
                                                          "pool_stock": 0, "up_stock": 0}
+
+
+# ---------------------------------------------------------------------------
+# the channels-last (NHWC) bodies
+# ---------------------------------------------------------------------------
+
+CL = torch.channels_last
+
+
+def nhwc_kernels(x, w, b, dy, groups, slope, running=True, grads=(True, True, True),
+                 resample=None):
+    """``kernels`` on x and dy laid channels-last: y, dx, dweight, dbias and
+    the running statistics; y and dx must come back channels-last."""
+    c = x.shape[1]
+    rm, rv = torch.zeros(c, device=x.device), torch.ones(c, device=x.device)
+    xr = x.contiguous(memory_format=CL).requires_grad_(grads[0])
+    assert bc.nhwc(xr)
+    wr, br = w.clone().requires_grad_(grads[1]), b.clone().requires_grad_(grads[2])
+    y = bc._BatchNormAct.apply(xr, wr, br, (rm, rv) if running else None, groups, EPS,
+                               MOMENTUM, slope, resample)
+    y.backward(dy.contiguous(memory_format=CL))
+    if min(y.shape[1], y.shape[2] * y.shape[3]) > 1:
+        assert y.is_contiguous(memory_format=CL) and not y.is_contiguous()
+    if xr.grad is not None and min(c, x.shape[2] * x.shape[3]) > 1:
+        assert xr.grad.is_contiguous(memory_format=CL)
+    return y.detach(), xr.grad, wr.grad, br.grad, rm, rv
+
+
+NHWC_CASES = [  # the three train cells' channels-last calls (after a stock conv), fp32,
+    # fp16, and channels of no whole vector (one channel a thread)
+    ((128, 512, 4, 4), 2, torch.bfloat16, 0.2), ((64, 512, 4, 4), 1, torch.bfloat16, 0.2),
+    ((128, 256, 16, 16), 2, torch.bfloat16, 0.2), ((128, 128, 32, 32), 2, torch.bfloat16, 0.2),
+    ((128, 64, 64, 64), 2, torch.bfloat16, 0.2), ((256, 128, 64, 64), 2, torch.bfloat16, 0.2),
+    ((64, 64, 256, 256), 2, torch.bfloat16, 0.2), ((64, 64, 128, 128), 2, torch.bfloat16, 1.0),
+    ((128, 512, 8, 8), 2, torch.float32, 0.2), ((64, 256, 8, 8), 1, torch.float16, 0.2),
+    ((6, 10, 5, 3), 2, torch.bfloat16, 0.2), ((12, 24, 6, 6), 3, torch.float32, 1.0),
+]
+
+
+@pytest.mark.parametrize("shape,groups,dtype,slope", NHWC_CASES)
+def test_nhwc_bodies_match_the_plain_version(dev, shape, groups, dtype, slope):
+    """The NHWC bodies against the float64 plain version, at the plain
+    kernels' tolerances; the outputs in x's layout."""
+    x, w, b, dy = inputs(shape, dtype, dev)
+    got = nhwc_kernels(x, w, b, dy, groups, slope)
+    want = reference(x, w, b, dy, groups, slope)
+    e = ROUNDING[dtype]
+    for name, a, r in zip(("y", "dx", "dweight", "dbias", "running_mean", "running_var"),
+                          got, want):
+        close(name, a, r, (2 if name == "y" and slope != 1.0 else 1) * e)
+
+
+@pytest.mark.parametrize("resample", [None, "pool", "up"])
+def test_nhwc_reruns_are_bitwise_equal(dev, resample):
+    """No atomics in the NHWC bodies either: every output has the same bits
+    in two runs."""
+    x, w, b, _ = inputs((128, 64, 32, 32), torch.bfloat16, dev, seed=1)
+    dy = grad_of(x, resample) if resample else inputs(x.shape, torch.bfloat16, dev, 5)[3]
+    first = nhwc_kernels(x, w, b, dy, 2, 0.2, resample=resample)
+    second = nhwc_kernels(x, w, b, dy, 2, 0.2, resample=resample)
+    for a, r in zip(first, second):
+        assert torch.equal(a, r)
+
+
+@pytest.mark.parametrize("shape,groups,dtype", [((128, 64, 64, 64), 2, torch.bfloat16),
+                                                 ((128, 512, 4, 4), 2, torch.bfloat16),
+                                                 ((64, 256, 8, 8), 1, torch.float16),
+                                                 ((32, 128, 16, 16), 2, torch.float32)])
+def test_nhwc_and_nchw_agree_within_one_rounding(dev, shape, groups, dtype):
+    """The same call in both layouts: the statistics are sums of the same
+    terms in another order, so y and dx lie within one rounding of the
+    dtype of each other, dweight and dbias within fp32 sums' order."""
+    x, w, b, dy = inputs(shape, dtype, dev, seed=3)
+    a = nhwc_kernels(x, w, b, dy, groups, 0.2)
+    r = kernels(x, w, b, dy, groups, 0.2)
+    ulp = 2 * ROUNDING[dtype]
+    for name, p, q in zip(("y", "dx"), a[:2], r[:2]):
+        d = (p.double() - q.double()).abs()
+        m = float(q.abs().max())
+        assert bool((d <= ulp * q.double().abs() + 1e-4 * m).all()), (name, float(d.max()))
+    for name, p, q in zip(("dweight", "dbias", "running_mean", "running_var"), a[2:], r[2:]):
+        torch.testing.assert_close(p, q, rtol=1e-4, atol=1e-4 * float(q.abs().max()),
+                                   msg=name)
+
+
+def test_nhwc_computes_only_the_gradients_asked_for(dev):
+    """Frozen weight and bias: no parameter gradient, the same dx; no
+    running statistics: the buffers stay; no dx: the same dweight, dbias."""
+    x, w, b, dy = inputs((64, 128, 16, 16), torch.bfloat16, dev, seed=2)
+    full = nhwc_kernels(x, w, b, dy, 2, 0.2)
+    frozen = nhwc_kernels(x, w, b, dy, 2, 0.2, running=False, grads=(True, False, False))
+    assert frozen[2] is None and frozen[3] is None
+    assert torch.equal(frozen[0], full[0]) and torch.equal(frozen[1], full[1])
+    assert torch.equal(frozen[4], torch.zeros_like(frozen[4]))
+    assert torch.equal(frozen[5], torch.ones_like(frozen[5]))
+    params_only = nhwc_kernels(x, w, b, dy, 2, 0.2, grads=(False, True, True))
+    assert params_only[1] is None
+    assert torch.equal(params_only[2], full[2]) and torch.equal(params_only[3], full[3])
+
+
+def test_a_captured_graph_counts_the_nhwc_calls(dev):
+    """A module's call on a channels-last x, forward and backward, captured:
+    the tally holds the five kernels once and ``bn_nhwc`` once, and each
+    replay adds them."""
+    module = GroupedBatchNorm(64, eps=EPS, compute_dtype=torch.bfloat16).to(dev).train()
+    x = torch.randn(32, 64, 16, 16, device=dev).to(torch.bfloat16)
+    x = x.contiguous(memory_format=CL).requires_grad_(True)
+
+    def body():
+        y = module(x, 2, 0.2, "pool")
+        return torch.autograd.grad(y.float().square().sum(), (x, module.weight, module.bias))
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        body()  # warm-up, outside the capture
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with launch_counts.recording() as tally, torch.cuda.graph(graph):
+        body()
+    assert tally.launches() == {**dict.fromkeys(bc.KERNELS, 1), "bn_nhwc": 1,
+                                "resample_pool": 1}
+    before = dict(bc.CALLS)
+    for _ in range(3):
+        graph.replay()
+        tally.add()
+    torch.cuda.synchronize(dev)
+    assert bc.CALLS == {**before, "bn_nhwc": before["bn_nhwc"] + 3}
+
+
+def test_a_module_on_a_channels_last_x_takes_the_nhwc_bodies(dev):
+    """The route by layout: a channels-last x takes the NHWC bodies and is
+    counted; a contiguous one, one of one channel or of 1x1 planes (both
+    layouts at once), and a misaligned one of more channel vectors than a
+    block holds take the NCHW bodies."""
+    module = GroupedBatchNorm(8, compute_dtype=torch.bfloat16).to(dev).train()
+    for x, taken in ((torch.randn(4, 8, 6, 6, device=dev), False),
+                     (torch.randn(4, 8, 6, 6, device=dev).contiguous(memory_format=CL), True),
+                     (torch.randn(4, 8, 1, 1, device=dev).contiguous(memory_format=CL), False)):
+        before = bc.CALLS["bn_nhwc"]
+        module(x.to(torch.bfloat16), 2, 0.2)
+        assert bc.CALLS["bn_nhwc"] - before == taken
+    flat = torch.empty(4 * 512 * 4 * 4 + 1, device=dev, dtype=torch.bfloat16)
+    odd = flat[1:].view(4, 4, 4, 512).permute(0, 3, 1, 2)
+    assert odd.is_contiguous(memory_format=CL) and not bc.nhwc(odd)
+
+
+def assert_reordered(got, want, dtype, what):
+    """y and the running statistics bit for bit; dx within one rounding of
+    the dtype, dweight and dbias within float32 sums of the same terms in
+    another order."""
+    for name, i in (("y", 0), ("running_mean", 4), ("running_var", 5)):
+        assert got[i].shape == want[i].shape and torch.equal(got[i], want[i]), (what, name)
+    d = (got[1].double() - want[1].double()).abs()
+    m = float(want[1].abs().max())
+    assert bool((d <= 2 * ROUNDING[dtype] * want[1].double().abs() + 1e-5 * m).all()), what
+    for a, r in zip(got[2:4], want[2:4]):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-5 * float(r.abs().max()))
+
+
+@pytest.mark.parametrize("slope", [0.2, 1.0])
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_nhwc_resample_variants_are_the_kernels_and_the_stock_pass(dev, dtype, groups, slope):
+    """Channels-last: a call whose resample the NHWC bodies take, against
+    the NHWC kernels followed by the stock pass on the channels-last y, at
+    the three cells' planes (pools from 128^2 down, the 4x4 and 8x8 planes
+    of 512 channels, upsamples up to 128^2): an upsampled call bit for bit;
+    a pooled one's y and running statistics bit for bit, its gradients
+    summed window by window (``for_each_window``) in another order."""
+    for resample, planes in (("pool", (128, 32, 8)), ("up", (4, 16, 64, 128))):
+        for side in planes:
+            c = 512 if side <= 8 else 64
+            x, w, b, _ = inputs((12, c, side, side), dtype, dev, seed=side)
+            dy = grad_of(x, resample).contiguous(memory_format=CL)
+            xc = x.contiguous(memory_format=CL)
+            got = resampled(xc, w, b, dy, groups, slope, resample, fused=True)
+            want = resampled(xc, w, b, dy, groups, slope, resample, fused=False)
+            if resample == "up":
+                assert_bitwise(got, want, (resample, side))
+            else:
+                assert_reordered(got, want, dtype, (resample, side))

@@ -324,3 +324,66 @@ def test_the_reader_reads_the_resamples_a_step(monkeypatch):
         assert read(None) == pytest.approx(3.0)
     finally:
         bc.RESAMPLES.update(saved)
+
+
+# ---------------------------------------------------------------------------
+# the channels-last bodies on the card
+# ---------------------------------------------------------------------------
+
+# x's planes and channels of the three train cells' resampled calls: the
+# stem's and each stage's pool, each stage's upsample
+NHWC_RESAMPLED = [(64, 128, "pool"), (32, 64, "pool"), (256, 8, "pool"), (512, 8, "pool"),
+                  (512, 4, "up"), (256, 16, "up"), (128, 32, "up"), (64, 64, "up"),
+                  (64, 128, "up")]
+ROUNDING = {torch.bfloat16: 2.0**-8, torch.float16: 2.0**-11, torch.float32: 0.5e-5}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the BatchNorm kernels have no CPU build")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
+@pytest.mark.parametrize("c,side,resample", NHWC_RESAMPLED)
+def test_nhwc_resampled_calls_match_float64(dev, c, side, resample, dtype):
+    """A channels-last call whose resample the NHWC bodies take, against
+    float64 on the same inputs: y against the plain version and the stock
+    pass, within three roundings of the dtype (the call's two and the
+    pool's) of the resampled |y| (a window's terms may cancel); dx, dweight
+    and dbias against the kernels' form of the gradient
+    (``batchnorm_act_backward_reference``) of the resample's float64
+    backward, rounded to the dtype where the kernels store it (an
+    upsample's summed gradient), at the plain kernels' tolerances."""
+    g = torch.Generator().manual_seed(side + c)
+    n, groups = 8, 2
+    x = (torch.randn(n, c, side, side, generator=g) * 1.7 + 0.3).to(dtype)
+    w = torch.rand(c, generator=g) * 0.4 + 0.8
+    b = torch.rand(c, generator=g) * 0.2 - 0.1
+    dy = torch.randn(bc.resampled_shape(x, resample), generator=g).to(dtype)
+    xc = x.to(dev).contiguous(memory_format=torch.channels_last).requires_grad_(True)
+    wc, bcu = w.to(dev).requires_grad_(True), b.to(dev).requires_grad_(True)
+    y = bc._BatchNormAct.apply(xc, wc, bcu, None, groups, 1e-4, 0.1, 0.2, resample)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    y.backward(dy.to(dev).contiguous(memory_format=torch.channels_last))
+    f64 = torch.float64
+    xr, wr, br = x.to(f64), w.to(f64), b.to(f64)
+    full = bn.batchnorm_act(xr, wr, br, None, groups, 1e-4, 0.1, 0.2, f64)
+    yr, scale = STOCK[resample](full), STOCK[resample](full.abs())
+    flat = torch.zeros(x.shape, dtype=f64, requires_grad=True)
+    (dflat,) = torch.autograd.grad(STOCK[resample](flat), flat, dy.to(f64))
+    if resample == "up":
+        dflat = dflat.to(dtype).to(f64)
+    want = bn.batchnorm_act_backward_reference(xr, dflat, wr, br, groups, 1e-4, 0.2)
+    e = ROUNDING[dtype]
+    for name, got, ref, size, tol in (("y", y, yr, scale, 3 * e),
+                                      ("dx", xc.grad, want[0], want[0].abs(), e)):
+        got = got.detach().cpu().double()
+        m = float(ref.abs().max())
+        assert bool(((got - ref).abs() <= tol * size + 1e-4 * m).all()), name
+    for name, got, ref in (("dweight", wc.grad, want[1]), ("dbias", bcu.grad, want[2])):
+        got = got.cpu().double()
+        m = float(ref.abs().max())
+        assert bool(((got - ref).abs() <= 1e-3 * (ref.abs() + m)).all()), name
